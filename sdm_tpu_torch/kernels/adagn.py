@@ -1,0 +1,101 @@
+"""Fused AdaGN: GroupNorm statistics + GN affine + FiLM modulation.
+
+Port of sdm_tpu/kernels/adagn.py::fused_adagn (TPU kernel `_adagn_kernel`,
+sdm_tpu/kernels/adagn.py:32-76, launched at :115). The CUDA kernel is
+csrc/adagn.cu: a (G, N) grid of two-pass fp32 group statistics that folds
+GN affine and FiLM into per-channel a, b, then one vectorised
+`x*a + b` pass. On the H100 it is bound by device-memory bytes: x read and
+the output written once each, plus the statistics' re-read of x, which
+mostly hits L2.
+
+Admission is the port's own: every shape with C % groups == 0 and C % 8 == 0
+goes to the kernel (the TPU's VMEM budget and C % 128 rule are not carried
+over). `adagn_reference` is the plain PyTorch version (sdm_tpu's
+`_xla_adagn`); the wrapper takes it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.ops.norms import group_norm
+
+_SIGNATURES = {
+    "sdm_adagn_forward": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+}
+
+
+def adagn_reference(x, gn_scale, gn_bias, mod_scale, mod_shift,
+                    num_groups: int, eps: float = 1e-5):
+    """Plain version: group_norm, then mod_scale * x_gn + mod_shift.
+
+    x (N, H, W, C); gn_scale/gn_bias (C,); mod_scale/mod_shift (N, C) or
+    (1, C). The output dtype is the promotion of x and the FiLM tables."""
+    x_gn = group_norm(x, gn_scale, gn_bias, num_groups, eps)
+    return mod_scale[:, None, None, :] * x_gn + mod_shift[:, None, None, :]
+
+
+def fused_adagn(x, gn_scale, gn_bias, mod_scale, mod_shift,
+                num_groups: int, eps: float = 1e-5):
+    """x (N, H, W, C) contiguous; gn_scale/gn_bias (C,); mod_scale/mod_shift
+    (N, C) or (1, C), rows contiguous. Returns (N, H, W, C) in the promotion
+    of x's and the FiLM tables' dtypes.
+
+    CPU tensors run `adagn_reference`; CUDA tensors launch csrc/adagn.cu or
+    raise."""
+    if x.device.type == "cpu":
+        return adagn_reference(x, gn_scale, gn_bias, mod_scale, mod_shift,
+                               num_groups, eps)
+    what = "fused_adagn"
+    _build.require_cuda(what, x, gn_scale, gn_bias, mod_scale, mod_shift)
+    if x.ndim != 4:
+        raise ValueError(f"{what}: x must be (N, H, W, C), got {x.shape}")
+    n, h, w, c = x.shape
+    if c % num_groups != 0 or c % 8 != 0:
+        raise ValueError(f"{what}: C={c} must divide into {num_groups} "
+                         "groups and be a multiple of 8")
+    if not x.is_contiguous() or x.data_ptr() % 16 != 0:
+        raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
+    if gn_scale.shape != (c,) or gn_bias.shape != (c,):
+        raise ValueError(f"{what}: GroupNorm affine must be ({c},)")
+    if gn_scale.dtype != gn_bias.dtype or not (gn_scale.is_contiguous()
+                                               and gn_bias.is_contiguous()):
+        raise ValueError(f"{what}: GroupNorm affine must share a dtype and "
+                         "be contiguous")
+    rows = mod_scale.shape[0]
+    if (mod_scale.shape != mod_shift.shape or mod_scale.ndim != 2
+            or mod_scale.shape[1] != c or rows not in (1, n)):
+        raise ValueError(f"{what}: FiLM tables must be ({n}, {c}) or "
+                         f"(1, {c}), got {mod_scale.shape}/{mod_shift.shape}")
+    if (mod_scale.dtype != mod_shift.dtype or mod_scale.stride(1) != 1
+            or mod_shift.stride(1) != 1
+            or mod_scale.stride(0) != mod_shift.stride(0)):
+        raise ValueError(f"{what}: FiLM tables must share a dtype and a "
+                         "row layout with unit channel stride")
+    out_dtype = torch.promote_types(x.dtype, mod_scale.dtype)
+    codes = [_build.dtype_code(t, what) for t in (x, gn_scale, mod_scale)]
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    out_code = _build.dtype_code(out, what)
+    scratch = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    row_stride = 0 if rows == 1 else mod_scale.stride(0)
+    lib = _build.library("adagn", _SIGNATURES)
+    rc = lib.sdm_adagn_forward(
+        x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
+        mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), n, h * w, c, num_groups, float(eps), row_stride,
+        *codes, out_code, _build.stream_handle(x.device))
+    _build.check(lib, rc, what)
+    fused_adagn.launches += 1
+    return out
+
+
+fused_adagn.launches = 0

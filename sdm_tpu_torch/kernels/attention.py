@@ -1,0 +1,102 @@
+"""Self-attention over flattened H*W tokens, softmax over the query axis
+("q", the reference's parity quirk) or the key axis ("k").
+
+Port of sdm_tpu/kernels/attention.py::fused_attention (TPU kernel
+`_attn_kernel`, sdm_tpu/kernels/attention.py:43-58, launched at :86). The
+query-axis softmax has no library kernel: SDPA and flash attention
+normalise over keys. The CUDA kernel (csrc/attention.cu) runs two passes on
+both axes: softmax statistics over the whole reduced axis (column stats for
+"q", row stats for "k"), then an apply pass that writes P V. bf16 at the U-Net's shapes runs on the tensor
+cores (WMMA); fp32, and bf16 at other shapes, on fp32 CUDA cores. It is
+bound by its 6*S*S*D operations per head (scores twice, P V once).
+
+`attention_reference` is the plain PyTorch version (sdm_tpu's
+`_xla_attention`): fp32 scores, fp32 softmax, P cast to v's dtype, P V with
+fp32 accumulation. `attention()` is the dispatcher the layers call: with
+`use_kernels` every shape goes to `fused_attention` (the port's admission
+rule; the TPU's `_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried
+over), without it the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sdm_tpu_torch.kernels import _build
+
+_SIGNATURES = {
+    "sdm_attention_forward": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
+
+# sdm_attention_forward's return when the apply pass's 32 x S block does not
+# fit in shared memory (it then launches nothing).
+_ERR_TOKENS = -1
+
+
+def attention_reference(q, k, v, scale: float, softmax_axis: str = "q"):
+    """Plain version. q, k, v (N, S, H, D) -> (N, S, H, D) in v's dtype."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3).to(torch.float32) for t in (q, k, v))
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale   # (N, H, Sq, Sk)
+    p = torch.softmax(scores, dim=-2 if softmax_axis == "q" else -1)
+    p = p.to(v.dtype).to(torch.float32)
+    out = torch.matmul(p, vh).to(v.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def fused_attention(q, k, v, scale: float, softmax_axis: str = "q"):
+    """q, k, v (N, S, H, D) with a unit D stride (views of a wider qkv
+    buffer are fine); returns a contiguous (N, S, H, D) in q's dtype.
+
+    CPU tensors run `attention_reference`; CUDA tensors launch
+    csrc/attention.cu or raise."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale, softmax_axis)
+    what = "fused_attention"
+    _build.require_cuda(what, q, k, v)
+    if softmax_axis not in ("q", "k"):
+        raise ValueError(f"{what}: softmax_axis must be 'q' or 'k'")
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k, v must share one (N, S, H, D) "
+                         f"shape, got {q.shape}/{k.shape}/{v.shape}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: q, k, v must share a dtype")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what}: q, k, v need a unit stride on D")
+    n, s, h, d = q.shape
+    code = _build.dtype_code(q, what)
+    out = torch.empty((n, s, h, d), dtype=q.dtype, device=q.device)
+    axis_q = softmax_axis == "q"
+    stats = torch.empty(2 * n * h * s, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*[
+        st for t in (q, k, v, out)
+        for st in (t.stride(0), t.stride(2), t.stride(1))])
+    lib = _build.library("attention", _SIGNATURES)
+    rc = lib.sdm_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), n, h, s, d,
+        float(scale), int(axis_q), code, _build.stream_handle(q.device))
+    if rc == _ERR_TOKENS:
+        raise NotImplementedError(
+            f"{what}: S={s} is too long for the kernel's shared-memory score "
+            "block; longer grids need the streaming kernel (the SR slice)")
+    _build.check(lib, rc, what)
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
+
+def attention(q, k, v, scale: float, softmax_axis: str = "q",
+              use_kernels: bool = True):
+    """The layers' dispatcher: the kernel for every shape, or the plain
+    version when `use_kernels` is False."""
+    if use_kernels:
+        return fused_attention(q, k, v, scale, softmax_axis)
+    return attention_reference(q, k, v, scale, softmax_axis)

@@ -1,0 +1,136 @@
+"""The whole attention block for heads == 1:
+
+    qkv = tokens W_qkv^T + b_qkv        (cast to the compute dtype)
+    q, k, v = split(qkv)
+    r = attention(q, k, v)              (query or key axis)
+    out = (r W_out^T + b_out) + tokens
+
+Port of sdm_tpu/kernels/attention_block.py::fused_attention_block (TPU
+kernel `_block_kernel`, sdm_tpu/kernels/attention_block.py:62-77, launched at
+:88), which computes all of it in one VMEM-resident body. On the H100 the
+block's weights do not fit one SM beside the token tile, so it runs as three
+hand-written kernels: `linear` (csrc/linear.cu, a tiled GEMM with a bias
+epilogue) for the qkv projection, `fused_attention` (csrc/attention.cu) on
+views of the qkv buffer, and `linear` again with a bias + residual epilogue.
+The GEMMs bound it by operations (fp32 FMA on CUDA cores); a single-launch
+fusion and tensor-core tiles are later work.
+
+Weights are in nn.Linear layout: w_qkv (3*d_k, C), w_out (C, d_k), in the
+tokens' dtype; biases (fp32 or the tokens' dtype) are added in fp32.
+`attention_block_reference` and `linear_reference` are the plain versions
+(sdm_tpu's `_xla_block` and its TorchLinear products).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels.attention import (attention_reference,
+                                             fused_attention)
+
+_SIGNATURES = {
+    "sdm_linear_forward": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+}
+
+
+def linear_reference(x, weight, bias, residual=None):
+    """Plain version: (x W^T + b) in fp32, rounded to x's dtype, then
+    `+ residual` in x's dtype."""
+    y = torch.nn.functional.linear(x.to(torch.float32),
+                                   weight.to(torch.float32),
+                                   bias.to(torch.float32)).to(x.dtype)
+    return y if residual is None else y + residual
+
+
+def linear(x, weight, bias, residual=None):
+    """x (M, K) with a unit column stride; weight (N, K) contiguous in x's
+    dtype; bias (N,); residual (M, N) contiguous in x's dtype or None.
+    Returns (M, N) in x's dtype.
+
+    CPU tensors run `linear_reference`; CUDA tensors launch csrc/linear.cu
+    or raise."""
+    if x.device.type == "cpu":
+        return linear_reference(x, weight, bias, residual)
+    what = "linear"
+    extra = (residual,) if residual is not None else ()
+    _build.require_cuda(what, x, weight, bias, *extra)
+    m, k = x.shape
+    n = weight.shape[0]
+    if weight.shape != (n, k) or bias.shape != (n,):
+        raise ValueError(f"{what}: weight must be ({n}, {k}) and bias ({n},)")
+    if x.stride(1) != 1 or not (weight.is_contiguous()
+                                and bias.is_contiguous()):
+        raise ValueError(f"{what}: x needs a unit column stride, weight and "
+                         "bias must be contiguous")
+    if weight.dtype != x.dtype:
+        raise ValueError(f"{what}: weight dtype {weight.dtype} != x dtype "
+                         f"{x.dtype}")
+    if residual is not None and (residual.shape != (m, n)
+                                 or residual.dtype != x.dtype
+                                 or not residual.is_contiguous()):
+        raise ValueError(f"{what}: residual must be a contiguous ({m}, {n}) "
+                         f"{x.dtype} tensor")
+    code = _build.dtype_code(x, what)
+    bias_code = _build.dtype_code(bias, what)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.library("linear", _SIGNATURES)
+    rc = lib.sdm_linear_forward(
+        x.data_ptr(), x.stride(0), weight.data_ptr(), bias.data_ptr(),
+        bias_code, residual.data_ptr() if residual is not None else None,
+        out.data_ptr(), m, n, k, code, _build.stream_handle(x.device))
+    _build.check(lib, rc, what)
+    linear.launches += 1
+    return out
+
+
+linear.launches = 0
+
+
+def attention_block_reference(tokens, w_qkv, b_qkv, w_out, b_out,
+                              scale: float, softmax_axis: str = "q"):
+    """Plain version. tokens (N, S, C) -> (N, S, C) in tokens' dtype."""
+    n, s, c = tokens.shape
+    d_k = w_out.shape[1]
+    dtype = tokens.dtype
+    qkv = linear_reference(tokens, w_qkv.to(dtype), b_qkv)
+    q, k, v = qkv.reshape(n, s, 1, 3 * d_k).split(d_k, dim=-1)
+    r = attention_reference(q, k, v, scale, softmax_axis).reshape(n, s, d_k)
+    return linear_reference(r, w_out.to(dtype), b_out, residual=tokens)
+
+
+def fused_attention_block(tokens, w_qkv, b_qkv, w_out, b_out, scale: float,
+                          softmax_axis: str = "q"):
+    """tokens (N, S, C) contiguous; w_qkv (3*d_k, C) and w_out (C, d_k) in
+    tokens' dtype; b_qkv (3*d_k,), b_out (C,). Returns (N, S, C).
+
+    CPU tensors run `attention_block_reference`; CUDA tensors launch the
+    linear and attention kernels or raise."""
+    if tokens.device.type == "cpu":
+        return attention_block_reference(tokens, w_qkv, b_qkv, w_out, b_out,
+                                         scale, softmax_axis)
+    what = "fused_attention_block"
+    _build.require_cuda(what, tokens, w_qkv, b_qkv, w_out, b_out)
+    if tokens.ndim != 3 or not tokens.is_contiguous():
+        raise ValueError(f"{what}: tokens must be a contiguous (N, S, C)")
+    n, s, c = tokens.shape
+    d_k = w_out.shape[1]
+    if w_qkv.shape != (3 * d_k, c) or w_out.shape != (c, d_k):
+        raise ValueError(f"{what}: w_qkv must be ({3 * d_k}, {c}) and w_out "
+                         f"({c}, {d_k}), got {w_qkv.shape}/{w_out.shape}")
+    tok2 = tokens.view(n * s, c)
+    qkv = linear(tok2, w_qkv, b_qkv).view(n, s, 1, 3 * d_k)
+    q, k, v = qkv.split(d_k, dim=-1)
+    r = fused_attention(q, k, v, scale, softmax_axis)
+    out = linear(r.view(n * s, d_k), w_out, b_out, residual=tok2)
+    fused_attention_block.launches += 1
+    return out.view(n, s, c)
+
+
+fused_attention_block.launches = 0
