@@ -10,9 +10,10 @@ Entry points run on the CUDA device unless the caller passes
 `device="cpu"`; on CPU tensors the kernel wrappers run their plain PyTorch
 versions.
 
-This slice covers serving: the U-Net forward, the DDIM/DDPM samplers, the
-bundle format and the HTTP server. Training, SR, cold diffusion and the
-extensions are later slices.
+The port covers serving: the U-Net forward, the DDIM/DDPM and cold
+samplers, the bundle format, the HTTP server for BASE, BASE-COLD and SR
+bundles, and the SR and cold generators. Training and the extensions are
+later slices.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,99 @@
+"""Cold-diffusion image generation from exported bundles (port of
+sdm_tpu/cli/generate_images_cold_diffusion.py).
+
+The initial noise is shared by the whole trajectory; ensemble chaining
+re-degrades the previous model's x0 to the next model's max_noise with it.
+BASE-COLD LINEAR bundles written by the reference lack beta_1/beta_T; the
+bundle loader falls back to the wizard defaults, as sdm_tpu does.
+
+    python -m sdm_tpu_torch.cli.generate_images_cold_diffusion \\
+        -c exports/cold/config.json -n 4 --cold_step_size 20 -s 0
+
+Runs on the CUDA device unless --device cpu. The TPU build's --karras,
+--num-devices and --sp options are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import uuid
+from datetime import datetime
+
+import numpy as np
+
+from sdm_tpu_torch.cli.generate_sr_images_diffusion import (add_sampling_args,
+                                                            entry_labels,
+                                                            sampling_setup)
+
+
+def generate_images_cold_diffusion(raw_args=None, log=print,
+                                   save_locally=True, noise=None):
+    """`noise`: a numpy (num_images, img_H, img_W, img_C) array to use as
+    the shared noise instead of drawing it from the seed."""
+    import torch
+
+    from sdm_tpu_torch.diffusion.samplers import cold_sample
+    from sdm_tpu_torch.io.bundles import (build_model_from_bundle,
+                                          load_bundle_config)
+    from sdm_tpu_torch.io.plotting import plot_sampled_images
+
+    parser = argparse.ArgumentParser(
+        description="Generate Images using Cold Diffusion models.")
+    add_sampling_args(parser)
+    parser.add_argument("-n", "--num_images", default=1, type=int,
+                        help="Number of images to generate(default=1).")
+    args = vars(parser.parse_args(raw_args))
+    if args["num_images"] <= 0:
+        raise ValueError("Invalid image numbers, should be greater than 0!")
+    device, generator, out_dir, compute_dtype = sampling_setup(args)
+
+    models_details, folder = load_bundle_config(args["config"])
+    shared = x0 = None
+    img_h = img_w = None
+    num_models = len(models_details["models"])
+    with torch.inference_mode():
+        for model_index, model_dict in enumerate(models_details["models"]):
+            log(f"Sampling model {model_index + 1} / {num_models}: "
+                f"{model_dict['model_name']} "
+                f"[{model_dict['min_noise']}..{model_dict['max_noise']}]")
+            net, schedule = build_model_from_bundle(
+                model_dict, folder, max_T=args["max_T"], device=device,
+                dtype=compute_dtype, cast_params=compute_dtype is not None,
+                param_key="ema" if args["use_ema"] else "model")
+            if shared is None:
+                img_c, img_h, img_w = (model_dict["img_C"],
+                                       model_dict["img_H"],
+                                       model_dict["img_W"])
+                shape = (args["num_images"], img_h, img_w, img_c)
+                if noise is not None:
+                    shared = torch.tensor(np.asarray(noise, np.float32),
+                                          device=device)
+                    if tuple(shared.shape) != shape:
+                        raise ValueError(f"noise must be {shape}")
+                else:
+                    shared = torch.randn(shape, generator=generator,
+                                         device=device)
+                x_t = shared
+            else:
+                x_t = schedule.q_sample(x0, [model_dict["max_noise"]], shared)
+            x0 = cold_sample(net, schedule, x_t, shared,
+                             min_noise=model_dict["min_noise"],
+                             max_noise=model_dict["max_noise"],
+                             skip_step_size=args["cold_step_size"],
+                             labels=entry_labels(args, model_dict, device))
+        x0 = x0.cpu().numpy()
+    if save_locally:
+        datetime_now = datetime.now().strftime("%d-%m-%Y %H:%M:%S")
+        unique_name = (datetime_now + f"({img_h},{img_w})" + "_"
+                       + uuid.uuid4().hex)
+        plot_sampled_images(x0, unique_name, dest_path=out_dir, log=log)
+        return None
+    return x0
+
+
+def run(raw_args=None):
+    return generate_images_cold_diffusion(raw_args)
+
+
+if __name__ == "__main__":
+    run()

@@ -8,8 +8,13 @@ micro-batching.
 
   curl -s localhost:8000/generate -d '{"num_images": 2, "seed": 7}'
 
-The options of later slices (cold, dpmpp, heun, guidance, --num-devices,
---karras) are accepted and refused by the engine with NotImplementedError.
+BASE bundles take --diff_alg ddim/ddpm/cold (cold for BASE-COLD bundles);
+SR bundles (entries with cond_t) always sample cold, with
+--cold_step_size, and each request carries its low-resolution image
+("lr_image_b64" + "lr_shape", or "lr_image_png_b64"; see
+serving/server.py). The options of later slices (dpmpp, heun, guidance,
+--num-devices, --karras) are accepted and refused by the engine with
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ def serve_diffusion(raw_args=None, log=print, block: bool = True):
                         help="0 = pick a free port (printed at startup).")
     parser.add_argument("--diff_alg", default="ddim",
                         choices=("ddim", "ddpm", "cold", "dpmpp", "heun"),
-                        help="Sampler for BASE bundles.")
+                        help="Sampler for BASE bundles (SR bundles always "
+                             "sample cold).")
     parser.add_argument("--ddim_step_size", "--cold_step_size",
                         dest="ddim_step_size", type=int, default=10,
-                        help="Skip-step size for ddim sampling.")
+                        help="Skip-step size for ddim and cold sampling.")
     parser.add_argument("-T", "--max_T", type=int, default=1000)
     parser.add_argument("--max-batch", type=int, default=8,
                         help="Batch shape; requests coalesce and pad up to "

@@ -25,16 +25,16 @@
 // the 32 x S block kept in fp32). The score and P V products bound the
 // kernel (4*S*S*D operations per head, plus the stats pass's 2*S*S*D).
 // Shared memory bounds S: the entry point returns SDM_ERR_TOKENS, launching
-// nothing, when the apply pass's 32 x S block does not fit.
+// nothing, when the apply pass's 32 x S block does not fit
+// (sdm_attention_fits says beforehand; longer grids take the streaming
+// kernel, streaming_attention.cu).
 //
 // q, k, v and out are (N, S, H, D) with arbitrary N/S/H strides and a unit
 // D stride, so the attention block can pass q/k/v as views of its qkv buffer.
-#include "common.cuh"
+// The stats kernels live in attention_tiles.cuh, shared with the streaming
+// kernel.
+#include "attention_tiles.cuh"
 
-#include <mma.h>
-
-#define BK 32      // depth of one staged D chunk
-#define SBN 64     // kept rows per stats block
 #define ABM 32     // query rows per apply block
 #define ABN 64     // keys per score tile in the apply block
 #define ADT 128    // output columns per P V pass
@@ -42,97 +42,6 @@
 // Returned (instead of a CUDA error code, all >= 0) when S is too long for
 // the apply pass's shared memory.
 #define SDM_ERR_TOKENS (-1)
-#define MAX_SMEM 232448  // opt-in shared memory per block on sm_90, bytes
-
-struct View {
-  long long sn, sh, ss;  // element strides of the N, H and S axes
-};
-
-template <typename T>
-__device__ __forceinline__ const T* slice_ptr(const T* base, View v, int heads,
-                                              int b) {
-  return base + (long long)(b / heads) * v.sn + (long long)(b % heads) * v.sh;
-}
-
-// Rows [r0, r0+R) x columns [d0, d0+BK) of a (rows, D) matrix with row stride
-// ss, transposed into dst[BK][ld]; out-of-range entries are zero.
-template <typename T, int R>
-__device__ __forceinline__ void load_tile_t(float* dst, int ld, const T* p,
-                                            long long ss, int r0, int nrows,
-                                            int d0, int d) {
-  for (int e = threadIdx.x; e < R * BK; e += blockDim.x) {
-    const int r = e / BK, kk = e - r * BK;
-    float val = 0.f;
-    if (r0 + r < nrows && d0 + kk < d)
-      val = sdm_to_float(p[(long long)(r0 + r) * ss + d0 + kk]);
-    dst[kk * ld + r] = val;
-  }
-}
-
-// Per kept row a: m_a = max_r s_ar and l_a = sum_r exp(s_ar - m_a), with
-// s_ar = scale * <kept_a, red_r>, over all S reduced rows.
-template <typename T>
-__global__ void __launch_bounds__(256)
-attn_stats(const T* __restrict__ kept, View kv, const T* __restrict__ red,
-           View rv, int heads, int S, int D, float scale,
-           float* __restrict__ m_out, float* __restrict__ l_out) {
-  __shared__ float As[BK * (SBN + 1)];
-  __shared__ float Bs[BK * (SBN + 1)];
-  __shared__ float St[SBN * (SBN + 1)];
-  const int b = blockIdx.y;
-  const T* kp = slice_ptr(kept, kv, heads, b);
-  const T* rp = slice_ptr(red, rv, heads, b);
-  const int a0 = blockIdx.x * SBN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ld = SBN + 1;
-
-  float m = -INFINITY, l = 0.f;
-  for (int r0 = 0; r0 < S; r0 += SBN) {
-    float acc[4][4] = {};
-    for (int d0 = 0; d0 < D; d0 += BK) {
-      load_tile_t<T, SBN>(As, ld, kp, kv.ss, a0, S, d0, D);
-      load_tile_t<T, SBN>(Bs, ld, rp, rv.ss, r0, S, d0, D);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk * ld + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * ld + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        St[(ty + 16 * i) * ld + col] =
-            r0 + col < S ? acc[i][j] * scale : -INFINITY;
-      }
-    __syncthreads();
-    if (threadIdx.x < SBN) {
-      const float* row = St + threadIdx.x * ld;
-      float tmax = -INFINITY;
-      for (int c = 0; c < SBN; ++c) tmax = fmaxf(tmax, row[c]);
-      const float mn = fmaxf(m, tmax);
-      float sum = 0.f;
-      for (int c = 0; c < SBN; ++c) sum += expf(row[c] - mn);
-      l = l * expf(m - mn) + sum;
-      m = mn;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < SBN && a0 + threadIdx.x < S) {
-    m_out[(long long)b * S + a0 + threadIdx.x] = m;
-    l_out[(long long)b * S + a0 + threadIdx.x] = l;
-  }
-}
 
 template <typename T, bool QAXIS>
 __global__ void __launch_bounds__(256)
@@ -251,88 +160,8 @@ static size_t apply_smem_bytes(int S) {
 // P = exp(s - m) / l in shared memory, so no fp32 score block is kept.
 // ---------------------------------------------------------------------------
 
-#define WBK 64          // D chunk staged per step
-#define WLD (WBK + 8)   // bf16 row pitch of a staged chunk (144 bytes)
 #define VCOLS 128       // output columns per P V pass
 #define VLD (VCOLS + 8)
-#define STLD 68         // fp32 pitch of the stats kernel's score tile
-
-typedef __nv_bfloat16 bf16;
-
-// Rows [r0, r0+R) x columns [d0, d0+WBK) into dst[R][WLD], 16 bytes a load.
-template <int R>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* p,
-                                           long long ss, int r0, int d0) {
-  for (int c = threadIdx.x; c < R * (WBK / 8); c += blockDim.x) {
-    const int r = c / (WBK / 8), kc = (c % (WBK / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * WLD + kc) =
-        *reinterpret_cast<const uint4*>(p + (long long)(r0 + r) * ss + d0 + kc);
-  }
-}
-
-__global__ void __launch_bounds__(256)
-attn_stats_wmma(const bf16* __restrict__ kept, View kv,
-                const bf16* __restrict__ red, View rv, int heads, int S, int D,
-                float scale, float* __restrict__ m_out,
-                float* __restrict__ l_out) {
-  __shared__ __align__(128) bf16 As[64 * WLD];
-  __shared__ __align__(128) bf16 Bs[64 * WLD];
-  __shared__ __align__(128) float St[64 * STLD];
-  using namespace nvcuda;
-  const int b = blockIdx.y;
-  const bf16* kp = slice_ptr(kept, kv, heads, b);
-  const bf16* rp = slice_ptr(red, rv, heads, b);
-  const int a0 = blockIdx.x * 64;
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;   // rows wr*16, cols wc*32
-
-  float m = -INFINITY, l = 0.f;
-  for (int r0 = 0; r0 < S; r0 += 64) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int d0 = 0; d0 < D; d0 += WBK) {
-      stage_rows<64>(As, kp, kv.ss, a0, d0);
-      stage_rows<64>(Bs, rp, rv.ss, r0, d0);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < WBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, As + wr * 16 * WLD + kk, WLD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, Bs + (wc * 32 + j * 16) * WLD + kk, WLD);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < acc[j].num_elements; ++e) acc[j].x[e] *= scale;
-      wmma::store_matrix_sync(St + wr * 16 * STLD + wc * 32 + j * 16, acc[j],
-                              STLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-    if (threadIdx.x < 64) {
-      const float* row = St + threadIdx.x * STLD;
-      float tmax = -INFINITY;
-      for (int c = 0; c < 64; ++c) tmax = fmaxf(tmax, row[c]);
-      const float mn = fmaxf(m, tmax);
-      float sum = 0.f;
-      for (int c = 0; c < 64; ++c) sum += expf(row[c] - mn);
-      l = l * expf(m - mn) + sum;
-      m = mn;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < 64) {
-    m_out[(long long)b * S + a0 + threadIdx.x] = m;
-    l_out[(long long)b * S + a0 + threadIdx.x] = l;
-  }
-}
 
 static size_t wmma_apply_smem_bytes(int S) {
   // bf16 P [32][S+8] + 8 per-warp 16x16 fp32 tiles + the staging area.
@@ -441,10 +270,6 @@ attn_apply_wmma(const bf16* __restrict__ q, View qv, const bf16* __restrict__ k,
   }
 }
 
-static bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 static bool wmma_ok(const void* q, const void* k, const void* v,
                     const void* o, const View* views, int S, int D) {
   if (S % 64 != 0 || D % VCOLS != 0) return false;
@@ -470,14 +295,8 @@ static int launch_wmma(const bf16* qp, const bf16* kp, const bf16* vp,
                        bf16* out, float* m, float* l, const View* views,
                        int bh, int heads, int S, int D, float scale,
                        int axis_q, cudaStream_t stream) {
-  // q axis: column stats (keys kept, queries reduced); k axis: row stats.
-  if (axis_q)
-    attn_stats_wmma<<<dim3(S / 64, bh), 256, 0, stream>>>(
-        kp, views[1], qp, views[0], heads, S, D, scale, m, l);
-  else
-    attn_stats_wmma<<<dim3(S / 64, bh), 256, 0, stream>>>(
-        qp, views[0], kp, views[1], heads, S, D, scale, m, l);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_stats_wmma<whole_s>(
+      qp, views[0], kp, views[1], bh, heads, S, D, scale, axis_q, m, l, stream);
   if (err != cudaSuccess) return (int)err;
   int split, d_per_block;
   split_columns(bh * (S / 32), D, VCOLS, &split, &d_per_block);
@@ -496,14 +315,8 @@ template <typename T>
 static int launch(const T* qp, const T* kp, const T* vp, T* out, float* m,
                   float* l, const View* views, int bh, int heads, int S, int D,
                   float scale, int axis_q, cudaStream_t stream) {
-  const dim3 stats_grid((S + SBN - 1) / SBN, bh);
-  if (axis_q)
-    attn_stats<T><<<stats_grid, 256, 0, stream>>>(kp, views[1], qp, views[0],
-                                                  heads, S, D, scale, m, l);
-  else
-    attn_stats<T><<<stats_grid, 256, 0, stream>>>(qp, views[0], kp, views[1],
-                                                  heads, S, D, scale, m, l);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_stats<whole_s, T>(
+      qp, views[0], kp, views[1], bh, heads, S, D, scale, axis_q, m, l, stream);
   if (err != cudaSuccess) return (int)err;
   int split, d_per_block;
   split_columns(bh * ((S + ABM - 1) / ABM), D, ADT, &split, &d_per_block);
@@ -548,4 +361,12 @@ SDM_EXPORT int sdm_attention_forward(const void* q, const void* k,
   return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<bf16*>(o), m, l, views,
                 bh, heads, S, D, scale, axis_q, stream);
+}
+
+// Whether sdm_attention_forward takes S: 1 when the apply pass's block fits
+// in shared memory on the tensor-core path (wmma != 0) or the CUDA-core path.
+// kernels/attention.py mirrors this formula to choose between this kernel and
+// the streaming one; chip_smoke.py holds the two against each other.
+SDM_EXPORT int sdm_attention_fits(int S, int wmma) {
+  return (wmma ? wmma_apply_smem_bytes(S) : apply_smem_bytes(S)) <= MAX_SMEM;
 }

@@ -1,4 +1,4 @@
-"""Reverse-process samplers (port of the eps-family of
+"""Reverse-process samplers (port of the eps-family and cold sampling of
 sdm_tpu/diffusion/samplers.py). `lax.scan` becomes a Python loop; the step
 indices live on the image's device, so a step enqueues device work only.
 
@@ -134,3 +134,33 @@ def ddim_sample(model_fn: ModelFn, schedule, x_t: torch.Tensor, *,
     if steps[-1] == 1:
         return x0_approx
     return x
+
+
+def cold_sample(model_fn: ModelFn, schedule, x_t: torch.Tensor,
+                noise: torch.Tensor, *, min_noise: int = 1,
+                max_noise: int = 1000, skip_step_size: int = 10,
+                cond_img: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                steps: Optional[List[int]] = None) -> torch.Tensor:
+    """Cold-diffusion sampling with an x0-predicting model (sdm_tpu
+    samplers.py:474-513). `noise` is the trajectory-shared degradation
+    noise; `steps` overrides the uniform skip list, as in ddim_sample."""
+    if str(getattr(model_fn, "model_output", "eps")).lower() == "v":
+        raise ValueError(
+            "cold_sample consumes x0-predicting models; the v "
+            "parameterization applies to the eps family (ddpm/ddim/dpmpp)")
+    steps = (list(steps) if steps is not None
+             else ddim_step_list(min_noise, max_noise, skip_step_size))
+    noise = noise.to(torch.float32)
+    step_t = torch.tensor(steps, device=x_t.device)
+    x = x_t.to(torch.float32)
+    for i in range(len(steps) - 1):
+        t, tm1 = step_t[i:i + 1], step_t[i + 1:i + 2]
+        x0_hat = model_fn(_concat_cond(x, cond_img), t, labels)
+        x0_hat = x0_hat.to(torch.float32)
+        x = (x - schedule.q_sample(x0_hat, t, noise)
+             + schedule.q_sample(x0_hat, tm1, noise))
+
+    # Final step: the model's reconstruction.
+    x0_hat = model_fn(_concat_cond(x, cond_img), step_t[-1:], labels)
+    return x0_hat.to(torch.float32)

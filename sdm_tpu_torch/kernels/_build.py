@@ -2,8 +2,8 @@
 
 Each source `sdm_tpu_torch/csrc/<name>.cu` compiles with nvcc into a shared
 library with a plain C interface, `csrc/build/lib<name>-<hash>.so`, loaded
-with ctypes. The hash covers the sources and flags, so an edited kernel
-rebuilds and a stale library is never loaded. Nothing is built at import:
+with ctypes. The hash covers the source, every header of csrc/ and the
+flags, so an edited kernel rebuilds and a stale library is never loaded. Nothing is built at import:
 the first launch builds what it needs, and `build()` compiles every missing
 library at once (one nvcc process per source, all started together).
 """
@@ -23,7 +23,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("adagn", "attention", "linear")
+SOURCES = ("adagn", "attention", "linear", "streaming_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +47,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")

@@ -13,9 +13,11 @@ bound by its 6*S*S*D operations per head (scores twice, P V once).
 `attention_reference` is the plain PyTorch version (sdm_tpu's
 `_xla_attention`): fp32 scores, fp32 softmax, P cast to v's dtype, P V with
 fp32 accumulation. `attention()` is the dispatcher the layers call: with
-`use_kernels` every shape goes to `fused_attention` (the port's admission
-rule; the TPU's `_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried
-over), without it the plain version.
+`use_kernels`, shapes whose apply block fits in shared memory
+(`whole_s_ok`, the C entry point's own formula mirrored) go to
+`fused_attention` and longer grids to the streaming kernel
+(kernels/streaming_attention.py); without it the plain version. The TPU's
+`_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried over.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels.streaming_attention import streaming_attention
 
 _SIGNATURES = {
     "sdm_attention_forward": (ctypes.c_int, [
@@ -32,11 +35,43 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "sdm_attention_fits": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
 }
 
 # sdm_attention_forward's return when the apply pass's 32 x S block does not
 # fit in shared memory (it then launches nothing).
 _ERR_TOKENS = -1
+# Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
+MAX_SMEM = 232448
+
+
+def apply_smem_bytes(s: int, wmma: bool) -> int:
+    """Shared memory of csrc/attention.cu's apply block at S = s: the bf16
+    tensor-core kernel (wmma_apply_smem_bytes: P [32][S+8] bf16, eight
+    16 x 16 fp32 tiles, a [64][136] bf16 staging area) or the CUDA-core one
+    (apply_smem_bytes: [32][S+1] fp32 scores and 4096 staging floats)."""
+    if wmma:
+        return 32 * (s + 8) * 2 + 8 * 256 * 4 + 64 * 136 * 2
+    return (32 * (s + 1) + 4096) * 4
+
+
+def takes_wmma(q, k, v) -> bool:
+    """csrc/attention.cu's wmma_ok for these (N, S, H, D) inputs: bf16,
+    S % 64 == 0, D % 128 == 0, 16-byte aligned rows (the output is a fresh
+    contiguous tensor and always qualifies)."""
+    n, s, h, d = q.shape
+    if q.dtype != torch.bfloat16 or s % 64 or d % 128:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(t.stride(i) % 8 == 0 for i in range(3))
+               for t in (q, k, v))
+
+
+def whole_s_ok(q, k, v) -> bool:
+    """Whether `fused_attention` takes these inputs: the mirror of
+    sdm_attention_forward's admission (sdm_attention_fits in the C source).
+    The dispatchers send everything else to the streaming kernel."""
+    return apply_smem_bytes(q.shape[1], takes_wmma(q, k, v)) <= MAX_SMEM
 
 
 def attention_reference(q, k, v, scale: float, softmax_axis: str = "q"):
@@ -84,7 +119,7 @@ def fused_attention(q, k, v, scale: float, softmax_axis: str = "q"):
     if rc == _ERR_TOKENS:
         raise NotImplementedError(
             f"{what}: S={s} is too long for the kernel's shared-memory score "
-            "block; longer grids need the streaming kernel (the SR slice)")
+            "block; longer grids take streaming_attention (see whole_s_ok)")
     _build.check(lib, rc, what)
     fused_attention.launches += 1
     return out
@@ -95,8 +130,19 @@ fused_attention.launches = 0
 
 def attention(q, k, v, scale: float, softmax_axis: str = "q",
               use_kernels: bool = True):
-    """The layers' dispatcher: the kernel for every shape, or the plain
-    version when `use_kernels` is False."""
-    if use_kernels:
+    """The layers' dispatcher over (N, S, H, D): `fused_attention` where
+    `whole_s_ok`, else the streaming kernel on (N*H, S, D) (a view for one
+    head, a copy for several); the plain version when `use_kernels` is
+    False."""
+    if not use_kernels:
+        return attention_reference(q, k, v, scale, softmax_axis)
+    if whole_s_ok(q, k, v):
         return fused_attention(q, k, v, scale, softmax_axis)
-    return attention_reference(q, k, v, scale, softmax_axis)
+    n, s, h, d = q.shape
+    if h == 1:
+        out = streaming_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], scale,
+                                  softmax_axis)
+        return out.view(n, s, 1, d)
+    to3d = lambda t: t.permute(0, 2, 1, 3).reshape(n * h, s, d)
+    out = streaming_attention(to3d(q), to3d(k), to3d(v), scale, softmax_axis)
+    return out.view(n, h, s, d).permute(0, 2, 1, 3).contiguous()

@@ -12,6 +12,12 @@ block's weights do not fit one SM beside the token tile, so it runs as three
 hand-written kernels: `linear` (csrc/linear.cu, a tiled GEMM with a bias
 epilogue) for the qkv projection, `fused_attention` (csrc/attention.cu) on
 views of the qkv buffer, and `linear` again with a bias + residual epilogue.
+Grids whose apply block does not fit in shared memory (`whole_s_ok`; the
+256x256 SR model's S = 4096) take `streaming_attention`
+(csrc/streaming_attention.cu) for the middle step instead, with the rounding
+of sdm_tpu's composed path there (layers.py:303-317): qkv cast after the
+fp32 bias, the attention output in the compute dtype, then the output
+projection and the residual added in the compute dtype.
 The GEMMs bound it by operations (fp32 FMA on CUDA cores); a single-launch
 fusion and tensor-core tiles are later work.
 
@@ -29,7 +35,8 @@ import torch
 
 from sdm_tpu_torch.kernels import _build
 from sdm_tpu_torch.kernels.attention import (attention_reference,
-                                             fused_attention)
+                                             fused_attention, whole_s_ok)
+from sdm_tpu_torch.kernels.streaming_attention import streaming_attention
 
 _SIGNATURES = {
     "sdm_linear_forward": (ctypes.c_int, [
@@ -111,10 +118,19 @@ def fused_attention_block(tokens, w_qkv, b_qkv, w_out, b_out, scale: float,
     tokens' dtype; b_qkv (3*d_k,), b_out (C,). Returns (N, S, C).
 
     CPU tensors run `attention_block_reference`; CUDA tensors launch the
-    linear and attention kernels or raise."""
+    linear kernel, the whole-S or the streaming attention kernels, and the
+    linear kernel again, or raise."""
     if tokens.device.type == "cpu":
         return attention_block_reference(tokens, w_qkv, b_qkv, w_out, b_out,
                                          scale, softmax_axis)
+    out = _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale,
+                        softmax_axis)
+    fused_attention_block.launches += 1
+    return out
+
+
+def _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis):
+    """The three launches of `fused_attention_block` on CUDA tensors."""
     what = "fused_attention_block"
     _build.require_cuda(what, tokens, w_qkv, b_qkv, w_out, b_out)
     if tokens.ndim != 3 or not tokens.is_contiguous():
@@ -127,9 +143,12 @@ def fused_attention_block(tokens, w_qkv, b_qkv, w_out, b_out, scale: float,
     tok2 = tokens.view(n * s, c)
     qkv = linear(tok2, w_qkv, b_qkv).view(n, s, 1, 3 * d_k)
     q, k, v = qkv.split(d_k, dim=-1)
-    r = fused_attention(q, k, v, scale, softmax_axis)
-    out = linear(r.view(n * s, d_k), w_out, b_out, residual=tok2)
-    fused_attention_block.launches += 1
+    if whole_s_ok(q, k, v):
+        r = fused_attention(q, k, v, scale, softmax_axis)
+    else:
+        r = streaming_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], scale,
+                                softmax_axis)
+    out = linear(r.reshape(n * s, d_k), w_out, b_out, residual=tok2)
     return out.view(n, s, c)
 
 

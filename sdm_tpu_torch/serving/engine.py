@@ -1,12 +1,25 @@
 """SamplerEngine: keep-resident sampling over a bundle (port of
-sdm_tpu/serving/engine.py for the eps kind: BASE bundles with ddim or ddpm).
+sdm_tpu/serving/engine.py).
 
 Bundle parsing, checkpoint loading and the upload to the device happen once
 at construction. Requests of any size <= max_batch are zero-padded to that
-batch and sliced after; a request's noise is a function of its own seed and
-image count only, so DDIM (eta = 0) outputs are identical alone or
-coalesced. DDPM's per-step z comes from a batch generator seeded by the
-first request: reproducible only for an identical batch composition.
+batch and sliced after.
+
+Bundle kinds (detected from the bundle entries, as sdm_tpu does):
+  eps   BASE bundles, diff_alg ddim/ddpm: x_t chains model to model.
+  cold  BASE-COLD bundles (diff_alg="cold"): the initial noise is shared by
+        the trajectory; ensemble chaining re-degrades the previous x0 to
+        the next model's max_noise with it.
+  sr    SR bundles (entries carry "cond_t"): each request brings a
+        low-resolution image, which is area-upsampled to the model's size;
+        the conditioning channels are the upsampled image q-sampled at the
+        first entry's cond_t with the shared noise, built once; the cold
+        delta chain runs as for "cold"; the output is upsampled + delta.
+
+A request's noise is a function of its own seed and image count only, so
+DDIM (eta = 0), cold and SR outputs are identical alone or coalesced.
+DDPM's per-step z comes from a batch generator seeded by the first request:
+reproducible only for an identical batch composition.
 
 The engine runs on CUDA unless the caller passes device="cpu".
 """
@@ -21,8 +34,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from sdm_tpu_torch.diffusion.samplers import ddim_sample, ddpm_sample
+from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
+                                              ddpm_sample)
 from sdm_tpu_torch.io.bundles import build_model_from_bundle, load_bundle_config
+from sdm_tpu_torch.ops.resize import area_resize
 
 
 @dataclass
@@ -53,7 +68,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class SamplerEngine:
-    """Ensemble sampling chain over one exported BASE bundle."""
+    """Ensemble sampling chain over one exported bundle."""
 
     def __init__(self, config_path: str, *, diff_alg: str = "ddim",
                  step_size: int = 10, max_T: int = 1000,
@@ -70,7 +85,6 @@ class SamplerEngine:
             raise ValueError(
                 f"output_dtype must be float32/uint8, got {output_dtype!r}")
         later = {
-            "cold": diff_alg == "cold",
             f"diff_alg={diff_alg!r}": diff_alg in ("dpmpp", "heun"),
             "guidance": bool(guidance),
             "num_devices > 1": num_devices is not None and num_devices > 1,
@@ -80,7 +94,7 @@ class SamplerEngine:
             if asked:
                 raise NotImplementedError(
                     f"{what} is served by a later slice of the port "
-                    "(this slice serves eps bundles with ddim/ddpm)")
+                    "(the port serves ddim/ddpm, cold and SR bundles)")
         self.device = resolve_device(device)
         self._out_u8 = output_dtype == "uint8"
         self.max_batch = int(max_batch)
@@ -94,10 +108,14 @@ class SamplerEngine:
         self.img_shape = (first["img_H"], first["img_W"], first["img_C"])
         self.cond_dim = first["cond_dim"]
         if "cond_t" in first:
-            raise NotImplementedError(
-                "SR bundles are served by a later slice of the port")
-        self.kind = "eps"
-        self.diff_alg = diff_alg
+            self.kind = "sr"           # SR bundles carry cond_t per entry
+            self.diff_alg = "cold"     # SR sampling is always cold
+        elif diff_alg == "cold":
+            self.kind = "cold"
+            self.diff_alg = "cold"
+        else:
+            self.kind = "eps"
+            self.diff_alg = diff_alg
         compute_dtype = torch.bfloat16 if dtype == "bfloat16" else None
 
         self._entries = []
@@ -109,7 +127,8 @@ class SamplerEngine:
             self._entries.append(dict(
                 name=model_dict["model_name"], net=net, schedule=schedule,
                 min_noise=model_dict["min_noise"],
-                max_noise=model_dict["max_noise"]))
+                max_noise=model_dict["max_noise"],
+                cond_t=model_dict.get("cond_t")))
 
     # ------------------------------------------------------------- sampling
 
@@ -121,12 +140,18 @@ class SamplerEngine:
         return torch.randn((n, h, w, c), generator=gen, device=self.device,
                            dtype=torch.float32)
 
-    def _run_entry(self, entry, x_t, labels, generator):
+    def _run_entry(self, entry, x_t, labels, generator, noise, cond):
         net = entry["net"]
 
         def model_fn(x, t, lab):
             return net(x, t, lab)
 
+        if self.diff_alg == "cold":
+            return cold_sample(model_fn, entry["schedule"], x_t, noise,
+                               min_noise=entry["min_noise"],
+                               max_noise=entry["max_noise"],
+                               skip_step_size=self.step_size,
+                               cond_img=cond, labels=labels)
         if self.diff_alg == "ddim":
             return ddim_sample(model_fn, entry["schedule"], x_t,
                                min_noise=entry["min_noise"],
@@ -139,16 +164,21 @@ class SamplerEngine:
 
     def generate(self, num_images: int = 1, *, seed: int = 0,
                  labels: Optional[List[float]] = None,
-                 guidance_scale: float = 1.0) -> np.ndarray:
+                 guidance_scale: float = 1.0,
+                 lr_image: Optional[np.ndarray] = None) -> np.ndarray:
         """One request -> (num_images, H, W, C) images: float in [-1, 1], or
-        uint8 in [0, 255] when built with output_dtype="uint8"."""
+        uint8 in [0, 255] when built with output_dtype="uint8".
+
+        SR bundles require `lr_image` (H_lr, W_lr, C) in [-1, 1]; it is
+        shared by the request's num_images (each gets its own noise)."""
         req = dict(num_images=num_images, seed=seed, labels=labels,
-                   guidance_scale=guidance_scale)
+                   guidance_scale=guidance_scale, lr_image=lr_image)
         return self.generate_batch([req])[0]
 
     def generate_batch(self, requests: List[dict]) -> List[np.ndarray]:
         """Coalesced requests -> one padded trajectory chain. Each request:
-        {num_images, seed, labels (cond_dim list | None), guidance_scale}."""
+        {num_images, seed, labels (cond_dim list | None), guidance_scale,
+        lr_image (SR only)}."""
         return self.finalize(self.dispatch(requests))
 
     def dispatch(self, requests: List[dict]):
@@ -179,6 +209,8 @@ class SamplerEngine:
                         f"bundle needs {self.cond_dim} labels per request")
                 label_parts.append(np.tile(np.asarray(lab, np.float32),
                                            (r["num_images"], 1)))
+        lr_images = ([self.check_lr_image(r.get("lr_image"))
+                      for r in requests] if self.kind == "sr" else [])
 
         t0 = time.monotonic()
         with torch.inference_mode():
@@ -187,17 +219,46 @@ class SamplerEngine:
             if pad:
                 parts.append(torch.zeros((pad, h, w, c), dtype=torch.float32,
                                          device=self.device))
-            x_t = torch.cat(parts) if len(parts) > 1 else parts[0]
+            noise = torch.cat(parts) if len(parts) > 1 else parts[0]
             labels = None
             if self.cond_dim is not None:
                 lab = np.concatenate(
                     label_parts + [np.zeros((pad, self.cond_dim), np.float32)])
                 labels = torch.from_numpy(lab).to(self.device)
+            upsampled = cond = None
+            if self.kind == "sr":
+                # Per-request LR sizes may differ: each is upsampled to the
+                # model's size (torch area semantics) before padding. The
+                # conditioning is built once, from the first entry's
+                # schedule and cond_t, and reused across the ensemble.
+                ups = [area_resize(torch.from_numpy(lr[None]).to(
+                    self.device), h, w).expand(r["num_images"], h, w, c)
+                    for lr, r in zip(lr_images, requests)]
+                if pad:
+                    ups.append(torch.zeros((pad, h, w, c),
+                                           dtype=torch.float32,
+                                           device=self.device))
+                upsampled = torch.cat(ups)
+                e0 = self._entries[0]
+                cond = e0["schedule"].q_sample(upsampled, [e0["cond_t"]],
+                                               noise)
             generator = torch.Generator(device=self.device).manual_seed(
                 int(requests[0].get("seed", 0)))
+            x_t, x0 = noise, None
             for entry in self._entries:
-                x_t = self._run_entry(entry, x_t, labels, generator)
-            out = x_t
+                if x0 is not None:
+                    # Cold and SR chaining: re-degrade the previous x0 to
+                    # this model's max_noise with the shared noise.
+                    x_t = entry["schedule"].q_sample(
+                        x0, [entry["max_noise"]], noise)
+                out = self._run_entry(entry, x_t, labels, generator, noise,
+                                      cond)
+                if self.kind == "eps":
+                    x_t = out
+                else:
+                    x0 = out
+            if self.kind == "sr":
+                out = upsampled + out       # the delta model's output
             if self._out_u8:
                 out = torch.clamp((out + 1.0) * 127.5, 0, 255).to(torch.uint8)
             event = None
@@ -210,6 +271,19 @@ class SamplerEngine:
                 out = host
         return dict(out=out, event=event, requests=requests, total=total,
                     t0=t0)
+
+    def check_lr_image(self, lr) -> np.ndarray:
+        """A request's SR input as a float32 copy; raises ValueError unless
+        it is (H_lr, W_lr, C) within the model's size."""
+        h, w, c = self.img_shape
+        lr = None if lr is None else np.asarray(lr, np.float32)
+        if lr is None or lr.ndim != 3 or lr.shape[-1] != c:
+            raise ValueError(
+                f"SR bundle requests need lr_image (H, W, {c}) in [-1, 1]")
+        if lr.shape[0] > h or lr.shape[1] > w:
+            raise ValueError(f"lr_image {lr.shape[:2]} exceeds the model's "
+                             f"output {h}x{w}")
+        return lr.copy()
 
     def finalize(self, handle) -> List[np.ndarray]:
         """Wait for a dispatched batch and slice it per request."""
@@ -250,11 +324,14 @@ class SamplerEngine:
         """Warm-up: one full batch and one coalesced two-request batch, so
         the first real request pays no kernel build or cuDNN selection.
         Returns the wall seconds spent and resets the serving stats."""
+        h, w, c = self.img_shape
         t0 = time.monotonic()
         req = dict(num_images=self.max_batch, seed=0,
                    labels=([0.0] * self.cond_dim
                            if self.cond_dim is not None else None),
-                   guidance_scale=1.0)
+                   guidance_scale=1.0,
+                   lr_image=(np.zeros((h // 2, w // 2, c), np.float32)
+                             if self.kind == "sr" else None))
         self.generate_batch([req])
         if self.max_batch >= 2:
             half = dict(req, num_images=1)

@@ -19,7 +19,11 @@ API (JSON):
   POST /generate            {"num_images": 1..max_batch, "seed": int,
                              "labels": [cond_dim floats] (conditional
                              bundles), "guidance_scale": float,
-                             "format": "npy" | "png"}
+                             "format": "npy" | "png",
+                             SR bundles: "lr_image_b64" (raw float32 in
+                             [-1, 1], BGR) + "lr_shape" [H, W, C], or
+                             "lr_image_png_b64" (an encoded PNG/JPEG; needs
+                             OpenCV, imported only for it)}
     -> format "npy": {"shape": [...], "dtype": "float32",
                       "data_b64": <base64 raw array>}  (BGR, [-1,1] — the
                       framework's native space)
@@ -190,9 +194,41 @@ class DiffusionServer:
             raise ValueError("server started without --guidance")
         if payload.get("format", "npy") not in ("npy", "png"):
             raise ValueError("format must be npy or png")
+        lr_image = None
+        if self.engine.kind == "sr":
+            # Checked here, before queueing, so a bad image is refused with
+            # 400 instead of failing the batch it would coalesce into.
+            lr_image = self.engine.check_lr_image(self._decode_lr(payload))
         return _Request(dict(num_images=n, seed=int(payload.get("seed", 0)),
                              labels=payload.get("labels"),
-                             guidance_scale=gs))
+                             guidance_scale=gs, lr_image=lr_image))
+
+    def _decode_lr(self, payload: dict) -> np.ndarray:
+        """SR input image from the request (sdm_tpu server.py:194-218):
+        encoded PNG/JPEG bytes, or raw float32 [-1, 1] with an explicit
+        shape. BGR, the framework's native channel order."""
+        if "lr_image_png_b64" in payload:
+            import cv2
+            buf = base64.b64decode(payload["lr_image_png_b64"])
+            img = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                               cv2.IMREAD_COLOR)
+            if img is None:
+                raise ValueError("could not decode lr_image_png_b64")
+            return (img.astype(np.float32) - 127.5) / 127.5
+        if "lr_image_b64" in payload:
+            shape = payload.get("lr_shape")
+            if (not isinstance(shape, list) or len(shape) != 3
+                    or not all(isinstance(d, int) and d > 0 for d in shape)):
+                raise ValueError("lr_image_b64 needs lr_shape [H, W, C]")
+            raw = base64.b64decode(payload["lr_image_b64"])
+            arr = np.frombuffer(raw, np.float32)
+            if arr.size != int(np.prod(shape)):
+                raise ValueError(
+                    f"lr_image_b64 has {arr.size} floats, lr_shape wants "
+                    f"{int(np.prod(shape))}")
+            return arr.reshape(shape)
+        raise ValueError("SR bundle requests need lr_image_png_b64 or "
+                         "lr_image_b64 + lr_shape")
 
     def _drain_batch(self, block: bool = True) -> list:
         """Coalesce compatible queued requests up to max_batch, waiting

@@ -291,10 +291,13 @@ def test_attention_dispatcher(monkeypatch):
 def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, and the build targets sm_90a."""
-    from sdm_tpu_torch.kernels import adagn, attention_block
+    from sdm_tpu_torch.kernels import (adagn, attention_block,
+                                       streaming_attention)
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),
-                       ("linear", attention_block._SIGNATURES)):
+                       ("linear", attention_block._SIGNATURES),
+                       ("streaming_attention",
+                        streaming_attention._SIGNATURES)):
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             src = f.read()
         for symbol, (_, argtypes) in sigs.items():
@@ -302,7 +305,8 @@ def test_kernel_sources_export_the_wrapped_symbols():
             assert m, symbol
             assert len(m.group(1).split(",")) == len(argtypes), symbol
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert set(_build.SOURCES) == {"adagn", "attention", "linear"}
+    assert set(_build.SOURCES) == {"adagn", "attention", "linear",
+                                   "streaming_attention"}
 
 
 # ------------------------------------------------------------- on the card

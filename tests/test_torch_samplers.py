@@ -104,3 +104,50 @@ def test_ddpm_generator_draws_are_reproducible():
                                  generator=torch.Generator().manual_seed(3))
             for _ in range(2))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _jax_x0_model(x, t, labels):
+    return jnp.tanh(0.5 * x[..., :3]) + 0.01 * t.astype(
+        jnp.float32)[:, None, None, None]
+
+
+def _torch_x0_model(x, t, labels):
+    return torch.tanh(0.5 * x[..., :3]) + 0.01 * t.to(
+        torch.float32)[:, None, None, None]
+
+
+@pytest.mark.parametrize("name", ["LINEAR", "COSINE"])
+@pytest.mark.parametrize("steps", [None, [20, 13, 6, 2, 1]])
+@pytest.mark.parametrize("with_cond", [False, True])
+def test_cold_sample_matches(name, steps, with_cond):
+    """The uniform skip list and the `steps` override, with and without a
+    conditioning image concatenated on the channels (the SR form), the
+    shared noise injected."""
+    js, ts = _schedules(name)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(SHAPE).astype(np.float32)
+    noise = rng.standard_normal(SHAPE).astype(np.float32)
+    cond = rng.standard_normal(SHAPE).astype(np.float32) if with_cond \
+        else None
+    ref = jax_samplers.cold_sample(
+        _jax_x0_model, js, jnp.asarray(x), jnp.asarray(noise), min_noise=1,
+        max_noise=T, skip_step_size=3, steps=steps,
+        cond_img=None if cond is None else jnp.asarray(cond))
+    ours = samplers.cold_sample(
+        _torch_x0_model, ts, torch.from_numpy(x), torch.from_numpy(noise),
+        min_noise=1, max_noise=T, skip_step_size=3, steps=steps,
+        cond_img=None if cond is None else torch.from_numpy(cond))
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TRAJ_TOL)
+
+
+def test_cold_sample_refuses_v_models():
+    _, ts = _schedules("LINEAR")
+
+    def v_model(x, t, labels):
+        return x
+
+    v_model.model_output = "v"
+    x = torch.zeros(SHAPE)
+    with pytest.raises(ValueError, match="x0-predicting"):
+        samplers.cold_sample(v_model, ts, x, x, max_noise=T)

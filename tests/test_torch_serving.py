@@ -19,10 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from sdm_tpu.cli.generate_images_cold_diffusion import \
+    generate_images_cold_diffusion as jax_generate_cold
 from sdm_tpu.io.checkpoint import diffusion_checkpoint_dict
 from sdm_tpu.models import UNet as JaxUNet
 from sdm_tpu.serving import SamplerEngine as JaxEngine
 from sdm_tpu_torch.cli.export_models import export_bundle
+from sdm_tpu_torch.cli.generate_images_cold_diffusion import \
+    generate_images_cold_diffusion
 from sdm_tpu_torch.serving import SamplerEngine
 from sdm_tpu_torch.serving import engine as engine_mod
 
@@ -35,15 +39,16 @@ MODEL = dict(in_channel=3, out_channel=3, num_layers=2, num_resnet_block=1,
              img_recon=False)
 
 
-def _train_cfg(min_noise, max_noise):
+def _train_cfg(min_noise, max_noise, **over):
     return dict(MODEL, min_noise_step=min_noise, max_noise_step=max_noise,
-                noise_scheduler="LINEAR", beta1=5e-3, betaT=9e-3)
+                noise_scheduler="LINEAR", beta1=5e-3, betaT=9e-3, **over)
 
 
-def _params(seed):
+def _params(seed, image_recon=False):
     net = JaxUNet(num_resnet_blocks=1, in_channel=3, out_channel=3,
                   time_dim=16, num_layers=2, attn_layers=(1,),
-                  min_channel=32, max_channel=64, use_pallas=False)
+                  min_channel=32, max_channel=64, image_recon=image_recon,
+                  use_pallas=False)
     params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3)),
                       jnp.array([1]))["params"]
     return jax.tree.map(np.asarray, params)
@@ -63,6 +68,20 @@ def bundle(tmp_path_factory):
                         model_type="BASE",
                         entries=[(_train_cfg(11, T), p1),
                                  (_train_cfg(1, 10), p2)])
+    return os.path.join(out, "config.json")
+
+
+@pytest.fixture(scope="module")
+def cold_bundle(tmp_path_factory):
+    """A two-model BASE-COLD ensemble of x0-predicting (tanh) U-Nets."""
+    tmp = tmp_path_factory.mktemp("port_cold_bundle")
+    p1, p2 = str(tmp / "c1.pt"), str(tmp / "c2.pt")
+    torch.save(diffusion_checkpoint_dict(_params(3, True)), p1)
+    torch.save(diffusion_checkpoint_dict(_params(4, True)), p2)
+    out = export_bundle("cold", str(tmp), img_c=3, img_h=16, img_w=16,
+                        model_type="BASE-COLD",
+                        entries=[(_train_cfg(11, T, img_recon=True), p1),
+                                 (_train_cfg(1, 10, img_recon=True), p2)])
     return os.path.join(out, "config.json")
 
 
@@ -152,12 +171,47 @@ def test_port_engine_validation(bundle):
         _port(bundle, output_dtype="float16")
 
 
-@pytest.mark.parametrize("kw", [dict(diff_alg="cold"), dict(diff_alg="dpmpp"),
+@pytest.mark.parametrize("kw", [dict(diff_alg="dpmpp"),
                                 dict(diff_alg="heun"), dict(guidance=True),
                                 dict(num_devices=2), dict(karras=True)])
 def test_port_engine_refuses_later_slices(bundle, kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         _port(bundle, **kw)
+
+
+def test_port_engine_serves_cold_bundle_as_sdm_tpu(cold_bundle, monkeypatch):
+    """diff_alg="cold" (once refused here): the shared initial noise and the
+    re-degrade chain across the ensemble, at full batch and coalesced; the
+    coalesced request equals the same request alone."""
+    monkeypatch.setattr(SamplerEngine, "_noise_for", _jax_noise)
+    port = _port(cold_bundle, diff_alg="cold")
+    ref = _jax(cold_bundle, diff_alg="cold")
+    assert port.kind == ref.kind == "cold"
+    np.testing.assert_allclose(port.generate(4, seed=7),
+                               ref.generate(4, seed=7), **TRAJ_TOL)
+    reqs = [dict(num_images=2, seed=3), dict(num_images=1, seed=9)]
+    got = port.generate_batch(reqs)
+    for a, b in zip(got, ref.generate_batch(reqs)):
+        np.testing.assert_allclose(a, b, **TRAJ_TOL)
+    np.testing.assert_allclose(got[1], port.generate(1, seed=9), rtol=0,
+                               atol=1e-6)
+
+
+def test_port_cold_generator_matches_sdm_tpu(cold_bundle):
+    """The cold generator with sdm_tpu's seed-drawn noise handed to the
+    port; a reference-style bundle without beta_1/beta_T still runs."""
+    seed = 12
+    _, nk = jax.random.split(jax.random.PRNGKey(seed))
+    noise = np.asarray(jax.random.normal(nk, (2, 16, 16, 3), jnp.float32))
+    args = ["-c", cold_bundle, "-n", "2", "--cold_step_size", "4", "-T",
+            str(T), "-s", str(seed), "--device", "cpu"]
+    quiet = dict(log=lambda *a, **k: None, save_locally=False)
+    ref = jax_generate_cold(args, **quiet)
+    ours = generate_images_cold_diffusion(args, noise=noise, **quiet)
+    assert ours.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(ours, np.asarray(ref), **TRAJ_TOL)
+    with pytest.raises(ValueError, match="noise must be"):
+        generate_images_cold_diffusion(args, noise=noise[:1], **quiet)
 
 
 def test_port_engine_needs_cuda_unless_asked_for_cpu(bundle, monkeypatch):
