@@ -13,12 +13,16 @@ Phases, each raising on failure (the script exits non-zero on any):
      256x256 super-resolution (SR) U-Net give it, batch 16, fp32 and bf16,
      both softmax axes (each attention check also against the wrong axis,
      which must fail); kernel, plain and library times and the least time
-     the card could take (bound). The streaming kernels run at the SR
-     model's S = 4096 and at S = 1024, where the whole-S kernel is a second
-     reference.
+     the card could take (bound). The streaming kernels, forward (stats,
+     apply) and backward (dV, dK, dQ), run at the SR model's S = 4096, at
+     S = 1024, where the whole-S kernel is a second reference, and at a
+     ragged S = 300; the bf16 query-axis dK and dQ are also held to a
+     float64 truth (BWD_TRUTH).
   3. Model: the flagship and the SR U-Net from seeded random weights,
      use_kernels=True against use_kernels=False, one call at batch 16
      (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call each.
+     Then one forward and backward of each under the training loss, kernels
+     against plain, gradients held per tensor (fp32) and as a whole (bf16).
   4. Serving, the cascade: the flagship exported as a BASE bundle and
      served over HTTP by DiffusionServer over SamplerEngine(ddim, step 20 =
      DDIM-50, batch 16, bf16); a 16-image request and two small requests
@@ -30,6 +34,15 @@ Phases, each raising on failure (the script exits non-zero on any):
      just after, and held to the counts its U-Net calls imply. Then one
      more batch of each is traced with the profiler for the device's busy
      share.
+  5. Training: the SR trainer (run_training(SR_SPEC), the SR U-Net at full
+     width, 256x256, batch 16, bf16) and then the base eps trainer (the
+     flagship, 128x128) for TRAIN_STEPS steps each on seeded uint8 images,
+     kernels on. Each run checkpoints (with a preview) at step 0 only and
+     once more when it stops. The launch counters are zeroed just before
+     each run and read just after, and held to the counts its steps and its
+     preview imply; the losses must be finite, the step-0 checkpoint must
+     reload strictly into a fresh model and Adam, moments included, and one
+     more SR step is profiled by kernel family.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,6 +121,39 @@ STATS_TOL = {"m": dict(atol=1e-4, rtol=1e-5, of_max=0.0),
              "l": dict(atol=0.0, rtol=1e-4, of_max=0.0)}
 # U-Net kernels-on vs kernels-off, normwise relative error of one call.
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# Streaming backward kernels vs their plain versions. fp32: both sum fp32
+# products in another order, and dA = P (g v^T - corr) cancels, so an
+# element's error is set by the gradient's scale (of_max) more than by the
+# element. bf16 (dV on both axes, dK and dQ on the key axis): a one-ulp flip
+# of a bf16 P or dA entry, scaled by the output's size.
+BWD_TOL = {"float32": dict(atol=0.0, rtol=1e-3, of_max=1e-3),
+           "bfloat16": dict(atol=0.0, rtol=2e-2, of_max=2e-2)}
+# bf16 dK and dQ on the query axis are cancellation-dominated (the softmax
+# Jacobian projects out nearly all of g; BASELINE.md "On-TPU kernel
+# numerics"), so any bf16 backward carries noise comparable to the value.
+# There the kernel and the plain version are both held to a float64 truth
+# on the same bf16 inputs, error = max|x - truth| / max|truth|: the kernel's
+# may be at most `mult` times the plain version's plus `add`. Against the
+# plain version the bound is then (kernel limit + plain error) * max|truth|.
+BWD_TRUTH = {"mult": 2.0, "add": 1e-3}
+TRUTH_ROWS = 2      # batch rows of the float64 truth (dense S x S each)
+# U-Net gradients, kernels on vs off, after one forward and backward under
+# the training loss. fp32, per parameter tensor: |g_k - g_p| over
+# max(|g_p|, GRAD_FLOOR * the largest |g_p| of the model). The forward
+# agrees to about 2e-7; the query-axis softmax Jacobian cancels all but
+# about 1/400 of g (|dQ| against |dV|), which can take dQ's and dK's
+# relative error to about 1e-4; a gradient the kernels drop gives 1. The
+# floor: a conv bias ahead of a GroupNorm has a true gradient near zero
+# (the norm removes its per-group mean), so its own norm is noise. bf16, the
+# whole gradient at once: every product rounds to 2^-8, the forward already
+# differs by about 2e-3 normwise and the backward amplifies that through
+# the same cancellation, so a per-tensor bound would be set by noise.
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+GRAD_FLOOR = 1e-3
+# Trainers: steps per run (the first, which checkpoints and previews, is
+# left out of the rate), and the seeded images of the dataset (one epoch).
+TRAIN_STEPS = 6
+TRAIN_IMAGES = TRAIN_STEPS * BATCH
 
 
 def log(*args):
@@ -240,6 +286,19 @@ def kernel_phase(torch, results):
                 f"kernel {ms:.4f} ms  plain {plain:.4f}  "
                 f"group_norm+FiLM {lib:.4f}  bound {b:.4f} ({by})")
             del x, args
+        # Training gives each sample its own t, so the FiLM tables have one
+        # row per sample.
+        h, w, c = SR_ADAGN_SHAPES[2]
+        args = (randn((BATCH, h, w, c), dtype, std=2.0, mean=0.5),
+                randn((c,), dtype, std=0.1, mean=1.0),
+                randn((c,), dtype, std=0.1),
+                randn((BATCH, c), dtype, std=0.5, mean=1.0),
+                randn((BATCH, c), dtype, std=0.5), GROUPS)
+        err = compare(f"adagn {dn} {h}x{w}x{c} per-sample FiLM",
+                      fused_adagn(*args), adagn_reference(*args), TOL[dn])
+        log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} per-sample FiLM tables "
+            f"(training)  {err_text(err, TOL[dn])}")
+        del args
 
         cases = [("flagship", sh) for sh in BLOCK_SHAPES] + [
             ("sr", sh) for sh in SR_BLOCK_SHAPES if sh not in BLOCK_SHAPES]
@@ -254,6 +313,9 @@ def kernel_phase(torch, results):
         for (s_len, d) in STREAM_SHAPES:
             for axis in ("q", "k"):
                 streaming_case(torch, randn, results, dtype, s_len, d, axis)
+                streaming_bwd_case(torch, randn, results, dtype, s_len, d,
+                                   axis)
+                torch.cuda.empty_cache()
 
     # Shapes off the tensor-core path (S % 64, D % 128, K % 32 != 0) take
     # the CUDA-core kernels in bf16 too.
@@ -280,6 +342,7 @@ def kernel_phase(torch, results):
                           ATTN_TOL[dn])
             log(f"streaming {dn:8s} S= 300 D=  72 {axis} (CUDA-core path, "
                 f"ragged tiles)  {err_text(err, ATTN_TOL[dn])}")
+            streaming_bwd_case(torch, randn, results, dtype, 300, 72, axis)
             # Tensor-core layouts off the main path: D = 128 leaves three of
             # the four column warps idle; D = 1024 splits the output columns
             # over two blocks and the key tile into two chunks.
@@ -498,6 +561,183 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
         f"{b_a:.4f} {by_a}); sdpa {lib if lib is None else round(lib, 4)}")
 
 
+def bwd_error(got, truth):
+    """max |got - truth| over max |truth|."""
+    return ((got.double() - truth).abs().max()
+            / truth.abs().max().clamp_min(1e-30)).item()
+
+
+def float64_truth(torch, q, k, v, g, scale, axis, rows):
+    """dQ, dK, dV of softmax(q k^T scale, axis) v against g, in float64 on
+    the same (rounded) inputs, for batch rows `rows`; dense, one row at a
+    time."""
+    grads = [[], [], []]
+    for b in rows:
+        qb, kb, vb = (t[b].double().requires_grad_() for t in (q, k, v))
+        p = torch.softmax(qb @ kb.T * scale, dim=0 if axis == "q" else 1)
+        for acc, gr in zip(grads, torch.autograd.grad(p @ vb, (qb, kb, vb),
+                                                      g[b].double())):
+            acc.append(gr)
+        del p
+    return [torch.stack(a) for a in grads]
+
+
+def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
+    """The three backward kernels, each against its plain version on the
+    same inputs (the stats of the forward kernel, and corr from the dV
+    kernel), and against the plain version of the other softmax axis, which
+    must fail. bf16 on the q axis is also held to a float64 truth (see
+    BWD_TRUTH)."""
+    import torch.nn.functional as F
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    dn = str(dtype).split(".")[-1]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    other = "k" if axis == "q" else "q"
+    q, k = (randn((BATCH, s_len, d), dtype, std=QK_STD) for _ in range(2))
+    v, g = (randn((BATCH, s_len, d), dtype) for _ in range(2))
+    scale = d ** -0.5
+    tag = f"{dn} S={s_len} D={d} {axis}"
+    fwd = {}
+    for ax in (axis, other):
+        m, l = sa.streaming_stats(q, k, scale, ax)
+        out32 = sa.streaming_apply(q, k, v, m, l, scale, ax,
+                                   out_dtype=torch.float32)
+        fwd[ax] = (m, l, out32)
+    m, l, out32 = fwd[axis]
+    dv = sa.streaming_dv(q, k, g, m, l, scale, axis)
+    corr = sa.streaming_correction(g, v, out32, dv, axis)
+    got = {"dv": dv, "dk": sa.streaming_dk(q, k, v, g, m, l, corr, scale,
+                                           axis),
+           "dq": sa.streaming_dq(q, k, v, g, m, l, corr, scale, axis)}
+    plain = {"dv": sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
+             "dk": sa.streaming_dk_reference(q, k, v, g, m, l, corr, scale,
+                                             axis),
+             "dq": sa.streaming_dq_reference(q, k, v, g, m, l, corr, scale,
+                                             axis)}
+    mo, lo, out32o = fwd[other]
+    dvo = sa.streaming_dv_reference(q, k, g, mo, lo, scale, other)
+    corro = sa.streaming_correction(g, v, out32o, dvo, other)
+    wrong = {"dv": dvo,
+             "dk": sa.streaming_dk_reference(q, k, v, g, mo, lo, corro,
+                                             scale, other),
+             "dq": sa.streaming_dq_reference(q, k, v, g, mo, lo, corro,
+                                             scale, other)}
+    truth_rows = list(range(min(BATCH, TRUTH_ROWS)))
+    truth = None
+    if dtype == torch.bfloat16 and axis == "q":
+        tq, tk, tv = float64_truth(torch, q, k, v, g, scale, axis,
+                                   truth_rows)
+        truth = {"dq": tq, "dk": tk, "dv": tv}
+    line = [f"streaming backward {tag}:"]
+    errs = {}
+    for name in ("dv", "dk", "dq"):
+        tol = BWD_TOL[dn]
+        extra = ""
+        if truth is not None and name != "dv":
+            e_k = bwd_error(got[name][truth_rows], truth[name])
+            e_p = bwd_error(plain[name][truth_rows], truth[name])
+            limit = BWD_TRUTH["mult"] * e_p + BWD_TRUTH["add"]
+            if not e_k <= limit:
+                raise AssertionError(
+                    f"streaming_{name} {tag}: error against float64 truth "
+                    f"{e_k:.3e} (of max|truth|) exceeds {BWD_TRUTH['mult']} x "
+                    f"the plain bf16 version's {e_p:.3e} + {BWD_TRUTH['add']}")
+            # Against the plain version: the triangle inequality through the
+            # truth, in units of max|truth| on the truth rows.
+            tmax = truth[name].abs().max().item()
+            tol = dict(atol=0.0, rtol=0.0, of_max=0.0,
+                       atol_abs=(limit + e_p) * tmax)
+            extra = (f" vs float64 truth {e_k:.3e} (plain {e_p:.3e}, limit "
+                     f"{limit:.3e})")
+        err = compare_bwd(f"streaming_{name} {tag}", got[name], plain[name],
+                          tol)
+        must_fail_bwd(f"streaming_{name} {tag}", got[name], wrong[name], tol)
+        errs[name] = (err, tol, extra)
+        line.append(f"{name} err abs {err[0]:.2e} rel {err[1]:.2e}{extra};")
+    line.append("wrong axis fails")
+    log(" ".join(line))
+
+    reps = _reps(s_len, dn)
+    ms = {"dv": time_ms(lambda: sa.streaming_dv(q, k, g, m, l, scale, axis),
+                        reps),
+          "dk": time_ms(lambda: sa.streaming_dk(q, k, v, g, m, l, corr, scale,
+                                                axis), reps),
+          "dq": time_ms(lambda: sa.streaming_dq(q, k, v, g, m, l, corr, scale,
+                                                axis), reps)}
+    plain_ms = {
+        "dv": time_ms(lambda: sa.streaming_dv_reference(q, k, g, m, l, scale,
+                                                        axis), reps),
+        "dk": time_ms(lambda: sa.streaming_dk_reference(
+            q, k, v, g, m, l, corr, scale, axis), reps),
+        "dq": time_ms(lambda: sa.streaming_dq_reference(
+            q, k, v, g, m, l, corr, scale, axis), reps)}
+    lib = None
+    if axis == "k":
+        qh, kh, vh = (a[:, None].detach().requires_grad_() for a in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        gh = g[:, None]
+        lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                  retain_graph=True), reps)
+        del out
+    flops = float(BATCH) * s_len * s_len * d
+    tensor_b = BATCH * s_len * d
+    stat_b = BATCH * s_len * 4
+    # Bytes: each input read once, the fp32 output written once.
+    bounds = {"dv": bound_ms(3 * tensor_b * isz + 2 * stat_b + tensor_b * 4,
+                             4 * flops, dn),
+              "dk": bound_ms(4 * tensor_b * isz + 3 * stat_b + tensor_b * 4,
+                             6 * flops, dn),
+              "dq": bound_ms(4 * tensor_b * isz + 3 * stat_b + tensor_b * 4,
+                             6 * flops, dn)}
+    common = dict(model="sr", dtype=dn, axis=axis, shape=[BATCH, s_len, d])
+    for name in ("dv", "dk", "dq"):
+        err, tol, extra = errs[name]
+        results.append(dict(common, kernel=f"streaming_{name}",
+                            max_abs_err=err[0], max_rel_err=err[1],
+                            tol=tol, truth=extra.strip() or None,
+                            ms=ms[name], plain_ms=plain_ms[name],
+                            library_ms=None, bound_ms=bounds[name][0],
+                            bound_by=bounds[name][1]))
+    results.append(dict(common, kernel="streaming_backward",
+                        ms=sum(ms.values()), plain_ms=sum(plain_ms.values()),
+                        library_ms=lib,
+                        bound_ms=sum(b for b, _ in bounds.values()),
+                        bound_by="operations"))
+    log(f"streaming backward {tag}: " + ", ".join(
+        f"{n} {ms[n]:.4f} ms (plain {plain_ms[n]:.4f}, bound "
+        f"{bounds[n][0]:.4f} {bounds[n][1]})" for n in ms)
+        + f"; sdpa backward {lib if lib is None else round(lib, 4)}")
+
+
+def compare_bwd(name, got, want, tol):
+    """`compare`, with an optional absolute bound `atol_abs` on max |got -
+    want| (the q-axis bf16 bound through the float64 truth)."""
+    if "atol_abs" not in tol:
+        return compare(name, got, want, tol)
+    got, want = got.float(), want.float()
+    if not torch_isfinite_all(got):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    max_abs = (got - want).abs().max().item()
+    if not max_abs <= tol["atol_abs"]:
+        raise AssertionError(f"{name}: max abs {max_abs:.3e} past "
+                             f"{tol['atol_abs']:.3e}")
+    return max_abs, max_abs / max(want.abs().max().item(), 1e-30)
+
+
+def must_fail_bwd(name, got, wrong, tol):
+    try:
+        compare_bwd(name, got, wrong, tol)
+    except AssertionError:
+        return
+    raise AssertionError(f"{name}: the wrong softmax axis passes; the check "
+                         "cannot see the axis")
+
+
+def torch_isfinite_all(t):
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
 # --------------------------------------------------------------- phase 3
 
 def model_phase(torch, name, cfg, img):
@@ -561,16 +801,100 @@ def model_phase(torch, name, cfg, img):
     return report
 
 
+def grad_phase(torch, name, cfg, img, streaming):
+    """One forward and backward of the U-Net under the trainers' loss (fp32
+    MSE against a target), fp32 parameters computing in fp32 or bf16 as the
+    trainers run, one t per sample: kernels on against off. Gradients are
+    held per tensor in fp32 and as a whole in bf16 (GRAD_TOL); the kernels-on
+    backward must launch dV, dK and dQ once per `streaming` block."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    from sdm_tpu_torch.models import UNet
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((BATCH, img, img, cfg["in_channel"]), generator=gen,
+                    device=dev)
+    target = torch.randn((BATCH, img, img, cfg["out_channel"]),
+                         generator=gen, device=dev)
+    t = torch.randint(1, 1000, (BATCH,), generator=gen, device=dev)
+    backward = (sa.streaming_dv, sa.streaming_dk, sa.streaming_dq)
+    report = {}
+
+    def fwd_bwd(net):
+        net.zero_grad(set_to_none=True)
+        loss = torch.mean(torch.square(net(x, t).float() - target))
+        loss.backward()
+        return loss.detach()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        torch.manual_seed(0)
+        compute = None if dtype == torch.float32 else dtype
+        nets = [UNet(**cfg, dtype=compute, use_kernels=on) for on in
+                (True, False)]
+        nets[1].load_state_dict(nets[0].state_dict())
+        nets = [n.to(dev, memory_format=torch.channels_last) for n in nets]
+        before = [fn.launches for fn in backward]
+        loss_k = fwd_bwd(nets[0])
+        torch.cuda.synchronize()
+        bwd_launches = {fn.__name__: fn.launches - b
+                        for fn, b in zip(backward, before)}
+        loss_p = fwd_bwd(nets[1])
+        pairs = list(zip(nets[0].named_parameters(), nets[1].parameters()))
+        for (pname, p_k), p_p in pairs:
+            if (p_k.grad is None) != (p_p.grad is None):
+                raise AssertionError(f"{name} U-Net {dn}: {pname} has a "
+                                     "gradient on one side only")
+        pairs = [(pname, p_k.grad.float(), p_p.grad.float())
+                 for (pname, p_k), p_p in pairs if p_p.grad is not None]
+        norms = [g_p.norm().item() for _, _, g_p in pairs]
+        floor = GRAD_FLOOR * max(norms)
+        per_tensor = {pname: (g_k - g_p).norm().item() / max(n, floor)
+                      for (pname, g_k, g_p), n in zip(pairs, norms)}
+        whole = (math.sqrt(sum((g_k - g_p).norm().item() ** 2
+                               for _, g_k, g_p in pairs))
+                 / math.sqrt(sum(n ** 2 for n in norms)))
+        worst = max(per_tensor, key=per_tensor.get)
+        ms_k = time_ms(lambda: fwd_bwd(nets[0]), 2)
+        ms_p = time_ms(lambda: fwd_bwd(nets[1]), 2)
+        log(f"{name} unet {dn:8s} gradients kernels vs plain: whole "
+            f"normwise rel {whole:.3e}, worst tensor {per_tensor[worst]:.3e} "
+            f"({worst}), loss {loss_k.item():.6f} vs {loss_p.item():.6f}; "
+            f"backward kernel launches {bwd_launches}; forward+backward "
+            f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain")
+        bound = whole if dtype == torch.bfloat16 else per_tensor[worst]
+        if not bound <= GRAD_TOL[dn]:
+            raise AssertionError(f"{name} U-Net {dn}: gradients kernels vs "
+                                 f"plain {bound:.3e} past {GRAD_TOL[dn]}")
+        if any(n != streaming for n in bwd_launches.values()):
+            raise AssertionError(f"{name} U-Net {dn}: backward kernels "
+                                 f"launched {bwd_launches}, expected "
+                                 f"{streaming} each")
+        report[dn] = dict(whole_rel=whole, worst_tensor=worst,
+                          worst_tensor_rel=per_tensor[worst],
+                          backward_launches=bwd_launches,
+                          ms_kernels=ms_k, ms_plain=ms_p)
+        del nets, pairs
+        torch.cuda.empty_cache()
+    return report
+
+
 # Kernel-name fragments -> family for the device-time breakdown; the first
-# match wins, so the streaming kernels (stream_apply*, and the shared stats
-# kernels tagged <streaming>) come before the whole-S attention, and the
-# port's kernels and cuDNN's convolutions before cuBLAS's GEMMs.
+# match wins, so the streaming backward passes (tagged dv_pass, dk_pass,
+# dq_pass) come before the other streaming kernels (stream_apply*, and the
+# shared stats kernels tagged <streaming>), those before the whole-S
+# attention, and the port's kernels and cuDNN's convolutions before cuBLAS's
+# GEMMs.
 FAMILIES = (("adagn_", "adagn (port)"),
+            ("dv_pass", "streaming dV (port)"),
+            ("dk_pass", "streaming dK (port)"),
+            ("dq_pass", "streaming dQ (port)"),
             ("stream", "streaming attention (port)"),
             ("attn_", "attention (port)"),
             ("linear_", "linear (port)"), ("fprop", "conv (cuDNN)"),
-            ("dgrad", "conv (cuDNN)"), ("conv", "conv (cuDNN)"),
-            ("implicit", "conv (cuDNN)"), ("gemm", "matmul (cuBLAS)"))
+            ("dgrad", "conv (cuDNN)"), ("wgrad", "conv (cuDNN)"),
+            ("conv", "conv (cuDNN)"), ("implicit", "conv (cuDNN)"),
+            ("gemm", "matmul (cuBLAS)"), ("multi_tensor", "Adam (torch)"),
+            ("adam", "Adam (torch)"))
 
 
 def device_breakdown(torch, fn):
@@ -649,7 +973,7 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes."""
+    passes. Calls without a gradient launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -657,7 +981,8 @@ def expected_launches(cfg, calls, streaming):
             "fused_attention_block": blocks * calls,
             "linear": 2 * blocks * calls,
             "streaming_stats": streaming * calls,
-            "streaming_apply": streaming * calls}
+            "streaming_apply": streaming * calls,
+            "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0}
 
 
 def serve_requests(torch, engine, counters, requests):
@@ -835,11 +1160,198 @@ def traced_batch(torch, engine, requests):
                 untraced_wall_s=untraced)
 
 
+def train_config(out_dir, data_glob, cfg, img):
+    """A reference-format training config for cfg's U-Net at `img`, batch
+    16, bf16, kernels on: checkpoints (with a preview) at step 0 only, so
+    the run's U-Net calls are its steps plus one preview of 51 calls."""
+    out = dict(dataset_path=data_glob, use_conditional=False, cond_dim=None,
+               out_dir=out_dir, checkpoint_steps=1000, lr_steps=100_000,
+               max_epoch=1, plot_img_count=BATCH, flip_imgs=True,
+               model_checkpoint=None, load_diffusion_optim=False,
+               config_checkpoint=None, diffusion_lr=2e-5,
+               batch_size=BATCH, noise_scheduler="LINEAR", beta1=5e-3,
+               betaT=9e-3, diffusion_alg="DDIM", skip_step=DDIM_STEP,
+               min_noise_step=1, max_noise_step=1000,
+               max_actual_noise_step=1000, in_channel=cfg["in_channel"],
+               out_channel=cfg["out_channel"], num_layers=cfg["num_layers"],
+               num_resnet_block=cfg["num_resnet_blocks"],
+               attn_layers=list(cfg["attn_layers"]),
+               attn_heads=cfg["num_heads"],
+               attn_dim_per_head=cfg["dim_per_head"],
+               time_dim=cfg["time_dim"], min_channel=cfg["min_channel"],
+               max_channel=cfg["max_channel"], img_recon=cfg["image_recon"],
+               compute_dtype="bfloat16", seed=0)
+    if cfg is SR:
+        out.update(lr_dim=img // 2, sr_dim=img, cond_t=SR_COND_T)
+    return out
+
+
+def expected_train_launches(cfg, steps, streaming):
+    """Launches of a training run: one U-Net call per step and a preview of
+    1000 // DDIM_STEP + 1 calls forward (`expected_launches`), and dV, dK
+    and dQ once per streaming block per step backward. AdaGN, the whole-S
+    attention and the blocks recompute their backward through the plain
+    version, and `linear`'s backward is plain matmuls: no launches."""
+    out = expected_launches(cfg, steps + 1000 // DDIM_STEP + 1, streaming)
+    for kernel in ("streaming_dv", "streaming_dk", "streaming_dq"):
+        out[kernel] = streaming * steps
+    return out
+
+
+def train_phase(torch, counters, spec, name, cfg, img, streaming):
+    """One trainer run at full width (see the module docstring, phase 5).
+    Returns its launches and a report."""
+    import numpy as np
+    from sdm_tpu_torch.data import datasets
+    from sdm_tpu_torch.io.checkpoint import load_optimizer_from_checkpoint
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.train.loop import run_training
+    from sdm_tpu_torch.train.step import make_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        # Seeded uint8 HWC images. With OpenCV they are PNGs read by the
+        # dataset's own cv2 decode. A machine without OpenCV gets .npy files
+        # and only the decode function is swapped for np.load (the loader,
+        # the trainer and all after them stay the real path); there the
+        # preview grid's JPEG write fails after the preview has sampled,
+        # which the trainer logs and goes on from (checked below).
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        rng = np.random.default_rng(3)
+        images = rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
+                              dtype=np.uint8)
+        ext = "npy" if cv2 is None else "png"
+        for i, im in enumerate(images):
+            path = os.path.join(tmp, f"im_{i}.{ext}")
+            if cv2 is None:
+                np.save(path, im)
+            else:
+                cv2.imwrite(path, im)
+        decode = datasets._imread_u8
+        if cv2 is None:
+            datasets._imread_u8 = np.load
+        log(f"{name} trainer: {TRAIN_IMAGES} images {img}x{img} as .{ext}, "
+            + ("np.load in place of the cv2 decode" if cv2 is None
+               else "the dataset's cv2 decode"))
+        out_dir = os.path.join(tmp, "out")
+        config = train_config(out_dir, os.path.join(tmp, f"*.{ext}"), cfg,
+                              img)
+        try:
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.monotonic()
+            summary = run_training(spec, config, device=dev,
+                                   max_steps=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+        finally:
+            datasets._imread_u8 = decode
+
+        expect = expected_train_launches(cfg, TRAIN_STEPS, streaming)
+        log(f"{name} trainer: launches {launches}, expected {expect} "
+            f"({TRAIN_STEPS} steps, one preview of {1000 // DDIM_STEP + 1} "
+            "U-Net calls)")
+        for kernel, n in expect.items():
+            if launches[kernel] != n:
+                raise AssertionError(f"{name} trainer: {kernel} launched "
+                                     f"{launches[kernel]} times, expected {n}")
+        with open(os.path.join(out_dir, f"{spec.project_name}.log")) as f:
+            lines = f.read().splitlines()
+        losses = [float(line.split("Diffusion: ")[1].split(" ")[0])
+                  for line in lines if "Cum. Steps:" in line]
+        if (summary["global_steps"] != TRAIN_STEPS
+                or len(losses) != TRAIN_STEPS
+                or not all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"{name} trainer: {summary['global_steps']} "
+                                 f"steps, running mean losses {losses}")
+        previews = [line for line in lines
+                    if "Preview sampling failed" in line]
+        plotted = os.path.exists(os.path.join(out_dir, "plots",
+                                              "diffusion_plot_0.jpg"))
+        if (any("cv2" not in line for line in previews)
+                or plotted != (cv2 is not None)):
+            raise AssertionError(f"{name} trainer: preview failed: "
+                                 f"{previews}")
+        names = sorted(os.listdir(os.path.join(out_dir, "checkpoint")))
+        want = sorted(f"{k}_{s}.pt" for k in ("config", "diffusion")
+                      for s in (0, TRAIN_STEPS))
+        if names != want:
+            raise AssertionError(f"{name} trainer: checkpoints {names}")
+
+        # The step-0 checkpoint into a fresh model and Adam: strict keys,
+        # the one step taken, its moments.
+        ckpt = torch.load(os.path.join(out_dir, "checkpoint",
+                                       "diffusion_0.pt"), map_location="cpu")
+        net = UNet.from_config(config)
+        net.load_state_dict(ckpt["model"], strict=True)
+        opt, _ = make_optimizer(net.parameters(), config["diffusion_lr"],
+                                config["lr_steps"])
+        count = load_optimizer_from_checkpoint(ckpt, opt)
+        moved = 0
+        for idx, p in enumerate(net.parameters()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                if not torch.equal(opt.state[p][key],
+                                   ckpt["optimizer"]["state"][idx][key]):
+                    raise AssertionError(f"{name} trainer: Adam {key} {idx} "
+                                         "did not reload")
+            moved += int(opt.state[p]["exp_avg"].abs().max().item() > 0)
+        if count != 1 or moved == 0:
+            raise AssertionError(f"{name} trainer: step-0 checkpoint count "
+                                 f"{count}, {moved} non-zero moments")
+        log(f"{name} trainer: step-0 checkpoint reloads strictly "
+            f"({len(net.state_dict())} tensors, Adam count {count}, {moved} "
+            "parameters with non-zero first moments)")
+        del net, opt, ckpt
+
+        # Rate: the median of the loop's step intervals past the first,
+        # which holds the step-0 checkpoint and preview. The median, since
+        # the last interval is short whenever the host reads the second-to-
+        # last loss after the last step has already finished.
+        times = sorted(summary["step_times"][1:])
+        sps = 1.0 / times[len(times) // 2]
+        state = summary["state"]
+        schedule = make_schedule("LINEAR", max_noise_step=1000, device=dev)
+        step_fn = make_train_step(
+            schedule, objective=spec.objective, max_actual_noise_step=1000,
+            flip_imgs=True, cond_t=config.get("cond_t"),
+            lr_dim=config.get("lr_dim"))
+        batch = {"image": torch.from_numpy(images[:BATCH]).to(dev)}
+        gen = torch.Generator(device=dev).manual_seed(4)
+        split = device_breakdown(torch, lambda: step_fn(state, batch, gen))
+    log(f"{name} trainer: {TRAIN_STEPS} steps in {wall:.2f} s (with the "
+        f"step-0 checkpoint, preview and the final checkpoint); median "
+        f"interval of steps 2-{TRAIN_STEPS}: {1e3 / sps:.1f} ms, {sps:.3f} "
+        f"steps/s, {sps * BATCH:.1f} img/s; "
+        f"running mean losses {[round(v, 5) for v in losses]}")
+    if split is None:
+        log(f"{name} train step device breakdown: not measured (the profiler "
+            "trace holds no device time)")
+    else:
+        log(f"{name} train step device breakdown (profiler): "
+            f"{split['total_ms']:.3f} ms in {split['launches']} kernel "
+            "launches; " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in
+                sorted(split["families"].items(), key=lambda kv: -kv[1])))
+        for k in split["top"]:
+            log(f"  {k['ms']:8.3f} ms  x{k['count']:<4d} {k['name']}")
+    del state, summary
+    torch.cuda.empty_cache()
+    return launches, dict(steps_per_s=sps, img_per_s=sps * BATCH,
+                          run_seconds=wall, losses=losses,
+                          device_breakdown=split)
+
+
 def summarize(results, launches):
     """One entry per kernel: the main path's shapes (bf16, query axis),
     times summed over one U-Net call: the flagship's for the kernels of
-    slice 1, the SR model's for the streaming kernels. `launches` sums the
-    two served paths; `launches_by_path` keeps them apart."""
+    slice 1, the SR model's for the streaming kernels (forward: one SR
+    U-Net call; backward: one SR train step). `launches` sums the served
+    and trained paths; `launches_by_path` keeps them apart."""
     meta = {
         "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
@@ -856,6 +1368,15 @@ def summarize(results, launches):
         "streaming_apply": ("streaming_apply", "sr",
                             "sdm_tpu_torch/csrc/streaming_attention.cu",
                             "sdm_tpu/kernels/streaming_attention.py:234", 1),
+        "streaming_dv": ("streaming_dv", "sr",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu/kernels/streaming_attention.py:298", 1),
+        "streaming_dk": ("streaming_dk", "sr",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu/kernels/streaming_attention.py:260", 1),
+        "streaming_dq": ("streaming_dq", "sr",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu/kernels/streaming_attention.py:271", 1),
     }
     # STREAM_SHAPES[0] is the SR model's one streaming block.
     shapes = {"flagship": None, "sr": [[BATCH, *STREAM_SHAPES[0]]]}
@@ -877,7 +1398,10 @@ def summarize(results, launches):
             library_ms=(None if any(v is None for v in lib)
                         else sum(lib) * per_call),
             launches_by_path={path: n[name] for path, n in launches.items()},
-            per=f"one {model} U-Net call, batch 16, bf16, query axis"))
+            per=(f"one {model} "
+                 + ("train step" if name.startswith("streaming_d")
+                    else "U-Net call")
+                 + ", batch 16, bf16, query axis")))
     return out
 
 
@@ -897,7 +1421,9 @@ def main() -> int:
         from sdm_tpu_torch.kernels.attention_block import (
             fused_attention_block, linear)
         from sdm_tpu_torch.kernels.streaming_attention import (
-            streaming_apply, streaming_stats)
+            streaming_apply, streaming_dk, streaming_dq, streaming_dv,
+            streaming_stats)
+        from sdm_tpu_torch.train.loop import BASE_SPEC, SR_SPEC
     except ImportError as e:
         print(f"chip_smoke: the sdm_tpu_torch package is missing ({e}); run "
               "from the repository root", file=sys.stderr)
@@ -926,23 +1452,32 @@ def main() -> int:
     t0 = time.monotonic()
     model = {"flagship": model_phase(torch, "flagship", FLAGSHIP, IMG),
              "sr": model_phase(torch, "sr", SR, SR_IMG)}
+    grads = {"flagship": grad_phase(torch, "flagship", FLAGSHIP, IMG, 0),
+             "sr": grad_phase(torch, "sr", SR, SR_IMG, 1)}
     log(f"model phase: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     counters = [fused_adagn, fused_attention, fused_attention_block, linear,
-                streaming_stats, streaming_apply]
-    launches, served = {}, {}
+                streaming_stats, streaming_apply, streaming_dv, streaming_dk,
+                streaming_dq]
+    launches, served, trained = {}, {}, {}
     launches["flagship"], served["flagship"], lr_images = serving_phase(
         torch, counters)
     launches["sr"], served["sr"] = sr_serving_phase(torch, counters,
                                                     lr_images)
     log(f"serving phase: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches["sr_train"], trained["sr"] = train_phase(
+        torch, counters, SR_SPEC, "sr", SR, SR_IMG, streaming=1)
+    launches["base_train"], trained["base"] = train_phase(
+        torch, counters, BASE_SPEC, "base", FLAGSHIP, IMG, streaming=0)
+    log(f"training phase: {time.monotonic() - t0:.1f} s")
 
     kernels = summarize(results, launches)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
                        results=results, kernels=kernels, model=model,
-                       served=served,
+                       grads=grads, served=served, trained=trained,
                        seconds=time.monotonic() - t_start), f, indent=1)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

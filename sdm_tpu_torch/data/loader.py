@@ -1,0 +1,117 @@
+"""Host-side batched loader with threaded decode and batch prefetch (the
+port's own copy of sdm_tpu/data/loader.py's per-image path).
+
+Images of a batch are decoded on a thread pool (cv2 releases the GIL) and
+stacked into one NHWC array; a small queue keeps `prefetch` batches ready.
+Batch shapes are static (`drop_last` defaults to True for training). The
+shuffle is a `random.Random(seed)` permutation per epoch, as in sdm_tpu, so
+a seed gives the same batch order in both packages.
+
+sdm_tpu's native batched decoder (csrc/sdm_decode.cc) is not ported: a
+loader asked for it says so in the log and takes the per-image path.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import random
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+def _collate(samples) -> dict:
+    out = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        out[key] = (np.stack(vals) if isinstance(vals[0], np.ndarray)
+                    else vals)
+    return out
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 8, drop_last: bool = True,
+                 prefetch: int = 2, seed: Optional[int] = None,
+                 native_decode: bool = False):
+        self.dataset = dataset
+        self.batch_size = (min(batch_size, len(dataset)) if len(dataset)
+                           else batch_size)
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last and len(dataset) >= batch_size
+        self.prefetch = prefetch
+        self._rng = random.Random(seed)
+        if native_decode:
+            logging.info("native decode is not ported to sdm_tpu_torch; "
+                         "using the per-image cv2 loader")
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_indices(self):
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        batches = []
+        for i in range(0, len(idx), self.batch_size):
+            b = idx[i:i + self.batch_size]
+            if len(b) < self.batch_size and self.drop_last:
+                continue
+            batches.append(b)
+        return batches
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = self._batch_indices()
+        if not batches:
+            return iter(())
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop = threading.Event()
+
+        def _put(item) -> bool:
+            # Gives up once the consumer abandoned the epoch (an early break),
+            # so the producer thread can exit.
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in batches:
+                        if stop.is_set():
+                            return
+                        batch = _collate(list(pool.map(
+                            self.dataset.__getitem__, b)))
+                        if not _put(batch):
+                            return
+            except Exception as e:  # surface decode errors to the consumer
+                _put(e)
+            finally:
+                _put(sentinel)
+
+        threading.Thread(target=produce, daemon=True).start()
+
+        def gen():
+            try:
+                while True:
+                    item = q.get()
+                    if item is sentinel:
+                        break
+                    if isinstance(item, Exception):
+                        raise item
+                    yield item
+            finally:
+                stop.set()
+        return gen()

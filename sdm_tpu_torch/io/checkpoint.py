@@ -6,12 +6,19 @@ sdm_tpu/io/checkpoint.py).
 `(ok, dict)`, mapped to the CPU. Model checkpoints are
 `{"model": <state_dict>, "optimizer": <Adam state_dict>}`; in torch that is
 the native format, so the port's state_dict goes in and out unchanged.
+
+The optimizer entry is what sdm_tpu writes (torch_interop.py::
+optax_adam_to_torch, :215-249): every parameter indexed in
+`UNet.parameters()` order, which is sdm_tpu's `torch_param_order`
+(tests/test_torch_train_step.py holds the two equal), one Adam step count
+for all, betas (0.5, 0.999) and the run's lr in `param_groups`. So either
+package resumes from the other's checkpoints, Adam moments included.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -45,3 +52,60 @@ def load_checkpoint(checkpoint_path: str, log=print
             return False, None
     log("Checkpoint does not exist.")
     return False, None
+
+
+def diffusion_checkpoint_dict(model: torch.nn.Module, optimizer=None,
+                              lr: float = 0.0) -> Dict[str, Any]:
+    """{"model": fp32 CPU state_dict[, "optimizer": Adam state_dict]}. Every
+    parameter gets an optimizer entry with the run's one step count (zero
+    moments where Adam never ran), and param_groups[0]["lr"] = lr."""
+    out = {"model": {k: v.detach().to("cpu", torch.float32).clone()
+                     for k, v in model.state_dict().items()}}
+    if optimizer is None:
+        return out
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    steps = [float(st["step"]) for st in sd["state"].values()]
+    count = max(steps) if steps else 0.0
+    state = {}
+    for idx, p in enumerate(params):
+        st = sd["state"].get(idx)
+        state[idx] = {
+            "step": torch.tensor(count),
+            "exp_avg": (st["exp_avg"] if st else torch.zeros_like(p))
+            .detach().to("cpu", torch.float32).clone(),
+            "exp_avg_sq": (st["exp_avg_sq"] if st else torch.zeros_like(p))
+            .detach().to("cpu", torch.float32).clone()}
+    groups = [dict(g) for g in sd["param_groups"]]
+    groups[0]["lr"] = float(lr)
+    out["optimizer"] = {"state": state, "param_groups": groups}
+    return out
+
+
+def load_params_from_checkpoint(ckpt: dict, model: torch.nn.Module,
+                                log=print, key: str = "model") -> None:
+    """The reference's custom_load_state_dict: a partial load into `model`
+    that skips keys the model lacks and keys whose shape differs, keeping
+    the model's own values there (sdm_tpu's merge_partial_params)."""
+    own = model.state_dict()
+    for name, value in ckpt[key].items():
+        if name not in own:
+            log(f"No Layer found: {name}, skipping")
+            continue
+        if tuple(own[name].shape) != tuple(value.shape):
+            log(f"Skipped: {name}")
+            continue
+        own[name] = value
+    model.load_state_dict(own, strict=True)
+
+
+def load_optimizer_from_checkpoint(ckpt: dict, optimizer) -> int:
+    """Load the checkpoint's Adam state (moments and step counts) into
+    `optimizer`; returns the step count, which the lr schedule's count
+    takes (sdm_tpu's torch_adam_to_optax sets every optax count to it)."""
+    sd = ckpt["optimizer"]
+    state = {int(k): v for k, v in sd["state"].items()}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": sd["param_groups"]})
+    steps = [int(float(st["step"])) for st in state.values()]
+    return steps[-1] if steps else 0

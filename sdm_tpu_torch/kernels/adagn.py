@@ -11,7 +11,9 @@ mostly hits L2.
 Admission is the port's own: every shape with C % groups == 0 and C % 8 == 0
 goes to the kernel (the TPU's VMEM budget and C % 128 rule are not carried
 over). `adagn_reference` is the plain PyTorch version (sdm_tpu's
-`_xla_adagn`); the wrapper takes it only for CPU tensors.
+`_xla_adagn`); the wrapper takes it only for CPU tensors. When a gradient is
+wanted the call runs as `FusedAdaGN`, whose backward recomputes through
+`adagn_reference` (sdm_tpu's VJP, adagn.py:167-175).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import torch
 
 from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels._autograd import recompute_backward, wants_grad
 from sdm_tpu_torch.ops.norms import group_norm
 
 _SIGNATURES = {
@@ -51,7 +54,37 @@ def fused_adagn(x, gn_scale, gn_bias, mod_scale, mod_shift,
     of x's and the FiLM tables' dtypes.
 
     CPU tensors run `adagn_reference`; CUDA tensors launch csrc/adagn.cu or
-    raise."""
+    raise. Differentiable (`FusedAdaGN`)."""
+    args = (x, gn_scale, gn_bias, mod_scale, mod_shift, num_groups, eps)
+    if wants_grad(*args):
+        return FusedAdaGN.apply(*args)
+    return _forward(*args)
+
+
+fused_adagn.launches = 0
+
+
+class FusedAdaGN(torch.autograd.Function):
+    """The kernel forward; the backward differentiates `adagn_reference` on
+    the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, mod_scale, mod_shift, num_groups,
+                eps):
+        ctx.save_for_backward(x, gn_scale, gn_bias, mod_scale, mod_shift)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _forward(x, gn_scale, gn_bias, mod_scale, mod_shift,
+                        num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_backward(
+            adagn_reference, (*ctx.saved_tensors, ctx.num_groups, ctx.eps),
+            ctx.needs_input_grad, g)
+
+
+def _forward(x, gn_scale, gn_bias, mod_scale, mod_shift, num_groups, eps):
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if x.device.type == "cpu":
         return adagn_reference(x, gn_scale, gn_bias, mod_scale, mod_shift,
                                num_groups, eps)
@@ -96,6 +129,3 @@ def fused_adagn(x, gn_scale, gn_bias, mod_scale, mod_shift,
     _build.check(lib, rc, what)
     fused_adagn.launches += 1
     return out
-
-
-fused_adagn.launches = 0

@@ -17,7 +17,11 @@ fp32 accumulation. `attention()` is the dispatcher the layers call: with
 (`whole_s_ok`, the C entry point's own formula mirrored) go to
 `fused_attention` and longer grids to the streaming kernel
 (kernels/streaming_attention.py); without it the plain version. The TPU's
-`_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried over.
+`_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried over. When a
+gradient is wanted `fused_attention` runs as `FusedAttention`, whose
+backward recomputes through `attention_reference` (sdm_tpu's VJP,
+attention.py:193-199); streaming shapes differentiate through the streaming
+kernels' own backward.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import ctypes
 import torch
 
 from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels._autograd import recompute_backward, wants_grad
 from sdm_tpu_torch.kernels.streaming_attention import streaming_attention
 
 _SIGNATURES = {
@@ -89,7 +94,35 @@ def fused_attention(q, k, v, scale: float, softmax_axis: str = "q"):
     buffer are fine); returns a contiguous (N, S, H, D) in q's dtype.
 
     CPU tensors run `attention_reference`; CUDA tensors launch
-    csrc/attention.cu or raise."""
+    csrc/attention.cu or raise. Differentiable (`FusedAttention`)."""
+    if wants_grad(q, k, v):
+        return FusedAttention.apply(q, k, v, scale, softmax_axis)
+    return _forward(q, k, v, scale, softmax_axis)
+
+
+fused_attention.launches = 0
+
+
+class FusedAttention(torch.autograd.Function):
+    """The kernel forward; the backward differentiates `attention_reference`
+    on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, softmax_axis):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.softmax_axis = scale, softmax_axis
+        return _forward(q, k, v, scale, softmax_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_backward(
+            attention_reference,
+            (*ctx.saved_tensors, ctx.scale, ctx.softmax_axis),
+            ctx.needs_input_grad, g)
+
+
+def _forward(q, k, v, scale, softmax_axis):
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, softmax_axis)
     what = "fused_attention"
@@ -123,9 +156,6 @@ def fused_attention(q, k, v, scale: float, softmax_axis: str = "q"):
     _build.check(lib, rc, what)
     fused_attention.launches += 1
     return out
-
-
-fused_attention.launches = 0
 
 
 def attention(q, k, v, scale: float, softmax_axis: str = "q",

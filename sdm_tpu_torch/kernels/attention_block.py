@@ -25,6 +25,16 @@ Weights are in nn.Linear layout: w_qkv (3*d_k, C), w_out (C, d_k), in the
 tokens' dtype; biases (fp32 or the tokens' dtype) are added in fp32.
 `attention_block_reference` and `linear_reference` are the plain versions
 (sdm_tpu's `_xla_block` and its TorchLinear products).
+
+Gradients. At whole-S shapes the block runs as `FusedAttentionBlock`, whose
+backward recomputes through `attention_block_reference` (sdm_tpu's VJP,
+attention_block.py:152-158). Past `whole_s_ok` there is no whole-block
+Function: sdm_tpu's block kernel never admits such grids, and its layer
+takes the streaming `attention()` instead. So the block composes `linear`
+(a Function whose backward is plain matmuls), the streaming Function
+(kernels/streaming_attention.py, whose backward is the dV, dK and dQ
+kernels) and `linear` again: the streaming residuals m and l come from the
+one forward, and no S x S matrix exists in either direction.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import ctypes
 import torch
 
 from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels._autograd import recompute_backward, wants_grad
 from sdm_tpu_torch.kernels.attention import (attention_reference,
                                              fused_attention, whole_s_ok)
 from sdm_tpu_torch.kernels.streaming_attention import streaming_attention
@@ -62,7 +73,42 @@ def linear(x, weight, bias, residual=None):
     Returns (M, N) in x's dtype.
 
     CPU tensors run `linear_reference`; CUDA tensors launch csrc/linear.cu
-    or raise."""
+    or raise. Differentiable (`Linear`)."""
+    if wants_grad(x, weight, bias, residual):
+        return Linear.apply(x, weight, bias, residual)
+    return _linear_forward(x, weight, bias, residual)
+
+
+linear.launches = 0
+
+
+class Linear(torch.autograd.Function):
+    """The kernel forward; the backward is the plain version's own gradient
+    in plain matmuls: the output's fp32 rounding point passes g through as
+    fp32, dx = g W and dW = g^T x in fp32, db = sum g, each cast to its
+    input's dtype, and the residual takes g as it is."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual):
+        ctx.save_for_backward(x, weight)
+        ctx.bias_dtype = bias.dtype
+        return _linear_forward(x, weight, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad
+        g32 = g.to(torch.float32)
+        dx = (torch.matmul(g32, weight.to(torch.float32)).to(x.dtype)
+              if need_x else None)
+        dw = (torch.matmul(g32.t(), x.to(torch.float32)).to(weight.dtype)
+              if need_w else None)
+        db = g32.sum(dim=0).to(ctx.bias_dtype) if need_b else None
+        return dx, dw, db, (g if need_r else None)
+
+
+def _linear_forward(x, weight, bias, residual):
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if x.device.type == "cpu":
         return linear_reference(x, weight, bias, residual)
     what = "linear"
@@ -97,9 +143,6 @@ def linear(x, weight, bias, residual=None):
     return out
 
 
-linear.launches = 0
-
-
 def attention_block_reference(tokens, w_qkv, b_qkv, w_out, b_out,
                               scale: float, softmax_axis: str = "q"):
     """Plain version. tokens (N, S, C) -> (N, S, C) in tokens' dtype."""
@@ -119,14 +162,67 @@ def fused_attention_block(tokens, w_qkv, b_qkv, w_out, b_out, scale: float,
 
     CPU tensors run `attention_block_reference`; CUDA tensors launch the
     linear kernel, the whole-S or the streaming attention kernels, and the
-    linear kernel again, or raise."""
-    if tokens.device.type == "cpu":
-        return attention_block_reference(tokens, w_qkv, b_qkv, w_out, b_out,
-                                         scale, softmax_axis)
-    out = _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale,
-                        softmax_axis)
-    fused_attention_block.launches += 1
+    linear kernel again, or raise. Differentiable: `FusedAttentionBlock` at
+    whole-S shapes, the composed path (`_composed_block`) past them."""
+    args = (tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis)
+    if not wants_grad(*args):
+        if tokens.device.type == "cpu":
+            return attention_block_reference(*args)
+        out = _launch_block(*args)
+    elif _whole_s(tokens, w_out):
+        out = FusedAttentionBlock.apply(*args)
+    else:
+        out = _composed_block(*args)
+    if tokens.device.type != "cpu":
+        fused_attention_block.launches += 1
     return out
+
+
+fused_attention_block.launches = 0
+
+
+def _whole_s(tokens, w_out) -> bool:
+    """`whole_s_ok` for the q, k, v views of the block's qkv buffer (a fresh
+    contiguous (N, S, 1, 3*d_k) tensor), decided before it exists."""
+    n, s, _ = tokens.shape
+    d_k = w_out.shape[1]
+    qkv = torch.empty((n, s, 1, 3 * d_k), dtype=tokens.dtype, device="meta")
+    return whole_s_ok(*qkv.split(d_k, dim=-1))
+
+
+class FusedAttentionBlock(torch.autograd.Function):
+    """The three-launch forward; the backward differentiates
+    `attention_block_reference` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis):
+        ctx.save_for_backward(tokens, w_qkv, b_qkv, w_out, b_out)
+        ctx.scale, ctx.softmax_axis = scale, softmax_axis
+        if tokens.device.type == "cpu":
+            return attention_block_reference(tokens, w_qkv, b_qkv, w_out,
+                                             b_out, scale, softmax_axis)
+        return _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale,
+                             softmax_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_backward(
+            attention_block_reference,
+            (*ctx.saved_tensors, ctx.scale, ctx.softmax_axis),
+            ctx.needs_input_grad, g)
+
+
+def _composed_block(tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis):
+    """linear, streaming attention, linear + residual, each differentiable
+    on its own (the block's training path past `whole_s_ok`)."""
+    n, s, c = tokens.shape
+    d_k = w_out.shape[1]
+    tok2 = tokens.reshape(n * s, c)
+    qkv = linear(tok2, w_qkv, b_qkv).view(n, s, 3 * d_k)
+    q, k, v = qkv.split(d_k, dim=-1)
+    r = streaming_attention(q, k, v, scale, softmax_axis)
+    return linear(r.reshape(n * s, d_k), w_out, b_out,
+                  residual=tok2).view(n, s, c)
 
 
 def _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis):
@@ -150,6 +246,3 @@ def _launch_block(tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis):
                                 softmax_axis)
     out = linear(r.reshape(n * s, d_k), w_out, b_out, residual=tok2)
     return out.view(n, s, c)
-
-
-fused_attention_block.launches = 0

@@ -1,32 +1,41 @@
-"""Streaming (two-pass) attention forward over (B, S, D), softmax over the
-query axis ("q", the reference's parity quirk) or the key axis ("k").
+"""Streaming (two-pass) attention over (B, S, D), forward and backward,
+softmax over the query axis ("q", the reference's parity quirk) or the key
+axis ("k").
 
-Port of the forward of sdm_tpu/kernels/streaming_attention.py::
-streaming_attention (`_forward`, :205-243): the stats pass (`_stats_kernel`
-:97-112, launched at :223) and the apply pass (`_apply_kernel` :120-130,
-launched at :234). The CUDA kernels are csrc/streaming_attention.cu: the
-stats pass reuses the whole-S kernel's online (m, l) kernels, and the apply
-pass walks key tiles with the final stats, so neither holds more than one
-score tile and shared memory does not depend on S. The whole-S kernel
+Port of sdm_tpu/kernels/streaming_attention.py::streaming_attention and its
+custom VJP (`_vjp_fwd`/`_vjp_bwd`, :328-355). Forward: the stats pass
+(`_stats_kernel` :97-112, launched at :223) and the apply pass
+(`_apply_kernel` :120-130, launched at :234). Backward: the dV pass
+(`_dv_kernel` :133, launched at :298), the dK pass (`_dk_kernel` :152, :260)
+and the dQ pass (`_dq_kernel` :167, :271). The CUDA kernels are
+csrc/streaming_attention.cu: the stats pass reuses the whole-S kernel's
+online (m, l) kernels, the apply pass walks key tiles with the final stats,
+dV is the apply kernel with the roles of q and k swapped, and dK and dQ share
+one kernel that recomputes P and dA tile by tile. None holds more than one
+score tile, so shared memory does not depend on S. The whole-S kernel
 (kernels/attention.py) keeps a 32 x S block of P and stops fitting at the
-256x256 SR model's S = 4096; the dispatchers send such shapes here. Both
-passes are bound by operations (2*S*S*D for the stats, 4*S*S*D for the
-apply pass, per batch row).
+256x256 SR model's S = 4096; the dispatchers send such shapes here. Every
+pass is bound by operations (per batch row 2*S*S*D for the stats, 4*S*S*D
+for the apply pass and dV, 6*S*S*D for dK and for dQ).
 
   streaming_stats(q, k, scale, axis) -> (m, l), each (B, 1, S) fp32: the
       running max and denominator over the reduced axis (per key for "q",
       per query for "k"), merged tile by tile.
-  streaming_apply(q, k, v, m, l, scale, axis) -> out (B, S, D):
+  streaming_apply(q, k, v, m, l, scale, axis, out_dtype) -> out (B, S, D):
       sum_j round_v(exp(s_ij - m) / l) v_j, fp32 accumulation, one rounding
-      to the input dtype (the TPU kernel writes fp32 and
-      `streaming_attention` casts; here the cast is the apply pass's store).
-  streaming_attention(q, k, v, scale, axis): the two in turn.
+      to out_dtype (q's dtype by default; the TPU kernel writes fp32 and
+      `streaming_attention` casts; the key-axis backward keeps the fp32).
+  streaming_dv(q, k, g, m, l, scale, axis) -> dV = P^T g, fp32 (B, S, D).
+  streaming_dk / streaming_dq(q, k, v, g, m, l, corr, scale, axis) ->
+      dK = scale dA^T q, dQ = scale dA k, fp32, with dA = P (g v^T - corr).
+  streaming_attention(q, k, v, scale, axis): the forward as a
+      torch.autograd.Function whose backward runs the three backward passes.
 
 Each has a plain PyTorch version (`*_reference`) that runs tile by tile, as
-the TPU kernels do, so it never holds an S x S score matrix either. The
-wrappers take it only for CPU tensors; on CUDA tensors they launch the
-kernel or raise. The backward kernels (`_dv`, `_backward`) belong to the
-training slice.
+the TPU kernels do, so it never holds an S x S score matrix either, and
+rounds where they round: P to g's dtype before P^T g, g to the input dtype,
+dA to the input dtype before dA^T q and dA k. The wrappers take it only for
+CPU tensors; on CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -37,16 +46,19 @@ import torch
 
 from sdm_tpu_torch.kernels import _build
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "sdm_streaming_stats": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-    "sdm_streaming_apply": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "sdm_streaming_stats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I,
+                                 ctypes.c_float, _I, _I, _P]),
+    "sdm_streaming_apply": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 ctypes.c_float, _I, _I, _I, _P]),
+    "sdm_streaming_dv": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              ctypes.c_float, _I, _I, _P]),
+    "sdm_streaming_dk": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              ctypes.c_float, _I, _I, _P]),
+    "sdm_streaming_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              ctypes.c_float, _I, _I, _P]),
 }
 
 # Score tile of the plain versions, (TILE, TILE) per batch row: the TPU
@@ -58,6 +70,26 @@ def _scores(a, b, scale: float):
     """fp32 scale * a b^T for (B, Ta, D) x (B, Tb, D) -> (B, Ta, Tb)."""
     return torch.matmul(a.to(torch.float32),
                         b.to(torch.float32).transpose(-1, -2)) * scale
+
+
+def _stat_tile(t, i0, j0, softmax_axis):
+    """A (B, 1, S) per-key ("q") or per-query ("k") table cut to broadcast
+    over the (B, Ti, Tj) tile at query i0, key j0."""
+    if softmax_axis == "q":
+        return t[:, :, j0:j0 + TILE]
+    return t[:, 0, i0:i0 + TILE, None]
+
+
+def _p_tile(q, k, m, l, i0, j0, scale, softmax_axis):
+    """fp32 P = exp(s - m) / l of the (query i0, key j0) tile."""
+    st = _scores(q[:, i0:i0 + TILE], k[:, j0:j0 + TILE], scale)
+    return (torch.exp(st - _stat_tile(m, i0, j0, softmax_axis))
+            / _stat_tile(l, i0, j0, softmax_axis))
+
+
+def _round(x, dtype):
+    """x rounded to `dtype` and widened back to fp32 (an astype(dtype))."""
+    return x.to(dtype).to(torch.float32)
 
 
 def streaming_stats_reference(q, k, scale: float, softmax_axis: str = "q"):
@@ -86,33 +118,92 @@ def streaming_stats_reference(q, k, scale: float, softmax_axis: str = "q"):
 
 
 def streaming_apply_reference(q, k, v, m, l, scale: float,
-                              softmax_axis: str = "q"):
+                              softmax_axis: str = "q", out_dtype=None):
     """Plain version of the apply pass: per query tile, the sum over key
     tiles of P V_j with P = exp(s - m) / l rounded to v's dtype, fp32
-    accumulation, one rounding to q's dtype."""
+    accumulation, one rounding to `out_dtype` (default q's dtype)."""
     b, s, d = q.shape
-    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, d), dtype=out_dtype or q.dtype, device=q.device)
     for i0 in range(0, s, TILE):
-        acc = None
+        acc = 0
         for j0 in range(0, s, TILE):
-            st = _scores(q[:, i0:i0 + TILE], k[:, j0:j0 + TILE], scale)
-            if softmax_axis == "q":      # per-key stats, broadcast over rows
-                mm, ll = m[:, :, j0:j0 + TILE], l[:, :, j0:j0 + TILE]
-            else:                        # per-query stats, over columns
-                mm = m[:, 0, i0:i0 + TILE, None]
-                ll = l[:, 0, i0:i0 + TILE, None]
-            p = (torch.exp(st - mm) / ll).to(v.dtype).to(torch.float32)
-            o = torch.matmul(p, v[:, j0:j0 + TILE].to(torch.float32))
-            acc = o if acc is None else acc + o
-        out[:, i0:i0 + TILE] = acc.to(q.dtype)
+            p = _round(_p_tile(q, k, m, l, i0, j0, scale, softmax_axis),
+                       v.dtype)
+            acc = acc + torch.matmul(p, v[:, j0:j0 + TILE].to(torch.float32))
+        out[:, i0:i0 + TILE] = acc
     return out
 
 
 def streaming_attention_reference(q, k, v, scale: float,
                                   softmax_axis: str = "q"):
-    """Plain version of the whole function: the two plain passes in turn."""
+    """Plain version of the whole forward: the two plain passes in turn."""
     m, l = streaming_stats_reference(q, k, scale, softmax_axis)
     return streaming_apply_reference(q, k, v, m, l, scale, softmax_axis)
+
+
+def streaming_dv_reference(q, k, g, m, l, scale: float,
+                           softmax_axis: str = "q"):
+    """Plain version of the dV pass (`_dv_kernel`): per key tile, the sum
+    over query tiles of round_g(P)^T g_i, g first cast to q's dtype, fp32
+    accumulation and output."""
+    g = g.to(q.dtype)
+    b, s, d = q.shape
+    dv = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
+    for j0 in range(0, s, TILE):
+        acc = 0
+        for i0 in range(0, s, TILE):
+            p = _round(_p_tile(q, k, m, l, i0, j0, scale, softmax_axis),
+                       g.dtype)
+            acc = acc + torch.matmul(p.transpose(-1, -2),
+                                     g[:, i0:i0 + TILE].to(torch.float32))
+        dv[:, j0:j0 + TILE] = acc
+    return dv
+
+
+def _da_tile(q, k, v, g, m, l, corr, i0, j0, scale, softmax_axis):
+    """dA = P (g v^T - corr) of the (query i0, key j0) tile, rounded to q's
+    dtype (`_da_tile` and the astype before each product)."""
+    p = _p_tile(q, k, m, l, i0, j0, scale, softmax_axis)
+    dp = torch.matmul(g[:, i0:i0 + TILE].to(torch.float32),
+                      v[:, j0:j0 + TILE].to(torch.float32).transpose(-1, -2))
+    return _round(p * (dp - _stat_tile(corr, i0, j0, softmax_axis)), q.dtype)
+
+
+def streaming_dk_reference(q, k, v, g, m, l, corr, scale: float,
+                           softmax_axis: str = "q"):
+    """Plain version of the dK pass (`_dk_kernel`): per key tile, the sum
+    over query tiles of scale * dA^T q_i; fp32 output."""
+    g = g.to(q.dtype)
+    b, s, d = q.shape
+    dk = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
+    for j0 in range(0, s, TILE):
+        acc = 0
+        for i0 in range(0, s, TILE):
+            da = _da_tile(q, k, v, g, m, l, corr, i0, j0, scale,
+                          softmax_axis)
+            acc = acc + torch.matmul(da.transpose(-1, -2),
+                                     q[:, i0:i0 + TILE].to(torch.float32)
+                                     ) * scale
+        dk[:, j0:j0 + TILE] = acc
+    return dk
+
+
+def streaming_dq_reference(q, k, v, g, m, l, corr, scale: float,
+                           softmax_axis: str = "q"):
+    """Plain version of the dQ pass (`_dq_kernel`): per query tile, the sum
+    over key tiles of scale * dA k_j; fp32 output."""
+    g = g.to(q.dtype)
+    b, s, d = q.shape
+    dq = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
+    for i0 in range(0, s, TILE):
+        acc = 0
+        for j0 in range(0, s, TILE):
+            da = _da_tile(q, k, v, g, m, l, corr, i0, j0, scale,
+                          softmax_axis)
+            acc = acc + torch.matmul(
+                da, k[:, j0:j0 + TILE].to(torch.float32)) * scale
+        dq[:, i0:i0 + TILE] = acc
+    return dq
 
 
 def _check(what, softmax_axis, *tensors):
@@ -122,26 +213,34 @@ def _check(what, softmax_axis, *tensors):
         raise ValueError(f"{what}: softmax_axis must be 'q' or 'k'")
     shape = tensors[0].shape
     if len(shape) != 3 or any(t.shape != shape for t in tensors):
-        raise ValueError(f"{what}: q, k (and v) must share one (B, S, D) "
+        raise ValueError(f"{what}: q, k, v and g must share one (B, S, D) "
                          f"shape, got {[tuple(t.shape) for t in tensors]}")
     if any(t.dtype != tensors[0].dtype for t in tensors):
-        raise ValueError(f"{what}: q, k (and v) must share a dtype")
+        raise ValueError(f"{what}: q, k, v and g must share a dtype")
     if any(t.stride(2) != 1 for t in tensors):
-        raise ValueError(f"{what}: q, k (and v) need a unit stride on D")
+        raise ValueError(f"{what}: q, k, v and g need a unit stride on D")
     return shape
 
 
-def _check_stats(what, m, l, b, s, device):
-    for t in (m, l):
+def _check_stats(what, b, s, device, *tables):
+    for t in tables:
         if (t.shape != (b, 1, s) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != device):
-            raise ValueError(f"{what}: m and l must be contiguous "
+            raise ValueError(f"{what}: m, l (and corr) must be contiguous "
                              f"({b}, 1, {s}) float32 on {device}")
 
 
 def _strides(*tensors):
     return (ctypes.c_longlong * (2 * len(tensors)))(*[
         st for t in tensors for st in (t.stride(0), t.stride(1))])
+
+
+def _launch(symbol, what, args, ref):
+    """Launch `symbol` of the streaming library; raise on a CUDA error."""
+    lib = _build.library("streaming_attention", _SIGNATURES)
+    rc = getattr(lib, symbol)(*args)
+    _build.check(lib, rc, what)
+    ref.launches += 1
 
 
 def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
@@ -154,54 +253,172 @@ def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
         return streaming_stats_reference(q, k, scale, softmax_axis)
     what = "streaming_stats"
     b, s, d = _check(what, softmax_axis, q, k)
-    code = _build.dtype_code(q, what)
     m = torch.empty((b, 1, s), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    strides = _strides(q, k)
-    lib = _build.library("streaming_attention", _SIGNATURES)
-    rc = lib.sdm_streaming_stats(
+    _launch("sdm_streaming_stats", what, (
         q.data_ptr(), k.data_ptr(), m.data_ptr(), l.data_ptr(),
-        ctypes.cast(strides, ctypes.c_void_p), b, s, d, float(scale),
-        int(softmax_axis == "q"), code, _build.stream_handle(q.device))
-    _build.check(lib, rc, what)
-    streaming_stats.launches += 1
+        ctypes.cast(_strides(q, k), _P), b, s, d, float(scale),
+        int(softmax_axis == "q"), _build.dtype_code(q, what),
+        _build.stream_handle(q.device)), streaming_stats)
     return m, l
 
 
 streaming_stats.launches = 0
 
 
-def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q"):
+def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",
+                    out_dtype=None):
     """q, k, v (B, S, D) with a unit D stride; m, l the stats pass's (B, 1,
-    S) fp32 for the same axis. Returns a contiguous (B, S, D) in q's dtype.
+    S) fp32 for the same axis. Returns a contiguous (B, S, D) in
+    `out_dtype`: q's dtype (default) or float32.
 
     CPU tensors run `streaming_apply_reference`; CUDA tensors launch
     csrc/streaming_attention.cu's apply pass or raise."""
     if q.device.type == "cpu":
-        return streaming_apply_reference(q, k, v, m, l, scale, softmax_axis)
+        return streaming_apply_reference(q, k, v, m, l, scale, softmax_axis,
+                                         out_dtype)
     what = "streaming_apply"
     b, s, d = _check(what, softmax_axis, q, k, v)
-    _check_stats(what, m, l, b, s, q.device)
-    code = _build.dtype_code(q, what)
-    out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
-    strides = _strides(q, k, v, out)
-    lib = _build.library("streaming_attention", _SIGNATURES)
-    rc = lib.sdm_streaming_apply(
+    _check_stats(what, b, s, q.device, m, l)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"{what}: out_dtype must be q's dtype or float32")
+    out = torch.empty((b, s, d), dtype=out_dtype, device=q.device)
+    _launch("sdm_streaming_apply", what, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
-        b, s, d, float(scale), int(softmax_axis == "q"), code,
-        _build.stream_handle(q.device))
-    _build.check(lib, rc, what)
-    streaming_apply.launches += 1
+        m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, v, out), _P),
+        b, s, d, float(scale), int(softmax_axis == "q"),
+        _build.dtype_code(q, what), _build.dtype_code(out, what),
+        _build.stream_handle(q.device)), streaming_apply)
     return out
 
 
 streaming_apply.launches = 0
 
 
+def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):
+    """dV = P^T g for q, k, g (B, S, D) in one dtype with a unit D stride
+    (the caller casts g to q's dtype) and the forward's m, l. Returns fp32
+    (B, S, D).
+
+    CPU tensors run `streaming_dv_reference`; CUDA tensors launch
+    csrc/streaming_attention.cu's dV pass or raise."""
+    if q.device.type == "cpu":
+        return streaming_dv_reference(q, k, g, m, l, scale, softmax_axis)
+    what = "streaming_dv"
+    b, s, d = _check(what, softmax_axis, q, k, g)
+    _check_stats(what, b, s, q.device, m, l)
+    dv = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
+    _launch("sdm_streaming_dv", what, (
+        q.data_ptr(), k.data_ptr(), g.data_ptr(), dv.data_ptr(),
+        m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, g, dv), _P),
+        b, s, d, float(scale), int(softmax_axis == "q"),
+        _build.dtype_code(q, what), _build.stream_handle(q.device)),
+        streaming_dv)
+    return dv
+
+
+streaming_dv.launches = 0
+
+
+def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,
+               softmax_axis):
+    b, s, d = _check(what, softmax_axis, q, k, v, g)
+    _check_stats(what, b, s, q.device, m, l, corr)
+    out = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
+    _launch(symbol, what, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), corr.data_ptr(),
+        ctypes.cast(_strides(q, k, v, g, out), _P), b, s, d, float(scale),
+        int(softmax_axis == "q"), _build.dtype_code(q, what),
+        _build.stream_handle(q.device)), ref)
+    return out
+
+
+def streaming_dk(q, k, v, g, m, l, corr, scale: float,
+                 softmax_axis: str = "q"):
+    """dK = scale dA^T q, dA = P (g v^T - corr), for q, k, v, g (B, S, D) in
+    one dtype with a unit D stride, the forward's m, l and corr (B, 1, S)
+    fp32 (per key on the q axis, per query on the k axis). Returns fp32
+    (B, S, D).
+
+    CPU tensors run `streaming_dk_reference`; CUDA tensors launch
+    csrc/streaming_attention.cu's dK pass or raise."""
+    if q.device.type == "cpu":
+        return streaming_dk_reference(q, k, v, g, m, l, corr, scale,
+                                      softmax_axis)
+    return _launch_da("sdm_streaming_dk", "streaming_dk", streaming_dk,
+                      q, k, v, g, m, l, corr, scale, softmax_axis)
+
+
+streaming_dk.launches = 0
+
+
+def streaming_dq(q, k, v, g, m, l, corr, scale: float,
+                 softmax_axis: str = "q"):
+    """dQ = scale dA k, arguments as `streaming_dk`. Returns fp32 (B, S, D).
+
+    CPU tensors run `streaming_dq_reference`; CUDA tensors launch
+    csrc/streaming_attention.cu's dQ pass or raise."""
+    if q.device.type == "cpu":
+        return streaming_dq_reference(q, k, v, g, m, l, corr, scale,
+                                      softmax_axis)
+    return _launch_da("sdm_streaming_dq", "streaming_dq", streaming_dq,
+                      q, k, v, g, m, l, corr, scale, softmax_axis)
+
+
+streaming_dq.launches = 0
+
+
+def streaming_correction(g, v, out32, dv, softmax_axis: str):
+    """The softmax-Jacobian term (B, 1, S) fp32 that dK and dQ take: c_j =
+    dV_j . v_j on the q axis, D_i = g_i . out_i on the k axis (the fp32
+    forward output). Plain torch, as sdm_tpu leaves it to XLA (:347, :350)."""
+    if softmax_axis == "q":
+        return (dv * v.to(torch.float32)).sum(dim=-1)[:, None, :]
+    return (g.to(torch.float32) * out32).sum(dim=-1)[:, None, :]
+
+
+class StreamingAttention(torch.autograd.Function):
+    """`_vjp_fwd`/`_vjp_bwd` (:328-355). Residuals: q, k, v, the stats m, l
+    and, on the key axis, the fp32 forward output (D_i = g_i . out_i reads
+    it; a rounded output would move the gradient). Backward: dV, then corr,
+    then dK and dQ, each cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, softmax_axis):
+        m, l = streaming_stats(q, k, scale, softmax_axis)
+        out32 = None
+        if softmax_axis == "k":
+            out32 = streaming_apply(q, k, v, m, l, scale, softmax_axis,
+                                    out_dtype=torch.float32)
+            out = out32.to(q.dtype)
+        else:
+            out = streaming_apply(q, k, v, m, l, scale, softmax_axis)
+        ctx.save_for_backward(q, k, v, m, l, out32)
+        ctx.scale, ctx.softmax_axis = scale, softmax_axis
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, m, l, out32 = ctx.saved_tensors
+        scale, axis = ctx.scale, ctx.softmax_axis
+        g_in = g.to(q.dtype)
+        if g_in.stride(-1) != 1:
+            g_in = g_in.contiguous()
+        dv = streaming_dv(q, k, g_in, m, l, scale, axis)
+        corr = streaming_correction(g, v, out32, dv, axis)
+        dk = streaming_dk(q, k, v, g_in, m, l, corr, scale, axis)
+        dq = streaming_dq(q, k, v, g_in, m, l, corr, scale, axis)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def streaming_attention(q, k, v, scale: float, softmax_axis: str = "q"):
     """(B, S, D) streaming attention, output in the input dtype: the stats
     pass, then the apply pass (each a kernel launch on CUDA, each its plain
-    version on the CPU)."""
+    version on the CPU). When a gradient is wanted it runs as
+    `StreamingAttention`, whose backward launches dV, dK and dQ."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return StreamingAttention.apply(q, k, v, scale, softmax_axis)
     m, l = streaming_stats(q, k, scale, softmax_axis)
     return streaming_apply(q, k, v, m, l, scale, softmax_axis)

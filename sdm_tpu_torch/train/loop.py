@@ -1,0 +1,573 @@
+"""Training loop for the base eps and the SR trainers (port of
+sdm_tpu/train/loop.py's BASE_SPEC and SR_SPEC paths).
+
+One loop parameterized by a `TrainerSpec`, consuming the reference's
+training-config JSON unchanged (same keys, same validation, same error
+strings) and writing the reference's files: model + optimizer checkpoints
+and config checkpoints (`checkpoint/diffusion_<step>.pt`,
+`checkpoint/config_<step>.pt`, loadable by sdm_tpu and by the reference),
+preview grids (`plots/diffusion_plot_<step>.jpg`) and the same log lines.
+
+The model trains on one device (CUDA unless the caller passes "cpu"), fp32
+parameters with the config's compute dtype ("compute_dtype", default
+bfloat16), through the kernels' autograd Functions. Kept from sdm_tpu:
+checkpoint cadence including step 0, the NaN guard firing before anything
+is saved, the overlapped loss fetch (step k's loss is read after step k+1
+is launched), preemption checkpointing on SIGTERM/SIGINT, resume-LR
+semantics, "epoch_checkpoint_every" and "seed".
+
+Config keys of sdm_tpu that this port does not carry yet raise
+NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
+COLD_SPEC and DOODLE_SPEC are ROADMAP Queue 1 items 4 and 5.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import dataclasses
+import glob
+import json
+import logging
+import os
+import pathlib
+import signal
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sdm_tpu_torch.data import ConditionalImgDataset, DataLoader, ImageDataset
+from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
+                                              ddpm_sample)
+from sdm_tpu_torch.enums import DiffusionAlg, NoiseScheduler, Objective
+from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
+                                         load_checkpoint,
+                                         load_optimizer_from_checkpoint,
+                                         load_params_from_checkpoint,
+                                         save_model)
+from sdm_tpu_torch.io.plotting import plot_sampled_images
+from sdm_tpu_torch.models import UNet
+from sdm_tpu_torch.ops.resize import area_resize
+from sdm_tpu_torch.ops.schedules import make_schedule
+from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
+                                      make_train_step)
+from sdm_tpu_torch.utils import setup_logging
+from sdm_tpu_torch.utils.profiling import StepTimer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerSpec:
+    project_name: str
+    objective: Objective
+    preview: str                 # "base" | "sr"
+    uses_diffusion_alg: bool     # reads config "diffusion_alg"
+    has_flip: bool               # reads config "flip_imgs"
+    is_sr: bool = False          # reads lr_dim/sr_dim/cond_t
+
+
+BASE_SPEC = TrainerSpec("Diffusion", Objective.EPS, "base",
+                        uses_diffusion_alg=True, has_flip=True)
+SR_SPEC = TrainerSpec("SR-Cold-Diffusion", Objective.RESIDUAL_X0, "sr",
+                      uses_diffusion_alg=False, has_flip=True, is_sr=True)
+
+# sdm_tpu config keys not ported yet: (key, is it set?, ROADMAP item).
+UNPORTED = (
+    ("multihost", bool, "Queue 1 item 9 (parallel)"),
+    ("sp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
+    ("tp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
+    ("fsdp", bool, "Queue 1 item 9 (parallel)"),
+    ("device_dataset", bool, "Queue 1 item 6 (the fused loop)"),
+    ("grad_accum_steps", lambda v: int(v) > 1, "Queue 1 item 6"),
+    ("cfg_drop_prob", lambda v: float(v) > 0.0, "Queue 1 item 6"),
+    ("ema_decay", lambda v: True, "Queue 1 item 6"),
+    ("min_snr_gamma", lambda v: True, "Queue 1 item 6"),
+    ("async_checkpoint", bool, "Queue 1 item 6"),
+    ("remat", bool, "Queue 1 item 6"),
+    ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
+    ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
+)
+
+
+def refuse_unported(config_dict: dict) -> None:
+    """Raise NotImplementedError for a set config key the port lacks."""
+    for key, is_set, item in UNPORTED:
+        value = config_dict.get(key)
+        if value is not None and is_set(value):
+            raise NotImplementedError(
+                f'config "{key}" is not ported to sdm_tpu_torch yet '
+                f"(ROADMAP {item})")
+    if str(config_dict.get("objective", "")).upper() == "V":
+        raise NotImplementedError(
+            'config "objective": "V" is not ported to sdm_tpu_torch yet '
+            "(ROADMAP Queue 1 item 6)")
+
+
+def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
+    parser = argparse.ArgumentParser(
+        description=f"Train {spec.project_name} models.")
+    parser.add_argument("-c", "--config-path", required=True,
+                        type=pathlib.Path,
+                        help="File path to load json config file.")
+    parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
+                        default="cuda", help="Device to train on.")
+    parser.add_argument("--steps", type=int, default=None,
+                        help="Stop after this many global steps (smoke runs; "
+                             "default: run to max_epoch).")
+    return vars(parser.parse_args(raw_args))
+
+
+def checkpoint_dominates_epoch(ckpt_seconds: float,
+                               epoch_seconds: float) -> bool:
+    """True when the epoch-end checkpoint took more than half the epoch
+    (and more than 5 s)."""
+    compute_s = max(epoch_seconds - ckpt_seconds, 0.0)
+    return ckpt_seconds > 5.0 and ckpt_seconds > 0.5 * max(compute_s, 1e-9)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu) "
+                           "to train on the CPU")
+    return dev
+
+
+def run_training(spec: TrainerSpec, config_dict: dict, *,
+                 device="cuda", max_steps: Optional[int] = None,
+                 max_epoch_override: Optional[int] = None) -> dict:
+    """Run training from a reference-format config dict on `device`.
+    Returns a summary: global_steps, last_loss, preempted, state,
+    steps_per_sec and step_times (per-step wall seconds, the first step
+    excluded)."""
+    project_name = spec.project_name
+    dev = _device(device)
+    refuse_unported(config_dict)
+
+    # Preemption: the first SIGTERM/SIGINT sets a flag; the loop finishes
+    # the in-flight step, checkpoints (NaN guard first) and returns with
+    # summary["preempted"] = True. A second signal restores the previous
+    # handler and interrupts. Handlers install on the main thread only.
+    preempt = {"flag": False, "prev": {}}
+
+    def _on_preempt_signal(signum, frame):
+        if preempt["flag"]:
+            signal.signal(signum, preempt["prev"].get(signum, signal.SIG_DFL))
+            raise KeyboardInterrupt
+        preempt["flag"] = True
+        logging.info("Preemption signal received - checkpointing after the "
+                     "in-flight step, then exiting cleanly.")
+
+    if (bool(config_dict.get("preempt_checkpoint", True))
+            and threading.current_thread() is threading.main_thread()):
+        for s in (signal.SIGTERM, signal.SIGINT):
+            preempt["prev"][s] = signal.signal(s, _on_preempt_signal)
+
+    def _restore_signal_handlers():
+        for s, prev in preempt["prev"].items():
+            try:
+                signal.signal(s, prev)
+            except (ValueError, TypeError):
+                pass
+
+    try:
+        return _train(spec, config_dict, dev, max_steps, max_epoch_override,
+                      preempt, project_name)
+    finally:
+        _restore_signal_handlers()
+
+
+def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
+           project_name):
+    # ---- Param unpack & validation (sdm_tpu loop.py:159-223) ----
+    starting_epoch = 0
+    global_steps = 0
+    checkpoint_steps = config_dict["checkpoint_steps"]
+    lr_steps = config_dict["lr_steps"]
+    max_epoch = config_dict["max_epoch"]
+    plot_img_count = config_dict["plot_img_count"]
+    use_conditional = config_dict["use_conditional"]
+    flip_imgs = config_dict["flip_imgs"] if spec.has_flip else False
+
+    dataset_path = config_dict["dataset_path"]
+    if dataset_path is None:
+        raise ValueError("No dataset_path entered.")
+    out_dir = config_dict["out_dir"]
+    os.makedirs(out_dir, exist_ok=True)
+
+    diffusion_checkpoint = config_dict["model_checkpoint"]
+    config_checkpoint = config_dict["config_checkpoint"]
+    diffusion_lr = config_dict["diffusion_lr"]
+    batch_size = config_dict["batch_size"]
+
+    beta_1 = beta_T = None
+    if config_dict["noise_scheduler"] == "LINEAR":
+        noise_scheduling = NoiseScheduler.LINEAR
+        beta_1 = config_dict["beta1"]
+        beta_T = config_dict["betaT"]
+    elif config_dict["noise_scheduler"] == "COSINE":
+        noise_scheduling = NoiseScheduler.COSINE
+    else:
+        raise ValueError("Invalid noise scheduler type.")
+
+    diffusion_alg = None
+    if spec.uses_diffusion_alg:
+        if config_dict["diffusion_alg"] == "DDIM":
+            diffusion_alg = DiffusionAlg.DDIM
+        elif config_dict["diffusion_alg"] == "DDPM":
+            diffusion_alg = DiffusionAlg.DDPM
+        else:
+            raise ValueError("Invalid diffusion algorithm type.")
+
+    min_noise_step = config_dict["min_noise_step"]
+    max_noise_step = config_dict["max_noise_step"]
+    max_actual_noise_step = config_dict["max_actual_noise_step"]
+    skip_step = config_dict["skip_step"]
+    if (max_actual_noise_step < min_noise_step
+            or max_noise_step < min_noise_step
+            or skip_step > max_actual_noise_step
+            or skip_step < 0
+            or min_noise_step < 0):
+        raise ValueError("Invalid step values entered!")
+
+    lr_dim = sr_dim = cond_t = None
+    if spec.is_sr:
+        lr_dim = config_dict["lr_dim"]
+        sr_dim = config_dict["sr_dim"]
+        cond_t = config_dict["cond_t"]
+
+    if max_epoch_override is not None:
+        max_epoch = max_epoch_override
+
+    setup_logging(out_dir, project_name)
+    # Config "seed" (default 0) makes the run deterministic: model init,
+    # the per-step flip/t/eps draws, preview noise and the batch order.
+    seed = int(config_dict.get("seed", 0))
+
+    # ---- Dataset & loaders: raw uint8 batches, normalized on the device --
+    cache = bool(config_dict.get("cache_dataset", False))
+    if use_conditional:
+        dataset = ConditionalImgDataset(dataset_path=dataset_path, seed=seed,
+                                        cache_decoded=cache, normalized=False)
+    else:
+        img_list = glob.glob(dataset_path)
+        if len(img_list) == 0:
+            raise Exception("No dataset found!")
+        dataset = ImageDataset(img_paths=img_list, cache_decoded=cache,
+                               normalized=False)
+    dataloader = DataLoader(dataset, batch_size=batch_size, shuffle=True,
+                            num_workers=8, seed=seed,
+                            native_decode=bool(config_dict.get(
+                                "native_decode", True)))
+    plot_loader = DataLoader(dataset,
+                             batch_size=min(plot_img_count, len(dataset)),
+                             shuffle=False, num_workers=2, drop_last=False)
+    plot_batch = next(iter(plot_loader))
+    plot_imgs = torch.from_numpy(
+        (plot_batch["image"].astype(np.float32) - 127.5) / 127.5).to(dev)
+    plot_labels = plot_batch.get("labels")
+    if use_conditional and plot_labels is not None:
+        # labels.txt CSV append, as the reference does.
+        with open(os.path.join(out_dir, "labels.txt"), "a") as f:
+            wr = csv.writer(f)
+            wr.writerows([dataset.get_labels()]
+                         + [list(map(float, row)) for row in plot_labels])
+    plot_labels = (torch.from_numpy(plot_labels).to(dev)
+                   if plot_labels is not None else None)
+
+    # ---- Model ----
+    compute_dtype = {"bfloat16": torch.bfloat16, "float32": None,
+                     "fp32": None, "bf16": torch.bfloat16}[
+                         str(config_dict.get("compute_dtype",
+                                             "bfloat16")).lower()]
+    use_kernels = config_dict.get("use_pallas", "auto") is not False
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = UNet.from_config(config_dict, dtype=compute_dtype,
+                               use_kernels=use_kernels)
+    net = net.to(dev, memory_format=torch.channels_last)
+
+    load_diffusion_optim = config_dict["load_diffusion_optim"]
+    pending_optimizer = None
+    if diffusion_checkpoint is not None and os.path.isdir(
+            diffusion_checkpoint):
+        raise NotImplementedError(
+            "native (orbax) checkpoint directories are not ported to "
+            "sdm_tpu_torch (ROADMAP Queue 1 item 10); resume from a "
+            "diffusion_<step>.pt")
+    if diffusion_checkpoint is not None:
+        ok, ckpt = load_checkpoint(diffusion_checkpoint, log=logging.info)
+        if not ok:
+            raise Exception("An error occured while loading model checkpoint!")
+        load_params_from_checkpoint(ckpt, net, log=logging.info)
+        if load_diffusion_optim:
+            pending_optimizer = ckpt["optimizer"]
+
+    if config_checkpoint is not None:
+        ok, cfg_ckpt = load_checkpoint(config_checkpoint, log=logging.info)
+        if not ok:
+            raise Exception("An error occured while loading config checkpoint!")
+        if noise_scheduling == NoiseScheduler.LINEAR:
+            beta_1 = cfg_ckpt["beta_1"]
+            beta_T = cfg_ckpt["beta_T"]
+        starting_epoch = cfg_ckpt["starting_epoch"]
+        global_steps = cfg_ckpt["global_steps"]
+
+    # Resume LR (sdm_tpu loop.py:360-377): torch's optimizer.load_state_dict
+    # restores the checkpointed lr, so with load_diffusion_optim the run
+    # continues at the SAVED lr, halving every lr_steps from there.
+    resume_lr = None
+    if pending_optimizer is not None:
+        pgs = pending_optimizer.get("param_groups") or []
+        if pgs and pgs[0].get("lr") is not None:
+            resume_lr = float(pgs[0]["lr"])
+            logging.info(f"Resuming at checkpointed LR {resume_lr:.9f} "
+                         f"(halving every {lr_steps:,} steps).")
+    optimizer, lr_schedule = make_optimizer(
+        net.parameters(), diffusion_lr, lr_steps, resume_lr=resume_lr,
+        resume_step=global_steps)
+    resume_halvings = (max(0, (global_steps - 1) // lr_steps)
+                       if resume_lr is not None else 0)
+    state = create_train_state(net, optimizer, lr_schedule, step=global_steps)
+    if pending_optimizer is not None:
+        state.count = load_optimizer_from_checkpoint(
+            {"optimizer": pending_optimizer}, optimizer)
+
+    schedule = make_schedule(config_dict["noise_scheduler"],
+                             beta_1=beta_1 if beta_1 is not None else 5e-3,
+                             beta_T=beta_T if beta_T is not None else 9e-3,
+                             max_noise_step=max_noise_step, device=dev)
+
+    objective = spec.objective
+    obj_cfg = str(config_dict.get("objective", "")).upper()
+    if obj_cfg and obj_cfg != objective.name:
+        raise ValueError(
+            f'config "objective": "{obj_cfg}" is not valid for this '
+            f"trainer (supported: {objective.name}, or V on the "
+            "eps-family trainers)")
+    step_fn = make_train_step(
+        schedule, objective=objective, min_noise_step=min_noise_step,
+        max_actual_noise_step=max_actual_noise_step, flip_imgs=flip_imgs,
+        cond_t=cond_t, lr_dim=lr_dim,
+        grad_clip_norm=(float(config_dict["grad_clip_norm"])
+                        if config_dict.get("grad_clip_norm") is not None
+                        else None))
+    generator = torch.Generator(device=dev).manual_seed(seed)
+
+    def lr_of(step_count) -> float:
+        # The active schedule in plain Python, for the log lines.
+        halvings = max(0, (int(step_count) - 1) // lr_steps)
+        if resume_lr is not None:
+            return resume_lr * 0.5 ** max(halvings - resume_halvings, 0)
+        return float(diffusion_lr) * 0.5 ** halvings
+
+    # ---- Hyperparameter banner (sdm_tpu loop.py:583-609) ----
+    logging.info("#" * 100)
+    logging.info("Train Parameters:")
+    logging.info(f"Max Epoch: {max_epoch:,}")
+    logging.info(f"Dataset Path: {dataset_path}")
+    logging.info(f"Output Path: {out_dir}")
+    logging.info(f"Checkpoint Steps: {checkpoint_steps}")
+    logging.info(f"Batch size: {batch_size:,}")
+    logging.info(f"Diffusion LR: {lr_of(global_steps):.5f}")
+    logging.info(f"Using Conditional Info.: {use_conditional}")
+    logging.info(f"Image Augmentation (Random Horizontal Flip): {flip_imgs}")
+    logging.info("Devices (data mesh): 1")
+    logging.info(f"Compute dtype: {compute_dtype or torch.float32}")
+    if spec.is_sr:
+        logging.info(f"Low Resolution Dim: {lr_dim:,}")
+        logging.info(f"Super Resolution Dim: {sr_dim:,}")
+    logging.info("#" * 100)
+    if noise_scheduling == NoiseScheduler.LINEAR:
+        logging.info(f"Beta_1: {beta_1:,.5f}")
+        logging.info(f"Beta_T: {beta_T:,.5f}")
+    logging.info(f"Min Noise Step: {min_noise_step:,}")
+    logging.info(f"Max Noise Step: {max_noise_step:,}")
+    logging.info(f"Max Actual Noise Step: {max_actual_noise_step:,}")
+    logging.info("#" * 100)
+
+    def run_preview():
+        """The preview sampler (sdm_tpu loop.py:614-697): base DDIM/DDPM
+        from noise (or from q_sample at max_actual_noise_step), SR cold
+        sampling conditioned on the q-sampled upsampled LR, plus lr_plot."""
+        n, h, w = plot_imgs.shape[:3]
+        noise_plot = torch.randn((n, h, w, config_dict["out_channel"]),
+                                 generator=generator, device=dev)
+        model_fn = lambda x, t, labels: net(x, t, labels)
+        if spec.preview == "base":
+            x_t_plot = noise_plot
+            if max_actual_noise_step < max_noise_step:
+                x_t_plot = schedule.q_sample(
+                    plot_imgs, torch.tensor([max_actual_noise_step],
+                                            device=dev), noise_plot)
+            if diffusion_alg == DiffusionAlg.DDPM:
+                return ddpm_sample(model_fn, schedule, x_t_plot,
+                                   generator=generator,
+                                   min_noise=min_noise_step,
+                                   max_noise=max_actual_noise_step,
+                                   labels=plot_labels)
+            return ddim_sample(model_fn, schedule, x_t_plot,
+                               min_noise=min_noise_step,
+                               max_noise=max_actual_noise_step,
+                               ddim_step_size=skip_step, labels=plot_labels)
+        lr_plot = area_resize(area_resize(plot_imgs, lr_dim, lr_dim),
+                              sr_dim, sr_dim)
+        x_t_lr = schedule.q_sample(lr_plot, torch.tensor([cond_t],
+                                                         device=dev),
+                                   noise_plot)
+        x0 = cold_sample(model_fn, schedule, noise_plot, noise_plot,
+                         min_noise=min_noise_step,
+                         max_noise=max_actual_noise_step,
+                         skip_step_size=skip_step, cond_img=x_t_lr,
+                         labels=plot_labels)
+        return x0 + lr_plot
+
+    def checkpoint_and_preview(steps, with_preview=True):
+        config_state = {"starting_epoch": starting_epoch,
+                        "global_steps": int(steps)}
+        if noise_scheduling == NoiseScheduler.LINEAR:
+            config_state["beta_1"] = beta_1
+            config_state["beta_T"] = beta_T
+        save_model(config_state, "config", out_dir, checkpoint=True,
+                   steps=int(steps), log=logging.info)
+        save_model(diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps)),
+                   "diffusion", out_dir, checkpoint=True, steps=int(steps),
+                   log=logging.info)
+        if not with_preview:
+            return
+        try:
+            with torch.no_grad():
+                imgs = run_preview().cpu().numpy()
+            plot_sampled_images(imgs, f"diffusion_plot_{int(steps)}",
+                                dest_path=out_dir, log=logging.info)
+        except Exception as e:  # a preview must never stop training
+            logging.info(f"Preview sampling failed: {e}")
+
+    def to_device(b):
+        return {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                for k, v in b.items() if isinstance(v, np.ndarray)}
+
+    # ---- Epoch loop (sdm_tpu loop.py:827-1011) ----
+    timer = StepTimer()
+    last_loss = float("nan")
+    stop = False
+    # Overlapped loss fetch (config "overlapped_loss_fetch", default true):
+    # step k's loss is read after step k+1 is launched, as in sdm_tpu. Log
+    # lines stay identical, one step later in wall time, and the NaN guard
+    # fires one step late (never after a checkpoint). On CUDA the read
+    # waits for the whole stream and the next batch's copy from pageable
+    # memory waits for the running step, so each step's launches overlap
+    # only that step's own execution.
+    overlap_loss = bool(config_dict.get("overlapped_loss_fetch", True))
+    ckpt_warned = False
+
+    for epoch in range(starting_epoch, max_epoch):
+        epoch_t0 = time.monotonic()
+        total_diffusion_loss = 0.0
+        training_count = 0
+        batch_iter = iter(dataloader)
+        pending = None  # deferred (metrics, epoch_index, global_steps)
+
+        def fetch_loss(metrics):
+            loss = float(metrics["loss"])
+            timer.tick()
+            if np.isnan(loss):
+                raise Exception("NaN encountered during training")
+            return loss
+
+        def log_step(loss, idx, steps_at):
+            nonlocal last_loss, total_diffusion_loss
+            last_loss = loss
+            total_diffusion_loss += loss
+            temp_avg = total_diffusion_loss / (idx + 1)
+            logging.info(
+                "Cum. Steps: {:,} | Steps: {:,} / {:,} | Diffusion: {:.5f} | LR: {:.9f}".format(
+                    steps_at + 1, idx + 1, len(dataloader), temp_avg,
+                    lr_of(steps_at)))
+
+        def process_metrics(metrics, idx, steps_at):
+            log_step(fetch_loss(metrics), idx, steps_at)
+
+        batch = next(batch_iter, None)
+        device_batch = to_device(batch) if batch is not None else None
+        index = -1
+        while device_batch is not None:
+            index += 1
+            training_count += 1
+            metrics = step_fn(state, device_batch, generator)
+            batch = next(batch_iter, None)
+            device_batch = to_device(batch) if batch is not None else None
+            if pending is not None:
+                process_metrics(*pending)
+                pending = None
+
+            if global_steps % checkpoint_steps == 0 and global_steps >= 0:
+                # The NaN guard fires BEFORE anything is saved.
+                loss = fetch_loss(metrics)
+                checkpoint_and_preview(global_steps)
+                sps = timer.steps_per_sec()
+                if np.isfinite(sps):
+                    logging.info(
+                        "Rate: {:.3f} steps/sec | {:.1f} imgs/sec".format(
+                            sps, sps * batch_size))
+                log_step(loss, index, global_steps)
+            elif overlap_loss and device_batch is not None:
+                pending = (metrics, index, global_steps)
+            else:
+                process_metrics(metrics, index, global_steps)
+            global_steps += 1
+            if preempt["flag"]:
+                if pending is not None:
+                    process_metrics(*pending)
+                    pending = None
+                checkpoint_and_preview(global_steps, with_preview=False)
+                logging.info(
+                    "Preempted: checkpointed at step {:,}; exiting.".format(
+                        global_steps))
+                stop = True
+                break
+            if max_steps is not None and global_steps >= max_steps:
+                stop = True
+                break
+        if pending is not None:
+            process_metrics(*pending)
+            pending = None
+
+        # End-of-epoch checkpoint; "epoch_checkpoint_every": N saves every
+        # N-th epoch only (default 1 = the reference's every epoch).
+        every = int(config_dict.get("epoch_checkpoint_every", 1))
+        if ((every <= 1 or (epoch + 1) % every == 0 or stop
+             or epoch + 1 == max_epoch) and not preempt["flag"]):
+            t_ck = time.monotonic()
+            checkpoint_and_preview(global_steps, with_preview=False)
+            ck_s = time.monotonic() - t_ck
+            epoch_s = time.monotonic() - epoch_t0
+            if checkpoint_dominates_epoch(ck_s, epoch_s) and not ckpt_warned:
+                ckpt_warned = True
+                logging.warning(
+                    "Epoch-end checkpoint took {:.0f}s vs {:.0f}s of epoch "
+                    "compute — epochs are short for this dataset/batch. Set "
+                    '"epoch_checkpoint_every": N to stop checkpoint I/O '
+                    "dominating the run.".format(ck_s,
+                                                 max(epoch_s - ck_s, 0.0)))
+        if training_count:
+            avg = total_diffusion_loss / training_count
+            logging.info("Epoch: {:,} | Diffusion: {:.5f} | LR: {:.9f}".format(
+                epoch, avg, lr_of(global_steps)))
+        if stop:
+            break
+
+    return {"global_steps": global_steps, "last_loss": last_loss,
+            "preempted": preempt["flag"], "state": state,
+            "steps_per_sec": timer.steps_per_sec(),
+            "step_times": timer.intervals()}
+
+
+def main(spec: TrainerSpec, raw_args=None):
+    args = parse_args(spec, raw_args)
+    with open(args["config_path"], "r") as f:
+        config_dict = json.loads(f.read())
+    return run_training(spec, config_dict, device=args["device"],
+                        max_steps=args["steps"])

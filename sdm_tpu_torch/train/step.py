@@ -1,0 +1,198 @@
+"""The training step: q_sample -> forward -> fp32 MSE -> backward -> Adam
+(port of sdm_tpu/train/step.py).
+
+sdm_tpu fuses the step into one jitted XLA program; here it runs eagerly on
+the model's device, and autograd differentiates through the kernels'
+Functions (kernels/*.py). Objectives:
+
+  EPS          eps-prediction, target = noise
+  X0           x0-prediction, target = the clean image
+  RESIDUAL_X0  SR residual, target = x_hr - up(down(x_hr)); the LR branch
+               is q-sampled at the fixed `cond_t` with the SAME eps and
+               channel-concatenated (step.py:224-231)
+
+t is drawn per sample from [min_noise_step, max_actual_noise_step), the high
+end exclusive. Batches carry uint8 pixels, normalized on the device as
+(x - 127.5) / 127.5. Tests inject "t" and "eps" through the batch. Random
+draws (flip, t, eps, in that order) come from the caller's
+`torch.Generator`, so they are not sdm_tpu's numbers: a seed gives the same
+run in the port, not the same draws as in JAX.
+
+Adam is torch's, with betas (0.5, 0.999) and eps 1e-8; before each step the
+learning rate is set to the schedule at the state's count, which starts at
+the restored step (sdm_tpu seeds optax's schedule count the same way,
+step.py:94-122). Parameters that get no gradient (the reference's dead
+weights) get a zero one, so Adam updates and checkpoints every parameter as
+optax does.
+
+sdm_tpu's extensions inside the step (grad_accum_steps > 1, cfg_drop_prob,
+ema_decay, min_snr_gamma, the V objective) raise NotImplementedError: they
+are ROADMAP Queue 1 item 6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from sdm_tpu_torch.enums import Objective
+from sdm_tpu_torch.ops.resize import area_resize
+
+Schedule = Callable[[int], float]
+ADAM_BETAS = (0.5, 0.999)
+ADAM_EPS = 1e-8
+
+
+def reference_lr_schedule(base_lr: float, lr_steps: int) -> Schedule:
+    """Halving every `lr_steps` global steps, after the step as the
+    reference does: count c uses base_lr * 0.5 ** max(0, (c - 1) //
+    lr_steps)."""
+    def schedule(count: int) -> float:
+        return float(base_lr) * 0.5 ** max(0, (int(count) - 1) // lr_steps)
+    return schedule
+
+
+def resume_lr_schedule(resume_lr: float, lr_steps: int,
+                       resume_step: int) -> Schedule:
+    """Continue from a restored optimizer's saved lr (torch's
+    load_state_dict semantics): step resume_step + 1 sees exactly
+    resume_lr, and each later lr_steps boundary halves it."""
+    base_halvings = max(0, (resume_step - 1) // lr_steps)
+
+    def schedule(count: int) -> float:
+        halvings = max(0, (int(count) - 1) // lr_steps) - base_halvings
+        return float(resume_lr) * 0.5 ** max(halvings, 0)
+    return schedule
+
+
+def make_optimizer(params, base_lr: float, lr_steps: int,
+                   resume_lr: Optional[float] = None, resume_step: int = 0):
+    """(Adam over `params`, its lr schedule): reference_lr_schedule, or
+    resume_lr_schedule when resuming from a checkpointed lr."""
+    schedule = (reference_lr_schedule(base_lr, lr_steps) if resume_lr is None
+                else resume_lr_schedule(resume_lr, lr_steps, resume_step))
+    opt = torch.optim.Adam(params, lr=schedule(resume_step),
+                           betas=ADAM_BETAS, eps=ADAM_EPS)
+    return opt, schedule
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                    # global steps completed
+    model: torch.nn.Module       # fp32 parameters
+    optimizer: torch.optim.Optimizer
+    schedule: Schedule
+    count: int                   # the schedule's count (optax's)
+
+
+def create_train_state(model, optimizer, schedule, step: int = 0
+                       ) -> TrainState:
+    """A state at `step` (the restored global_steps); the schedule's count
+    starts there, so a resumed run applies the lr it logs."""
+    return TrainState(step=int(step), model=model, optimizer=optimizer,
+                      schedule=schedule, count=int(step))
+
+
+def _extension(name: str):
+    return NotImplementedError(
+        f"{name} is not ported to sdm_tpu_torch yet (ROADMAP Queue 1 item 6)")
+
+
+def make_train_step(schedule, *, objective: Objective,
+                    min_noise_step: int = 1,
+                    max_actual_noise_step: int = 1000,
+                    flip_imgs: bool = False,
+                    cond_t: Optional[int] = None,
+                    lr_dim: Optional[int] = None,
+                    grad_accum_steps: int = 1,
+                    cfg_drop_prob: float = 0.0,
+                    ema_decay: Optional[float] = None,
+                    min_snr_gamma: Optional[float] = None,
+                    grad_clip_norm: Optional[float] = None) -> Callable:
+    """Build train_step(state, batch, generator) -> {"loss": fp32 scalar
+    tensor, not synchronized}. `schedule` is the noise schedule (on the
+    model's device). batch: {"image": (N, H, W, C) uint8 or float [,
+    "labels": (N, D)] [, "t": (N,)] [, "eps": (N, H, W, C)]} on the device."""
+    if objective == Objective.RESIDUAL_X0 and (cond_t is None
+                                               or lr_dim is None):
+        raise ValueError("RESIDUAL_X0 objective needs cond_t and lr_dim")
+    if objective == Objective.V:
+        raise _extension('the V objective (config "objective": "V")')
+    if grad_accum_steps < 1:
+        raise ValueError("grad_accum_steps must be >= 1")
+    for name, on in (("grad_accum_steps > 1", grad_accum_steps > 1),
+                     ("cfg_drop_prob", cfg_drop_prob > 0.0),
+                     ("ema_decay", ema_decay is not None),
+                     ("min_snr_gamma", min_snr_gamma is not None)):
+        if on:
+            raise _extension(name)
+
+    def loss_fn(model, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        images = batch["image"]
+        if images.dtype == torch.uint8:
+            images = (images.to(torch.float32) - 127.5) / 127.5
+        images = images.to(torch.float32)
+        labels = batch.get("labels")
+        n = images.shape[0]
+        dev = images.device
+        if flip_imgs:
+            # Per-image horizontal flip, p = 0.5 (W is axis 2 in NHWC).
+            flip = torch.rand((n,), generator=generator, device=dev) < 0.5
+            images = torch.where(flip[:, None, None, None],
+                                 images.flip(2), images)
+        if "t" in batch:
+            t = batch["t"].to(dev, torch.int64)
+        else:
+            t = torch.randint(min_noise_step, max_actual_noise_step, (n,),
+                              generator=generator, device=dev)
+        if "eps" in batch:
+            eps = batch["eps"].to(dev, torch.float32)
+        else:
+            eps = torch.randn(images.shape, generator=generator, device=dev)
+
+        if objective == Objective.RESIDUAL_X0:
+            h, w = images.shape[1], images.shape[2]
+            lr_up = area_resize(area_resize(images, lr_dim, lr_dim), h, w)
+            target = images - lr_up
+            x_t = schedule.q_sample(images, t, eps)
+            cond_t_vec = torch.tensor([cond_t], device=dev)
+            x_t_lr = schedule.q_sample(lr_up, cond_t_vec, eps)
+            x_in = torch.cat([x_t, x_t_lr], dim=-1)
+        else:
+            x_in = schedule.q_sample(images, t, eps)
+            target = eps if objective == Objective.EPS else images
+
+        pred = model(x_in, t, labels)
+        return torch.mean(torch.square(pred.to(torch.float32) - target))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        opt = state.optimizer
+        lr = state.schedule(state.count)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model, batch, generator)
+        loss.backward()
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if grad_clip_norm is not None:
+            # sdm_tpu's clip: scale = min(1, c / max(global norm, 1e-12)).
+            gnorm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(p.grad) for p in params]))
+            scale = torch.clamp(float(grad_clip_norm)
+                                / torch.clamp(gnorm, min=1e-12), max=1.0)
+            for p in params:
+                p.grad.mul_(scale)
+        opt.step()
+        state.step += 1
+        state.count += 1
+        return {"loss": loss.detach()}
+
+    train_step.loss_fn = loss_fn
+    return train_step

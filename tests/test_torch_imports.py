@@ -20,7 +20,12 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_sdm_tpu():
     modules = _port_modules()
-    assert "sdm_tpu_torch.serving.engine" in modules
+    for name in ("serving.engine", "train.step", "train.loop",
+                 "data.datasets", "data.loader", "data.tinydb_compat",
+                 "utils.logging_setup", "utils.profiling",
+                 "cli.train_diffusion", "cli.train_SR_diffusion",
+                 "kernels._autograd"):
+        assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sdm_tpu'):\n"
