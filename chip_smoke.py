@@ -2,13 +2,22 @@
 """Smoke test of the PyTorch/CUDA port (sdm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases build,streaming
 
-Phases, each raising on failure (the script exits non-zero on any):
+Phases, each raising on failure (the script exits non-zero on any). With
+no arguments every phase runs; `--phases` runs only the named ones of
+build, kernels, streaming, model, serving, training (the build always),
+logs which it skipped, prints no `kernels` line and ends with
+{"ok": true, "partial": true, ...}.
 
-  1. Device and build: the card's name and power limit (nvidia-smi), TF32
-     off for the fp32 comparisons, and every kernel built from
-     sdm_tpu_torch/csrc (one nvcc per source, all at once).
-  2. Kernels vs plain: each hand-written kernel held against its plain
+  1. Device and build ("build"): the card's name and power limit
+     (nvidia-smi), TF32 off for the fp32 comparisons, and every kernel
+     built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
+     ptxas's registers and spills of every kernel logged, and every
+     instantiation of the tensor-core streaming apply (stream_apply_mma)
+     held to 0 spill bytes.
+  2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
+     the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
      256x256 super-resolution (SR) U-Net give it, batch 16, fp32 and bf16,
      both softmax axes (each attention check also against the wrong axis,
@@ -17,32 +26,37 @@ Phases, each raising on failure (the script exits non-zero on any):
      apply) and backward (dV, dK, dQ), run at the SR model's S = 4096, at
      S = 1024, where the whole-S kernel is a second reference, and at a
      ragged S = 300; the bf16 query-axis dK and dQ are also held to a
-     float64 truth (BWD_TRUTH).
-  3. Model: the flagship and the SR U-Net from seeded random weights,
-     use_kernels=True against use_kernels=False, one call at batch 16
-     (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call each.
-     Then one forward and backward of each under the training loss, kernels
-     against plain, gradients held per tensor (fp32) and as a whole (bf16).
-  4. Serving, the cascade: the flagship exported as a BASE bundle and
-     served over HTTP by DiffusionServer over SamplerEngine(ddim, step 20 =
-     DDIM-50, batch 16, bf16); a 16-image request and two small requests
-     that coalesce. Its 16 images then become the low-resolution inputs of
-     an SR bundle (seeded random weights, cond_t 250) served the same way
-     (cold sampling, step 20: 51 U-Net calls, bf16, batch 16), the images
-     sent as raw floats (lr_image_b64 + lr_shape). Around each path's
+     float64 truth (BWD_TRUTH), and the fp32-output apply to its plain
+     version. Small shapes off the main path check which streaming
+     kernel each launch took, and the Python mirrors of the streaming
+     admissions are held to the C predicates.
+  3. Model ("model"): the flagship and the SR U-Net from seeded random
+     weights, use_kernels=True against use_kernels=False, one call at batch
+     16 (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call
+     each. Then one forward and backward of each under the training loss,
+     kernels against plain, gradients held per tensor (fp32) and as a whole
+     (bf16).
+  4. Serving ("serving"), the cascade: the flagship exported as a BASE
+     bundle and served over HTTP by DiffusionServer over SamplerEngine(ddim,
+     step 20 = DDIM-50, batch 16, bf16); a 16-image request and two small
+     requests that coalesce. Its 16 images then become the low-resolution
+     inputs of an SR bundle (seeded random weights, cond_t 250) served the
+     same way (cold sampling, step 20: 51 U-Net calls, bf16, batch 16), the
+     images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
-     just after, and held to the counts its U-Net calls imply. Then one
-     more batch of each is traced with the profiler for the device's busy
-     share.
-  5. Training: the SR trainer (run_training(SR_SPEC), the SR U-Net at full
-     width, 256x256, batch 16, bf16) and then the base eps trainer (the
-     flagship, 128x128) for TRAIN_STEPS steps each on seeded uint8 images,
-     kernels on. Each run checkpoints (with a preview) at step 0 only and
-     once more when it stops. The launch counters are zeroed just before
-     each run and read just after, and held to the counts its steps and its
-     preview imply; the losses must be finite, the step-0 checkpoint must
-     reload strictly into a fresh model and Adam, moments included, and one
-     more SR step is profiled by kernel family.
+     just after, and held to the counts its U-Net calls imply, every
+     streaming apply on stream_apply_mma (`mma_launches`). Then one more
+     batch of each is traced with the profiler for the device's busy share.
+  5. Training ("training"): the SR trainer (run_training(SR_SPEC), the SR
+     U-Net at full width, 256x256, batch 16, bf16) and then the base eps
+     trainer (the flagship, 128x128) for TRAIN_STEPS steps each on seeded
+     uint8 images, kernels on. Each run checkpoints (with a preview) at step
+     0 only and once more when it stops. The launch counters are zeroed just
+     before each run and read just after, and held to the counts its steps
+     and its preview imply (every streaming apply and dV on
+     stream_apply_mma); the losses must be finite, the step-0 checkpoint
+     must reload strictly into a fresh model and Adam, moments included, and
+     one more SR step is profiled by kernel family.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -55,6 +69,7 @@ import base64
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -235,21 +250,29 @@ def bound_ms(bytes_moved: float, ops: float, dtype_name: str):
 
 # --------------------------------------------------------------- phase 2
 
-def kernel_phase(torch, results):
-    import torch.nn.functional as F
-    from sdm_tpu_torch.kernels.adagn import adagn_reference, fused_adagn
-    from sdm_tpu_torch.kernels.attention import (attention_reference,
-                                                 fused_attention)
-    from sdm_tpu_torch.kernels import streaming_attention as sa
-    from sdm_tpu_torch.kernels.attention_block import (
-        attention_block_reference, fused_attention_block)
-
+def seeded_randn(torch, seed):
+    """(device, randn) with randn(shape, dtype, std, mean) drawing from one
+    generator on the card seeded with `seed`."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(shape, dtype, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * std
                 + mean).to(dtype)
+    return dev, randn
+
+
+def kernel_phase(torch, results):
+    """AdaGN, the whole-S attention and the block (phase 2, without the
+    streaming kernels)."""
+    import torch.nn.functional as F
+    from sdm_tpu_torch.kernels.adagn import adagn_reference, fused_adagn
+    from sdm_tpu_torch.kernels.attention import (attention_reference,
+                                                 fused_attention)
+    from sdm_tpu_torch.kernels.attention_block import (
+        attention_block_reference, fused_attention_block)
+
+    dev, randn = seeded_randn(torch, 0)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -310,13 +333,6 @@ def kernel_phase(torch, results):
                 block_case(torch, randn, results, model, dtype, s_len, d,
                            axis)
 
-        for (s_len, d) in STREAM_SHAPES:
-            for axis in ("q", "k"):
-                streaming_case(torch, randn, results, dtype, s_len, d, axis)
-                streaming_bwd_case(torch, randn, results, dtype, s_len, d,
-                                   axis)
-                torch.cuda.empty_cache()
-
     # Shapes off the tensor-core path (S % 64, D % 128, K % 32 != 0) take
     # the CUDA-core kernels in bf16 too.
     for dtype in (torch.float32, torch.bfloat16):
@@ -333,29 +349,6 @@ def kernel_phase(torch, results):
                           attention_block_reference(*args), ATTN_TOL[dn])
             log(f"attention_block {dn:8s} S= 100 C=  72 {axis} (CUDA-core "
                 f"path)  {err_text(err, ATTN_TOL[dn])}")
-            q, k, v = (randn((2, 300, 72), dtype, std=QK_STD)
-                       for _ in range(3))
-            err = compare(f"streaming {dn} S=300 D=72 {axis}",
-                          sa.streaming_attention(q, k, v, 0.1, axis),
-                          sa.streaming_attention_reference(q, k, v, 0.1,
-                                                           axis),
-                          ATTN_TOL[dn])
-            log(f"streaming {dn:8s} S= 300 D=  72 {axis} (CUDA-core path, "
-                f"ragged tiles)  {err_text(err, ATTN_TOL[dn])}")
-            streaming_bwd_case(torch, randn, results, dtype, 300, 72, axis)
-            # Tensor-core layouts off the main path: D = 128 leaves three of
-            # the four column warps idle; D = 1024 splits the output columns
-            # over two blocks and the key tile into two chunks.
-            for d in (128, 1024):
-                q, k, v = (randn((2, 256, d), dtype, std=QK_STD)
-                           for _ in range(3))
-                err = compare(f"streaming {dn} S=256 D={d} {axis}",
-                              sa.streaming_attention(q, k, v, d ** -0.5,
-                                                     axis),
-                              sa.streaming_attention_reference(
-                                  q, k, v, d ** -0.5, axis), ATTN_TOL[dn])
-                log(f"streaming {dn:8s} S= 256 D={d:4d} {axis}  "
-                    f"{err_text(err, ATTN_TOL[dn])}")
 
     # Multi-head attention (heads > 1 goes to fused_attention itself):
     # q/k/v as strided views of one qkv buffer, as the layer passes them.
@@ -392,6 +385,112 @@ def kernel_phase(torch, results):
         log(f"attention float32 S=2048: refused ({e})")
     else:
         raise AssertionError("attention: float32 S=2048 was not refused")
+
+
+def streaming_phase(torch, results):
+    """The streaming kernels, forward and backward (phase 2): every check at
+    the SR shape and S = 1024, then shapes off the main path, then the
+    Python mirrors of the C admissions."""
+    _, randn = seeded_randn(torch, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (s_len, d) in STREAM_SHAPES:
+            for axis in ("q", "k"):
+                streaming_case(torch, randn, results, dtype, s_len, d, axis)
+                streaming_bwd_case(torch, randn, results, dtype, s_len, d,
+                                   axis)
+                torch.cuda.empty_cache()
+
+    # Off the main path: a ragged S (CUDA-core kernels in bf16 too, ragged
+    # tiles masked); D = 128 leaves each P V warp 64 columns; D = 384 walks
+    # rows of 48 16-byte chunks in the tile loader; D = 1024 is past the
+    # tensor-core apply and takes the CUDA cores in bf16.
+    for dtype in (torch.float32, torch.bfloat16):
+        for axis in ("q", "k"):
+            off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
+            streaming_bwd_case(torch, randn, results, dtype, 300, 72, axis)
+            for d in (128, 384, 1024):
+                off_path_streaming_case(torch, randn, dtype, 256, d, axis)
+    check_stream_predicates(torch)
+
+
+def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
+    """The whole streaming function, the fp32-output apply and dV at a small
+    shape (batch 2), each against its plain version, and the path each
+    launch took against the Python mirror of the admission."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    dn = str(dtype).split(".")[-1]
+    q, k, v, g = (randn((2, s_len, d), dtype, std=std)
+                  for std in (QK_STD, QK_STD, 1.0, 1.0))
+    scale = d ** -0.5
+    tag = f"{dn} S={s_len} D={d} {axis}"
+    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_dv.mma_launches)
+    err = compare(f"streaming {tag}", sa.streaming_attention(q, k, v, scale,
+                                                             axis),
+                  sa.streaming_attention_reference(q, k, v, scale, axis),
+                  ATTN_TOL[dn])
+    m, l = sa.streaming_stats(q, k, scale, axis)
+    out32 = sa.streaming_apply(q, k, v, m, l, scale, axis,
+                               out_dtype=torch.float32)
+    err32 = compare(f"streaming_apply fp32 out {tag}", out32,
+                    sa.streaming_apply_reference(q, k, v, m, l, scale, axis,
+                                                 out_dtype=torch.float32),
+                    ATTN_TOL[dn])
+    err_dv = compare(f"streaming_dv {tag}",
+                     sa.streaming_dv(q, k, g, m, l, scale, axis),
+                     sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
+                     BWD_TOL[dn])
+    mma = sa.apply_takes_mma(q, k, v, out32)
+    moved = (sa.streaming_apply.mma_launches - mma0[0],
+             sa.streaming_dv.mma_launches - mma0[1])
+    if moved != ((2, 1) if mma else (0, 0)):
+        raise AssertionError(f"streaming {tag}: mma launches {moved}, the "
+                             f"admission says {mma}")
+    log(f"streaming {tag} ({'mma.sync' if mma else 'CUDA-core'} apply)  "
+        f"{err_text(err, ATTN_TOL[dn])}; fp32-output apply "
+        f"{err_text(err32, ATTN_TOL[dn])}; dV {err_text(err_dv, BWD_TOL[dn])}")
+
+
+def check_stream_predicates(torch):
+    """The Python mirrors of the streaming admissions (apply_admits_mma,
+    stats_admits_wmma, apply_smem_bytes_mma) against the C predicates, over
+    D = 8..2560, several S, both dtypes and three layouts: aligned,
+    a pointer off by 8 bytes, a row stride off by 4 elements."""
+    import ctypes
+    from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    lib = _build.library("streaming_attention", sa._SIGNATURES)
+    checked = 0
+    for d in range(8, 2561, 8):
+        if lib.sdm_streaming_mma_smem_bytes(d) != sa.apply_smem_bytes_mma(d):
+            raise AssertionError(f"apply_smem_bytes_mma({d}) disagrees with "
+                                 "stream_mma_smem_bytes")
+        for s_len in (64, 96, 300, 1024, 4096):
+            for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+                for ptr_off, ss_off in ((0, 0), (8, 0), (0, 4)):
+                    ptrs = [0x10000, 0x20000 + ptr_off, 0x30000, 0x40000]
+                    strides = [(s_len * 3 * d, 3 * d + ss_off)] * 3 + [
+                        (s_len * d, d)]
+                    cptrs = (ctypes.c_void_p * 4)(*ptrs)
+                    cstr = (ctypes.c_longlong * 8)(*[x for st in strides
+                                                     for x in st])
+                    pairs = (
+                        ("apply", lib.sdm_streaming_apply_takes_mma(
+                            cptrs, cstr, s_len, d, dt),
+                         sa.apply_admits_mma(dtype, s_len, d, ptrs, strides)),
+                        ("stats", lib.sdm_streaming_stats_takes_wmma(
+                            cptrs, cstr, s_len, d, dt),
+                         sa.stats_admits_wmma(dtype, s_len, d, ptrs[:2],
+                                              strides[:2])))
+                    for what, got, mirror in pairs:
+                        if bool(got) != mirror:
+                            raise AssertionError(
+                                f"{what} admission mirror disagrees with C "
+                                f"at S={s_len} D={d} dtype={dtype} pointer "
+                                f"+{ptr_off} stride +{ss_off}")
+                        checked += 1
+    log(f"streaming admissions: the Python mirrors agree with the C "
+        f"predicates in {checked} cases (D = 8..2560, S in 64, 96, 300, "
+        f"1024, 4096, both dtypes, three layouts)")
 
 
 def _reps(s_len, dtype_name):
@@ -604,6 +703,14 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
                                    out_dtype=torch.float32)
         fwd[ax] = (m, l, out32)
     m, l, out32 = fwd[axis]
+    # The fp32-output apply (the key-axis training forward keeps it as a
+    # residual) against its plain version, with the bound of the output in
+    # the input dtype: the inputs are the same, only the final rounding is
+    # gone.
+    err32 = compare(f"streaming_apply fp32 out {tag}", out32,
+                    sa.streaming_apply_reference(q, k, v, m, l, scale, axis,
+                                                 out_dtype=torch.float32),
+                    ATTN_TOL[dn])
     dv = sa.streaming_dv(q, k, g, m, l, scale, axis)
     corr = sa.streaming_correction(g, v, out32, dv, axis)
     got = {"dv": dv, "dk": sa.streaming_dk(q, k, v, g, m, l, corr, scale,
@@ -628,7 +735,8 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
         tq, tk, tv = float64_truth(torch, q, k, v, g, scale, axis,
                                    truth_rows)
         truth = {"dq": tq, "dk": tk, "dv": tv}
-    line = [f"streaming backward {tag}:"]
+    line = [f"streaming backward {tag}: fp32-output apply "
+            f"{err_text(err32, ATTN_TOL[dn])};"]
     errs = {}
     for name in ("dv", "dk", "dq"):
         tol = BWD_TOL[dn]
@@ -671,6 +779,10 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
             q, k, v, g, m, l, corr, scale, axis), reps),
         "dq": time_ms(lambda: sa.streaming_dq_reference(
             q, k, v, g, m, l, corr, scale, axis), reps)}
+    ms32 = time_ms(lambda: sa.streaming_apply(q, k, v, m, l, scale, axis,
+                                              out_dtype=torch.float32), reps)
+    pl32 = time_ms(lambda: sa.streaming_apply_reference(
+        q, k, v, m, l, scale, axis, out_dtype=torch.float32), reps)
     lib = None
     if axis == "k":
         qh, kh, vh = (a[:, None].detach().requires_grad_() for a in (q, k, v))
@@ -690,6 +802,12 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
               "dq": bound_ms(4 * tensor_b * isz + 3 * stat_b + tensor_b * 4,
                              6 * flops, dn)}
     common = dict(model="sr", dtype=dn, axis=axis, shape=[BATCH, s_len, d])
+    b32, by32 = bound_ms(3 * tensor_b * isz + 2 * stat_b + tensor_b * 4,
+                         4 * flops, dn)
+    results.append(dict(common, kernel="streaming_apply_f32out",
+                        max_abs_err=err32[0], max_rel_err=err32[1],
+                        tol=ATTN_TOL[dn], ms=ms32, plain_ms=pl32,
+                        library_ms=None, bound_ms=b32, bound_by=by32))
     for name in ("dv", "dk", "dq"):
         err, tol, extra = errs[name]
         results.append(dict(common, kernel=f"streaming_{name}",
@@ -703,7 +821,8 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
                         library_ms=lib,
                         bound_ms=sum(b for b, _ in bounds.values()),
                         bound_by="operations"))
-    log(f"streaming backward {tag}: " + ", ".join(
+    log(f"streaming backward {tag}: fp32-output apply {ms32:.4f} ms (plain "
+        f"{pl32:.4f}, bound {b32:.4f} {by32}), " + ", ".join(
         f"{n} {ms[n]:.4f} ms (plain {plain_ms[n]:.4f}, bound "
         f"{bounds[n][0]:.4f} {bounds[n][1]})" for n in ms)
         + f"; sdpa backward {lib if lib is None else round(lib, 4)}")
@@ -973,7 +1092,8 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes. Calls without a gradient launch no backward kernel."""
+    passes, every streaming apply on stream_apply_mma (`_mma`). Calls
+    without a gradient launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -982,7 +1102,27 @@ def expected_launches(cfg, calls, streaming):
             "linear": 2 * blocks * calls,
             "streaming_stats": streaming * calls,
             "streaming_apply": streaming * calls,
-            "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0}
+            "streaming_apply_mma": streaming * calls,
+            "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
+            "streaming_dv_mma": 0}
+
+
+def zero_counts(counters):
+    """Every launch count to 0, the tensor-core counts of the streaming
+    apply and dV passes (`mma_launches`) too."""
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
+
+
+def read_counts(counters):
+    """{wrapper name: launches}, with `<name>_mma` for the launches of
+    streaming_apply and streaming_dv that ran stream_apply_mma."""
+    out = {fn.__name__: fn.launches for fn in counters}
+    out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
+                if hasattr(fn, "mma_launches")})
+    return out
 
 
 def serve_requests(torch, engine, counters, requests):
@@ -1002,8 +1142,7 @@ def serve_requests(torch, engine, counters, requests):
         def send(i):
             got[i] = _images(_post(url, requests[i]))
 
-        for fn in counters:
-            fn.launches = 0
+        zero_counts(counters)
         t0 = time.monotonic()
         send(0)
         t_first = time.monotonic() - t0
@@ -1015,7 +1154,7 @@ def serve_requests(torch, engine, counters, requests):
             if th.is_alive():
                 raise AssertionError("coalesced request timed out")
         send(3)
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = read_counts(counters)
         stats = engine.stats.snapshot()
     finally:
         server.stop()
@@ -1189,11 +1328,13 @@ def train_config(out_dir, data_glob, cfg, img):
 def expected_train_launches(cfg, steps, streaming):
     """Launches of a training run: one U-Net call per step and a preview of
     1000 // DDIM_STEP + 1 calls forward (`expected_launches`), and dV, dK
-    and dQ once per streaming block per step backward. AdaGN, the whole-S
-    attention and the blocks recompute their backward through the plain
-    version, and `linear`'s backward is plain matmuls: no launches."""
+    and dQ once per streaming block per step backward, every dV on
+    stream_apply_mma. AdaGN, the whole-S attention and the blocks recompute
+    their backward through the plain version, and `linear`'s backward is
+    plain matmuls: no launches."""
     out = expected_launches(cfg, steps + 1000 // DDIM_STEP + 1, streaming)
-    for kernel in ("streaming_dv", "streaming_dk", "streaming_dq"):
+    for kernel in ("streaming_dv", "streaming_dk", "streaming_dq",
+                   "streaming_dv_mma"):
         out[kernel] = streaming * steps
     return out
 
@@ -1241,14 +1382,13 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
         config = train_config(out_dir, os.path.join(tmp, f"*.{ext}"), cfg,
                               img)
         try:
-            for fn in counters:
-                fn.launches = 0
+            zero_counts(counters)
             t0 = time.monotonic()
             summary = run_training(spec, config, device=dev,
                                    max_steps=TRAIN_STEPS)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-            launches = {fn.__name__: fn.launches for fn in counters}
+            launches = read_counts(counters)
         finally:
             datasets._imread_u8 = decode
 
@@ -1398,6 +1538,9 @@ def summarize(results, launches):
             library_ms=(None if any(v is None for v in lib)
                         else sum(lib) * per_call),
             launches_by_path={path: n[name] for path, n in launches.items()},
+            **({"mma_launches": sum(path[name + "_mma"]
+                                    for path in launches.values())}
+               if name in ("streaming_apply", "streaming_dv") else {}),
             per=(f"one {model} "
                  + ("train step" if name.startswith("streaming_d")
                     else "U-Net call")
@@ -1405,7 +1548,95 @@ def summarize(results, launches):
     return out
 
 
-def main() -> int:
+PHASES = ("build", "kernels", "streaming", "model", "serving", "training")
+
+
+def parse_phases(argv):
+    """The phases to run: all of PHASES by default, else those named by
+    `--phases a,b` (the build runs whenever any phase runs)."""
+    if not argv:
+        return list(PHASES)
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(f"usage: chip_smoke.py [--phases "
+                         f"{','.join(PHASES)}]")
+    names = [n for n in argv[1].split(",") if n]
+    unknown = [n for n in names if n not in PHASES]
+    if unknown or not names:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; choose "
+                         f"from {','.join(PHASES)}")
+    return [n for n in PHASES if n == "build" or n in names]
+
+
+def ptxas_report(text):
+    """{kernel: {registers, spill_bytes}} from nvcc's -Xptxas -v output:
+    each "Compiling entry function" or "Function properties for" line names
+    the kernel that the following spill and register lines describe."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def demangle(names):
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        lines = res.stdout.splitlines()
+        if res.returncode == 0 and len(lines) == len(names):
+            return lines
+    except OSError:
+        pass
+    return list(names)
+
+
+def build_phase(torch):
+    """Build every library, log each kernel's registers and spills, and
+    hold every stream_apply_mma instantiation to 0 spill bytes. Returns the
+    tensor-core apply's ptxas report."""
+    from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    t0 = time.monotonic()
+    _build.build()
+    log(f"build: {time.monotonic() - t0:.1f} s for {list(_build.SOURCES)}")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    report = {k: v for k, v in
+              ptxas_report(_build.build_log("streaming_attention")).items()
+              if "stream_apply_mma" in k and "registers" in v}
+    # Apply: bf16 and fp32 output x two axes; dV: fp32 output x two axes.
+    if len(report) != 6:
+        raise AssertionError(f"ptxas reports {len(report)} stream_apply_mma "
+                             f"instantiations, expected 6: {list(report)}")
+    smem = sa.apply_smem_bytes_mma(sa.MMA_MAX_D)
+    for pretty, (name, info) in zip(demangle(list(report)), report.items()):
+        info["name"] = pretty
+        log(f"  stream_apply_mma: {pretty}: {info['registers']} registers, "
+            f"{info.get('spill_bytes')} spill bytes, {smem} bytes of "
+            f"dynamic shared memory at D = {sa.MMA_MAX_D}")
+        if info.get("spill_bytes") != 0:
+            raise AssertionError(f"{pretty} spills "
+                                 f"{info.get('spill_bytes')} bytes")
+    return dict(stream_apply_mma=list(report.values()),
+                stream_apply_mma_smem_bytes=smem)
+
+
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -1415,7 +1646,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from sdm_tpu_torch.kernels import _build
         from sdm_tpu_torch.kernels.adagn import fused_adagn
         from sdm_tpu_torch.kernels.attention import fused_attention
         from sdm_tpu_torch.kernels.attention_block import (
@@ -1428,64 +1658,78 @@ def main() -> int:
         print(f"chip_smoke: the sdm_tpu_torch package is missing ({e}); run "
               "from the repository root", file=sys.stderr)
         return 2
+    phases = parse_phases(argv)
+    skipped = [n for n in PHASES if n not in phases]
 
     t_start = time.monotonic()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if skipped:
+        log(f"phases: running {phases}; skipping {skipped}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t0 = time.monotonic()
-    _build.build()
-    log(f"build: {time.monotonic() - t0:.1f} s for {list(_build.SOURCES)}")
-    for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-
+    out = dict(card=card, torch=torch.__version__, phases=phases)
+    out["build"] = build_phase(torch)
     results = []
-    t0 = time.monotonic()
-    kernel_phase(torch, results)
-    log(f"kernel phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    model = {"flagship": model_phase(torch, "flagship", FLAGSHIP, IMG),
-             "sr": model_phase(torch, "sr", SR, SR_IMG)}
-    grads = {"flagship": grad_phase(torch, "flagship", FLAGSHIP, IMG, 0),
-             "sr": grad_phase(torch, "sr", SR, SR_IMG, 1)}
-    log(f"model phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
+    out["results"] = results
+    for name, fn in (("kernels", kernel_phase),
+                     ("streaming", streaming_phase)):
+        if name in phases:
+            t0 = time.monotonic()
+            fn(torch, results)
+            log(f"{name} phase: {time.monotonic() - t0:.1f} s")
+    if "model" in phases:
+        t0 = time.monotonic()
+        out["model"] = {"flagship": model_phase(torch, "flagship", FLAGSHIP,
+                                                IMG),
+                        "sr": model_phase(torch, "sr", SR, SR_IMG)}
+        out["grads"] = {
+            "flagship": grad_phase(torch, "flagship", FLAGSHIP, IMG, 0),
+            "sr": grad_phase(torch, "sr", SR, SR_IMG, 1)}
+        log(f"model phase: {time.monotonic() - t0:.1f} s")
     counters = [fused_adagn, fused_attention, fused_attention_block, linear,
                 streaming_stats, streaming_apply, streaming_dv, streaming_dk,
                 streaming_dq]
-    launches, served, trained = {}, {}, {}
-    launches["flagship"], served["flagship"], lr_images = serving_phase(
-        torch, counters)
-    launches["sr"], served["sr"] = sr_serving_phase(torch, counters,
-                                                    lr_images)
-    log(f"serving phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    launches["sr_train"], trained["sr"] = train_phase(
-        torch, counters, SR_SPEC, "sr", SR, SR_IMG, streaming=1)
-    launches["base_train"], trained["base"] = train_phase(
-        torch, counters, BASE_SPEC, "base", FLAGSHIP, IMG, streaming=0)
-    log(f"training phase: {time.monotonic() - t0:.1f} s")
+    launches = {}
+    if "serving" in phases:
+        t0 = time.monotonic()
+        served = out["served"] = {}
+        launches["flagship"], served["flagship"], lr_images = serving_phase(
+            torch, counters)
+        launches["sr"], served["sr"] = sr_serving_phase(torch, counters,
+                                                        lr_images)
+        log(f"serving phase: {time.monotonic() - t0:.1f} s")
+    if "training" in phases:
+        t0 = time.monotonic()
+        trained = out["trained"] = {}
+        launches["sr_train"], trained["sr"] = train_phase(
+            torch, counters, SR_SPEC, "sr", SR, SR_IMG, streaming=1)
+        launches["base_train"], trained["base"] = train_phase(
+            torch, counters, BASE_SPEC, "base", FLAGSHIP, IMG, streaming=0)
+        log(f"training phase: {time.monotonic() - t0:.1f} s")
 
-    kernels = summarize(results, launches)
+    if not skipped:
+        out["kernels"] = summarize(results, launches)
+    out["seconds"] = time.monotonic() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, torch=torch.__version__,
-                       results=results, kernels=kernels, model=model,
-                       grads=grads, served=served, trained=trained,
-                       seconds=time.monotonic() - t_start), f, indent=1)
-    log(f"total {time.monotonic() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        json.dump(out, f, indent=1)
+    log(f"total {out['seconds']:.1f} s")
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if skipped:
+        # A partial run: no kernel summary (it needs every phase), and a
+        # last line that names what was skipped.
+        print(json.dumps({"ok": True, "partial": True, "phases": phases,
+                          "skipped": skipped, "device": device}))
+        return 0
+    print(json.dumps({"kernels": out["kernels"]}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,7 +12,11 @@ csrc/streaming_attention.cu: the stats pass reuses the whole-S kernel's
 online (m, l) kernels, the apply pass walks key tiles with the final stats,
 dV is the apply kernel with the roles of q and k swapped, and dK and dQ share
 one kernel that recomputes P and dA tile by tile. None holds more than one
-score tile, so shared memory does not depend on S. The whole-S kernel
+score tile, so shared memory does not depend on S. In bf16 at S % 64 == 0,
+D % 128 == 0, D <= 512 with 16-byte aligned rows (`apply_takes_mma`, a
+mirror of the C admission) the apply and dV passes run on the tensor cores
+through mma.sync (`stream_apply_mma`); each such launch also counts in the
+wrapper's `mma_launches`. The whole-S kernel
 (kernels/attention.py) keeps a 32 x S block of P and stops fitting at the
 256x256 SR model's S = 4096; the dispatchers send such shapes here. Every
 pass is bound by operations (per batch row 2*S*S*D for the stats, 4*S*S*D
@@ -59,7 +63,69 @@ _SIGNATURES = {
                               ctypes.c_float, _I, _I, _P]),
     "sdm_streaming_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               ctypes.c_float, _I, _I, _P]),
+    "sdm_streaming_stats_takes_wmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_mma_smem_bytes": (_I, [_I]),
 }
+
+# Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
+MAX_SMEM = 232448
+# stream_apply_mma's tiles (csrc/streaming_attention.cu MQ, MK, MMAXD): own
+# queries per block, keys per streamed tile, widest D.
+MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
+# The widest D the WMMA stats kernel admits (stream_stats_wmma_ok).
+STATS_WMMA_MAX_D = 2304
+
+
+def apply_smem_bytes_mma(d: int) -> int:
+    """Dynamic shared memory of stream_apply_mma at D = d
+    (stream_mma_smem_bytes): the resident Q tile [64][d+8] bf16, a ring of
+    two stages of K and V tiles [32][d+8] bf16, the P tile [64][40] bf16,
+    and two stages of 32 m and l floats."""
+    return (MMA_QUERIES * (d + 8) * 2 + 2 * 2 * MMA_KEYS * (d + 8) * 2
+            + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
+
+
+def _rows_aligned16(ptrs, strides) -> bool:
+    """16-byte aligned base pointers and (batch, row) strides that are
+    multiples of 8 elements (rows_aligned16)."""
+    return all(p % 16 == 0 and sb % 8 == 0 and ss % 8 == 0
+               for p, (sb, ss) in zip(ptrs, strides))
+
+
+def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """stream_mma_ok: bf16, S % 64 == 0, D % 128 == 0, D <= 512, the shared
+    memory within MAX_SMEM, and 16-byte aligned rows of every tensor.
+    `ptrs` and `strides` ((sb, ss) in elements) of q, k, v and out."""
+    return (dtype == torch.bfloat16 and s % MMA_QUERIES == 0
+            and d % 128 == 0 and d <= MMA_MAX_D
+            and apply_smem_bytes_mma(d) <= MAX_SMEM
+            and _rows_aligned16(ptrs, strides))
+
+
+def stats_admits_wmma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """stream_stats_wmma_ok: bf16, S % 64 == 0, D % 128 == 0, D <= 2304,
+    16-byte aligned rows of q and k."""
+    return (dtype == torch.bfloat16 and s % 64 == 0 and d % 128 == 0
+            and d <= STATS_WMMA_MAX_D and _rows_aligned16(ptrs, strides))
+
+
+def _layout(*tensors):
+    return ([t.data_ptr() for t in tensors],
+            [(t.stride(0), t.stride(1)) for t in tensors])
+
+
+def apply_takes_mma(q, k, v, out) -> bool:
+    """Whether the apply pass on q, k, v (B, S, D) into `out` runs on
+    stream_apply_mma (the dV pass passes q, k, g, dv)."""
+    return apply_admits_mma(q.dtype, q.shape[1], q.shape[2],
+                            *_layout(q, k, v, out))
+
+
+def stats_takes_wmma(q, k) -> bool:
+    """Whether the stats pass on q, k runs on the WMMA stats kernel."""
+    return stats_admits_wmma(q.dtype, q.shape[1], q.shape[2],
+                             *_layout(q, k))
 
 # Score tile of the plain versions, (TILE, TILE) per batch row: the TPU
 # kernels' tile.
@@ -235,12 +301,15 @@ def _strides(*tensors):
         st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _launch(symbol, what, args, ref):
-    """Launch `symbol` of the streaming library; raise on a CUDA error."""
+def _launch(symbol, what, args, ref, mma=False):
+    """Launch `symbol` of the streaming library; raise on a CUDA error.
+    `mma`: the launch runs stream_apply_mma (counted in ref.mma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
     ref.launches += 1
+    if mma:
+        ref.mma_launches += 1
 
 
 def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
@@ -289,11 +358,13 @@ def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",
         m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, v, out), _P),
         b, s, d, float(scale), int(softmax_axis == "q"),
         _build.dtype_code(q, what), _build.dtype_code(out, what),
-        _build.stream_handle(q.device)), streaming_apply)
+        _build.stream_handle(q.device)), streaming_apply,
+        mma=apply_takes_mma(q, k, v, out))
     return out
 
 
 streaming_apply.launches = 0
+streaming_apply.mma_launches = 0
 
 
 def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):
@@ -314,11 +385,12 @@ def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):
         m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, g, dv), _P),
         b, s, d, float(scale), int(softmax_axis == "q"),
         _build.dtype_code(q, what), _build.stream_handle(q.device)),
-        streaming_dv)
+        streaming_dv, mma=apply_takes_mma(q, k, g, dv))
     return dv
 
 
 streaming_dv.launches = 0
+streaming_dv.mma_launches = 0
 
 
 def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,

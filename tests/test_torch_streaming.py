@@ -19,9 +19,10 @@ from sdm_tpu.kernels.attention import _xla_attention
 from sdm_tpu.kernels.streaming_attention import _forward
 from sdm_tpu_torch.kernels import attention as port_attention
 from sdm_tpu_torch.kernels import attention_block as port_block
+from sdm_tpu_torch.kernels import streaming_attention as port_streaming
 from sdm_tpu_torch.kernels.streaming_attention import (
     streaming_apply, streaming_apply_reference, streaming_attention,
-    streaming_attention_reference, streaming_stats,
+    streaming_attention_reference, streaming_dv, streaming_stats,
     streaming_stats_reference)
 
 # fp32 plain version vs the JAX kernel and XLA: the same algorithm, another
@@ -121,7 +122,8 @@ def test_wrappers_take_plain_version_on_cpu():
     """On CPU tensors the wrappers run the plain passes and launch
     nothing; streaming_attention is the two in turn."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, (2, 70, 16)))
-    before = (streaming_stats.launches, streaming_apply.launches)
+    before = (streaming_stats.launches, streaming_apply.launches,
+              streaming_apply.mma_launches, streaming_dv.mma_launches)
     m, l = streaming_stats(q, k, 0.25, "k")
     m_ref, l_ref = streaming_stats_reference(q, k, 0.25, "k")
     torch.testing.assert_close(m, m_ref, rtol=0, atol=0)
@@ -132,7 +134,10 @@ def test_wrappers_take_plain_version_on_cpu():
         rtol=0, atol=0)
     torch.testing.assert_close(streaming_attention(q, k, v, 0.25, "k"), out,
                                rtol=0, atol=0)
-    assert (streaming_stats.launches, streaming_apply.launches) == before
+    streaming_dv(q, k, v, m, l, 0.25, "k")
+    assert (streaming_stats.launches, streaming_apply.launches,
+            streaming_apply.mma_launches,
+            streaming_dv.mma_launches) == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -165,6 +170,85 @@ def test_whole_s_predicate_is_the_shared_memory_formula():
     for (s, d, dtype), fits in cases.items():
         x = t(s, d, dtype)
         assert port_attention.whole_s_ok(x, x, x) is fits, (s, d, dtype)
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    """A tensor with a layout and no storage (the SR shape without 64 MB)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_mma_smem_formula_fits_at_the_sr_width():
+    """stream_apply_mma's shared memory: Q [64][D+8] + 2 x (K, V) [32][D+8]
+    + P [64][40] in bf16, 2 x 2 x 32 fp32 stats; 205,312 bytes at D = 512,
+    within the opt-in limit."""
+    assert port_streaming.apply_smem_bytes_mma(512) == (
+        64 * 520 * 2 + 4 * 32 * 520 * 2 + 64 * 40 * 2 + 4 * 32 * 4)
+    assert port_streaming.apply_smem_bytes_mma(512) == 205312
+    assert port_streaming.apply_smem_bytes_mma(512) <= port_streaming.MAX_SMEM
+    assert port_streaming.MAX_SMEM == port_attention.MAX_SMEM
+
+
+@pytest.mark.parametrize("views", [False, True])
+def test_mma_admits_the_sr_shape(views):
+    """The SR model's streaming block, (16, 4096, 512) bf16, runs on
+    stream_apply_mma: contiguous, and as the attention block passes it,
+    strided views of one (16, 4096, 3 * 512) qkv buffer; so does its dV
+    pass (q, k, g and an fp32 dv)."""
+    b, s, d = 16, 4096, 512
+    if views:
+        q, k, v = _meta((b, s, 3 * d)).split(d, dim=-1)
+        assert q.stride() == (s * 3 * d, 3 * d, 1)
+    else:
+        q, k, v = (_meta((b, s, d)) for _ in range(3))
+    out = _meta((b, s, d))
+    assert port_streaming.apply_takes_mma(q, k, v, out)
+    assert port_streaming.apply_takes_mma(q, k, v, out.float())
+    assert port_streaming.apply_takes_mma(q, k, _meta((b, s, d)),
+                                          _meta((b, s, d), torch.float32))
+
+
+@pytest.mark.parametrize("case", ["fp32", "s300", "d640", "d72", "d1024",
+                                  "stride", "pointer"])
+def test_mma_refuses_other_shapes(case):
+    """fp32, S % 64 != 0, D past 512 or off the 128 grid, a row stride that
+    is not a multiple of 8 elements, and a pointer off 16 bytes all take the
+    CUDA-core apply."""
+    shape = {"s300": (2, 300, 512), "d640": (2, 256, 640),
+             "d72": (2, 256, 72), "d1024": (2, 256, 1024)}.get(
+                 case, (2, 256, 512))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    q, k, v, out = (torch.zeros(shape, dtype=dtype) for _ in range(4))
+    if case == "stride":
+        k = torch.zeros((2, 256, 516), dtype=dtype)[:, :, :512]
+        assert k.stride(1) % 8 == 4
+    if case == "pointer":
+        v = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 512)
+        assert v.data_ptr() % 16 == 8
+    assert not port_streaming.apply_takes_mma(q, k, v, out)
+    aligned = [torch.zeros((2, 256, 512), dtype=torch.bfloat16)
+               for _ in range(4)]
+    assert port_streaming.apply_takes_mma(*aligned)
+
+
+def test_stats_predicate_is_unchanged():
+    """The WMMA stats kernel keeps its own admission, as before: bf16,
+    S % 64 == 0, D % 128 == 0, D <= 2304, 16-byte aligned rows; D = 1024
+    and D = 640 stay on it though the tensor-core apply stops at 512."""
+    cases = {(4096, 512, torch.bfloat16): True,
+             (1024, 1024, torch.bfloat16): True,
+             (256, 2304, torch.bfloat16): True,
+             (256, 2432, torch.bfloat16): False,
+             (4096, 512, torch.float32): False,
+             (300, 512, torch.bfloat16): False,
+             (256, 72, torch.bfloat16): False,
+             (256, 640, torch.bfloat16): True}
+    for (s, d, dtype), want in cases.items():
+        x = _meta((2, s, d), dtype)
+        assert port_streaming.stats_takes_wmma(x, x) is want, (s, d, dtype)
+    q, k, _ = _meta((16, 4096, 3 * 512)).split(512, dim=-1)
+    assert port_streaming.stats_takes_wmma(q, k)
+    odd = torch.zeros((2, 256, 516), dtype=torch.bfloat16)[:, :, :512]
+    assert not port_streaming.stats_takes_wmma(odd, odd)
 
 
 def _record(monkeypatch, module, calls):
@@ -230,16 +314,21 @@ def test_block_dispatcher_streams_long_grids(monkeypatch):
 @pytest.mark.parametrize("axis", ["q", "k"])
 def test_cuda_streaming_matches_plain(cuda, dtype, axis):
     """Both kernels launch and agree with their plain versions, on a
-    tensor-core shape and a ragged one."""
+    tensor-core shape and a ragged one; the bf16 tensor-core shape's apply
+    counts as an mma.sync launch."""
     for shape in ((2, 256, 128), (2, 100, 72)):
         q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                    for a in _qkv(6, shape))
-        before = (streaming_stats.launches, streaming_apply.launches)
+        before = (streaming_stats.launches, streaming_apply.launches,
+                  streaming_apply.mma_launches)
         m, l = streaming_stats(q, k, 0.1, axis)
         out = streaming_apply(q, k, v, m, l, 0.1, axis)
         torch.cuda.synchronize()
-        assert (streaming_stats.launches,
-                streaming_apply.launches) == (before[0] + 1, before[1] + 1)
+        mma = port_streaming.apply_takes_mma(q, k, v, out)
+        assert mma == (dtype == torch.bfloat16 and shape[1] == 256)
+        assert (streaming_stats.launches, streaming_apply.launches,
+                streaming_apply.mma_launches) == (
+                    before[0] + 1, before[1] + 1, before[2] + mma)
         m_ref, l_ref = streaming_stats_reference(q, k, 0.1, axis)
         torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
