@@ -14,22 +14,27 @@ logs which it skipped, prints no `kernels` line and ends with
      (nvidia-smi), TF32 off for the fp32 comparisons, and every kernel
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
-     instantiation of the tensor-core streaming apply (stream_apply_mma)
-     held to 0 spill bytes.
+     instantiation of the mma.sync kernels (attn_stats_mma,
+     stream_apply_mma, attn_apply_mma_wide) held to 0 spill bytes.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
      256x256 super-resolution (SR) U-Net give it, batch 16, fp32 and bf16,
-     both softmax axes (each attention check also against the wrong axis,
-     which must fail); kernel, plain and library times and the least time
-     the card could take (bound). The streaming kernels, forward (stats,
-     apply) and backward (dV, dK, dQ), run at the SR model's S = 4096, at
-     S = 1024, where the whole-S kernel is a second reference, and at a
-     ragged S = 300; the bf16 query-axis dK and dQ are also held to a
-     float64 truth (BWD_TRUTH), and the fp32-output apply to its plain
-     version. Small shapes off the main path check which streaming
-     kernel each launch took, and the Python mirrors of the streaming
-     admissions are held to the C predicates.
+     both softmax axes (each attention and stats check also against the
+     wrong axis, which must fail); kernel, plain and library times and the
+     least time the card could take (bound). The whole-S attention and the
+     stats kernel also run at D = 128, 384 and 768 and S = 64
+     (EXTRA_SHAPES), and the attention at four heads on strided views.
+     `linear` is timed against F.linear (cuBLAS) at each block's two
+     projections. The streaming kernels, forward (stats, apply) and
+     backward (dV, dK, dQ), run at the SR model's S = 4096, at S = 1024,
+     where the whole-S kernel is a second reference, and at a ragged
+     S = 300; the bf16 query-axis dK and dQ are also held to a float64
+     truth (BWD_TRUTH), and the fp32-output apply to its plain version.
+     Small shapes off the main path check which kernel each launch took
+     (the `mma_launches` counters), and the Python mirrors of the C
+     admissions, plans and shared-memory formulas are held to the C
+     functions.
   3. Model ("model"): the flagship and the SR U-Net from seeded random
      weights, use_kernels=True against use_kernels=False, one call at batch
      16 (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call
@@ -44,17 +49,19 @@ logs which it skipped, prints no `kernels` line and ends with
      same way (cold sampling, step 20: 51 U-Net calls, bf16, batch 16), the
      images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
-     just after, and held to the counts its U-Net calls imply, every
-     streaming apply on stream_apply_mma (`mma_launches`). Then one more
-     batch of each is traced with the profiler for the device's busy share.
+     just after, and held to the counts its U-Net calls imply, every bf16
+     whole-S attention, streaming stats and streaming apply on the mma.sync
+     kernels (`mma_launches`). Then one more batch of each is traced with
+     the profiler for the device's busy share.
   5. Training ("training"): the SR trainer (run_training(SR_SPEC), the SR
      U-Net at full width, 256x256, batch 16, bf16) and then the base eps
      trainer (the flagship, 128x128) for TRAIN_STEPS steps each on seeded
      uint8 images, kernels on. Each run checkpoints (with a preview) at step
      0 only and once more when it stops. The launch counters are zeroed just
      before each run and read just after, and held to the counts its steps
-     and its preview imply (every streaming apply and dV on
-     stream_apply_mma); the losses must be finite, the step-0 checkpoint
+     and its preview imply (every whole-S attention, streaming stats,
+     apply and dV on the mma.sync kernels); the losses must be finite, the
+     step-0 checkpoint
      must reload strictly into a fresh model and Adam, moments included, and
      one more SR step is profiled by kernel family.
 
@@ -113,6 +120,10 @@ SR_BLOCK_SHAPES = [(4096, 512), (1024, 512), (256, 1024), (1024, 1024)]
 # Streaming attention checks, (S, D): the SR shape, and one the whole-S
 # kernel also takes.
 STREAM_SHAPES = [(4096, 512), (1024, 512)]
+# Whole-S attention and stats checks off the U-Nets' shapes: D = 128 (64
+# columns a P V warp), 384, 768 (the wide apply in two splits of 384
+# columns) and S = 64 (one key tile of the stats ring, half of it live).
+EXTRA_SHAPES = [(256, 128), (256, 384), (1024, 768), (64, 128)]
 # Tolerances, |kernel - plain| <= atol + rtol*|plain| + of_max*max|plain|.
 # fp32: both sides accumulate in fp32 in another order. bf16 AdaGN: the
 # plain version rounds at more places (GN output, FiLM product and sum),
@@ -332,6 +343,10 @@ def kernel_phase(torch, results):
                                    s_len, d, axis)
                 block_case(torch, randn, results, model, dtype, s_len, d,
                            axis)
+        for s_len, d in EXTRA_SHAPES:
+            for axis in ("q", "k"):
+                attention_case(torch, randn, results, "extra", dtype, s_len,
+                               d, axis)
 
     # Shapes off the tensor-core path (S % 64, D % 128, K % 32 != 0) take
     # the CUDA-core kernels in bf16 too.
@@ -364,27 +379,76 @@ def kernel_phase(torch, results):
             log(f"attention {dn:8s} S=256 H=4 D=128 {axis} (strided views)  "
                 f"{err_text(err, ATTN_TOL[dn])}")
 
-    # The dispatchers' predicate mirrors the C entry point's formula.
+    check_attention_predicates(torch)
+    # S beyond the longest the entry point takes is refused, launching
+    # nothing: past the CUDA-core block's shared memory (fp32 S = 2048) and
+    # past WHOLE_S_MAX_MMA on the tensor cores (bf16 S = 3264).
+    for dtype, s_len in ((torch.float32, 2048), (torch.bfloat16, 3264)):
+        long_seq = torch.zeros((1, s_len, 1, 128), device=dev, dtype=dtype)
+        try:
+            fused_attention(long_seq, long_seq, long_seq, 1.0, "q")
+        except NotImplementedError as e:
+            log(f"attention {dtype} S={s_len}: refused ({e})")
+        else:
+            raise AssertionError(f"attention: {dtype} S={s_len} was not "
+                                 "refused")
+
+
+def check_attention_predicates(torch):
+    """The whole-S path's Python mirrors against csrc/attention.cu: `fits`
+    against sdm_attention_fits (S = 64..8192, both paths), `admits_mma`
+    against sdm_attention_takes_mma and `mma_plan` against
+    sdm_attention_mma_plan over a grid of S, D, dtype, batch*heads and
+    layouts (aligned, a pointer off by 8 bytes, a row stride off by 4
+    elements, a head stride off by 2), and `wide_smem_bytes` against
+    sdm_attention_wide_smem_bytes."""
+    import ctypes
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import attention as attn_mod
     lib = _build.library("attention", attn_mod._SIGNATURES)
     for s_len in range(64, 8193, 8):
-        for wmma in (0, 1):
-            mirror = attn_mod.apply_smem_bytes(s_len, bool(wmma)) \
-                <= attn_mod.MAX_SMEM
-            if bool(lib.sdm_attention_fits(s_len, wmma)) != mirror:
+        for tc in (0, 1):
+            if bool(lib.sdm_attention_fits(s_len, tc)) != attn_mod.fits(
+                    s_len, bool(tc)):
                 raise AssertionError(f"whole_s_ok's mirror disagrees with "
                                      f"sdm_attention_fits at S={s_len}")
-    log("whole-S predicate: the Python mirror agrees with "
-        "sdm_attention_fits for S = 64..8192")
-    # S beyond the apply pass's shared memory is refused, launching nothing.
-    long_seq = torch.zeros((1, 2048, 1, 8), device=dev)
-    try:
-        fused_attention(long_seq, long_seq, long_seq, 1.0, "q")
-    except NotImplementedError as e:
-        log(f"attention float32 S=2048: refused ({e})")
-    else:
-        raise AssertionError("attention: float32 S=2048 was not refused")
+    checked = 0
+    plan = (ctypes.c_int * 3)()
+    for d in range(8, 2561, 8):
+        if lib.sdm_attention_wide_smem_bytes(d) != attn_mod.wide_smem_bytes(d):
+            raise AssertionError(f"wide_smem_bytes({d}) disagrees with C")
+        for s_len in (64, 96, 256, 1024, 3200):
+            for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+                for ptr_off, ss_off, sh_off in ((0, 0, 0), (8, 0, 0),
+                                                (0, 4, 0), (0, 0, 2)):
+                    ptrs = [0x10000, 0x20000 + ptr_off, 0x30000, 0x40000]
+                    strides = [(s_len * 3 * d, d + sh_off, 3 * d + ss_off)] * 3
+                    strides.append((s_len * d, d, d))
+                    cptrs = (ctypes.c_void_p * 4)(*ptrs)
+                    cstr = (ctypes.c_longlong * 12)(*[x for st in strides
+                                                      for x in st])
+                    got = lib.sdm_attention_takes_mma(cptrs, cstr, s_len, d,
+                                                      dt)
+                    if bool(got) != attn_mod.admits_mma(dtype, s_len, d, ptrs,
+                                                        strides):
+                        raise AssertionError(
+                            f"admits_mma disagrees with C at S={s_len} D={d} "
+                            f"{dtype} pointer +{ptr_off} stride +{ss_off} "
+                            f"head stride +{sh_off}")
+                    checked += 1
+            if d % 128 == 0 and d <= 1024:
+                for bh in (1, 4, 16, 64):
+                    lib.sdm_attention_mma_plan(bh, s_len, d, plan)
+                    mirror = attn_mod.mma_plan(bh, s_len, d)
+                    if (bool(plan[0]), plan[1], plan[2]) != mirror:
+                        raise AssertionError(
+                            f"mma_plan disagrees with C at bh={bh} S={s_len} "
+                            f"D={d}: {list(plan)} vs {mirror}")
+                    checked += 1
+    log(f"whole-S admissions: the Python mirrors agree with the C functions "
+        f"for S = 64..8192 (fits) and in {checked} admission and plan cases "
+        "(D = 8..2560, S in 64, 96, 256, 1024, 3200, both dtypes, four "
+        "layouts, batch*heads 1, 4, 16, 64)")
 
 
 def streaming_phase(torch, results):
@@ -399,11 +463,23 @@ def streaming_phase(torch, results):
                 streaming_bwd_case(torch, randn, results, dtype, s_len, d,
                                    axis)
                 torch.cuda.empty_cache()
+        # The stats kernel at the whole-S U-Net shapes (it is the whole-S
+        # attention's first pass too) and off them; at (1024, 1024) also
+        # on strided q and k views of one qkv buffer.
+        shapes = [("flagship", sh) for sh in BLOCK_SHAPES] + [
+            ("sr", sh) for sh in SR_BLOCK_SHAPES
+            if sh not in BLOCK_SHAPES and sh not in STREAM_SHAPES] + [
+            ("extra", sh) for sh in EXTRA_SHAPES]
+        for model, (s_len, d) in shapes:
+            for axis in ("q", "k"):
+                stats_case(torch, randn, results, model, dtype, s_len, d,
+                           axis, views=(s_len, d) == (1024, 1024))
 
     # Off the main path: a ragged S (CUDA-core kernels in bf16 too, ragged
     # tiles masked); D = 128 leaves each P V warp 64 columns; D = 384 walks
     # rows of 48 16-byte chunks in the tile loader; D = 1024 is past the
-    # tensor-core apply and takes the CUDA cores in bf16.
+    # tensor-core apply and takes the CUDA cores in bf16 (its stats stay on
+    # attn_stats_mma).
     for dtype in (torch.float32, torch.bfloat16):
         for axis in ("q", "k"):
             off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
@@ -423,7 +499,8 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
                   for std in (QK_STD, QK_STD, 1.0, 1.0))
     scale = d ** -0.5
     tag = f"{dn} S={s_len} D={d} {axis}"
-    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_dv.mma_launches)
+    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_dv.mma_launches,
+            sa.streaming_stats.mma_launches)
     err = compare(f"streaming {tag}", sa.streaming_attention(q, k, v, scale,
                                                              axis),
                   sa.streaming_attention_reference(q, k, v, scale, axis),
@@ -440,21 +517,26 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
                      sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
                      BWD_TOL[dn])
     mma = sa.apply_takes_mma(q, k, v, out32)
+    stats_mma = sa.stats_takes_mma(q, k)
     moved = (sa.streaming_apply.mma_launches - mma0[0],
-             sa.streaming_dv.mma_launches - mma0[1])
-    if moved != ((2, 1) if mma else (0, 0)):
-        raise AssertionError(f"streaming {tag}: mma launches {moved}, the "
-                             f"admission says {mma}")
-    log(f"streaming {tag} ({'mma.sync' if mma else 'CUDA-core'} apply)  "
+             sa.streaming_dv.mma_launches - mma0[1],
+             sa.streaming_stats.mma_launches - mma0[2])
+    if moved != (2 * mma, 1 * mma, 2 * stats_mma):
+        raise AssertionError(f"streaming {tag}: mma launches (apply, dV, "
+                             f"stats) {moved}, the admissions say apply "
+                             f"{mma}, stats {stats_mma}")
+    log(f"streaming {tag} ({'mma.sync' if stats_mma else 'CUDA-core'} "
+        f"stats, {'mma.sync' if mma else 'CUDA-core'} apply)  "
         f"{err_text(err, ATTN_TOL[dn])}; fp32-output apply "
         f"{err_text(err32, ATTN_TOL[dn])}; dV {err_text(err_dv, BWD_TOL[dn])}")
 
 
 def check_stream_predicates(torch):
     """The Python mirrors of the streaming admissions (apply_admits_mma,
-    stats_admits_wmma, apply_smem_bytes_mma) against the C predicates, over
-    D = 8..2560, several S, both dtypes and three layouts: aligned,
-    a pointer off by 8 bytes, a row stride off by 4 elements."""
+    stats_admits_mma, apply_smem_bytes_mma, stats_smem_bytes_mma) against
+    the C predicates, over D = 8..2560, several S, both dtypes and three
+    layouts: aligned, a pointer off by 8 bytes, a row stride off by 4
+    elements."""
     import ctypes
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import streaming_attention as sa
@@ -464,6 +546,9 @@ def check_stream_predicates(torch):
         if lib.sdm_streaming_mma_smem_bytes(d) != sa.apply_smem_bytes_mma(d):
             raise AssertionError(f"apply_smem_bytes_mma({d}) disagrees with "
                                  "stream_mma_smem_bytes")
+        if lib.sdm_stats_mma_smem_bytes(d) != sa.stats_smem_bytes_mma(d):
+            raise AssertionError(f"stats_smem_bytes_mma({d}) disagrees with "
+                                 "stats_mma_smem_bytes")
         for s_len in (64, 96, 300, 1024, 4096):
             for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
                 for ptr_off, ss_off in ((0, 0), (8, 0), (0, 4)):
@@ -477,10 +562,10 @@ def check_stream_predicates(torch):
                         ("apply", lib.sdm_streaming_apply_takes_mma(
                             cptrs, cstr, s_len, d, dt),
                          sa.apply_admits_mma(dtype, s_len, d, ptrs, strides)),
-                        ("stats", lib.sdm_streaming_stats_takes_wmma(
+                        ("stats", lib.sdm_streaming_stats_takes_mma(
                             cptrs, cstr, s_len, d, dt),
-                         sa.stats_admits_wmma(dtype, s_len, d, ptrs[:2],
-                                              strides[:2])))
+                         sa.stats_admits_mma(dtype, s_len, d, ptrs[:2],
+                                             strides[:2])))
                     for what, got, mirror in pairs:
                         if bool(got) != mirror:
                             raise AssertionError(
@@ -510,7 +595,13 @@ def attention_case(torch, randn, results, model, dtype, s_len, d, axis):
     q, k = (randn((BATCH, s_len, 1, d), dtype, std=QK_STD) for _ in range(2))
     v = randn((BATCH, s_len, 1, d), dtype)
     scale = d ** -0.5
+    mma0 = fused_attention.mma_launches
     got = fused_attention(q, k, v, scale, axis)
+    mma = fused_attention.mma_launches - mma0
+    if mma != (dtype == torch.bfloat16):
+        raise AssertionError(f"attention {dn} S={s_len} D={d}: {mma} mma "
+                             "launches; every bf16 U-Net shape takes the "
+                             "tensor cores")
     want = attention_reference(q, k, v, scale, axis)
     name = f"attention {dn} S={s_len} D={d} {axis}"
     err = compare(name, got, want, ATTN_TOL[dn])
@@ -575,6 +666,35 @@ def block_case(torch, randn, results, model, dtype, s_len, d, axis):
     log(f"attention_block {dn:8s} S={s_len:4d} C={c:4d} {axis}  "
         f"{err_text(err, ATTN_TOL[dn])}  wrong axis fails  "
         f"kernel {ms:.4f} ms  plain {plain:.4f}  bound {b:.4f} ({by})")
+    if axis == "q":
+        linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
+                    w_out, b_out)
+
+
+def linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
+                w_out, b_out):
+    """The block's two projections, `linear` (csrc/linear.cu) against
+    F.linear (cuBLAS) on the same inputs, without the residual epilogue:
+    qkv = tok W_qkv^T + b and out = r W_out^T + b. A yardstick only;
+    nothing on the port's path calls F.linear."""
+    import torch.nn.functional as F
+    from sdm_tpu_torch.kernels.attention_block import linear
+    dn = str(dtype).split(".")[-1]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    tok2 = tok.reshape(-1, tok.shape[-1])
+    r = randn((tok2.shape[0], w_out.shape[1]), dtype)
+    for what, x, w, bias in (("qkv", tok2, w_qkv, b_qkv),
+                             ("out", r, w_out, b_out)):
+        (m, kk), n = x.shape, w.shape[0]
+        ms = time_ms(lambda: linear(x, w, bias), 10)
+        lib = time_ms(lambda: F.linear(x, w, bias), 10)
+        b, by = bound_ms((m * kk + n * kk + m * n) * isz + n * isz,
+                         2.0 * m * n * kk, dn)
+        results.append(dict(kernel="linear", model=model, dtype=dn,
+                            projection=what, shape=[m, n, kk], ms=ms,
+                            library_ms=lib, bound_ms=b, bound_by=by))
+        log(f"linear {dn:8s} {what} M={m} N={n} K={kk}: kernel {ms:.4f} ms  "
+            f"F.linear {lib:.4f}  bound {b:.4f} ({by})")
 
 
 def streaming_case(torch, randn, results, dtype, s_len, d, axis):
@@ -593,10 +713,8 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
     scale = d ** -0.5
     tag = f"{dn} S={s_len} D={d} {axis}"
 
+    err_m, err_l = stats_check(torch, q, k, scale, axis, tag)
     m, l = sa.streaming_stats(q, k, scale, axis)
-    m_ref, l_ref = sa.streaming_stats_reference(q, k, scale, axis)
-    err_m = compare(f"streaming_stats m {tag}", m, m_ref, STATS_TOL["m"])
-    err_l = compare(f"streaming_stats l {tag}", l, l_ref, STATS_TOL["l"])
     out = sa.streaming_apply(q, k, v, m, l, scale, axis)
     err_a = compare(f"streaming_apply {tag}", out,
                     sa.streaming_apply_reference(q, k, v, m, l, scale, axis),
@@ -609,7 +727,7 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
               sa.streaming_attention_reference(q, k, v, scale, other),
               ATTN_TOL[dn])
     line = (f"streaming {tag}: m {err_text(err_m, STATS_TOL['m'])}; l "
-            f"{err_text(err_l, STATS_TOL['l'])}; apply "
+            f"{err_text(err_l, STATS_TOL['l'])} (wrong axis fails); apply "
             f"{err_text(err_a, ATTN_TOL[dn])}; whole function "
             f"{err_text(err_f, ATTN_TOL[dn])}; wrong axis fails")
     if s_len <= 1024:
@@ -658,6 +776,65 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
     log(f"streaming {tag}: stats {ms_s:.4f} ms (plain {pl_s:.4f}, bound "
         f"{b_s:.4f} {by_s}), apply {ms_a:.4f} ms (plain {pl_a:.4f}, bound "
         f"{b_a:.4f} {by_a}); sdpa {lib if lib is None else round(lib, 4)}")
+
+
+def stats_check(torch, q, k, scale, axis, tag):
+    """streaming_stats against its plain version on (q, k), and against
+    the plain version of the other axis, which must fail for m and for l;
+    the launch must take attn_stats_mma exactly when the mirror says so.
+    Returns the m and l errors."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    other = "k" if axis == "q" else "q"
+    mma0 = sa.streaming_stats.mma_launches
+    m, l = sa.streaming_stats(q, k, scale, axis)
+    moved = sa.streaming_stats.mma_launches - mma0
+    if moved != sa.stats_takes_mma(q, k):
+        raise AssertionError(f"streaming_stats {tag}: {moved} mma launches, "
+                             f"the admission says {sa.stats_takes_mma(q, k)}")
+    m_ref, l_ref = sa.streaming_stats_reference(q, k, scale, axis)
+    err_m = compare(f"streaming_stats m {tag}", m, m_ref, STATS_TOL["m"])
+    err_l = compare(f"streaming_stats l {tag}", l, l_ref, STATS_TOL["l"])
+    m_o, l_o = sa.streaming_stats_reference(q, k, scale, other)
+    must_fail(f"streaming_stats m {tag}", m, m_o, STATS_TOL["m"])
+    must_fail(f"streaming_stats l {tag}", l, l_o, STATS_TOL["l"])
+    return err_m, err_l
+
+
+def stats_case(torch, randn, results, model, dtype, s_len, d, axis,
+               views=False):
+    """The stats kernel alone at one shape (batch 16): `stats_check`, then
+    kernel and plain times beside the bound. `views`: q and k are strided
+    views of one (16, S, 3D) qkv buffer, as the attention block passes
+    them."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    dn = str(dtype).split(".")[-1]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    if views:
+        q, k, _ = randn((BATCH, s_len, 3 * d), dtype, std=QK_STD).split(
+            d, dim=-1)
+    else:
+        q, k = (randn((BATCH, s_len, d), dtype, std=QK_STD) for _ in range(2))
+    if dtype == torch.bfloat16 and not sa.stats_takes_mma(q, k):
+        raise AssertionError(f"streaming_stats {dn} S={s_len} D={d}: a bf16 "
+                             "U-Net shape off the tensor cores")
+    scale = d ** -0.5
+    tag = f"{dn} S={s_len} D={d} {axis}" + (" (qkv views)" if views else "")
+    err_m, err_l = stats_check(torch, q, k, scale, axis, tag)
+    reps = _reps(s_len, dn)
+    ms = time_ms(lambda: sa.streaming_stats(q, k, scale, axis), reps)
+    plain = time_ms(lambda: sa.streaming_stats_reference(q, k, scale, axis),
+                    reps)
+    b, by = bound_ms(2 * BATCH * s_len * d * isz + 2 * BATCH * s_len * 4,
+                     2.0 * BATCH * s_len * s_len * d, dn)
+    results.append(dict(kernel="stats", model=model, dtype=dn, axis=axis,
+                        shape=[BATCH, s_len, d], views=views,
+                        max_abs_err=max(err_m[0], err_l[0]),
+                        max_rel_err=max(err_m[1], err_l[1]), tol=STATS_TOL,
+                        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                        bound_by=by))
+    log(f"streaming_stats {tag}: m {err_text(err_m, STATS_TOL['m'])}; l "
+        f"{err_text(err_l, STATS_TOL['l'])}; wrong axis fails; kernel "
+        f"{ms:.4f} ms  plain {plain:.4f}  bound {b:.4f} ({by})")
 
 
 def bwd_error(got, truth):
@@ -999,14 +1176,17 @@ def grad_phase(torch, name, cfg, img, streaming):
 
 # Kernel-name fragments -> family for the device-time breakdown; the first
 # match wins, so the streaming backward passes (tagged dv_pass, dk_pass,
-# dq_pass) come before the other streaming kernels (stream_apply*, and the
-# shared stats kernels tagged <streaming>), those before the whole-S
-# attention, and the port's kernels and cuDNN's convolutions before cuBLAS's
+# dq_pass) come before the whole-S attention's shared kernels (tagged
+# whole_s, among them stream_apply_mma<..., whole_s>), those before the
+# other streaming kernels (stream_apply*, and the shared stats kernels
+# tagged <streaming>), those before the rest of the whole-S attention
+# (attn_*), and the port's kernels and cuDNN's convolutions before cuBLAS's
 # GEMMs.
 FAMILIES = (("adagn_", "adagn (port)"),
             ("dv_pass", "streaming dV (port)"),
             ("dk_pass", "streaming dK (port)"),
             ("dq_pass", "streaming dQ (port)"),
+            ("whole_s", "attention (port)"),
             ("stream", "streaming attention (port)"),
             ("attn_", "attention (port)"),
             ("linear_", "linear (port)"), ("fprop", "conv (cuDNN)"),
@@ -1092,15 +1272,18 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every streaming apply on stream_apply_mma (`_mma`). Calls
-    without a gradient launch no backward kernel."""
+    passes, every whole-S attention, streaming stats and streaming apply on
+    the mma.sync kernels (`_mma`). Calls without a gradient launch no
+    backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
             "fused_attention": (blocks - streaming) * calls,
+            "fused_attention_mma": (blocks - streaming) * calls,
             "fused_attention_block": blocks * calls,
             "linear": 2 * blocks * calls,
             "streaming_stats": streaming * calls,
+            "streaming_stats_mma": streaming * calls,
             "streaming_apply": streaming * calls,
             "streaming_apply_mma": streaming * calls,
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
@@ -1108,8 +1291,9 @@ def expected_launches(cfg, calls, streaming):
 
 
 def zero_counts(counters):
-    """Every launch count to 0, the tensor-core counts of the streaming
-    apply and dV passes (`mma_launches`) too."""
+    """Every launch count to 0, the tensor-core counts (`mma_launches`) of
+    the whole-S attention and the streaming stats, apply and dV passes
+    too."""
     for fn in counters:
         fn.launches = 0
         if hasattr(fn, "mma_launches"):
@@ -1118,7 +1302,8 @@ def zero_counts(counters):
 
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches of
-    streaming_apply and streaming_dv that ran stream_apply_mma."""
+    fused_attention, streaming_stats, streaming_apply and streaming_dv that
+    ran the mma.sync kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
     out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
                 if hasattr(fn, "mma_launches")})
@@ -1491,25 +1676,32 @@ def summarize(results, launches):
     times summed over one U-Net call: the flagship's for the kernels of
     slice 1, the SR model's for the streaming kernels (forward: one SR
     U-Net call; backward: one SR train step). `launches` sums the served
-    and trained paths; `launches_by_path` keeps them apart."""
+    and trained paths; `launches_by_path` keeps them apart, and
+    `mma_launches` counts those that ran the mma.sync kernels. No library
+    call normalizes over queries, so the query-axis `library_ms` is null;
+    the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
+    `k_axis_library_ms`: the whole-S attention per flagship call, the
+    streaming forward, stats + apply, per SR call). The block's entry adds
+    its two projections' `linear` time beside F.linear's (cuBLAS)."""
     meta = {
         "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
         "fused_attention": ("attention", "flagship",
-                            "sdm_tpu_torch/csrc/attention.cu",
+                            "sdm_tpu_torch/csrc/attention.cu "
+                            "(+ attention_tiles.cuh)",
                             "sdm_tpu/kernels/attention.py:86", 1),
         "fused_attention_block": ("attention_block", "flagship",
                                   "sdm_tpu_torch/csrc/linear.cu",
                                   "sdm_tpu/kernels/attention_block.py:88",
                                   1),
         "streaming_stats": ("streaming_stats", "sr",
-                            "sdm_tpu_torch/csrc/streaming_attention.cu",
+                            "sdm_tpu_torch/csrc/attention_tiles.cuh",
                             "sdm_tpu/kernels/streaming_attention.py:223", 1),
         "streaming_apply": ("streaming_apply", "sr",
-                            "sdm_tpu_torch/csrc/streaming_attention.cu",
+                            "sdm_tpu_torch/csrc/attention_tiles.cuh",
                             "sdm_tpu/kernels/streaming_attention.py:234", 1),
         "streaming_dv": ("streaming_dv", "sr",
-                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu_torch/csrc/attention_tiles.cuh",
                          "sdm_tpu/kernels/streaming_attention.py:298", 1),
         "streaming_dk": ("streaming_dk", "sr",
                          "sdm_tpu_torch/csrc/streaming_attention.cu",
@@ -1520,12 +1712,30 @@ def summarize(results, launches):
     }
     # STREAM_SHAPES[0] is the SR model's one streaming block.
     shapes = {"flagship": None, "sr": [[BATCH, *STREAM_SHAPES[0]]]}
+    def main_rows(kernel, model, axis):
+        return [r for r in results if r["kernel"] == kernel
+                and r["model"] == model and r["dtype"] == "bfloat16"
+                and r.get("axis", "q") == axis
+                and (shapes[model] is None or r["shape"] in shapes[model])]
+
+    def k_axis(kernel, model, per_call):
+        rows = main_rows(kernel, model, "k")
+        return dict(k_axis_ms=sum(r["ms"] for r in rows) * per_call,
+                    k_axis_library_ms=sum(r["library_ms"] for r in rows)
+                    * per_call)
+
+    extra = {
+        "fused_attention": k_axis("attention", "flagship", 1),
+        "streaming_stats": k_axis("streaming_attention", "sr", 1),
+        "streaming_apply": k_axis("streaming_attention", "sr", 1),
+        "fused_attention_block": dict(
+            linear_ms=sum(r["ms"] for r in main_rows("linear", "flagship",
+                                                     "q")),
+            linear_library_ms=sum(r["library_ms"] for r in main_rows(
+                "linear", "flagship", "q")))}
     out = []
     for name, (kernel, model, source, replaces, per_call) in meta.items():
-        rows = [r for r in results if r["kernel"] == kernel
-                and r["model"] == model and r["dtype"] == "bfloat16"
-                and r.get("axis", "q") == "q"
-                and (shapes[model] is None or r["shape"] in shapes[model])]
+        rows = main_rows(kernel, model, "q")
         lib = [r["library_ms"] for r in rows]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1540,7 +1750,8 @@ def summarize(results, launches):
             launches_by_path={path: n[name] for path, n in launches.items()},
             **({"mma_launches": sum(path[name + "_mma"]
                                     for path in launches.values())}
-               if name in ("streaming_apply", "streaming_dv") else {}),
+               if name + "_mma" in next(iter(launches.values())) else {}),
+            **extra.get(name, {}),
             per=(f"one {model} "
                  + ("train step" if name.startswith("streaming_d")
                     else "U-Net call")
@@ -1603,11 +1814,24 @@ def demangle(names):
     return list(names)
 
 
+# The mma.sync kernels of each library, with the instantiations ptxas must
+# report: the stats kernel (one caller tag each, 128- and 64-column ring
+# chunks), the tensor-core apply
+# (the streaming library: bf16 and fp32 output x two axes for the apply,
+# fp32 x two axes for dV; the whole-S library: bf16 x two axes) and the
+# wide whole-S apply (two axes).
+MMA_KERNELS = {"attention": {"attn_stats_mma": 2, "stream_apply_mma": 2,
+                             "attn_apply_mma_wide": 2},
+               "streaming_attention": {"attn_stats_mma": 2,
+                                       "stream_apply_mma": 6}}
+
+
 def build_phase(torch):
     """Build every library, log each kernel's registers and spills, and
-    hold every stream_apply_mma instantiation to 0 spill bytes. Returns the
-    tensor-core apply's ptxas report."""
+    hold every instantiation of the mma.sync kernels (MMA_KERNELS) to 0
+    spill bytes. Returns their ptxas report and dynamic shared memory."""
     from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import attention as attn_mod
     from sdm_tpu_torch.kernels import streaming_attention as sa
     t0 = time.monotonic()
     _build.build()
@@ -1616,24 +1840,32 @@ def build_phase(torch):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    report = {k: v for k, v in
-              ptxas_report(_build.build_log("streaming_attention")).items()
-              if "stream_apply_mma" in k and "registers" in v}
-    # Apply: bf16 and fp32 output x two axes; dV: fp32 output x two axes.
-    if len(report) != 6:
-        raise AssertionError(f"ptxas reports {len(report)} stream_apply_mma "
-                             f"instantiations, expected 6: {list(report)}")
-    smem = sa.apply_smem_bytes_mma(sa.MMA_MAX_D)
-    for pretty, (name, info) in zip(demangle(list(report)), report.items()):
-        info["name"] = pretty
-        log(f"  stream_apply_mma: {pretty}: {info['registers']} registers, "
-            f"{info.get('spill_bytes')} spill bytes, {smem} bytes of "
-            f"dynamic shared memory at D = {sa.MMA_MAX_D}")
-        if info.get("spill_bytes") != 0:
-            raise AssertionError(f"{pretty} spills "
-                                 f"{info.get('spill_bytes')} bytes")
-    return dict(stream_apply_mma=list(report.values()),
-                stream_apply_mma_smem_bytes=smem)
+    smem = {"attn_stats_mma": (sa.stats_smem_bytes_mma(1024), 1024),
+            "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
+                                 sa.MMA_MAX_D),
+            "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024), 1024)}
+    out = {}
+    for lib, kernels in MMA_KERNELS.items():
+        report = ptxas_report(_build.build_log(lib))
+        for kernel, count in kernels.items():
+            found = {k: v for k, v in report.items()
+                     if kernel in k and "registers" in v}
+            if len(found) != count:
+                raise AssertionError(
+                    f"ptxas reports {len(found)} {kernel} instantiations in "
+                    f"lib{lib}, expected {count}: {list(found)}")
+            nbytes, d = smem[kernel]
+            for pretty, info in zip(demangle(list(found)), found.values()):
+                info["name"] = pretty
+                log(f"  {lib}: {pretty}: {info['registers']} registers, "
+                    f"{info.get('spill_bytes')} spill bytes, {nbytes} bytes "
+                    f"of dynamic shared memory at D = {d}")
+                if info.get("spill_bytes") != 0:
+                    raise AssertionError(f"{pretty} spills "
+                                         f"{info.get('spill_bytes')} bytes")
+            out.setdefault(kernel, []).extend(found.values())
+    out["smem_bytes"] = {k: v[0] for k, v in smem.items()}
+    return out
 
 
 def main(argv) -> int:

@@ -5,16 +5,17 @@
 // forward's stats pass (_stats_kernel, pallas_call at :223) and apply pass
 // (_apply_kernel, pallas_call at :234), and the backward's dV pass
 // (_dv_kernel, pallas_call at :298), dK pass (_dk_kernel, :260) and dQ pass
-// (_dq_kernel, :271); the backward is described further down. Both stream (256, 256) tiles through
-// VMEM so no S x S score block exists. On the H100 the whole-S kernel
-// (attention.cu) keeps a 32 x S block of P in shared memory, which stops
-// fitting past S = 3200 in bf16 and S = 1687 in fp32 (S = 4096 is the
-// 256x256 SR model's layer-2 grid). This kernel never holds more than one
-// score tile, and its shared memory does not depend on S:
+// (_dq_kernel, :271); the backward is described further down. Both stream
+// (256, 256) tiles through VMEM so no S x S score block exists. On the H100
+// the whole-S kernel (attention.cu) takes bf16 tensor-core grids up to
+// S = 3200 (WHOLE_S_MAX_MMA) and fp32 up to S = 1687, where its CUDA-core
+// 32 x S block stops fitting (S = 4096 is the 256x256 SR model's layer-2
+// grid). This kernel never holds more than one score tile, and its shared
+// memory does not depend on S:
 //
 //   1. stats, grid (S/64 kept rows, B): the shared kernels of
 //      attention_tiles.cuh (column stats for "q", row stats for "k"), which
-//      already loop over the reduced axis tile by tile.
+//      loop over the reduced axis tile by tile.
 //   2. apply: each block owns a tile of queries and walks all key tiles.
 //      For each it computes the score tile with the full-D contraction,
 //      turns it into P = exp(s - m) / l with the final stats (no online
@@ -22,15 +23,15 @@
 //      accumulates P V_j for its output columns in fp32 registers. One
 //      rounding to the output type at the end.
 //
-// The stats pass takes WMMA tensor-core tiles for bf16 at S % 64 == 0,
-// D % 128 == 0 with 16-byte aligned rows. The apply pass (and the dV pass,
-// which is the apply pass with the roles swapped) takes stream_apply_mma
-// for bf16 at those shapes with D <= 512 (every U-Net shape that streams):
-// mma.sync with ldmatrix fragments and a cp.async ring, described at the
-// kernel. fp32, and bf16 at other shapes, take CUDA-core kernels (fp32 FMA)
-// that mask ragged tiles: keys past S give P = 0, and the stats count them
-// as -inf. The apply pass is bound by operations: 4*S*S*D per (batch, head)
-// (scores and P V), 2*S*S*D for the stats.
+// bf16 at S % 64 == 0, D % 128 == 0 with 16-byte aligned rows runs on the
+// tensor cores through mma.sync with ldmatrix fragments and cp.async rings
+// (attention_tiles.cuh, shared with the whole-S kernel): the stats pass on
+// attn_stats_mma (D <= 1152), the apply pass (and the dV pass, which is the
+// apply pass with the roles swapped) on stream_apply_mma (D <= 512; every
+// U-Net shape that streams). fp32, and bf16 at other shapes, take CUDA-core
+// kernels (fp32 FMA) that mask ragged tiles: keys past S give P = 0, and the
+// stats count them as -inf. The apply pass is bound by operations: 4*S*S*D
+// per (batch, head) (scores and P V), 2*S*S*D for the stats.
 //
 // q, k, v and out are (B, S, D) with arbitrary B and S strides and a unit D
 // stride, so the attention block can pass views of its qkv buffer; m and l
@@ -38,312 +39,20 @@
 // (the key-axis backward keeps the fp32 output as a residual).
 #include "attention_tiles.cuh"
 
-// Pass tags, so a profiler trace names the apply kernel's two callers apart
+#include <mma.h>
+
+// Pass tags, so a profiler trace names the apply kernel's callers apart
 // (stream_apply_mma<float, false, dv_pass> is the dV pass) and dK from dQ.
 struct apply_pass {};
 struct dv_pass {};
 struct dk_pass {};
 struct dq_pass {};
 
-// ---------------------------------------------------------------------------
-// Tensor-core apply: stream_apply_mma<OutT, QAXIS, Pass>.
-//
-// Replaces the TPU's _apply_kernel (sdm_tpu/kernels/streaming_attention.py
-// :120, pallas_call at :234) and, launched with the roles swapped, its
-// _dv_kernel (:133, pallas_call at :298). Bound: operations, 4*S*S*D per
-// batch row (the score tile's q k^T and P V, each 2*S*S*D), against bytes of
-// 4*S*D*2 + 8*S: at S = 4096, D = 512 about 1000 operations per byte, far
-// above the H100's ~295 for bf16.
-//
-// Block: 64 own queries, 256 threads (8 warps), one block per SM, grid
-// (S/64, B). Shared memory at D = 512 (205,312 bytes):
-//   Q tile   [64][D+8] bf16, loaded once by cp.async, resident;
-//   ring     2 stages x (K, V) [32][D+8] bf16: 32-key tiles, tile j+1 in
-//            flight (cp.async.cg, 16 bytes a copy) while tile j is computed;
-//            on the query axis each stage also carries its 32 keys' m and l;
-//   P tile   [64][40] bf16.
-// The 8-element row padding puts the eight 16-byte rows of every ldmatrix
-// on distinct banks.
-//
-// Per 32-key tile, after one cp.async.wait_group + __syncthreads:
-//   scores   warp (r = w % 4, h = w / 4) takes rows 16r.., keys 16h.. over
-//            all of D: A (Q) by ldmatrix.x4, B (K, stored [key][d], which
-//            is B's column-major layout) by plain ldmatrix.x4, two
-//            m16n8k16 mma.sync per 16-deep step into fp32 accumulators,
-//            even and odd steps in separate accumulators for two
-//            independent chains each;
-//   P        formed on the accumulator fragment itself (lane L holds rows
-//            L/4 and L/4 + 8, columns 2(L%4) and +1): the stats come from
-//            the staged tile on the query axis (per key) and from registers
-//            on the key axis (per query, loaded once); P = exp(s*scale - m)
-//            / l in fp32, rounded to bf16 and written to the P tile as bf16
-//            pairs; one __syncthreads;
-//   P V      warp (r, h) owns rows 16r.. and D/2 output columns: A (P) by
-//            ldmatrix.x4, B (V, stored [key][d]) by ldmatrix.x4.trans, a
-//            16 x 256 fp32 accumulator per warp (128 registers a thread).
-// The epilogue rounds once to OutT and stores straight from the fragments
-// (bf16 or fp32 pairs).
-//
-// What this design does about the WMMA kernel it replaced: that kernel owned
-// 32 queries per block (K and V read from L2 S/32 times per batch row; here
-// S/64); its loads were synchronous 16-byte copies between barriers (four
-// per 64-key tile, nothing in flight during the products; here one tile is
-// always in flight and there are two barriers per tile); and its scores went
-// through a per-warp fp32 scratch with m and l read from global memory per
-// element (here P is formed in registers, the stats staged with the tile),
-// and WMMA's opaque fragments forced reloading V per 16-column slice (here
-// each V fragment is loaded once per warp and used by two products).
-// ---------------------------------------------------------------------------
-
-#define MQ 64                 // own queries per block
-#define MK 32                 // keys per streamed tile
-#define MMAXD 512             // widest D of the tensor-core apply
-#define MPLD (MK + 8)         // bf16 pitch of its P tile
-#define MTHREADS 256
-
 // CUDA-core apply.
 #define TQ 32                 // queries per block
 #define TK 64                 // keys per score tile
 #define TDC 512               // output columns per block
 #define VK 16                 // value rows staged per step
-
-static size_t stream_mma_smem_bytes(int D) {
-  return (size_t)MQ * (D + 8) * sizeof(bf16)            // Q tile
-         + 2 * 2 * (size_t)MK * (D + 8) * sizeof(bf16)  // ring: K and V
-         + (size_t)MQ * MPLD * sizeof(bf16)             // P tile
-         + 2 * 2 * MK * sizeof(float);                  // ring: m and l
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b for one m16n8k16 tile: a the 4-register bf16 A fragment, (b0, b1)
-// the B fragment, c the fp32 accumulator fragment.
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-template <typename OutT, bool QAXIS, typename Pass>
-__global__ void __launch_bounds__(MTHREADS, 1)
-stream_apply_mma(const bf16* __restrict__ q, View qv,
-                 const bf16* __restrict__ k, View kv,
-                 const bf16* __restrict__ v, View vv, OutT* __restrict__ o,
-                 View ov, int S, int D, float scale,
-                 const float* __restrict__ m_in,
-                 const float* __restrict__ l_in) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = D + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);           // [MQ][ld]
-  bf16* Ring = Qs + MQ * ld;                              // [2][K, V][MK][ld]
-  bf16* Ps = Ring + 4 * MK * ld;                          // [MQ][MPLD]
-  float* St = reinterpret_cast<float*>(Ps + MQ * MPLD);   // [2][m, l][MK]
-
-  const int b = blockIdx.y;
-  const bf16* qp = slice_ptr(q, qv, 1, b);
-  const bf16* kp = slice_ptr(k, kv, 1, b);
-  const bf16* vp = slice_ptr(v, vv, 1, b);
-  OutT* op = slice_ptr(o, ov, 1, b);
-  const float* mb = m_in + (long long)b * S;
-  const float* lb = l_in + (long long)b * S;
-  const int i0 = blockIdx.x * MQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp & 3, wh = warp >> 2;
-  const int g = lane >> 2, tg = lane & 3;
-  const int cpr = D / 8;              // 16-byte chunks per row
-  const int wcols = D / 2;            // P V output columns per warp
-  const int cbase = wh * wcols;
-
-  // The Q tile joins the first cp.async group, with key tile 0.
-  for (int c = tid; c < MQ * cpr; c += MTHREADS) {
-    const int r = c / cpr, cc = (c - r * cpr) * 8;
-    cp_async16(smem_u32(Qs + r * ld + cc),
-               qp + (long long)(i0 + r) * qv.ss + cc);
-  }
-  // Key tile at j0 into ring stage `st`: this thread's chunks are c = tid +
-  // 256 i of the row-major (MK, cpr) chunk grid, walked incrementally.
-  const int step_r = MTHREADS / cpr, step_c = MTHREADS - step_r * cpr;
-  auto load_tile = [&](int j0, int st) {
-    bf16* Ks = Ring + st * 2 * MK * ld;
-    bf16* Vs = Ks + MK * ld;
-    int r = tid / cpr, cc = tid - r * cpr;
-    while (r < MK) {
-      cp_async16(smem_u32(Ks + r * ld + cc * 8),
-                 kp + (long long)(j0 + r) * kv.ss + cc * 8);
-      cp_async16(smem_u32(Vs + r * ld + cc * 8),
-                 vp + (long long)(j0 + r) * vv.ss + cc * 8);
-      r += step_r;
-      cc += step_c;
-      if (cc >= cpr) {
-        cc -= cpr;
-        ++r;
-      }
-    }
-    if (QAXIS && tid < 2 * MK)
-      cp_async4(smem_u32(St + st * 2 * MK + tid),
-                tid < MK ? mb + j0 + tid : lb + j0 + tid - MK);
-  };
-
-  // Key axis: the stats of this lane's two rows, for the whole key loop.
-  float mrow[2] = {0.f, 0.f}, lrow[2] = {1.f, 1.f};
-  if (!QAXIS) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = i0 + wr * 16 + g + 8 * hh;
-      mrow[hh] = mb[row];
-      lrow[hh] = lb[row];
-    }
-  }
-
-  // ldmatrix lane addresses (bytes, shared window). A fragments (Q, P):
-  // lanes 0-15 rows 0-15 at column 0, lanes 16-31 rows 0-15 at column 8.
-  // B of the scores (K rows are keys): lanes 0-7 keys 0-7 / d 0, 8-15 keys
-  // 0-7 / d 8, 16-23 keys 8-15 / d 0, 24-31 keys 8-15 / d 8, so registers
-  // 0-1 are key block 0's fragment and 2-3 key block 1's. B of P V (V rows
-  // are keys, transposed load): lanes 0-15 keys 0-15 at column 0, 16-31 at
-  // column 8, so registers 0-1 are column block 0 and 2-3 column block 1.
-  const unsigned qa = smem_u32(Qs + (wr * 16 + (lane & 15)) * ld +
-                               (lane >> 4) * 8);
-  const unsigned pa = smem_u32(Ps + (wr * 16 + (lane & 15)) * MPLD +
-                               (lane >> 4) * 8);
-  const int kb_off = (wh * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld +
-                     ((lane >> 3) & 1) * 8;
-  const int vb_off = (lane & 15) * ld + cbase + (lane >> 4) * 8;
-
-  float acc[32][4];
-#pragma unroll
-  for (int n = 0; n < 32; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int ntiles = S / MK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    cp_async_wait_all();
-    // Tile t (and Q) visible to every warp; every warp is done with tile
-    // t - 1, so its stage and the P tile may be overwritten.
-    __syncthreads();
-    if (t + 1 < ntiles) load_tile((t + 1) * MK, st ^ 1);
-    cp_async_commit();
-
-    const bf16* Ks = Ring + st * 2 * MK * ld;
-    const unsigned kb = smem_u32(Ks + kb_off);
-    const unsigned vb = smem_u32(Ks + MK * ld + vb_off);
-
-    float s[2][2][4];
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[p][n][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 32) {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        unsigned a[4], bk[4];
-        ldsm_x4(a, qa + (kk + 16 * p) * 2);
-        ldsm_x4(bk, kb + (kk + 16 * p) * 2);
-        mma_bf16(s[p][0], a, bk[0], bk[1]);
-        mma_bf16(s[p][1], a, bk[2], bk[3]);
-      }
-    }
-
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int col = wh * 16 + n * 8 + 2 * tg;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float pr[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float sv = s[0][n][2 * hh + e] + s[1][n][2 * hh + e];
-          const float mm = QAXIS ? St[st * 2 * MK + col + e] : mrow[hh];
-          const float ll = QAXIS ? St[st * 2 * MK + MK + col + e] : lrow[hh];
-          pr[e] = expf(sv * scale - mm) / ll;
-        }
-        store_pair(Ps + (wr * 16 + g + 8 * hh) * MPLD + col, pr[0], pr[1]);
-      }
-    }
-    __syncthreads();   // the P tile is complete
-
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      unsigned a[4];
-      ldsm_x4(a, pa + kk * 2);
-#pragma unroll
-      for (int np = 0; np < 16; ++np) {
-        if (np * 16 < wcols) {
-          unsigned bv[4];
-          ldsm_x4_trans(bv, vb + (kk * ld + np * 16) * 2);
-          mma_bf16(acc[2 * np], a, bv[0], bv[1]);
-          mma_bf16(acc[2 * np + 1], a, bv[2], bv[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < 32; ++n) {
-    if (n * 8 < wcols) {
-      const int col = cbase + n * 8 + 2 * tg;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = i0 + wr * 16 + g + 8 * hh;
-        store_pair(op + (long long)row * ov.ss + col, acc[n][2 * hh],
-                   acc[n][2 * hh + 1]);
-      }
-    }
-  }
-}
 
 template <typename T, typename OutT, bool QAXIS, typename Pass>
 __global__ void __launch_bounds__(256)
@@ -441,35 +150,6 @@ stream_apply(const T* __restrict__ q, View qv, const T* __restrict__ k,
   }
 }
 
-static bool rows_aligned16(const void* const* ptrs, const View* views,
-                           int n) {
-  for (int i = 0; i < n; ++i)
-    if (!aligned16(ptrs[i]) || views[i].sn % 8 || views[i].ss % 8)
-      return false;
-  return true;
-}
-
-// The WMMA stats kernel's admission: bf16, S % 64 == 0, D % 128 == 0,
-// 16-byte aligned rows, D <= 2304. The kernel stages 64-column chunks and
-// has no limit on D itself; 2304 is the widest D this path has admitted
-// (the bound came from the shared memory of an earlier apply kernel), kept
-// so that no shape changes kernel.
-static bool stream_stats_wmma_ok(int dt, const void* const* ptrs,
-                                 const View* views, int S, int D) {
-  return dt == SDM_BF16 && S % 64 == 0 && D % 128 == 0 && D <= 2304 &&
-         rows_aligned16(ptrs, views, 2);
-}
-
-// stream_apply_mma's admission: bf16, S % 64 == 0, D % 128 == 0, D <= 512
-// and 16-byte aligned rows of q, k, v and out (strided views of a qkv buffer
-// qualify when their strides are multiples of 8 elements).
-static bool stream_mma_ok(int dt, const void* const* ptrs, const View* views,
-                          int S, int D) {
-  return dt == SDM_BF16 && S % MQ == 0 && D % 128 == 0 && D <= MMAXD &&
-         stream_mma_smem_bytes(D) <= MAX_SMEM &&
-         rows_aligned16(ptrs, views, 4);
-}
-
 static void read_views(const long long* strides, View* views, int n) {
   for (int i = 0; i < n; ++i)
     views[i] = View{strides[2 * i], 0, strides[2 * i + 1]};
@@ -485,8 +165,8 @@ SDM_EXPORT int sdm_streaming_stats(const void* q, const void* k, float* m,
   read_views(strides, views, 2);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const void* ptrs[2] = {q, k};
-  if (stream_stats_wmma_ok(dt, ptrs, views, S, D))
-    return (int)launch_stats_wmma<streaming>(
+  if (stats_mma_ok(dt, ptrs, views, S, D))
+    return (int)launch_stats_mma<streaming>(
         static_cast<const bf16*>(q), views[0], static_cast<const bf16*>(k),
         views[1], batch, 1, S, D, scale, axis_q, m, l, stream);
   if (dt == SDM_F32)
@@ -507,18 +187,11 @@ static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
                         float scale, int axis_q, const float* m,
                         const float* l, int dt, cudaStream_t stream) {
   const void* ptrs[4] = {q, k, v, o};
-  if (stream_mma_ok(dt, ptrs, views, S, D)) {
-    const size_t smem = stream_mma_smem_bytes(D);
-    auto kernel = axis_q ? &stream_apply_mma<OutT, true, Pass>
-                         : &stream_apply_mma<OutT, false, Pass>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    kernel<<<dim3(S / MQ, batch), MTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), views[0], static_cast<const bf16*>(k),
-        views[1], static_cast<const bf16*>(v), views[2], o, views[3], S, D,
-        scale, m, l);
-    return (int)cudaGetLastError();
-  }
+  if (stream_mma_ok(dt, ptrs, views, S, D))
+    return (int)launch_apply_mma<Pass>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), o, views, batch, 1, S, D, 1, D, scale,
+        axis_q, m, l, stream);
   const dim3 grid((S + TQ - 1) / TQ, batch, (D + TDC - 1) / TDC);
   if (dt == SDM_F32) {
     auto kernel = axis_q ? &stream_apply<float, OutT, true, Pass>
@@ -540,14 +213,14 @@ static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
 
 // The admissions, for the Python mirrors in kernels/streaming_attention.py
 // (checked against these on the card). ptrs and strides as the entry points
-// take them: q, k (stats) or q, k, v, out (apply). stream_mma_smem_bytes is
-// the apply kernel's dynamic shared memory.
-SDM_EXPORT int sdm_streaming_stats_takes_wmma(const void* const* ptrs,
-                                              const long long* strides, int S,
-                                              int D, int dt) {
+// take them: q, k (stats) or q, k, v, out (apply). stream_mma_smem_bytes and
+// stats_mma_smem_bytes are the kernels' dynamic shared memory.
+SDM_EXPORT int sdm_streaming_stats_takes_mma(const void* const* ptrs,
+                                             const long long* strides, int S,
+                                             int D, int dt) {
   View views[2];
   read_views(strides, views, 2);
-  return stream_stats_wmma_ok(dt, ptrs, views, S, D);
+  return stats_mma_ok(dt, ptrs, views, S, D);
 }
 
 SDM_EXPORT int sdm_streaming_apply_takes_mma(const void* const* ptrs,
@@ -560,6 +233,10 @@ SDM_EXPORT int sdm_streaming_apply_takes_mma(const void* const* ptrs,
 
 SDM_EXPORT int sdm_streaming_mma_smem_bytes(int D) {
   return (int)stream_mma_smem_bytes(D);
+}
+
+SDM_EXPORT int sdm_stats_mma_smem_bytes(int D) {
+  return (int)stats_mma_smem_bytes(D);
 }
 
 // strides: (sb, ss) of q, k, v and out in elements. m, l: the stats pass's

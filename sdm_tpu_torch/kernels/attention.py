@@ -6,19 +6,23 @@ Port of sdm_tpu/kernels/attention.py::fused_attention (TPU kernel
 query-axis softmax has no library kernel: SDPA and flash attention
 normalise over keys. The CUDA kernel (csrc/attention.cu) runs two passes on
 both axes: softmax statistics over the whole reduced axis (column stats for
-"q", row stats for "k"), then an apply pass that writes P V. bf16 at the U-Net's shapes runs on the tensor
-cores (WMMA); fp32, and bf16 at other shapes, on fp32 CUDA cores. It is
-bound by its 6*S*S*D operations per head (scores twice, P V once).
+"q", row stats for "k"), then an apply pass that writes P V. bf16 at the
+U-Net's shapes (`takes_mma`: S % 64 == 0, D % 128 == 0, D <= 1024, 16-byte
+aligned rows) runs on the tensor cores through mma.sync: the stats on
+`attn_stats_mma`, the apply on `stream_apply_mma` (D <= 512) or
+`attn_apply_mma_wide`, split over output columns as `mma_plan` says; each
+such call also counts in `fused_attention.mma_launches`. fp32, and bf16 at
+other shapes, run on fp32 CUDA cores. It is bound by its 6*S*S*D operations
+per head (scores twice, P V once).
 
 `attention_reference` is the plain PyTorch version (sdm_tpu's
 `_xla_attention`): fp32 scores, fp32 softmax, P cast to v's dtype, P V with
 fp32 accumulation. `attention()` is the dispatcher the layers call: with
-`use_kernels`, shapes whose apply block fits in shared memory
-(`whole_s_ok`, the C entry point's own formula mirrored) go to
-`fused_attention` and longer grids to the streaming kernel
-(kernels/streaming_attention.py); without it the plain version. The TPU's
-`_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried over. When a
-gradient is wanted `fused_attention` runs as `FusedAttention`, whose
+`use_kernels`, shapes the C entry point takes (`whole_s_ok`, its own
+limits mirrored) go to `fused_attention` and longer grids to the streaming
+kernel (kernels/streaming_attention.py); without it the plain version. The
+TPU's `_AUTO_STREAMING_MIN_S` and `_whole_tile_ok` are not carried over.
+When a gradient is wanted `fused_attention` runs as `FusedAttention`, whose
 backward recomputes through `attention_reference` (sdm_tpu's VJP,
 attention.py:193-199); streaming shapes differentiate through the streaming
 kernels' own backward.
@@ -32,51 +36,98 @@ import torch
 
 from sdm_tpu_torch.kernels import _build
 from sdm_tpu_torch.kernels._autograd import recompute_backward, wants_grad
-from sdm_tpu_torch.kernels.streaming_attention import streaming_attention
+from sdm_tpu_torch.kernels.streaming_attention import (
+    MAX_SMEM, MMA_KEYS, MMA_MAX_D, MMA_QUERIES, apply_smem_bytes_mma,
+    rows_aligned16, streaming_attention)
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "sdm_attention_forward": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-    "sdm_attention_fits": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    "sdm_attention_forward": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   ctypes.c_float, _I, _I, _P]),
+    "sdm_attention_fits": (_I, [_I, _I]),
+    "sdm_attention_takes_mma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_attention_mma_plan": (_I, [_I, _I, _I, _P]),
+    "sdm_attention_wide_smem_bytes": (_I, [_I]),
 }
 
-# sdm_attention_forward's return when the apply pass's 32 x S block does not
-# fit in shared memory (it then launches nothing).
+# sdm_attention_forward's return when S is past the longest it takes (it
+# then launches nothing).
 _ERR_TOKENS = -1
-# Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
-MAX_SMEM = 232448
+# The longest S the tensor-core path takes whole (csrc/attention.cu
+# WHOLE_S_MAX_MMA). Its kernels do not depend on S, but the route does: the
+# whole-S backward is the plain recompute with an S x S softmax (sdm_tpu's
+# VJP, attention.py:193), the streaming path has backward kernels of its
+# own, so moving the limit would change the SR trainer's memory and
+# kernels. 3200 is where the former WMMA apply's 32 x S P block stopped
+# fitting in shared memory.
+MAX_S_MMA = 3200
+# attn_apply_mma_wide's K chunk and V stage pitch (XKC, XVLD).
+WIDE_K_CHUNK = 128
+# SMs of the H100, which mma_plan fills with about one wave of blocks.
+SMS = 132
 
 
-def apply_smem_bytes(s: int, wmma: bool) -> int:
-    """Shared memory of csrc/attention.cu's apply block at S = s: the bf16
-    tensor-core kernel (wmma_apply_smem_bytes: P [32][S+8] bf16, eight
-    16 x 16 fp32 tiles, a [64][136] bf16 staging area) or the CUDA-core one
-    (apply_smem_bytes: [32][S+1] fp32 scores and 4096 staging floats)."""
-    if wmma:
-        return 32 * (s + 8) * 2 + 8 * 256 * 4 + 64 * 136 * 2
+def apply_smem_bytes(s: int) -> int:
+    """Shared memory of csrc/attention.cu's CUDA-core apply block at S = s
+    (apply_smem_bytes): [32][S+1] fp32 scores and 4096 staging floats."""
     return (32 * (s + 1) + 4096) * 4
 
 
-def takes_wmma(q, k, v) -> bool:
-    """csrc/attention.cu's wmma_ok for these (N, S, H, D) inputs: bf16,
-    S % 64 == 0, D % 128 == 0, 16-byte aligned rows (the output is a fresh
-    contiguous tensor and always qualifies)."""
+def wide_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of attn_apply_mma_wide at D = d
+    (wide_smem_bytes): Q [64][d+8] bf16 resident, a K ring of three
+    [32][136] bf16 chunks, a V ring of two [32][520] bf16 stages, the P tile
+    [64][40] bf16 and two stages of 32 m and l floats."""
+    return (MMA_QUERIES * (d + 8) * 2 + 3 * MMA_KEYS * (WIDE_K_CHUNK + 8) * 2
+            + 2 * MMA_KEYS * (MMA_MAX_D + 8) * 2
+            + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
+
+
+def admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """csrc/attention.cu's mma_ok: bf16, S % 64 == 0, D % 128 == 0, the
+    apply's shared memory within MAX_SMEM (stream_apply_mma to D = 512,
+    attn_apply_mma_wide to D = 1024), 16-byte aligned rows. `ptrs` and
+    `strides` ((sn, sh, ss) in elements) of q, k, v and out."""
+    smem = apply_smem_bytes_mma(d) if d <= MMA_MAX_D else wide_smem_bytes(d)
+    return (dtype == torch.bfloat16 and s % MMA_QUERIES == 0 and d % 128 == 0
+            and smem <= MAX_SMEM and rows_aligned16(ptrs, strides))
+
+
+def takes_mma(q, k, v) -> bool:
+    """Whether these (N, S, H, D) inputs run on the tensor-core path. The
+    output is a fresh contiguous (N, S, H, D) tensor: an aligned pointer and
+    strides (S*H*D, D, H*D)."""
     n, s, h, d = q.shape
-    if q.dtype != torch.bfloat16 or s % 64 or d % 128:
-        return False
-    return all(t.data_ptr() % 16 == 0
-               and all(t.stride(i) % 8 == 0 for i in range(3))
-               for t in (q, k, v))
+    return admits_mma(
+        q.dtype, s, d, [t.data_ptr() for t in (q, k, v)] + [0],
+        [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v)]
+        + [(s * h * d, d, h * d)])
+
+
+def fits(s: int, tensor_cores: bool) -> bool:
+    """sdm_attention_fits: the tensor-core path takes S <= MAX_S_MMA, the
+    CUDA-core path S whose 32 x S fp32 block fits in shared memory."""
+    return s <= MAX_S_MMA if tensor_cores else apply_smem_bytes(s) <= MAX_SMEM
 
 
 def whole_s_ok(q, k, v) -> bool:
     """Whether `fused_attention` takes these inputs: the mirror of
     sdm_attention_forward's admission (sdm_attention_fits in the C source).
     The dispatchers send everything else to the streaming kernel."""
-    return apply_smem_bytes(q.shape[1], takes_wmma(q, k, v)) <= MAX_SMEM
+    return fits(q.shape[1], takes_mma(q, k, v))
+
+
+def mma_plan(bh: int, s: int, d: int):
+    """csrc/attention.cu's mma_plan: (wide, split, d_per_block) of the
+    tensor-core apply for bh = batch*heads rows of (S, D). About one wave
+    of blocks (S/64 per row) on the 132 SMs, each split a multiple of 128
+    columns and at most 512; wide: attn_apply_mma_wide (D > 512)."""
+    chunks = d // 128
+    blocks = bh * (s // MMA_QUERIES)
+    split = max(-(-d // MMA_MAX_D), min(-(-SMS // blocks), chunks))
+    d_per_block = -(-chunks // split) * 128
+    return d > MMA_MAX_D, -(-d // d_per_block), d_per_block
 
 
 def attention_reference(q, k, v, scale: float, softmax_axis: str = "q"):
@@ -101,6 +152,7 @@ def fused_attention(q, k, v, scale: float, softmax_axis: str = "q"):
 
 
 fused_attention.launches = 0
+fused_attention.mma_launches = 0
 
 
 class FusedAttention(torch.autograd.Function):
@@ -151,10 +203,11 @@ def _forward(q, k, v, scale, softmax_axis):
         float(scale), int(axis_q), code, _build.stream_handle(q.device))
     if rc == _ERR_TOKENS:
         raise NotImplementedError(
-            f"{what}: S={s} is too long for the kernel's shared-memory score "
-            "block; longer grids take streaming_attention (see whole_s_ok)")
+            f"{what}: S={s} is past the longest grid the whole-S kernel "
+            "takes; longer grids take streaming_attention (see whole_s_ok)")
     _build.check(lib, rc, what)
     fused_attention.launches += 1
+    fused_attention.mma_launches += takes_mma(q, k, v)
     return out
 
 

@@ -8,19 +8,21 @@ custom VJP (`_vjp_fwd`/`_vjp_bwd`, :328-355). Forward: the stats pass
 (`_apply_kernel` :120-130, launched at :234). Backward: the dV pass
 (`_dv_kernel` :133, launched at :298), the dK pass (`_dk_kernel` :152, :260)
 and the dQ pass (`_dq_kernel` :167, :271). The CUDA kernels are
-csrc/streaming_attention.cu: the stats pass reuses the whole-S kernel's
+csrc/streaming_attention.cu: the stats pass shares the whole-S kernel's
 online (m, l) kernels, the apply pass walks key tiles with the final stats,
 dV is the apply kernel with the roles of q and k swapped, and dK and dQ share
 one kernel that recomputes P and dA tile by tile. None holds more than one
-score tile, so shared memory does not depend on S. In bf16 at S % 64 == 0,
-D % 128 == 0, D <= 512 with 16-byte aligned rows (`apply_takes_mma`, a
-mirror of the C admission) the apply and dV passes run on the tensor cores
-through mma.sync (`stream_apply_mma`); each such launch also counts in the
-wrapper's `mma_launches`. The whole-S kernel
-(kernels/attention.py) keeps a 32 x S block of P and stops fitting at the
-256x256 SR model's S = 4096; the dispatchers send such shapes here. Every
-pass is bound by operations (per batch row 2*S*S*D for the stats, 4*S*S*D
-for the apply pass and dV, 6*S*S*D for dK and for dQ).
+score tile, so shared memory does not depend on S. bf16 at S % 64 == 0,
+D % 128 == 0 with 16-byte aligned rows runs on the tensor cores through
+mma.sync with ldmatrix fragments and cp.async rings: the stats pass on
+`attn_stats_mma` (D <= 1152; `stats_takes_mma`, a mirror of the C
+admission), the apply and dV passes on `stream_apply_mma` (D <= 512;
+`apply_takes_mma`). Each such launch also counts in the wrapper's
+`mma_launches`. The whole-S kernel (kernels/attention.py) takes bf16 grids
+up to S = 3200 and fp32 up to S = 1687; the dispatchers send longer ones,
+such as the 256x256 SR model's S = 4096, here. Every pass is bound by
+operations (per batch row 2*S*S*D for the stats, 4*S*S*D for the apply pass
+and dV, 6*S*S*D for dK and for dQ).
 
   streaming_stats(q, k, scale, axis) -> (m, l), each (B, 1, S) fp32: the
       running max and denominator over the reduced axis (per key for "q",
@@ -63,18 +65,21 @@ _SIGNATURES = {
                               ctypes.c_float, _I, _I, _P]),
     "sdm_streaming_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               ctypes.c_float, _I, _I, _P]),
-    "sdm_streaming_stats_takes_wmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_stats_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_mma_smem_bytes": (_I, [_I]),
+    "sdm_stats_mma_smem_bytes": (_I, [_I]),
 }
 
 # Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
 MAX_SMEM = 232448
-# stream_apply_mma's tiles (csrc/streaming_attention.cu MQ, MK, MMAXD): own
+# stream_apply_mma's tiles (csrc/attention_tiles.cuh MQ, MK, MMAXD): own
 # queries per block, keys per streamed tile, widest D.
 MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
-# The widest D the WMMA stats kernel admits (stream_stats_wmma_ok).
-STATS_WMMA_MAX_D = 2304
+# attn_stats_mma's tiles (csrc/attention_tiles.cuh SKEPT, SRED, SCHUNK,
+# SSTAGES): kept rows per block, reduced rows per streamed tile, D columns
+# per ring stage (halved where the kept tile leaves no room), ring stages.
+STATS_KEPT, STATS_RED, STATS_CHUNK, STATS_STAGES = 64, 256, 128, 2
 
 
 def apply_smem_bytes_mma(d: int) -> int:
@@ -86,11 +91,28 @@ def apply_smem_bytes_mma(d: int) -> int:
             + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
 
 
-def _rows_aligned16(ptrs, strides) -> bool:
-    """16-byte aligned base pointers and (batch, row) strides that are
-    multiples of 8 elements (rows_aligned16)."""
-    return all(p % 16 == 0 and sb % 8 == 0 and ss % 8 == 0
-               for p, (sb, ss) in zip(ptrs, strides))
+def stats_chunk_mma(d: int) -> int:
+    """attn_stats_mma's ring chunk at D = d (stats_mma_chunk): 128 columns
+    where the kept tile leaves room for them (D <= 640), else 64."""
+    kept = STATS_KEPT * (d + 8) * 2
+    ring = STATS_STAGES * STATS_RED * (STATS_CHUNK + 8) * 2
+    return STATS_CHUNK if kept + ring <= MAX_SMEM else STATS_CHUNK // 2
+
+
+def stats_smem_bytes_mma(d: int) -> int:
+    """Dynamic shared memory of attn_stats_mma at D = d
+    (stats_mma_smem_bytes): the resident kept tile [64][d+8] bf16 and a
+    ring of two (reduced tile, D chunk) stages [256][chunk+8] bf16."""
+    return (STATS_KEPT * (d + 8) * 2
+            + STATS_STAGES * STATS_RED * (stats_chunk_mma(d) + 8) * 2)
+
+
+def rows_aligned16(ptrs, strides) -> bool:
+    """16-byte aligned base pointers and strides (each tensor's tuple: (sb,
+    ss), or (sn, sh, ss)) that are multiples of 8 elements
+    (csrc/attention_tiles.cuh rows_aligned16)."""
+    return all(p % 16 == 0 and all(x % 8 == 0 for x in st)
+               for p, st in zip(ptrs, strides))
 
 
 def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
@@ -100,14 +122,15 @@ def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
     return (dtype == torch.bfloat16 and s % MMA_QUERIES == 0
             and d % 128 == 0 and d <= MMA_MAX_D
             and apply_smem_bytes_mma(d) <= MAX_SMEM
-            and _rows_aligned16(ptrs, strides))
+            and rows_aligned16(ptrs, strides))
 
 
-def stats_admits_wmma(dtype, s: int, d: int, ptrs, strides) -> bool:
-    """stream_stats_wmma_ok: bf16, S % 64 == 0, D % 128 == 0, D <= 2304,
-    16-byte aligned rows of q and k."""
-    return (dtype == torch.bfloat16 and s % 64 == 0 and d % 128 == 0
-            and d <= STATS_WMMA_MAX_D and _rows_aligned16(ptrs, strides))
+def stats_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """stats_mma_ok: bf16, S % 64 == 0, D % 128 == 0, the shared memory
+    within MAX_SMEM (D <= 1152), 16-byte aligned rows of q and k."""
+    return (dtype == torch.bfloat16 and s % STATS_KEPT == 0 and d % 128 == 0
+            and stats_smem_bytes_mma(d) <= MAX_SMEM
+            and rows_aligned16(ptrs, strides))
 
 
 def _layout(*tensors):
@@ -122,10 +145,10 @@ def apply_takes_mma(q, k, v, out) -> bool:
                             *_layout(q, k, v, out))
 
 
-def stats_takes_wmma(q, k) -> bool:
-    """Whether the stats pass on q, k runs on the WMMA stats kernel."""
-    return stats_admits_wmma(q.dtype, q.shape[1], q.shape[2],
-                             *_layout(q, k))
+def stats_takes_mma(q, k) -> bool:
+    """Whether the stats pass on q, k runs on attn_stats_mma."""
+    return stats_admits_mma(q.dtype, q.shape[1], q.shape[2], *_layout(q, k))
+
 
 # Score tile of the plain versions, (TILE, TILE) per batch row: the TPU
 # kernels' tile.
@@ -303,7 +326,8 @@ def _strides(*tensors):
 
 def _launch(symbol, what, args, ref, mma=False):
     """Launch `symbol` of the streaming library; raise on a CUDA error.
-    `mma`: the launch runs stream_apply_mma (counted in ref.mma_launches)."""
+    `mma`: the launch runs a tensor-core kernel (attn_stats_mma or
+    stream_apply_mma; counted in ref.mma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
@@ -328,11 +352,13 @@ def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
         q.data_ptr(), k.data_ptr(), m.data_ptr(), l.data_ptr(),
         ctypes.cast(_strides(q, k), _P), b, s, d, float(scale),
         int(softmax_axis == "q"), _build.dtype_code(q, what),
-        _build.stream_handle(q.device)), streaming_stats)
+        _build.stream_handle(q.device)), streaming_stats,
+        mma=stats_takes_mma(q, k))
     return m, l
 
 
 streaming_stats.launches = 0
+streaming_stats.mma_launches = 0
 
 
 def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",

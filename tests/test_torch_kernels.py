@@ -255,11 +255,13 @@ def _small_cases():
 
 def test_wrappers_take_plain_version_on_cpu():
     """CPU tensors run the plain version and launch nothing."""
+    mma_before = fused_attention.mma_launches
     for wrapper, plain, args in _small_cases():
         before = wrapper.launches
         torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0,
                                    atol=0)
         assert wrapper.launches == before
+    assert fused_attention.mma_launches == mma_before
 
 
 def test_wrappers_refuse_other_devices():
@@ -288,11 +290,122 @@ def test_attention_dispatcher(monkeypatch):
     assert calls == ["kernel"]
 
 
+# The whole-S attention blocks of the flagship 128x128 and the SR 256x256
+# U-Net at batch 16, with csrc/attention.cu's mma_plan for each: (wide,
+# split, columns per split). About one wave of blocks on 132 SMs, every
+# split a multiple of 128 columns and at most 512.
+WHOLE_S_PLANS = {(1024, 512): (False, 1, 512), (256, 512): (False, 2, 256),
+                 (64, 1024): (True, 8, 128), (256, 1024): (True, 3, 384),
+                 (1024, 1024): (True, 2, 512), (1024, 768): (True, 2, 384)}
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("shape", sorted(WHOLE_S_PLANS))
+@pytest.mark.parametrize("views", [False, True])
+def test_whole_s_mma_admits_the_unet_shapes(shape, views):
+    """Every whole-S U-Net block runs on the tensor-core path in bf16:
+    contiguous, and as the attention block passes them, q, k, v as strided
+    views of one (16, S, 1, 3 * D) qkv buffer."""
+    s, d = shape
+    if views:
+        q, k, v = _meta((16, s, 1, 3 * d)).split(d, dim=-1)
+    else:
+        q, k, v = (_meta((16, s, 1, d)) for _ in range(3))
+    assert port_attention.takes_mma(q, k, v)
+    assert port_attention.whole_s_ok(q, k, v)
+
+
+@pytest.mark.parametrize("shape", sorted(WHOLE_S_PLANS))
+def test_whole_s_mma_plan(shape):
+    """The split and the variant the C code chooses: stream_apply_mma to
+    D = 512, attn_apply_mma_wide past it with at least two splits; each
+    warp's accumulator at most 256 columns (half a split)."""
+    s, d = shape
+    wide, split, per = port_attention.mma_plan(16, s, d)
+    assert (wide, split, per) == WHOLE_S_PLANS[shape]
+    assert per % 128 == 0 and per <= port_attention.MMA_MAX_D
+    assert (split - 1) * per < d <= split * per
+    assert wide == (d > 512)
+
+
+@pytest.mark.parametrize("case", ["fp32", "s100", "d72", "d576", "d1152",
+                                  "stride", "pointer", "heads"])
+def test_whole_s_mma_refuses_other_shapes(case):
+    """fp32, S % 64 != 0, D off the 128 grid or past the wide apply's 1024,
+    a row stride or a head stride that is not a multiple of 8 elements, and
+    a pointer off 16 bytes all take the CUDA-core kernels."""
+    shape = {"s100": (2, 100, 1, 512), "d72": (2, 256, 1, 72),
+             "d576": (2, 256, 1, 576), "d1152": (2, 256, 1, 1152),
+             "heads": (2, 256, 2, 512)}.get(case, (2, 256, 1, 512))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+    if case == "stride":
+        k = torch.zeros((2, 256, 1, 516), dtype=dtype)[..., :512]
+    if case == "pointer":
+        v = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 1,
+                                                                 512)
+        assert v.data_ptr() % 16 == 8
+    if case == "heads":
+        q = torch.zeros((2, 256, 2 * 516), dtype=dtype)[:, :, :1028].view(
+            2, 256, 2, 514)[..., :512]
+        assert q.stride(2) % 8 == 2
+    assert not port_attention.takes_mma(q, k, v)
+    aligned = torch.zeros((2, 256, 1, 512), dtype=torch.bfloat16)
+    assert port_attention.takes_mma(aligned, aligned, aligned)
+
+
+def test_whole_s_mma_smem_formulas():
+    """The tensor-core apply's shared memory is within the opt-in limit at
+    D = 512 (stream_apply_mma) and 1024 (attn_apply_mma_wide: Q [64][1032],
+    a K ring 3 x [32][136], a V ring 2 x [32][520], P [64][40] in bf16, 512
+    bytes of stats), and the wide one is past it from D = 1152 on."""
+    from sdm_tpu_torch.kernels import streaming_attention
+    limit = port_attention.MAX_SMEM
+    assert streaming_attention.apply_smem_bytes_mma(512) <= limit
+    assert port_attention.wide_smem_bytes(1024) == (
+        64 * 1032 * 2 + 3 * 32 * 136 * 2 + 2 * 32 * 520 * 2 + 64 * 40 * 2
+        + 512) == 230400
+    assert port_attention.wide_smem_bytes(1024) <= limit
+    assert port_attention.wide_smem_bytes(1152) > limit
+    assert streaming_attention.stats_smem_bytes_mma(1024) <= limit
+
+
+def test_mirror_constants_match_the_sources():
+    """The tile constants the Python mirrors use are the C sources'."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    src = ""
+    for name in ("attention_tiles.cuh", "attention.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            src += f.read()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", src))
+    want = {"MAX_SMEM": sa.MAX_SMEM, "MQ": sa.MMA_QUERIES, "MK": sa.MMA_KEYS,
+            "MMAXD": sa.MMA_MAX_D, "SKEPT": sa.STATS_KEPT,
+            "SRED": sa.STATS_RED, "SCHUNK": sa.STATS_CHUNK,
+            "SSTAGES": sa.STATS_STAGES, "XKC": port_attention.WIDE_K_CHUNK,
+            "WHOLE_S_MAX_MMA": port_attention.MAX_S_MMA}
+    assert {k: int(defines[k]) for k in want} == want
+
+
 def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
-    count the ctypes wrapper declares, and the build targets sm_90a."""
+    count the ctypes wrapper declares, the tensor-core admissions and plans
+    are exported for their Python mirrors, the WMMA attention kernels are
+    gone, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
+    assert {"sdm_attention_takes_mma", "sdm_attention_mma_plan",
+            "sdm_attention_wide_smem_bytes"} <= set(port_attention._SIGNATURES)
+    assert {"sdm_streaming_stats_takes_mma", "sdm_stats_mma_smem_bytes",
+            "sdm_streaming_apply_takes_mma"} <= set(
+                streaming_attention._SIGNATURES)
+    for name in ("attention.cu", "streaming_attention.cu",
+                 "attention_tiles.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            src = f.read()
+        assert "attn_stats_wmma" not in src and "attn_apply_wmma" not in src
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),
                        ("linear", attention_block._SIGNATURES),
@@ -321,9 +434,13 @@ def test_cuda_kernels_match_plain(cuda, dtype):
                      a.to(cuda) if isinstance(a, torch.Tensor) else a
                      for a in args)
         before = wrapper.launches
+        mma_before = fused_attention.mma_launches
         got = wrapper(*args)
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1
+        if wrapper is fused_attention:
+            assert fused_attention.mma_launches == mma_before + (
+                port_attention.takes_mma(*args[:3]))
         want = plain(*args).float()
         tol = (dict(atol=1e-4, rtol=1e-3) if dtype == torch.float32
                else attn_bf16_tol(_np(want)) if wrapper is fused_attention

@@ -123,7 +123,8 @@ def test_wrappers_take_plain_version_on_cpu():
     nothing; streaming_attention is the two in turn."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, (2, 70, 16)))
     before = (streaming_stats.launches, streaming_apply.launches,
-              streaming_apply.mma_launches, streaming_dv.mma_launches)
+              streaming_stats.mma_launches, streaming_apply.mma_launches,
+              streaming_dv.mma_launches)
     m, l = streaming_stats(q, k, 0.25, "k")
     m_ref, l_ref = streaming_stats_reference(q, k, 0.25, "k")
     torch.testing.assert_close(m, m_ref, rtol=0, atol=0)
@@ -136,7 +137,7 @@ def test_wrappers_take_plain_version_on_cpu():
                                rtol=0, atol=0)
     streaming_dv(q, k, v, m, l, 0.25, "k")
     assert (streaming_stats.launches, streaming_apply.launches,
-            streaming_apply.mma_launches,
+            streaming_stats.mma_launches, streaming_apply.mma_launches,
             streaming_dv.mma_launches) == before
 
 
@@ -150,9 +151,10 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_whole_s_predicate_is_the_shared_memory_formula():
-    """whole_s_ok mirrors csrc/attention.cu: the bf16 tensor-core block
-    holds P [32][S+8] in bf16, the CUDA-core one [32][S+1] in fp32, and the
-    SR model's S = 4096 fits neither."""
+    """whole_s_ok mirrors csrc/attention.cu's sdm_attention_fits: the bf16
+    tensor-core path takes S up to MAX_S_MMA = 3200 (where the former WMMA
+    apply's P [32][S+8] block stopped fitting), the CUDA-core one while its
+    [32][S+1] fp32 block fits, and the SR model's S = 4096 takes neither."""
     def t(s, d, dtype):
         return torch.zeros((1, s, 1, d), dtype=dtype)
 
@@ -230,25 +232,61 @@ def test_mma_refuses_other_shapes(case):
     assert port_streaming.apply_takes_mma(*aligned)
 
 
-def test_stats_predicate_is_unchanged():
-    """The WMMA stats kernel keeps its own admission, as before: bf16,
-    S % 64 == 0, D % 128 == 0, D <= 2304, 16-byte aligned rows; D = 1024
-    and D = 640 stay on it though the tensor-core apply stops at 512."""
-    cases = {(4096, 512, torch.bfloat16): True,
-             (1024, 1024, torch.bfloat16): True,
-             (256, 2304, torch.bfloat16): True,
-             (256, 2432, torch.bfloat16): False,
-             (4096, 512, torch.float32): False,
-             (300, 512, torch.bfloat16): False,
-             (256, 72, torch.bfloat16): False,
-             (256, 640, torch.bfloat16): True}
-    for (s, d, dtype), want in cases.items():
-        x = _meta((2, s, d), dtype)
-        assert port_streaming.stats_takes_wmma(x, x) is want, (s, d, dtype)
-    q, k, _ = _meta((16, 4096, 3 * 512)).split(512, dim=-1)
-    assert port_streaming.stats_takes_wmma(q, k)
-    odd = torch.zeros((2, 256, 516), dtype=torch.bfloat16)[:, :, :512]
-    assert not port_streaming.stats_takes_wmma(odd, odd)
+# (S, D) of every attention block of the flagship 128x128 and the SR
+# 256x256 U-Net (chip_smoke.py BLOCK_SHAPES and SR_BLOCK_SHAPES).
+UNET_BLOCKS = [(1024, 512), (256, 512), (64, 1024), (256, 1024), (4096, 512),
+               (1024, 1024)]
+
+
+def test_stats_mma_smem_formula():
+    """attn_stats_mma's shared memory: the kept tile [64][D+8] and two ring
+    stages [256][chunk+8], in bf16, with 128-column chunks to D = 640 and
+    64 past it; within the opt-in limit at D = 512 and 1024, past it from
+    D = 1280 on."""
+    smem = port_streaming.stats_smem_bytes_mma
+    chunk = port_streaming.stats_chunk_mma
+    assert [chunk(d) for d in (128, 512, 640, 768, 1024)] == [
+        128, 128, 128, 64, 64]
+    assert smem(512) == 64 * 520 * 2 + 2 * 256 * 136 * 2 == 205824
+    assert smem(1024) == 64 * 1032 * 2 + 2 * 256 * 72 * 2 == 205824
+    assert smem(1152) <= port_streaming.MAX_SMEM < smem(1280)
+
+
+@pytest.mark.parametrize("shape", UNET_BLOCKS)
+@pytest.mark.parametrize("views", [False, True])
+def test_stats_mma_admits_the_unet_shapes(shape, views):
+    """Every U-Net block's stats pass runs on attn_stats_mma in bf16:
+    contiguous, and as the attention block passes them, strided q and k
+    views of one (16, S, 3 * D) qkv buffer."""
+    s, d = shape
+    if views:
+        q, k, _ = _meta((16, s, 3 * d)).split(d, dim=-1)
+        assert q.stride() == (s * 3 * d, 3 * d, 1)
+    else:
+        q, k = _meta((16, s, d)), _meta((16, s, d))
+    assert port_streaming.stats_takes_mma(q, k)
+
+
+@pytest.mark.parametrize("case", ["fp32", "s300", "s96", "d72", "d576",
+                                  "d1280", "stride", "pointer"])
+def test_stats_mma_refuses_other_shapes(case):
+    """fp32, S % 64 != 0, D off the 128 grid or past the shared memory's
+    1152, a row stride that is not a multiple of 8 elements, and a pointer
+    off 16 bytes all take the CUDA-core stats."""
+    shape = {"s300": (2, 300, 512), "s96": (2, 96, 512), "d72": (2, 256, 72),
+             "d576": (2, 256, 576), "d1280": (2, 256, 1280)}.get(
+                 case, (2, 256, 512))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    q, k = (torch.zeros(shape, dtype=dtype) for _ in range(2))
+    if case == "stride":
+        k = torch.zeros((2, 256, 516), dtype=dtype)[:, :, :512]
+        assert k.stride(1) % 8 == 4
+    if case == "pointer":
+        q = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 512)
+        assert q.data_ptr() % 16 == 8
+    assert not port_streaming.stats_takes_mma(q, k)
+    aligned = torch.zeros((2, 256, 512), dtype=torch.bfloat16)
+    assert port_streaming.stats_takes_mma(aligned, aligned)
 
 
 def _record(monkeypatch, module, calls):
@@ -314,21 +352,24 @@ def test_block_dispatcher_streams_long_grids(monkeypatch):
 @pytest.mark.parametrize("axis", ["q", "k"])
 def test_cuda_streaming_matches_plain(cuda, dtype, axis):
     """Both kernels launch and agree with their plain versions, on a
-    tensor-core shape and a ragged one; the bf16 tensor-core shape's apply
-    counts as an mma.sync launch."""
+    tensor-core shape and a ragged one; the bf16 tensor-core shape's stats
+    and apply each count as an mma.sync launch."""
     for shape in ((2, 256, 128), (2, 100, 72)):
         q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                    for a in _qkv(6, shape))
         before = (streaming_stats.launches, streaming_apply.launches,
-                  streaming_apply.mma_launches)
+                  streaming_stats.mma_launches, streaming_apply.mma_launches)
         m, l = streaming_stats(q, k, 0.1, axis)
         out = streaming_apply(q, k, v, m, l, 0.1, axis)
         torch.cuda.synchronize()
         mma = port_streaming.apply_takes_mma(q, k, v, out)
-        assert mma == (dtype == torch.bfloat16 and shape[1] == 256)
+        assert mma == port_streaming.stats_takes_mma(q, k) == (
+            dtype == torch.bfloat16 and shape[1] == 256)
         assert (streaming_stats.launches, streaming_apply.launches,
+                streaming_stats.mma_launches,
                 streaming_apply.mma_launches) == (
-                    before[0] + 1, before[1] + 1, before[2] + mma)
+                    before[0] + 1, before[1] + 1, before[2] + mma,
+                    before[3] + mma)
         m_ref, l_ref = streaming_stats_reference(q, k, 0.1, axis)
         torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
