@@ -15,7 +15,8 @@ logs which it skipped, prints no `kernels` line and ends with
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
      instantiation of the mma.sync kernels (attn_stats_mma,
-     stream_apply_mma, attn_apply_mma_wide) held to 0 spill bytes.
+     stream_apply_mma, attn_apply_mma_wide, linear_mma) held to 0 spill
+     bytes.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -25,8 +26,11 @@ logs which it skipped, prints no `kernels` line and ends with
      least time the card could take (bound). The whole-S attention and the
      stats kernel also run at D = 128, 384 and 768 and S = 64
      (EXTRA_SHAPES), and the attention at four heads on strided views.
-     `linear` is timed against F.linear (cuBLAS) at each block's two
-     projections. The streaming kernels, forward (stats, apply) and
+     `linear` is held against its plain version at each block's two
+     projections (with and without the residual epilogue), at a ragged
+     M x N and at shapes its tensor-core admission refuses, and timed
+     against F.linear (cuBLAS); AdaGN also at an input mean of 50. The
+     streaming kernels, forward (stats, apply) and
      backward (dV, dK, dQ), run at the SR model's S = 4096, at S = 1024,
      where the whole-S kernel is a second reference, and at a ragged
      S = 300; the bf16 query-axis dK and dQ are also held to a float64
@@ -50,20 +54,20 @@ logs which it skipped, prints no `kernels` line and ends with
      images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
      just after, and held to the counts its U-Net calls imply, every bf16
-     whole-S attention, streaming stats and streaming apply on the mma.sync
-     kernels (`mma_launches`). Then one more batch of each is traced with
-     the profiler for the device's busy share.
+     whole-S attention, streaming stats, streaming apply and `linear` on
+     the mma.sync kernels (`mma_launches`). Then one more batch of each is
+     traced with the profiler for the device's busy share.
   5. Training ("training"): the SR trainer (run_training(SR_SPEC), the SR
      U-Net at full width, 256x256, batch 16, bf16) and then the base eps
      trainer (the flagship, 128x128) for TRAIN_STEPS steps each on seeded
      uint8 images, kernels on. Each run checkpoints (with a preview) at step
      0 only and once more when it stops. The launch counters are zeroed just
      before each run and read just after, and held to the counts its steps
-     and its preview imply (every whole-S attention, streaming stats,
-     apply and dV on the mma.sync kernels); the losses must be finite, the
-     step-0 checkpoint
-     must reload strictly into a fresh model and Adam, moments included, and
-     one more SR step is profiled by kernel family.
+     and its preview imply (every whole-S attention, `linear`, streaming
+     stats, apply and dV on the mma.sync kernels); the losses must be
+     finite, the step-0 checkpoint must reload strictly into a fresh model
+     and Adam, moments included, and one more SR step is profiled by
+     kernel family.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -330,8 +334,27 @@ def kernel_phase(torch, results):
                 randn((BATCH, c), dtype, std=0.5), GROUPS)
         err = compare(f"adagn {dn} {h}x{w}x{c} per-sample FiLM",
                       fused_adagn(*args), adagn_reference(*args), TOL[dn])
+        results.append(dict(kernel="adagn_check", check="per-sample FiLM",
+                            dtype=dn, shape=[BATCH, h, w, c],
+                            max_abs_err=err[0], max_rel_err=err[1]))
         log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} per-sample FiLM tables "
             f"(training)  {err_text(err, TOL[dn])}")
+        # A large mean (50, std 1): E[x^2] - mean^2 would cancel to noise
+        # here; the merged Welford/Chan statistics must not. C = 384 gives
+        # groups of 12 channels, which straddle the 8-channel vectors.
+        h, w, c = ADAGN_SHAPES[-1]
+        args = (randn((BATCH, h, w, c), dtype, std=1.0, mean=50.0),
+                randn((c,), dtype, std=0.1, mean=1.0),
+                randn((c,), dtype, std=0.1),
+                randn((1, c), dtype, std=0.5, mean=1.0),
+                randn((1, c), dtype, std=0.5), GROUPS)
+        err = compare(f"adagn {dn} {h}x{w}x{c} mean 50",
+                      fused_adagn(*args), adagn_reference(*args), TOL[dn])
+        results.append(dict(kernel="adagn_check", check="mean 50, std 1",
+                            dtype=dn, shape=[BATCH, h, w, c],
+                            max_abs_err=err[0], max_rel_err=err[1]))
+        log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} x mean 50, std 1  "
+            f"{err_text(err, TOL[dn])}")
         del args
 
         cases = [("flagship", sh) for sh in BLOCK_SHAPES] + [
@@ -380,6 +403,7 @@ def kernel_phase(torch, results):
                 f"{err_text(err, ATTN_TOL[dn])}")
 
     check_attention_predicates(torch)
+    linear_off_grid(torch, randn, results)
     # S beyond the longest the entry point takes is refused, launching
     # nothing: past the CUDA-core block's shared memory (fp32 S = 2048) and
     # past WHOLE_S_MAX_MMA on the tensor cores (bf16 S = 3264).
@@ -673,28 +697,121 @@ def block_case(torch, randn, results, model, dtype, s_len, d, axis):
 
 def linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
                 w_out, b_out):
-    """The block's two projections, `linear` (csrc/linear.cu) against
-    F.linear (cuBLAS) on the same inputs, without the residual epilogue:
-    qkv = tok W_qkv^T + b and out = r W_out^T + b. A yardstick only;
-    nothing on the port's path calls F.linear."""
+    """The block's two projections, `linear` (csrc/linear.cu) against its
+    plain version `linear_reference` on the same inputs, with and without
+    the residual epilogue, each bf16 launch on the mma.sync kernel
+    (`linear.mma_launches`): qkv = tok W_qkv^T + b and out = r W_out^T + b
+    (+ tok). Timed without the residual beside F.linear (cuBLAS) on the
+    same inputs, a yardstick only: nothing on the port's path calls
+    F.linear."""
     import torch.nn.functional as F
-    from sdm_tpu_torch.kernels.attention_block import linear
+    from sdm_tpu_torch.kernels.attention_block import (linear,
+                                                       linear_reference)
     dn = str(dtype).split(".")[-1]
     isz = torch.tensor([], dtype=dtype).element_size()
     tok2 = tok.reshape(-1, tok.shape[-1])
     r = randn((tok2.shape[0], w_out.shape[1]), dtype)
-    for what, x, w, bias in (("qkv", tok2, w_qkv, b_qkv),
-                             ("out", r, w_out, b_out)):
+    for what, x, w, bias, res in (("qkv", tok2, w_qkv, b_qkv, None),
+                                  ("out", r, w_out, b_out, tok2)):
         (m, kk), n = x.shape, w.shape[0]
+        name = f"linear {dn} {what} M={m} N={n} K={kk}"
+        errs = [linear_check(torch, name, x, w, bias, None)]
+        if res is not None:
+            errs.append(linear_check(torch, f"{name} + residual", x, w, bias,
+                                     res))
         ms = time_ms(lambda: linear(x, w, bias), 10)
+        plain = time_ms(lambda: linear_reference(x, w, bias), 10)
         lib = time_ms(lambda: F.linear(x, w, bias), 10)
         b, by = bound_ms((m * kk + n * kk + m * n) * isz + n * isz,
                          2.0 * m * n * kk, dn)
+        err = max(errs)
         results.append(dict(kernel="linear", model=model, dtype=dn,
-                            projection=what, shape=[m, n, kk], ms=ms,
+                            projection=what, shape=[m, n, kk],
+                            max_abs_err=err[0], max_rel_err=err[1],
+                            tol=ATTN_TOL[dn], ms=ms, plain_ms=plain,
                             library_ms=lib, bound_ms=b, bound_by=by))
-        log(f"linear {dn:8s} {what} M={m} N={n} K={kk}: kernel {ms:.4f} ms  "
-            f"F.linear {lib:.4f}  bound {b:.4f} ({by})")
+        log(f"{name}: {err_text(err, ATTN_TOL[dn])}"
+            f"{' (also with the residual)' if res is not None else ''}  "
+            f"kernel {ms:.4f} ms  plain {plain:.4f}  F.linear {lib:.4f}  "
+            f"bound {b:.4f} ({by})")
+
+
+def linear_check(torch, name, x, w, bias, res):
+    """One `linear` launch against `linear_reference` under ATTN_TOL; the
+    launch takes the mma.sync kernel exactly when `linear_takes_mma` says
+    so, and every bf16 U-Net projection does."""
+    from sdm_tpu_torch.kernels.attention_block import (
+        linear, linear_reference, linear_takes_mma)
+    dn = str(x.dtype).split(".")[-1]
+    mma0 = linear.mma_launches
+    got = linear(x, w, bias, residual=res)
+    mma = linear.mma_launches - mma0
+    if mma != linear_takes_mma(x, w, res):
+        raise AssertionError(f"{name}: {mma} mma launches, the admission "
+                             f"says {linear_takes_mma(x, w, res)}")
+    return compare(name, got, linear_reference(x, w, bias, residual=res),
+                   ATTN_TOL[dn])
+
+
+def linear_off_grid(torch, randn, results):
+    """`linear` off the U-Net's shapes, each against its plain version: a
+    ragged bf16 M = 300, N = 200 (rows past M and N zero-filled by the
+    ring, stores masked) and an odd N = 197 (single-element stores), both
+    on the mma.sync kernel; K = 520 (off the ring's 32-deep stages) and a
+    row stride off 8 elements, which the admission refuses to the CUDA
+    cores. Then the Python mirrors `linear_admits_mma` and
+    `linear_mma_tile` against the C functions."""
+    import ctypes
+    from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import attention_block as ab
+    bf = torch.bfloat16
+    for m, n, kk, ldx, mma in ((300, 200, 512, 512, True),
+                               (300, 197, 512, 512, True),
+                               (300, 200, 520, 520, False),
+                               (300, 200, 512, 516, False)):
+        bnd = 1.0 / math.sqrt(kk)
+        x = randn((m, ldx), bf, std=QK_STD)[:, :kk]
+        w = randn((n, kk), bf, std=bnd)
+        bias = randn((n,), torch.float32, std=bnd)
+        res = randn((m, n), bf, std=QK_STD)
+        if ab.linear_takes_mma(x, w, res) != mma:
+            raise AssertionError(f"linear M={m} N={n} K={kk} ldx={ldx}: "
+                                 f"admission {not mma}, expected {mma}")
+        for r in (None, res):
+            name = (f"linear bfloat16 M={m} N={n} K={kk} ldx={ldx}"
+                    f"{' + residual' if r is not None else ''}")
+            err = linear_check(torch, name, x, w, bias, r)
+            results.append(dict(kernel="linear_check", check=name, mma=mma,
+                                max_abs_err=err[0], max_rel_err=err[1]))
+            log(f"{name} ({'mma.sync' if mma else 'CUDA-core, refused'})  "
+                f"{err_text(err, ATTN_TOL['bfloat16'])}")
+    lib = _build.library("linear", ab._SIGNATURES)
+    checked = 0
+    for dt, dtype in ((0, torch.float32), (1, bf)):
+        for kk in (32, 64, 500, 512, 520, 1024):
+            for ldx_off in (0, 4, 8):
+                for x_off, w_off, r_off in ((0, 0, 0), (8, 0, 0), (0, 8, 0),
+                                            (0, 0, 8), (0, 0, None)):
+                    ptrs = [0x10000 + x_off, 0x20000 + w_off,
+                            None if r_off is None else 0x30000 + r_off]
+                    got = lib.sdm_linear_takes_mma(ptrs[0], kk + ldx_off,
+                                                   ptrs[1], ptrs[2], kk, dt)
+                    if bool(got) != ab.linear_admits_mma(dtype, kk,
+                                                         kk + ldx_off, ptrs):
+                        raise AssertionError(
+                            f"linear_admits_mma disagrees with C at {dtype} "
+                            f"K={kk} ldx={kk + ldx_off} pointers {ptrs}")
+                    checked += 1
+    for m in (1, 64, 300, 1024, 2048, 4096, 16384, 65536):
+        for n in (8, 200, 512, 1024, 1536, 3072):
+            if lib.sdm_linear_mma_tile(m, n) != ab.linear_mma_tile(m, n):
+                raise AssertionError(f"linear_mma_tile disagrees with C at "
+                                     f"M={m} N={n}")
+            checked += 1
+    log(f"linear admissions: the Python mirrors agree with the C functions "
+        f"in {checked} cases (both dtypes, K and row strides on and off the "
+        "grid, each pointer off 16 bytes, with and without a residual; the "
+        "tile plan over M x N)")
 
 
 def streaming_case(torch, randn, results, dtype, s_len, d, axis):
@@ -1272,9 +1389,9 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every whole-S attention, streaming stats and streaming apply on
-    the mma.sync kernels (`_mma`). Calls without a gradient launch no
-    backward kernel."""
+    passes, every whole-S attention, streaming stats, streaming apply and
+    `linear` on the mma.sync kernels (`_mma`). Calls without a gradient
+    launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -1282,6 +1399,7 @@ def expected_launches(cfg, calls, streaming):
             "fused_attention_mma": (blocks - streaming) * calls,
             "fused_attention_block": blocks * calls,
             "linear": 2 * blocks * calls,
+            "linear_mma": 2 * blocks * calls,
             "streaming_stats": streaming * calls,
             "streaming_stats_mma": streaming * calls,
             "streaming_apply": streaming * calls,
@@ -1292,8 +1410,8 @@ def expected_launches(cfg, calls, streaming):
 
 def zero_counts(counters):
     """Every launch count to 0, the tensor-core counts (`mma_launches`) of
-    the whole-S attention and the streaming stats, apply and dV passes
-    too."""
+    the whole-S attention, `linear` and the streaming stats, apply and dV
+    passes too."""
     for fn in counters:
         fn.launches = 0
         if hasattr(fn, "mma_launches"):
@@ -1302,8 +1420,8 @@ def zero_counts(counters):
 
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches of
-    fused_attention, streaming_stats, streaming_apply and streaming_dv that
-    ran the mma.sync kernels."""
+    fused_attention, linear, streaming_stats, streaming_apply and
+    streaming_dv that ran the mma.sync kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
     out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
                 if hasattr(fn, "mma_launches")})
@@ -1681,8 +1799,10 @@ def summarize(results, launches):
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
     `k_axis_library_ms`: the whole-S attention per flagship call, the
-    streaming forward, stats + apply, per SR call). The block's entry adds
-    its two projections' `linear` time beside F.linear's (cuBLAS)."""
+    streaming forward, stats + apply, per SR call). `linear` sums both
+    projections of every block per flagship call, its library time
+    F.linear's (cuBLAS); it and AdaGN add the same per SR call
+    (`sr_*`)."""
     meta = {
         "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
@@ -1691,9 +1811,13 @@ def summarize(results, launches):
                             "(+ attention_tiles.cuh)",
                             "sdm_tpu/kernels/attention.py:86", 1),
         "fused_attention_block": ("attention_block", "flagship",
-                                  "sdm_tpu_torch/csrc/linear.cu",
+                                  "sdm_tpu_torch/csrc/linear.cu + "
+                                  "attention.cu",
                                   "sdm_tpu/kernels/attention_block.py:88",
                                   1),
+        "linear": ("linear", "flagship", "sdm_tpu_torch/csrc/linear.cu "
+                   "(+ mma_tiles.cuh)",
+                   "sdm_tpu/kernels/attention_block.py:66", 1),
         "streaming_stats": ("streaming_stats", "sr",
                             "sdm_tpu_torch/csrc/attention_tiles.cuh",
                             "sdm_tpu/kernels/streaming_attention.py:223", 1),
@@ -1724,15 +1848,22 @@ def summarize(results, launches):
                     k_axis_library_ms=sum(r["library_ms"] for r in rows)
                     * per_call)
 
+    def sr_call(kernel, in_sr, per_call):
+        """Times and bounds per SR call: the rows of the SR model's shapes,
+        whichever model's checks measured them."""
+        rows = [r for r in results if r["kernel"] == kernel
+                and r["dtype"] == "bfloat16" and in_sr(r["shape"])]
+        return {f"sr_{key}": sum(r[key] for r in rows) * per_call
+                for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
+
     extra = {
         "fused_attention": k_axis("attention", "flagship", 1),
         "streaming_stats": k_axis("streaming_attention", "sr", 1),
         "streaming_apply": k_axis("streaming_attention", "sr", 1),
-        "fused_attention_block": dict(
-            linear_ms=sum(r["ms"] for r in main_rows("linear", "flagship",
-                                                     "q")),
-            linear_library_ms=sum(r["library_ms"] for r in main_rows(
-                "linear", "flagship", "q")))}
+        "fused_adagn": sr_call("adagn", lambda sh: tuple(sh[1:])
+                               in SR_ADAGN_SHAPES, ADAGN_PER_CALL),
+        "linear": sr_call("linear", lambda sh: (sh[0] // BATCH, sh[2])
+                          in SR_BLOCK_SHAPES, 1)}
     out = []
     for name, (kernel, model, source, replaces, per_call) in meta.items():
         rows = main_rows(kernel, model, "q")
@@ -1818,12 +1949,13 @@ def demangle(names):
 # report: the stats kernel (one caller tag each, 128- and 64-column ring
 # chunks), the tensor-core apply
 # (the streaming library: bf16 and fp32 output x two axes for the apply,
-# fp32 x two axes for dV; the whole-S library: bf16 x two axes) and the
-# wide whole-S apply (two axes).
+# fp32 x two axes for dV; the whole-S library: bf16 x two axes), the
+# wide whole-S apply (two axes) and the GEMM (128 and 64 tiles).
 MMA_KERNELS = {"attention": {"attn_stats_mma": 2, "stream_apply_mma": 2,
                              "attn_apply_mma_wide": 2},
                "streaming_attention": {"attn_stats_mma": 2,
-                                       "stream_apply_mma": 6}}
+                                       "stream_apply_mma": 6},
+               "linear": {"linear_mma": 2}}
 
 
 def build_phase(torch):
@@ -1832,6 +1964,7 @@ def build_phase(torch):
     spill bytes. Returns their ptxas report and dynamic shared memory."""
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import attention as attn_mod
+    from sdm_tpu_torch.kernels import attention_block as ab
     from sdm_tpu_torch.kernels import streaming_attention as sa
     t0 = time.monotonic()
     _build.build()
@@ -1840,10 +1973,13 @@ def build_phase(torch):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    smem = {"attn_stats_mma": (sa.stats_smem_bytes_mma(1024), 1024),
+    smem = {"attn_stats_mma": (sa.stats_smem_bytes_mma(1024), "D = 1024"),
             "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
-                                 sa.MMA_MAX_D),
-            "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024), 1024)}
+                                 f"D = {sa.MMA_MAX_D}"),
+            "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024),
+                                    "D = 1024"),
+            "linear_mma": (ab.linear_mma_smem_bytes(ab.LINEAR_TILE),
+                           f"a {ab.LINEAR_TILE} tile")}
     out = {}
     for lib, kernels in MMA_KERNELS.items():
         report = ptxas_report(_build.build_log(lib))
@@ -1854,12 +1990,12 @@ def build_phase(torch):
                 raise AssertionError(
                     f"ptxas reports {len(found)} {kernel} instantiations in "
                     f"lib{lib}, expected {count}: {list(found)}")
-            nbytes, d = smem[kernel]
+            nbytes, at = smem[kernel]
             for pretty, info in zip(demangle(list(found)), found.values()):
                 info["name"] = pretty
                 log(f"  {lib}: {pretty}: {info['registers']} registers, "
                     f"{info.get('spill_bytes')} spill bytes, {nbytes} bytes "
-                    f"of dynamic shared memory at D = {d}")
+                    f"of dynamic shared memory at {at}")
                 if info.get("spill_bytes") != 0:
                     raise AssertionError(f"{pretty} spills "
                                          f"{info.get('spill_bytes')} bytes")

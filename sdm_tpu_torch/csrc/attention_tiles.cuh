@@ -17,13 +17,11 @@
 // stream_apply_mma<bf16, true, whole_s> the whole-S attention's apply pass.
 #pragma once
 
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 #define BK 32      // depth of one staged D chunk (CUDA-core kernels)
 #define SBN 64     // kept rows per stats block
 #define MAX_SMEM 232448  // opt-in shared memory per block on sm_90, bytes
-
-typedef __nv_bfloat16 bf16;
 
 struct View {
   long long sn, sh, ss;  // element strides of the N, H and S axes
@@ -41,10 +39,6 @@ __device__ __forceinline__ const T* slice_ptr(const T* base, View v, int heads,
 template <typename T>
 __device__ __forceinline__ T* slice_ptr(T* base, View v, int heads, int b) {
   return base + (long long)(b / heads) * v.sn + (long long)(b % heads) * v.sh;
-}
-
-static bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // 16-byte aligned base pointers and N, H and S strides that are multiples of
@@ -153,90 +147,6 @@ static cudaError_t launch_stats(const T* qp, View qv, const T* kp, View kv,
     attn_stats<T, Caller><<<grid, 256, 0, stream>>>(qp, qv, kp, kv, heads, S,
                                                     D, scale, m, l);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core building blocks: plain inline PTX for sm_80+ (cp.async,
-// ldmatrix, mma.sync m16n8k16 bf16 with fp32 accumulation).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b for one m16n8k16 tile: a the 4-register bf16 A fragment, (b0, b1)
-// the B fragment, c the fp32 accumulator fragment.
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// cp.async of `rows` rows x `cpr` 16-byte chunks of a row-major bf16 matrix
-// (row stride ss elements) into dst[rows][ld]. This thread copies the chunks
-// c = tid + nthreads * i of the row-major (rows, cpr) chunk grid, walked
-// incrementally (no division in the loop).
-__device__ __forceinline__ void cp_async_rows(bf16* dst, int ld,
-                                              const bf16* src, long long ss,
-                                              int rows, int cpr, int tid,
-                                              int nthreads) {
-  const int step_r = nthreads / cpr, step_c = nthreads - step_r * cpr;
-  int r = tid / cpr, cc = tid - r * cpr;
-  while (r < rows) {
-    cp_async16(smem_u32(dst + r * ld + cc * 8), src + (long long)r * ss + cc * 8);
-    r += step_r;
-    cc += step_c;
-    if (cc >= cpr) {
-      cc -= cpr;
-      ++r;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

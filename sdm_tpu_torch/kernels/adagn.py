@@ -2,11 +2,13 @@
 
 Port of sdm_tpu/kernels/adagn.py::fused_adagn (TPU kernel `_adagn_kernel`,
 sdm_tpu/kernels/adagn.py:32-76, launched at :115). The CUDA kernel is
-csrc/adagn.cu: a (G, N) grid of two-pass fp32 group statistics that folds
-GN affine and FiLM into per-channel a, b, then one vectorised
-`x*a + b` pass. On the H100 it is bound by device-memory bytes: x read and
-the output written once each, plus the statistics' re-read of x, which
-mostly hits L2.
+csrc/adagn.cu, two launches over a (chunks, N) grid of row ranges
+(`adagn_chunks`): a statistics pass that reads x once in 16-byte vectors,
+keeps per-channel Welford statistics and merges them (Chan's formula) into
+per-(sample, chunk, group) partials, and an apply pass that merges those
+partials, folds GN affine and FiLM into per-channel a, b and writes
+`(x - mean)*a + b`. On the H100 it is bound by device-memory bytes: x read
+and the output written once each, plus the statistics' read of x.
 
 Admission is the port's own: every shape with C % groups == 0 and C % 8 == 0
 goes to the kernel (the TPU's VMEM budget and C % 128 rule are not carried
@@ -30,11 +32,25 @@ _SIGNATURES = {
     "sdm_adagn_forward": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
 }
+
+# SMs of the H100, and the statistics blocks per SM `adagn_chunks` aims at.
+SMS = 132
+WAVES = 2
+# Most (chunk, group) partials of one sample: the apply pass stages them in
+# shared memory, 8 bytes each, within the 48 KB a block has without opt-in.
+MAX_PARTIALS = 4096
+
+
+def adagn_chunks(n: int, hw: int, groups: int) -> int:
+    """Row ranges per sample of csrc/adagn.cu's two passes: about WAVES
+    blocks per SM over the (chunks, N) grid, at most one per row, and at
+    most MAX_PARTIALS partials per sample."""
+    return max(1, min(-(-WAVES * SMS // n), hw, MAX_PARTIALS // groups))
 
 
 def adagn_reference(x, gn_scale, gn_bias, mod_scale, mod_shift,
@@ -118,13 +134,16 @@ def _forward(x, gn_scale, gn_bias, mod_scale, mod_shift, num_groups, eps):
     codes = [_build.dtype_code(t, what) for t in (x, gn_scale, mod_scale)]
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     out_code = _build.dtype_code(out, what)
-    scratch = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    chunks = adagn_chunks(n, h * w, num_groups)
+    scratch = torch.empty((n, chunks, num_groups, 2), dtype=torch.float32,
+                          device=x.device)
     row_stride = 0 if rows == 1 else mod_scale.stride(0)
     lib = _build.library("adagn", _SIGNATURES)
     rc = lib.sdm_adagn_forward(
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
         mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), n, h * w, c, num_groups, float(eps), row_stride,
+        scratch.data_ptr(), n, h * w, c, num_groups, chunks, float(eps),
+        row_stride,
         *codes, out_code, _build.stream_handle(x.device))
     _build.check(lib, rc, what)
     fused_adagn.launches += 1

@@ -10,7 +10,9 @@ kernel `_block_kernel`, sdm_tpu/kernels/attention_block.py:62-77, launched at
 :88), which computes all of it in one VMEM-resident body. On the H100 the
 block's weights do not fit one SM beside the token tile, so it runs as three
 hand-written kernels: `linear` (csrc/linear.cu, a tiled GEMM with a bias
-epilogue) for the qkv projection, `fused_attention` (csrc/attention.cu) on
+epilogue; in bf16 at the U-Net's shapes `linear_mma` on the tensor cores
+through mma.sync, `linear_takes_mma`) for the qkv projection,
+`fused_attention` (csrc/attention.cu) on
 views of the qkv buffer, and `linear` again with a bias + residual epilogue.
 Grids whose apply block does not fit in shared memory (`whole_s_ok`; the
 256x256 SR model's S = 4096) take `streaming_attention`
@@ -18,8 +20,8 @@ Grids whose apply block does not fit in shared memory (`whole_s_ok`; the
 of sdm_tpu's composed path there (layers.py:303-317): qkv cast after the
 fp32 bias, the attention output in the compute dtype, then the output
 projection and the residual added in the compute dtype.
-The GEMMs bound it by operations (fp32 FMA on CUDA cores); a single-launch
-fusion and tensor-core tiles are later work.
+The GEMMs and the attention bound it by operations; a single-launch
+fusion is later work.
 
 Weights are in nn.Linear layout: w_qkv (3*d_k, C), w_out (C, d_k), in the
 tokens' dtype; biases (fp32 or the tokens' dtype) are added in fp32.
@@ -55,7 +57,50 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
+    "sdm_linear_takes_mma": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int]),
+    "sdm_linear_mma_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
 }
+
+# csrc/linear.cu's tensor-core tiles: the K depth of a ring stage (LBK) and
+# the ring's depth (LSTAGES), the block tile (LTILE), the one for grids
+# that would leave half the SMs idle (LTILE_SMALL), and the SMs (LSMS).
+LINEAR_BK = 32
+LINEAR_STAGES = 4
+LINEAR_TILE = 128
+LINEAR_TILE_SMALL = 64
+LINEAR_SMS = 132
+
+
+def linear_mma_smem_bytes(tile: int) -> int:
+    """linear_mma's dynamic shared memory at a square tile
+    (launch_linear_mma): the ring, each stage the tile's x rows and W rows
+    of LINEAR_BK bf16, rows padded by 8."""
+    return LINEAR_STAGES * 2 * tile * (LINEAR_BK + 8) * 2
+
+
+def linear_admits_mma(dtype, k: int, ldx: int, ptrs) -> bool:
+    """csrc/linear.cu's linear_mma_ok: bf16, K % LBK == 0, ldx % 8 == 0 and
+    16-byte aligned pointers (`ptrs`: x, w and the residual, or None where
+    there is none)."""
+    return (dtype == torch.bfloat16 and k % LINEAR_BK == 0 and ldx % 8 == 0
+            and all(p is None or p % 16 == 0 for p in ptrs))
+
+
+def linear_takes_mma(x, weight, residual=None) -> bool:
+    """Whether `linear` runs these operands on the tensor-core path."""
+    ptrs = [x.data_ptr(), weight.data_ptr(),
+            None if residual is None else residual.data_ptr()]
+    return linear_admits_mma(x.dtype, x.shape[1], x.stride(0), ptrs)
+
+
+def linear_mma_tile(m: int, n: int) -> int:
+    """csrc/linear.cu's linear_mma_tile: LINEAR_TILE where its grid of an
+    m x n output covers at least half of the LINEAR_SMS SMs, else
+    LINEAR_TILE_SMALL."""
+    tiles = -(-m // LINEAR_TILE) * -(-n // LINEAR_TILE)
+    return LINEAR_TILE if 2 * tiles >= LINEAR_SMS else LINEAR_TILE_SMALL
 
 
 def linear_reference(x, weight, bias, residual=None):
@@ -73,13 +118,15 @@ def linear(x, weight, bias, residual=None):
     Returns (M, N) in x's dtype.
 
     CPU tensors run `linear_reference`; CUDA tensors launch csrc/linear.cu
-    or raise. Differentiable (`Linear`)."""
+    or raise; launches on the tensor-core path (`linear_takes_mma`) also
+    count in `linear.mma_launches`. Differentiable (`Linear`)."""
     if wants_grad(x, weight, bias, residual):
         return Linear.apply(x, weight, bias, residual)
     return _linear_forward(x, weight, bias, residual)
 
 
 linear.launches = 0
+linear.mma_launches = 0
 
 
 class Linear(torch.autograd.Function):
@@ -140,6 +187,7 @@ def _linear_forward(x, weight, bias, residual):
         out.data_ptr(), m, n, k, code, _build.stream_handle(x.device))
     _build.check(lib, rc, what)
     linear.launches += 1
+    linear.mma_launches += linear_takes_mma(x, weight, residual)
     return out
 
 

@@ -8,6 +8,7 @@ wrappers must take the plain version for CPU tensors and refuse any other
 non-CUDA device.
 """
 
+import math
 import os
 import re
 
@@ -22,7 +23,9 @@ from sdm_tpu.kernels.attention_block import _xla_block
 from sdm_tpu.kernels.attention_block import \
     fused_attention_block as jax_fused_attention_block
 from sdm_tpu_torch.kernels import _build
+from sdm_tpu_torch.kernels import adagn as port_adagn
 from sdm_tpu_torch.kernels import attention as port_attention
+from sdm_tpu_torch.kernels import attention_block as port_block
 from sdm_tpu_torch.kernels.adagn import adagn_reference, fused_adagn
 from sdm_tpu_torch.kernels.attention import (attention_reference,
                                              fused_attention)
@@ -238,6 +241,126 @@ def test_linear_plain_matches_numpy():
     np.testing.assert_allclose(_np(ours), x @ w.T + b + res, **FP32)
 
 
+def _bf16_ulp(a):
+    """One bf16 ulp at each element of a (2^-7 of its binade, 8 bits of
+    mantissa); at 0 the smallest normal's."""
+    a = np.maximum(np.abs(np.asarray(a, np.float32)), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("bias_dtype", ["float32", "bfloat16"])
+def test_linear_plain_matches_xla_rounding_bf16(bias_dtype):
+    """bf16 with the residual: fp32 products and bias, one rounding to bf16,
+    then the residual added and rounded again, the order of _xla_block
+    (attention_block.py:121-131). Every element within one bf16 ulp of the
+    JAX value: an fp32 sum in another order can flip the first rounding,
+    and that flip carries through the second (one ulp of the larger of the
+    rounded product and the output)."""
+    rng = np.random.default_rng(13)
+    m, n, k = 96, 80, 160
+    x, res = (rng.standard_normal(sh).astype(np.float32) * 1.5
+              for sh in ((m, k), (m, n)))
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    jbf = jnp.bfloat16
+    xj, wj, rj = (jnp.asarray(a, jbf) for a in (x, w, res))
+    bj = jnp.asarray(b, jnp.dtype(bias_dtype))
+    yj = (jnp.dot(xj, wj.T, preferred_element_type=jnp.float32)
+          + bj.astype(jnp.float32)).astype(jbf)
+    outj = yj + rj
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    bt = torch.from_numpy(b).to(getattr(torch, bias_dtype))
+    y = linear_reference(tb(x), tb(w), bt)
+    out = linear_reference(tb(x), tb(w), bt, residual=tb(res))
+    assert y.dtype == out.dtype == torch.bfloat16
+    y_ref = np.asarray(yj, np.float32)
+    out_ref = np.asarray(outj, np.float32)
+    assert (np.abs(_np(y) - y_ref) <= _bf16_ulp(y_ref)).all()
+    ulp = _bf16_ulp(np.maximum(np.abs(y_ref), np.abs(out_ref)))
+    assert (np.abs(_np(out) - out_ref) <= ulp).all()
+
+
+# (S, C) of the attention blocks of the flagship 128x128 and the SR 256x256
+# U-Net (chip_smoke.py BLOCK_SHAPES and SR_BLOCK_SHAPES), batch 16: each
+# runs `linear` at (M, N, K) = (16 S, 3 C, C) and, with the residual,
+# (16 S, C, C). The tile csrc/linear.cu's plan gives each: 128 x 128
+# wherever that grid covers at least half of the 132 SMs.
+LINEAR_TILES = {(1024, 512): (128, 128), (256, 512): (128, 128),
+                (64, 1024): (128, 64), (256, 1024): (128, 128),
+                (4096, 512): (128, 128), (1024, 1024): (128, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(LINEAR_TILES))
+def test_linear_mma_admits_the_unet_projections(shape):
+    """Every bf16 projection of both U-Nets runs on linear_mma, and the
+    small tile is taken only where 128 x 128 tiles would leave half the
+    SMs idle."""
+    s, c = shape
+    tok = _meta((16 * s, c))
+    r = _meta((16 * s, c))
+    w_qkv, w_out = _meta((3 * c, c)), _meta((c, c))
+    assert port_block.linear_takes_mma(tok, w_qkv)
+    assert port_block.linear_takes_mma(r, w_out, tok)
+    tiles = (port_block.linear_mma_tile(16 * s, 3 * c),
+             port_block.linear_mma_tile(16 * s, c))
+    assert tiles == LINEAR_TILES[shape]
+    for (n, tile) in zip((3 * c, c), tiles):
+        grid = -(-16 * s // 128) * -(-n // 128)
+        assert (tile == 128) == (2 * grid >= port_block.LINEAR_SMS)
+
+
+@pytest.mark.parametrize("case", ["fp32", "k520", "ldx", "x", "w",
+                                  "residual"])
+def test_linear_mma_refuses_other_operands(case):
+    """fp32, K off the ring's 32-deep stages, a row stride off 8 elements,
+    and an x, weight or residual pointer off 16 bytes take the CUDA-core
+    GEMM; ragged M and N do not matter."""
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    k = 520 if case == "k520" else 512
+    x = torch.zeros((300, k), dtype=dtype)
+    w = torch.zeros((200, k), dtype=dtype)
+    res = torch.zeros((300, 200), dtype=dtype)
+    assert port_block.linear_takes_mma(
+        x.to(torch.bfloat16), w.to(torch.bfloat16),
+        res.to(torch.bfloat16)) == (k == 512)
+    off = lambda *shape: torch.zeros(
+        math.prod(shape) + 4, dtype=dtype)[4:].view(*shape)
+    if case == "ldx":
+        x = torch.zeros((300, 516), dtype=dtype)[:, :512]
+    if case == "x":
+        x = off(300, 512)
+    if case == "w":
+        w = off(200, 512)
+    if case == "residual":
+        res = off(300, 200)
+        assert port_block.linear_takes_mma(x, w)
+    assert not port_block.linear_takes_mma(x, w, res)
+
+
+def test_linear_mma_smem():
+    """linear_mma's ring (4 stages of [128][40] x and W rows, bf16) lets
+    two blocks share an SM's 228 KB."""
+    assert port_block.linear_mma_smem_bytes(128) == 4 * 2 * 128 * 40 * 2
+    assert 2 * (port_block.linear_mma_smem_bytes(128) + 1024) <= 233472
+
+
+@pytest.mark.parametrize("n,hw,groups,want", [
+    (16, 128 * 128, 32, 17), (16, 8 * 8, 32, 17), (1, 256 * 256, 32, 128),
+    (1, 8 * 8, 32, 64), (2, 3, 32, 3), (16, 64, 4096, 1), (16, 64, 8192, 1),
+    (264, 16, 32, 1), (1000, 16, 32, 1)])
+def test_adagn_chunk_plan(n, hw, groups, want):
+    """adagn_chunks: about two statistics blocks per SM over (chunks, N), no
+    chunk without a row, and at most MAX_PARTIALS partials a sample, so the
+    apply's staged partials fit in 48 KB."""
+    chunks = port_adagn.adagn_chunks(n, hw, groups)
+    assert chunks == want
+    assert 1 <= chunks <= hw
+    assert chunks == 1 or chunks * groups <= port_adagn.MAX_PARTIALS
+    assert chunks * groups * 8 <= 49152 or chunks == 1
+    if chunks < min(hw, port_adagn.MAX_PARTIALS // groups):
+        assert n * chunks >= port_adagn.WAVES * port_adagn.SMS
+
+
 # --------------------------------------------------------------- wrappers
 
 def _small_cases():
@@ -256,12 +379,14 @@ def _small_cases():
 def test_wrappers_take_plain_version_on_cpu():
     """CPU tensors run the plain version and launch nothing."""
     mma_before = fused_attention.mma_launches
+    linear_before = (linear.launches, linear.mma_launches)
     for wrapper, plain, args in _small_cases():
         before = wrapper.launches
         torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0,
                                    atol=0)
         assert wrapper.launches == before
     assert fused_attention.mma_launches == mma_before
+    assert (linear.launches, linear.mma_launches) == linear_before
 
 
 def test_wrappers_refuse_other_devices():
@@ -377,7 +502,7 @@ def test_mirror_constants_match_the_sources():
     """The tile constants the Python mirrors use are the C sources'."""
     from sdm_tpu_torch.kernels import streaming_attention as sa
     src = ""
-    for name in ("attention_tiles.cuh", "attention.cu"):
+    for name in ("attention_tiles.cuh", "attention.cu", "linear.cu"):
         with open(os.path.join(_build.CSRC, name)) as f:
             src += f.read()
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
@@ -385,15 +510,20 @@ def test_mirror_constants_match_the_sources():
             "MMAXD": sa.MMA_MAX_D, "SKEPT": sa.STATS_KEPT,
             "SRED": sa.STATS_RED, "SCHUNK": sa.STATS_CHUNK,
             "SSTAGES": sa.STATS_STAGES, "XKC": port_attention.WIDE_K_CHUNK,
-            "WHOLE_S_MAX_MMA": port_attention.MAX_S_MMA}
+            "WHOLE_S_MAX_MMA": port_attention.MAX_S_MMA,
+            "LBK": port_block.LINEAR_BK, "LSTAGES": port_block.LINEAR_STAGES,
+            "LTILE": port_block.LINEAR_TILE,
+            "LTILE_SMALL": port_block.LINEAR_TILE_SMALL,
+            "LSMS": port_block.LINEAR_SMS}
     assert {k: int(defines[k]) for k in want} == want
 
 
 def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
-    are exported for their Python mirrors, the WMMA attention kernels are
-    gone, and the build targets sm_90a."""
+    are exported for their Python mirrors, the WMMA attention kernels and
+    the WMMA GEMM are gone, the mma.sync primitives live in one header, and
+    the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
     assert {"sdm_attention_takes_mma", "sdm_attention_mma_plan",
@@ -406,6 +536,21 @@ def test_kernel_sources_export_the_wrapped_symbols():
         with open(os.path.join(_build.CSRC, name)) as f:
             src = f.read()
         assert "attn_stats_wmma" not in src and "attn_apply_wmma" not in src
+    assert {"sdm_linear_takes_mma", "sdm_linear_mma_tile"} <= set(
+        attention_block._SIGNATURES)
+    with open(os.path.join(_build.CSRC, "linear.cu")) as f:
+        src = f.read()
+    assert "linear_wmma" not in src and "wmma" not in src
+    assert '#include "mma_tiles.cuh"' in src
+    for name in os.listdir(_build.CSRC):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC, name)) as f:
+                src = f.read()
+            # One copy of each primitive, in mma_tiles.cuh.
+            for primitive in ('"mma.sync.aligned', '"ldmatrix.sync',
+                              '"cp.async.cg.shared', "void cp_async_rows("):
+                assert (primitive in src) == (name == "mma_tiles.cuh"), (
+                    name, primitive)
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),
                        ("linear", attention_block._SIGNATURES),
