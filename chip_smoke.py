@@ -15,8 +15,8 @@ logs which it skipped, prints no `kernels` line and ends with
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
      instantiation of the mma.sync kernels (attn_stats_mma,
-     stream_apply_mma, attn_apply_mma_wide, linear_mma) held to 0 spill
-     bytes.
+     stream_apply_mma, stream_da_mma, attn_apply_mma_wide, linear_mma)
+     held to 0 spill bytes.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -35,10 +35,11 @@ logs which it skipped, prints no `kernels` line and ends with
      where the whole-S kernel is a second reference, and at a ragged
      S = 300; the bf16 query-axis dK and dQ are also held to a float64
      truth (BWD_TRUTH), and the fp32-output apply to its plain version.
-     Small shapes off the main path check which kernel each launch took
-     (the `mma_launches` counters), and the Python mirrors of the C
-     admissions, plans and shared-memory formulas are held to the C
-     functions.
+     Small shapes off the main path (S = 300, D = 128, 384, 1024) run the
+     whole streaming function and each backward pass and check which kernel
+     each launch took (the `mma_launches` counters), and the Python mirrors
+     of the C admissions, plans and shared-memory formulas are held to the
+     C functions.
   3. Model ("model"): the flagship and the SR U-Net from seeded random
      weights, use_kernels=True against use_kernels=False, one call at batch
      16 (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call
@@ -64,9 +65,9 @@ logs which it skipped, prints no `kernels` line and ends with
      0 only and once more when it stops. The launch counters are zeroed just
      before each run and read just after, and held to the counts its steps
      and its preview imply (every whole-S attention, `linear`, streaming
-     stats, apply and dV on the mma.sync kernels); the losses must be
-     finite, the step-0 checkpoint must reload strictly into a fresh model
-     and Adam, moments included, and one more SR step is profiled by
+     stats, apply, dV, dK and dQ on the mma.sync kernels); the losses must
+     be finite, the step-0 checkpoint must reload strictly into a fresh
+     model and Adam, moments included, and one more SR step is profiled by
      kernel family.
 
 Prints a `kernels` JSON line, then as the last line
@@ -500,10 +501,10 @@ def streaming_phase(torch, results):
                            axis, views=(s_len, d) == (1024, 1024))
 
     # Off the main path: a ragged S (CUDA-core kernels in bf16 too, ragged
-    # tiles masked); D = 128 leaves each P V warp 64 columns; D = 384 walks
-    # rows of 48 16-byte chunks in the tile loader; D = 1024 is past the
-    # tensor-core apply and takes the CUDA cores in bf16 (its stats stay on
-    # attn_stats_mma).
+    # tiles masked); D = 128 leaves each P V warp 64 columns (and each dA B
+    # warp 32); D = 384 walks rows of 48 16-byte chunks in the tile loader;
+    # D = 1024 is past the tensor-core apply, dK and dQ and takes the CUDA
+    # cores in bf16 (its stats stay on attn_stats_mma).
     for dtype in (torch.float32, torch.bfloat16):
         for axis in ("q", "k"):
             off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
@@ -514,17 +515,19 @@ def streaming_phase(torch, results):
 
 
 def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
-    """The whole streaming function, the fp32-output apply and dV at a small
-    shape (batch 2), each against its plain version, and the path each
-    launch took against the Python mirror of the admission."""
+    """The whole streaming function, the fp32-output apply, dV, dK and dQ at
+    a small shape (batch 2), each against its plain version (bf16 dK and dQ
+    on the query axis through the float64 truth, as `streaming_bwd_case`),
+    and the path each launch took against the Python mirror of the
+    admission."""
     from sdm_tpu_torch.kernels import streaming_attention as sa
     dn = str(dtype).split(".")[-1]
     q, k, v, g = (randn((2, s_len, d), dtype, std=std)
                   for std in (QK_STD, QK_STD, 1.0, 1.0))
     scale = d ** -0.5
     tag = f"{dn} S={s_len} D={d} {axis}"
-    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_dv.mma_launches,
-            sa.streaming_stats.mma_launches)
+    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_stats.mma_launches)
+    bwd0 = bwd_mma_counts(sa)
     err = compare(f"streaming {tag}", sa.streaming_attention(q, k, v, scale,
                                                              axis),
                   sa.streaming_attention_reference(q, k, v, scale, axis),
@@ -536,31 +539,51 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
                     sa.streaming_apply_reference(q, k, v, m, l, scale, axis,
                                                  out_dtype=torch.float32),
                     ATTN_TOL[dn])
-    err_dv = compare(f"streaming_dv {tag}",
-                     sa.streaming_dv(q, k, g, m, l, scale, axis),
-                     sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
-                     BWD_TOL[dn])
+    got = {"dv": sa.streaming_dv(q, k, g, m, l, scale, axis)}
+    corr = sa.streaming_correction(g, v, out32, got["dv"], axis)
+    got["dk"] = sa.streaming_dk(q, k, v, g, m, l, corr, scale, axis)
+    got["dq"] = sa.streaming_dq(q, k, v, g, m, l, corr, scale, axis)
+    check_bwd_mma(sa, tag, q, k, v, g, got, bwd0)
+    plain = {"dv": sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
+             "dk": sa.streaming_dk_reference(q, k, v, g, m, l, corr, scale,
+                                             axis),
+             "dq": sa.streaming_dq_reference(q, k, v, g, m, l, corr, scale,
+                                             axis)}
+    truth = None
+    if dtype == torch.bfloat16 and axis == "q":
+        tq, tk, _ = float64_truth(torch, q, k, v, g, scale, axis, [0, 1])
+        truth = {"dq": tq, "dk": tk}
+    bwd = []
+    for name in ("dv", "dk", "dq"):
+        tol, extra = BWD_TOL[dn], ""
+        if truth is not None and name != "dv":
+            tol, extra = truth_tol(f"streaming_{name}", tag, got[name],
+                                   plain[name], truth[name])
+        e = compare_bwd(f"streaming_{name} {tag}", got[name], plain[name],
+                        tol)
+        bwd.append(f"{name} err abs {e[0]:.2e} rel {e[1]:.2e}{extra}")
     mma = sa.apply_takes_mma(q, k, v, out32)
     stats_mma = sa.stats_takes_mma(q, k)
+    da_mma = sa.da_takes_mma(q, k, v, g, got["dk"])
     moved = (sa.streaming_apply.mma_launches - mma0[0],
-             sa.streaming_dv.mma_launches - mma0[1],
-             sa.streaming_stats.mma_launches - mma0[2])
-    if moved != (2 * mma, 1 * mma, 2 * stats_mma):
-        raise AssertionError(f"streaming {tag}: mma launches (apply, dV, "
-                             f"stats) {moved}, the admissions say apply "
-                             f"{mma}, stats {stats_mma}")
-    log(f"streaming {tag} ({'mma.sync' if stats_mma else 'CUDA-core'} "
-        f"stats, {'mma.sync' if mma else 'CUDA-core'} apply)  "
-        f"{err_text(err, ATTN_TOL[dn])}; fp32-output apply "
-        f"{err_text(err32, ATTN_TOL[dn])}; dV {err_text(err_dv, BWD_TOL[dn])}")
+             sa.streaming_stats.mma_launches - mma0[1])
+    if moved != (2 * mma, 2 * stats_mma):
+        raise AssertionError(f"streaming {tag}: mma launches (apply, stats) "
+                             f"{moved}, the admissions say apply {mma}, "
+                             f"stats {stats_mma}")
+    kind = {True: "mma.sync", False: "CUDA-core"}
+    log(f"streaming {tag} ({kind[stats_mma]} stats, {kind[mma]} apply and "
+        f"dV, {kind[da_mma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
+        f"fp32-output apply {err_text(err32, ATTN_TOL[dn])}; "
+        + "; ".join(bwd))
 
 
 def check_stream_predicates(torch):
     """The Python mirrors of the streaming admissions (apply_admits_mma,
-    stats_admits_mma, apply_smem_bytes_mma, stats_smem_bytes_mma) against
-    the C predicates, over D = 8..2560, several S, both dtypes and three
-    layouts: aligned, a pointer off by 8 bytes, a row stride off by 4
-    elements."""
+    stats_admits_mma, da_admits_mma, apply_smem_bytes_mma,
+    stats_smem_bytes_mma, da_smem_bytes_mma) against the C predicates, over
+    D = 8..2560, several S, both dtypes and three layouts: aligned, a
+    pointer off by 8 bytes, a row stride off by 4 elements."""
     import ctypes
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import streaming_attention as sa
@@ -573,6 +596,9 @@ def check_stream_predicates(torch):
         if lib.sdm_stats_mma_smem_bytes(d) != sa.stats_smem_bytes_mma(d):
             raise AssertionError(f"stats_smem_bytes_mma({d}) disagrees with "
                                  "stats_mma_smem_bytes")
+        if lib.sdm_streaming_da_smem_bytes(d) != sa.da_smem_bytes_mma(d):
+            raise AssertionError(f"da_smem_bytes_mma({d}) disagrees with "
+                                 "da_mma_smem_bytes")
         for s_len in (64, 96, 300, 1024, 4096):
             for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
                 for ptr_off, ss_off in ((0, 0), (8, 0), (0, 4)):
@@ -582,6 +608,12 @@ def check_stream_predicates(torch):
                     cptrs = (ctypes.c_void_p * 4)(*ptrs)
                     cstr = (ctypes.c_longlong * 8)(*[x for st in strides
                                                      for x in st])
+                    # dK and dQ: q, k, v, g and out.
+                    dptrs = ptrs[:3] + [0x50000, ptrs[3]]
+                    dstr = strides[:3] + [(s_len * d, d)] * 2
+                    cdptrs = (ctypes.c_void_p * 5)(*dptrs)
+                    cdstr = (ctypes.c_longlong * 10)(*[x for st in dstr
+                                                       for x in st])
                     pairs = (
                         ("apply", lib.sdm_streaming_apply_takes_mma(
                             cptrs, cstr, s_len, d, dt),
@@ -589,7 +621,10 @@ def check_stream_predicates(torch):
                         ("stats", lib.sdm_streaming_stats_takes_mma(
                             cptrs, cstr, s_len, d, dt),
                          sa.stats_admits_mma(dtype, s_len, d, ptrs[:2],
-                                             strides[:2])))
+                                             strides[:2])),
+                        ("dA", lib.sdm_streaming_da_takes_mma(
+                            cdptrs, cdstr, s_len, d, dt),
+                         sa.da_admits_mma(dtype, s_len, d, dptrs, dstr)))
                     for what, got, mirror in pairs:
                         if bool(got) != mirror:
                             raise AssertionError(
@@ -975,12 +1010,34 @@ def float64_truth(torch, q, k, v, g, scale, axis, rows):
     return [torch.stack(a) for a in grads]
 
 
+def truth_tol(name, tag, got, plain, truth):
+    """The bf16 query-axis bound through the float64 truth (BWD_TRUTH) for
+    `got` on the truth's batch rows: raises when the kernel's error is past
+    `mult` x the plain version's + `add`; returns the tolerance against the
+    plain version that follows from it (the triangle inequality through the
+    truth, in units of max|truth|) and a note for the log."""
+    rows = list(range(truth.shape[0]))
+    e_k = bwd_error(got[rows], truth)
+    e_p = bwd_error(plain[rows], truth)
+    limit = BWD_TRUTH["mult"] * e_p + BWD_TRUTH["add"]
+    if not e_k <= limit:
+        raise AssertionError(
+            f"{name} {tag}: error against float64 truth {e_k:.3e} (of "
+            f"max|truth|) exceeds {BWD_TRUTH['mult']} x the plain bf16 "
+            f"version's {e_p:.3e} + {BWD_TRUTH['add']}")
+    tol = dict(atol=0.0, rtol=0.0, of_max=0.0,
+               atol_abs=(limit + e_p) * truth.abs().max().item())
+    return tol, (f" vs float64 truth {e_k:.3e} (plain {e_p:.3e}, limit "
+                 f"{limit:.3e})")
+
+
 def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
     """The three backward kernels, each against its plain version on the
     same inputs (the stats of the forward kernel, and corr from the dV
     kernel), and against the plain version of the other softmax axis, which
     must fail. bf16 on the q axis is also held to a float64 truth (see
-    BWD_TRUTH)."""
+    BWD_TRUTH). The tensor-core counts of dV, dK and dQ (`mma_launches`)
+    must move as the Python mirrors of the admissions say."""
     import torch.nn.functional as F
     from sdm_tpu_torch.kernels import streaming_attention as sa
     dn = str(dtype).split(".")[-1]
@@ -1005,11 +1062,13 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
                     sa.streaming_apply_reference(q, k, v, m, l, scale, axis,
                                                  out_dtype=torch.float32),
                     ATTN_TOL[dn])
+    mma0 = bwd_mma_counts(sa)
     dv = sa.streaming_dv(q, k, g, m, l, scale, axis)
     corr = sa.streaming_correction(g, v, out32, dv, axis)
     got = {"dv": dv, "dk": sa.streaming_dk(q, k, v, g, m, l, corr, scale,
                                            axis),
            "dq": sa.streaming_dq(q, k, v, g, m, l, corr, scale, axis)}
+    check_bwd_mma(sa, tag, q, k, v, g, got, mma0)
     plain = {"dv": sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
              "dk": sa.streaming_dk_reference(q, k, v, g, m, l, corr, scale,
                                              axis),
@@ -1036,21 +1095,8 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
         tol = BWD_TOL[dn]
         extra = ""
         if truth is not None and name != "dv":
-            e_k = bwd_error(got[name][truth_rows], truth[name])
-            e_p = bwd_error(plain[name][truth_rows], truth[name])
-            limit = BWD_TRUTH["mult"] * e_p + BWD_TRUTH["add"]
-            if not e_k <= limit:
-                raise AssertionError(
-                    f"streaming_{name} {tag}: error against float64 truth "
-                    f"{e_k:.3e} (of max|truth|) exceeds {BWD_TRUTH['mult']} x "
-                    f"the plain bf16 version's {e_p:.3e} + {BWD_TRUTH['add']}")
-            # Against the plain version: the triangle inequality through the
-            # truth, in units of max|truth| on the truth rows.
-            tmax = truth[name].abs().max().item()
-            tol = dict(atol=0.0, rtol=0.0, of_max=0.0,
-                       atol_abs=(limit + e_p) * tmax)
-            extra = (f" vs float64 truth {e_k:.3e} (plain {e_p:.3e}, limit "
-                     f"{limit:.3e})")
+            tol, extra = truth_tol(f"streaming_{name}", tag, got[name],
+                                   plain[name], truth[name])
         err = compare_bwd(f"streaming_{name} {tag}", got[name], plain[name],
                           tol)
         must_fail_bwd(f"streaming_{name} {tag}", got[name], wrong[name], tol)
@@ -1120,6 +1166,25 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
         f"{n} {ms[n]:.4f} ms (plain {plain_ms[n]:.4f}, bound "
         f"{bounds[n][0]:.4f} {bounds[n][1]})" for n in ms)
         + f"; sdpa backward {lib if lib is None else round(lib, 4)}")
+
+
+def bwd_mma_counts(sa):
+    return {"dv": sa.streaming_dv.mma_launches,
+            "dk": sa.streaming_dk.mma_launches,
+            "dq": sa.streaming_dq.mma_launches}
+
+
+def check_bwd_mma(sa, tag, q, k, v, g, got, mma0):
+    """dV's, dK's and dQ's `mma_launches` against their counts `mma0`
+    before one launch each (outputs `got`): dV moves as `apply_takes_mma`
+    says, dK and dQ as `da_takes_mma` says."""
+    want = {"dv": int(sa.apply_takes_mma(q, k, g, got["dv"])),
+            "dk": int(sa.da_takes_mma(q, k, v, g, got["dk"])),
+            "dq": int(sa.da_takes_mma(q, k, v, g, got["dq"]))}
+    moved = {n: c - mma0[n] for n, c in bwd_mma_counts(sa).items()}
+    if moved != want:
+        raise AssertionError(f"streaming backward {tag}: mma launches "
+                             f"{moved}, the admissions say {want}")
 
 
 def compare_bwd(name, got, want, tol):
@@ -1405,13 +1470,14 @@ def expected_launches(cfg, calls, streaming):
             "streaming_apply": streaming * calls,
             "streaming_apply_mma": streaming * calls,
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
-            "streaming_dv_mma": 0}
+            "streaming_dv_mma": 0, "streaming_dk_mma": 0,
+            "streaming_dq_mma": 0}
 
 
 def zero_counts(counters):
     """Every launch count to 0, the tensor-core counts (`mma_launches`) of
-    the whole-S attention, `linear` and the streaming stats, apply and dV
-    passes too."""
+    the whole-S attention, `linear` and the streaming stats, apply, dV, dK
+    and dQ passes too."""
     for fn in counters:
         fn.launches = 0
         if hasattr(fn, "mma_launches"):
@@ -1632,12 +1698,13 @@ def expected_train_launches(cfg, steps, streaming):
     """Launches of a training run: one U-Net call per step and a preview of
     1000 // DDIM_STEP + 1 calls forward (`expected_launches`), and dV, dK
     and dQ once per streaming block per step backward, every dV on
-    stream_apply_mma. AdaGN, the whole-S attention and the blocks recompute
+    stream_apply_mma, every dK and dQ on stream_da_mma. AdaGN, the whole-S attention and the blocks recompute
     their backward through the plain version, and `linear`'s backward is
     plain matmuls: no launches."""
     out = expected_launches(cfg, steps + 1000 // DDIM_STEP + 1, streaming)
     for kernel in ("streaming_dv", "streaming_dk", "streaming_dq",
-                   "streaming_dv_mma"):
+                   "streaming_dv_mma", "streaming_dk_mma",
+                   "streaming_dq_mma"):
         out[kernel] = streaming * steps
     return out
 
@@ -1950,11 +2017,13 @@ def demangle(names):
 # chunks), the tensor-core apply
 # (the streaming library: bf16 and fp32 output x two axes for the apply,
 # fp32 x two axes for dV; the whole-S library: bf16 x two axes), the
-# wide whole-S apply (two axes) and the GEMM (128 and 64 tiles).
+# streaming backward's dA kernel (dK and dQ x two stat layouts), the wide
+# whole-S apply (two axes) and the GEMM (128 and 64 tiles).
 MMA_KERNELS = {"attention": {"attn_stats_mma": 2, "stream_apply_mma": 2,
                              "attn_apply_mma_wide": 2},
                "streaming_attention": {"attn_stats_mma": 2,
-                                       "stream_apply_mma": 6},
+                                       "stream_apply_mma": 6,
+                                       "stream_da_mma": 4},
                "linear": {"linear_mma": 2}}
 
 
@@ -1976,6 +2045,8 @@ def build_phase(torch):
     smem = {"attn_stats_mma": (sa.stats_smem_bytes_mma(1024), "D = 1024"),
             "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
                                  f"D = {sa.MMA_MAX_D}"),
+            "stream_da_mma": (sa.da_smem_bytes_mma(sa.DA_MAX_D),
+                              f"D = {sa.DA_MAX_D}"),
             "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024),
                                     "D = 1024"),
             "linear_mma": (ab.linear_mma_smem_bytes(ab.LINEAR_TILE),

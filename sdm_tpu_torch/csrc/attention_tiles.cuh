@@ -517,17 +517,19 @@ __device__ __forceinline__ void form_p(bf16* Ps, const float (&s)[2][2][4],
   }
 }
 
-// acc += P V over one 32-key tile: A (P) by ldmatrix.x4 at `pa`, B (V,
+// acc += P V over one KT-key tile: A (P) by ldmatrix.x4 at `pa`, B (V,
 // stored [key][d] with pitch ldv) by ldmatrix.x4.trans at `vb`, wcols
-// output columns (a multiple of 16, at most 256).
-__device__ __forceinline__ void pv_tile(float (&acc)[32][4], unsigned pa,
+// output columns (a multiple of 16, at most 8 NT). The streaming backward's
+// dA B is the same product (dA for P, the streamed rows B for V).
+template <int KT = MK, int NT>
+__device__ __forceinline__ void pv_tile(float (&acc)[NT][4], unsigned pa,
                                         unsigned vb, int ldv, int wcols) {
 #pragma unroll
-  for (int kk = 0; kk < MK; kk += 16) {
+  for (int kk = 0; kk < KT; kk += 16) {
     unsigned a[4];
     ldsm_x4(a, pa + kk * 2);
 #pragma unroll
-    for (int np = 0; np < 16; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       if (np * 16 < wcols) {
         unsigned bv[4];
         ldsm_x4_trans(bv, vb + (kk * ldv + np * 16) * 2);
@@ -540,13 +542,13 @@ __device__ __forceinline__ void pv_tile(float (&acc)[32][4], unsigned pa,
 
 // The epilogue: one rounding to OutT, stored straight from the fragments
 // (rows row0 + g and + 8, columns cbase + 8 n + 2 tg).
-template <typename OutT>
+template <typename OutT, int NT>
 __device__ __forceinline__ void store_acc(OutT* op, long long ss,
-                                          const float (&acc)[32][4],
+                                          const float (&acc)[NT][4],
                                           int row0, int cbase, int wcols,
                                           int tg) {
 #pragma unroll
-  for (int n = 0; n < 32; ++n) {
+  for (int n = 0; n < NT; ++n) {
     if (n * 8 < wcols) {
       const int col = cbase + n * 8 + 2 * tg;
 #pragma unroll

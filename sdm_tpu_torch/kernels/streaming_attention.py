@@ -12,12 +12,13 @@ csrc/streaming_attention.cu: the stats pass shares the whole-S kernel's
 online (m, l) kernels, the apply pass walks key tiles with the final stats,
 dV is the apply kernel with the roles of q and k swapped, and dK and dQ share
 one kernel that recomputes P and dA tile by tile. None holds more than one
-score tile, so shared memory does not depend on S. bf16 at S % 64 == 0,
-D % 128 == 0 with 16-byte aligned rows runs on the tensor cores through
-mma.sync with ldmatrix fragments and cp.async rings: the stats pass on
-`attn_stats_mma` (D <= 1152; `stats_takes_mma`, a mirror of the C
-admission), the apply and dV passes on `stream_apply_mma` (D <= 512;
-`apply_takes_mma`). Each such launch also counts in the wrapper's
+score tile, so shared memory does not depend on S. bf16 at D % 128 == 0
+with 16-byte aligned rows runs on the tensor cores through mma.sync with
+ldmatrix fragments and cp.async rings: the stats pass on `attn_stats_mma`
+(S % 64 == 0, D <= 1152; `stats_takes_mma`, a mirror of the C admission),
+the apply and dV passes on `stream_apply_mma` (S % 64 == 0, D <= 512;
+`apply_takes_mma`), and dK and dQ on `stream_da_mma` (S % DA_ROWS == 0,
+D <= 512; `da_takes_mma`). Each such launch also counts in the wrapper's
 `mma_launches`. The whole-S kernel (kernels/attention.py) takes bf16 grids
 up to S = 3200 and fp32 up to S = 1687; the dispatchers send longer ones,
 such as the 256x256 SR model's S = 4096, here. Every pass is bound by
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_mma_smem_bytes": (_I, [_I]),
     "sdm_stats_mma_smem_bytes": (_I, [_I]),
+    "sdm_streaming_da_takes_mma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_da_smem_bytes": (_I, [_I]),
 }
 
 # Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
@@ -80,6 +83,11 @@ MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
 # SSTAGES): kept rows per block, reduced rows per streamed tile, D columns
 # per ring stage (halved where the kept tile leaves no room), ring stages.
 STATS_KEPT, STATS_RED, STATS_CHUNK, STATS_STAGES = 64, 256, 128, 2
+# stream_da_mma's tiling (csrc/streaming_attention.cu DA_BM, DA_BN,
+# DA_KSPLIT, DA_MAXD): own rows per block, streamed rows per ring stage, D
+# slices per score tile, widest D. S must be a multiple of DA_ROWS.
+DA_BM, DA_BN, DA_KSPLIT, DA_MAX_D = 64, 16, 2, 512
+DA_ROWS = max(DA_BM, DA_BN)
 
 
 def apply_smem_bytes_mma(d: int) -> int:
@@ -105,6 +113,17 @@ def stats_smem_bytes_mma(d: int) -> int:
     ring of two (reduced tile, D chunk) stages [256][chunk+8] bf16."""
     return (STATS_KEPT * (d + 8) * 2
             + STATS_STAGES * STATS_RED * (stats_chunk_mma(d) + 8) * 2)
+
+
+def da_smem_bytes_mma(d: int) -> int:
+    """Dynamic shared memory of stream_da_mma at D = d
+    (da_mma_smem_bytes): the resident A and A2 tiles [DA_BM][d+8] bf16, a
+    ring of two stages of B and B2 tiles [DA_BN][d+8] bf16, the dA tile
+    [DA_BM][DA_BN+8] bf16, two stages of DA_BN m, l and corr floats, and
+    with DA_KSPLIT = 2 the 8 KB exchange of partial scores."""
+    return (2 * DA_BM * (d + 8) * 2 + 2 * 2 * DA_BN * (d + 8) * 2
+            + DA_BM * (DA_BN + 8) * 2 + 2 * 3 * DA_BN * 4
+            + (DA_KSPLIT - 1) * 8 * 8 * 32 * 4)
 
 
 def rows_aligned16(ptrs, strides) -> bool:
@@ -133,6 +152,15 @@ def stats_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
             and rows_aligned16(ptrs, strides))
 
 
+def da_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """da_mma_ok: bf16, S % DA_ROWS == 0, D % 128 == 0, D <= 512, the shared
+    memory within MAX_SMEM, and 16-byte aligned rows of every tensor.
+    `ptrs` and `strides` ((sb, ss) in elements) of q, k, v, g and out."""
+    return (dtype == torch.bfloat16 and s % DA_ROWS == 0 and d % 128 == 0
+            and d <= DA_MAX_D and da_smem_bytes_mma(d) <= MAX_SMEM
+            and rows_aligned16(ptrs, strides))
+
+
 def _layout(*tensors):
     return ([t.data_ptr() for t in tensors],
             [(t.stride(0), t.stride(1)) for t in tensors])
@@ -148,6 +176,13 @@ def apply_takes_mma(q, k, v, out) -> bool:
 def stats_takes_mma(q, k) -> bool:
     """Whether the stats pass on q, k runs on attn_stats_mma."""
     return stats_admits_mma(q.dtype, q.shape[1], q.shape[2], *_layout(q, k))
+
+
+def da_takes_mma(q, k, v, g, out) -> bool:
+    """Whether the dK or dQ pass on q, k, v, g (B, S, D) into `out` runs on
+    stream_da_mma."""
+    return da_admits_mma(q.dtype, q.shape[1], q.shape[2],
+                         *_layout(q, k, v, g, out))
 
 
 # Score tile of the plain versions, (TILE, TILE) per batch row: the TPU
@@ -326,8 +361,8 @@ def _strides(*tensors):
 
 def _launch(symbol, what, args, ref, mma=False):
     """Launch `symbol` of the streaming library; raise on a CUDA error.
-    `mma`: the launch runs a tensor-core kernel (attn_stats_mma or
-    stream_apply_mma; counted in ref.mma_launches)."""
+    `mma`: the launch runs a tensor-core kernel (attn_stats_mma,
+    stream_apply_mma or stream_da_mma; counted in ref.mma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
@@ -429,7 +464,8 @@ def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,
         out.data_ptr(), m.data_ptr(), l.data_ptr(), corr.data_ptr(),
         ctypes.cast(_strides(q, k, v, g, out), _P), b, s, d, float(scale),
         int(softmax_axis == "q"), _build.dtype_code(q, what),
-        _build.stream_handle(q.device)), ref)
+        _build.stream_handle(q.device)), ref,
+        mma=da_takes_mma(q, k, v, g, out))
     return out
 
 
@@ -450,6 +486,7 @@ def streaming_dk(q, k, v, g, m, l, corr, scale: float,
 
 
 streaming_dk.launches = 0
+streaming_dk.mma_launches = 0
 
 
 def streaming_dq(q, k, v, g, m, l, corr, scale: float,
@@ -466,6 +503,7 @@ def streaming_dq(q, k, v, g, m, l, corr, scale: float,
 
 
 streaming_dq.launches = 0
+streaming_dq.mma_launches = 0
 
 
 def streaming_correction(g, v, out32, dv, softmax_axis: str):

@@ -521,21 +521,27 @@ def test_mirror_constants_match_the_sources():
 def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
-    are exported for their Python mirrors, the WMMA attention kernels and
-    the WMMA GEMM are gone, the mma.sync primitives live in one header, and
-    the build targets sm_90a."""
+    are exported for their Python mirrors, the WMMA attention kernels, the
+    WMMA dK/dQ kernel and the WMMA GEMM are gone, the mma.sync primitives
+    live in one header, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
     assert {"sdm_attention_takes_mma", "sdm_attention_mma_plan",
             "sdm_attention_wide_smem_bytes"} <= set(port_attention._SIGNATURES)
     assert {"sdm_streaming_stats_takes_mma", "sdm_stats_mma_smem_bytes",
-            "sdm_streaming_apply_takes_mma"} <= set(
+            "sdm_streaming_apply_takes_mma", "sdm_streaming_da_takes_mma",
+            "sdm_streaming_da_smem_bytes"} <= set(
                 streaming_attention._SIGNATURES)
     for name in ("attention.cu", "streaming_attention.cu",
                  "attention_tiles.cuh"):
         with open(os.path.join(_build.CSRC, name)) as f:
             src = f.read()
         assert "attn_stats_wmma" not in src and "attn_apply_wmma" not in src
+    # The streaming library's dK/dQ kernel is mma.sync too: no WMMA left.
+    with open(os.path.join(_build.CSRC, "streaming_attention.cu")) as f:
+        src = f.read()
+    assert "wmma" not in src.lower() and "<mma.h>" not in src
+    assert "stream_da_mma" in src
     assert {"sdm_linear_takes_mma", "sdm_linear_mma_tile"} <= set(
         attention_block._SIGNATURES)
     with open(os.path.join(_build.CSRC, "linear.cu")) as f:
