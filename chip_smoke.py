@@ -6,7 +6,8 @@
 
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
-build, kernels, streaming, model, serving, training (the build always),
+build, kernels, streaming, model, serving, generation, training (the build
+always),
 logs which it skipped, prints no `kernels` line and ends with
 {"ok": true, "partial": true, ...}.
 
@@ -58,17 +59,28 @@ logs which it skipped, prints no `kernels` line and ends with
      whole-S attention, streaming stats, streaming apply and `linear` on
      the mma.sync kernels (`mma_launches`). Then one more batch of each is
      traced with the profiler for the device's busy share.
-  5. Training ("training"): the SR trainer (run_training(SR_SPEC), the SR
-     U-Net at full width, 256x256, batch 16, bf16) and then the base eps
-     trainer (the flagship, 128x128) for TRAIN_STEPS steps each on seeded
-     uint8 images, kernels on. Each run checkpoints (with a preview) at step
-     0 only and once more when it stops. The launch counters are zeroed just
-     before each run and read just after, and held to the counts its steps
-     and its preview imply (every whole-S attention, `linear`, streaming
+  5. Generation ("generation"): the DDIM/DDPM generator
+     (generate_images_diffusion) on an exported flagship bundle, DDIM step
+     20, bf16, 16 images, its images held normwise to the serving engine's
+     for the same injected noise; then a two-entry ensemble of the same
+     weights (steps 501-1000, then 1-500) and a doodle bundle (6 input
+     channels) with a conditioning image. Around each generator run the
+     launch counters are zeroed and read, and held to the counts its U-Net
+     calls imply; its img/s is logged.
+  6. Training ("training"): the SR trainer (run_training(SR_SPEC), the SR
+     U-Net at full width, 256x256, batch 16, bf16), then the base eps, the
+     cold and the doodle trainers (the flagship, 128x128; the cold U-Net
+     with its tanh out, the doodle U-Net with 6 input channels reading
+     image/doodle pairs from a TinyDB file) for TRAIN_STEPS steps each on
+     seeded uint8 images, kernels on. Each run checkpoints (with a
+     preview, and the doodle trainer's label_plot grid) at step 0 only and
+     once more when it stops. The launch counters are zeroed just before
+     each run and read just after, and held to the counts its steps and
+     its preview imply (every whole-S attention, `linear`, streaming
      stats, apply, dV, dK and dQ on the mma.sync kernels); the losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
-     model and Adam, moments included, and one more SR step is profiled by
-     kernel family.
+     model and Adam, moments included, and one more step of each trainer
+     is profiled by kernel family.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -116,6 +128,14 @@ DDIM_STEP = 20
 SR_IMG = 256
 SR = dict(FLAGSHIP, in_channel=6, image_recon=True)
 SR_COND_T = 250
+# The cold trainer's U-Net (the flagship with its tanh out, as the wizard's
+# cold configs set img_recon) and the doodle U-Net (the flagship taking x_t
+# and the 3-channel conditioning image): only the tanh and the first conv
+# differ, so every kernel shape is the flagship's.
+COLD = dict(FLAGSHIP, image_recon=True)
+DOODLE = dict(FLAGSHIP, in_channel=6)
+# The generator's two-entry ensemble: the same weights over these ranges.
+ENSEMBLE = ((501, 1000), (1, 500))
 SR_ADAGN_SHAPES = [(256, 256, 128), (128, 128, 256), (64, 64, 512),
                    (32, 32, 512), (16, 16, 1024), (32, 32, 1024),
                    (64, 64, 1024), (128, 128, 512)]
@@ -1421,9 +1441,12 @@ def _images(resp):
     return arr.reshape(resp["shape"])
 
 
-def _export(torch, tmp, name, cfg, img, model_type, cond_t=None):
-    """cfg's U-Net from seed 0 exported as a one-entry bundle (steps
-    1..1000, the linear schedule 5e-3 -> 9e-3); returns its config.json."""
+def _export(torch, tmp, name, cfg, img, model_type, cond_t=None,
+            ranges=((1, 1000),)):
+    """cfg's U-Net from seed 0 exported as a bundle of one entry per
+    (min, max) step range, each with those weights (by default one entry
+    over steps 1..1000; the linear schedule 5e-3 -> 9e-3); returns its
+    config.json."""
     from sdm_tpu_torch.cli.export_models import export_bundle
     from sdm_tpu_torch.models import UNet
     torch.manual_seed(0)
@@ -1440,12 +1463,13 @@ def _export(torch, tmp, name, cfg, img, model_type, cond_t=None):
                  min_channel=cfg["min_channel"],
                  max_channel=cfg["max_channel"],
                  img_recon=cfg["image_recon"],
-                 min_noise_step=1, max_noise_step=1000,
                  noise_scheduler="LINEAR", beta1=5e-3, betaT=9e-3)
     if cond_t is not None:
         train["cond_t"] = cond_t
+    entries = [(dict(train, min_noise_step=lo, max_noise_step=hi), pt)
+               for lo, hi in ranges]
     bundle = export_bundle(name, tmp, img_c=3, img_h=img, img_w=img,
-                           model_type=model_type, entries=[(train, pt)])
+                           model_type=model_type, entries=entries)
     return os.path.join(bundle, "config.json")
 
 
@@ -1530,6 +1554,16 @@ def serve_requests(torch, engine, counters, requests):
     return [got[i] for i in range(4)], launches, stats, t_first
 
 
+def check_launches(name, launches, expect):
+    """Hold a path's launch counts, the tensor-core (`_mma`) ones among
+    them, to `expect`."""
+    log(f"{name}: launches {launches}, expected {expect}")
+    for kernel, n in expect.items():
+        if launches[kernel] != n:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{launches[kernel]} times, expected {n}")
+
+
 def check_served(name, images, requests, img, launches, stats, cfg,
                  streaming):
     import numpy as np
@@ -1548,14 +1582,9 @@ def check_served(name, images, requests, img, launches, stats, cfg,
         raise AssertionError(f"{name}: expected 3 batches (16, 3+5 "
                              f"coalesced, 3 alone), got {batches}")
     calls = batches * (1000 // DDIM_STEP + 1)
-    expect = expected_launches(cfg, calls, streaming)
-    log(f"{name}: served launches {launches}, expected {expect} "
-        f"({batches} batches x {calls // batches} U-Net calls)")
-    for kernel, n in expect.items():
-        if launches[kernel] != n:
-            raise AssertionError(f"{name}: {kernel} launched "
-                                 f"{launches[kernel]} times on the served "
-                                 f"path, expected {n}")
+    check_launches(f"{name} served ({batches} batches x {calls // batches} "
+                   "U-Net calls)", launches,
+                   expected_launches(cfg, calls, streaming))
 
 
 def report_busy(name, busy):
@@ -1646,6 +1675,99 @@ def sr_serving_phase(torch, counters, lr_images):
                           traced_batch=busy)
 
 
+def generation_phase(torch, counters):
+    """The DDIM/DDPM generator (generate_images_diffusion) on the flagship
+    at full width and depth, random weights from seed 0, bf16, 16 images,
+    DDIM step 20 (51 U-Net calls): its images against the serving engine's
+    for the same injected noise (normwise, MODEL_TOL's bf16 limit), then a
+    two-entry ensemble of the same weights (steps 501-1000, then 1-500) and
+    a doodle bundle (6 input channels) with a conditioning image. The
+    launch counters are zeroed just before each generator run and read just
+    after. Returns the launches of the three runs and a report."""
+    import numpy as np
+    from sdm_tpu_torch.cli.generate_images_diffusion import \
+        generate_images_diffusion
+    from sdm_tpu_torch.diffusion.samplers import ddim_step_list
+    from sdm_tpu_torch.io.bundles import (build_model_from_bundle,
+                                          load_bundle_config)
+    from sdm_tpu_torch.serving import SamplerEngine
+
+    quiet = dict(log=lambda *a, **k: None, save_locally=False)
+    args = ["-n", str(BATCH), "--diff_alg", "ddim", "--ddim_step_size",
+            str(DDIM_STEP), "--dtype", "bfloat16", "-s", "0"]
+    total = {}
+    report = {}
+
+    def run(name, config, cfg, ranges, **kw):
+        zero_counts(counters)
+        t0 = time.monotonic()
+        images = generate_images_diffusion(["-c", config] + args, **kw,
+                                           **quiet)
+        wall = time.monotonic() - t0
+        launches = read_counts(counters)
+        calls = sum(len(ddim_step_list(lo, hi, DDIM_STEP))
+                    for lo, hi in ranges)
+        check_launches(f"generator ({name}, {calls} U-Net calls)", launches,
+                       expected_launches(cfg, calls, 0))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if images.shape != (BATCH, IMG, IMG, 3) or \
+                not np.isfinite(images).all():
+            raise AssertionError(f"generator ({name}): shape {images.shape} "
+                                 "or non-finite values")
+        return images, wall
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = _export(torch, tmp, "flagship", FLAGSHIP, IMG, "BASE")
+        engine = SamplerEngine(config, diff_alg="ddim", step_size=DDIM_STEP,
+                               max_batch=BATCH, dtype="bfloat16", log=log)
+        want = engine.generate(BATCH, seed=7)
+        noise = engine._noise_for(7, BATCH).cpu().numpy()
+        del engine
+        torch.cuda.empty_cache()
+        got, wall = run("flagship", config, FLAGSHIP, ((1, 1000),),
+                        noise=noise)
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        log(f"generator vs serving engine, same noise: normwise rel "
+            f"{rel:.3e} (tol {MODEL_TOL['bfloat16']}), max abs "
+            f"{float(np.abs(got - want).max()):.3e}")
+        if not rel <= MODEL_TOL["bfloat16"]:
+            raise AssertionError(f"generator vs engine: normwise rel {rel}")
+        # The rate: a second run, seeded, with the CUDA context, the
+        # kernels and cuDNN's plans already warm; then the bundle load
+        # alone, the part of the run that is not sampling.
+        _, wall2 = run("flagship, timed", config, FLAGSHIP, ((1, 1000),))
+        models, folder = load_bundle_config(config)
+        t0 = time.monotonic()
+        net, _ = build_model_from_bundle(
+            models["models"][0], folder, max_T=1000,
+            device=torch.device("cuda"), dtype=torch.bfloat16,
+            cast_params=True)
+        torch.cuda.synchronize()
+        load = time.monotonic() - t0
+        del net
+        log(f"generator: {BATCH} images, DDIM step {DDIM_STEP}, bf16: "
+            f"{wall2:.3f} s -> {BATCH / wall2:.3f} img/s, of which the "
+            f"bundle load (read, build, cast, upload) {load:.3f} s; the "
+            f"first run took {wall:.3f} s")
+        report.update(rel_err_vs_engine=rel, seconds=wall2,
+                      img_per_s=BATCH / wall2, first_run_seconds=wall,
+                      bundle_load_seconds=load)
+
+        config = _export(torch, tmp, "ensemble", FLAGSHIP, IMG, "BASE",
+                         ranges=ENSEMBLE)
+        _, wall = run("ensemble 501-1000, 1-500", config, FLAGSHIP, ENSEMBLE)
+        report["ensemble_seconds"] = wall
+
+        config = _export(torch, tmp, "doodle", DOODLE, IMG, "BASE")
+        cond = np.random.default_rng(5).integers(0, 256, (IMG, IMG, 3),
+                                                 dtype=np.uint8)
+        _, wall = run("doodle", config, DOODLE, ((1, 1000),), cond_img=cond)
+        report["doodle_seconds"] = wall
+    torch.cuda.empty_cache()
+    return total, report
+
+
 def traced_batch(torch, engine, requests):
     """Device-busy share of one served batch: the device time in a
     torch.profiler (CUPTI) trace of engine.generate_batch over the batch's
@@ -1710,24 +1832,26 @@ def expected_train_launches(cfg, steps, streaming):
 
 
 def train_phase(torch, counters, spec, name, cfg, img, streaming):
-    """One trainer run at full width (see the module docstring, phase 5).
+    """One trainer run at full width (see the module docstring, phase 6).
     Returns its launches and a report."""
     import numpy as np
     from sdm_tpu_torch.data import datasets
+    from sdm_tpu_torch.data.tinydb_compat import write_tables
     from sdm_tpu_torch.io.checkpoint import load_optimizer_from_checkpoint
     from sdm_tpu_torch.models import UNet
     from sdm_tpu_torch.ops.schedules import make_schedule
-    from sdm_tpu_torch.train.loop import run_training
+    from sdm_tpu_torch.train import loop
     from sdm_tpu_torch.train.step import make_optimizer, make_train_step
 
     dev = torch.device("cuda")
+    doodle = spec.dataset == "doodle"
     with tempfile.TemporaryDirectory() as tmp:
-        # Seeded uint8 HWC images. With OpenCV they are PNGs read by the
-        # dataset's own cv2 decode. A machine without OpenCV gets .npy files
-        # and only the decode function is swapped for np.load (the loader,
-        # the trainer and all after them stay the real path); there the
-        # preview grid's JPEG write fails after the preview has sampled,
-        # which the trainer logs and goes on from (checked below).
+        # Seeded uint8 HWC images (and, for the doodle trainer, as many
+        # conditioning images, paired with them in a TinyDB file). With
+        # OpenCV they are PNGs read by the dataset's own cv2 decode. A
+        # machine without OpenCV gets .npy files, and only the decode
+        # function is swapped for np.load and the grid writer for a log line
+        # (the loader, the trainer and all after them stay the real path).
         try:
             import cv2
         except ImportError:
@@ -1735,41 +1859,56 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
         rng = np.random.default_rng(3)
         images = rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
                               dtype=np.uint8)
+        conds = (rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
+                              dtype=np.uint8) if doodle else None)
         ext = "npy" if cv2 is None else "png"
-        for i, im in enumerate(images):
-            path = os.path.join(tmp, f"im_{i}.{ext}")
-            if cv2 is None:
-                np.save(path, im)
-            else:
-                cv2.imwrite(path, im)
-        decode = datasets._imread_u8
+        rows = []
+        for i in range(TRAIN_IMAGES):
+            pair = [("im", images[i])] + ([("doodle", conds[i])] if doodle
+                                          else [])
+            for kind, im in pair:
+                path = os.path.join(tmp, f"{kind}_{i}.{ext}")
+                if cv2 is None:
+                    np.save(path, im)
+                else:
+                    cv2.imwrite(path, im)
+            if doodle:
+                rows.append({"filename": os.path.join(tmp, f"im_{i}.{ext}"),
+                             "doodle": os.path.join(tmp,
+                                                    f"doodle_{i}.{ext}")})
+        if doodle:
+            data_path = os.path.join(tmp, "doodle.json")
+            write_tables(data_path, {"Data": rows,
+                                     "Labels": [{"labels": ["doodle"]}]})
+        else:
+            data_path = os.path.join(tmp, f"im_*.{ext}")
+        decode, plot = datasets._imread_u8, loop.plot_sampled_images
         if cv2 is None:
             datasets._imread_u8 = np.load
-        log(f"{name} trainer: {TRAIN_IMAGES} images {img}x{img} as .{ext}, "
+            loop.plot_sampled_images = (
+                lambda imgs, file_name, dest_path=None, log=print:
+                log(f"{file_name}: not written (no cv2)"))
+        log(f"{name} trainer: {TRAIN_IMAGES} "
+            + ("image/doodle pairs" if doodle else "images")
+            + f" {img}x{img} as .{ext}, "
             + ("np.load in place of the cv2 decode" if cv2 is None
                else "the dataset's cv2 decode"))
         out_dir = os.path.join(tmp, "out")
-        config = train_config(out_dir, os.path.join(tmp, f"*.{ext}"), cfg,
-                              img)
+        config = train_config(out_dir, data_path, cfg, img)
         try:
             zero_counts(counters)
             t0 = time.monotonic()
-            summary = run_training(spec, config, device=dev,
-                                   max_steps=TRAIN_STEPS)
+            summary = loop.run_training(spec, config, device=dev,
+                                        max_steps=TRAIN_STEPS)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             launches = read_counts(counters)
         finally:
-            datasets._imread_u8 = decode
+            datasets._imread_u8, loop.plot_sampled_images = decode, plot
 
-        expect = expected_train_launches(cfg, TRAIN_STEPS, streaming)
-        log(f"{name} trainer: launches {launches}, expected {expect} "
-            f"({TRAIN_STEPS} steps, one preview of {1000 // DDIM_STEP + 1} "
-            "U-Net calls)")
-        for kernel, n in expect.items():
-            if launches[kernel] != n:
-                raise AssertionError(f"{name} trainer: {kernel} launched "
-                                     f"{launches[kernel]} times, expected {n}")
+        check_launches(f"{name} trainer ({TRAIN_STEPS} steps, one preview "
+                       f"of {1000 // DDIM_STEP + 1} U-Net calls)", launches,
+                       expected_train_launches(cfg, TRAIN_STEPS, streaming))
         with open(os.path.join(out_dir, f"{spec.project_name}.log")) as f:
             lines = f.read().splitlines()
         losses = [float(line.split("Diffusion: ")[1].split(" ")[0])
@@ -1781,12 +1920,14 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
                                  f"steps, running mean losses {losses}")
         previews = [line for line in lines
                     if "Preview sampling failed" in line]
-        plotted = os.path.exists(os.path.join(out_dir, "plots",
-                                              "diffusion_plot_0.jpg"))
-        if (any("cv2" not in line for line in previews)
-                or plotted != (cv2 is not None)):
+        grids = ["diffusion_plot_0.jpg"] + (["label_plot.jpg"] if doodle
+                                            else [])
+        plotted = [os.path.exists(os.path.join(out_dir, "plots", g))
+                   for g in grids]
+        if previews or plotted != [cv2 is not None] * len(grids):
             raise AssertionError(f"{name} trainer: preview failed: "
-                                 f"{previews}")
+                                 f"{previews}, grids {grids} written "
+                                 f"{plotted}")
         names = sorted(os.listdir(os.path.join(out_dir, "checkpoint")))
         want = sorted(f"{k}_{s}.pt" for k in ("config", "diffusion")
                       for s in (0, TRAIN_STEPS))
@@ -1828,9 +1969,11 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
         schedule = make_schedule("LINEAR", max_noise_step=1000, device=dev)
         step_fn = make_train_step(
             schedule, objective=spec.objective, max_actual_noise_step=1000,
-            flip_imgs=True, cond_t=config.get("cond_t"),
+            flip_imgs=spec.has_flip, cond_t=config.get("cond_t"),
             lr_dim=config.get("lr_dim"))
         batch = {"image": torch.from_numpy(images[:BATCH]).to(dev)}
+        if doodle:
+            batch["cond_img"] = torch.from_numpy(conds[:BATCH]).to(dev)
         gen = torch.Generator(device=dev).manual_seed(4)
         split = device_breakdown(torch, lambda: step_fn(state, batch, gen))
     log(f"{name} trainer: {TRAIN_STEPS} steps in {wall:.2f} s (with the "
@@ -1860,8 +2003,8 @@ def summarize(results, launches):
     """One entry per kernel: the main path's shapes (bf16, query axis),
     times summed over one U-Net call: the flagship's for the kernels of
     slice 1, the SR model's for the streaming kernels (forward: one SR
-    U-Net call; backward: one SR train step). `launches` sums the served
-    and trained paths; `launches_by_path` keeps them apart, and
+    U-Net call; backward: one SR train step). `launches` sums the served,
+    generated and trained paths; `launches_by_path` keeps them apart, and
     `mma_launches` counts those that ran the mma.sync kernels. No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
@@ -1957,7 +2100,8 @@ def summarize(results, launches):
     return out
 
 
-PHASES = ("build", "kernels", "streaming", "model", "serving", "training")
+PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
+          "training")
 
 
 def parse_phases(argv):
@@ -2092,7 +2236,8 @@ def main(argv) -> int:
         from sdm_tpu_torch.kernels.streaming_attention import (
             streaming_apply, streaming_dk, streaming_dq, streaming_dv,
             streaming_stats)
-        from sdm_tpu_torch.train.loop import BASE_SPEC, SR_SPEC
+        from sdm_tpu_torch.train.loop import (BASE_SPEC, COLD_SPEC,
+                                              DOODLE_SPEC, SR_SPEC)
     except ImportError as e:
         print(f"chip_smoke: the sdm_tpu_torch package is missing ({e}); run "
               "from the repository root", file=sys.stderr)
@@ -2141,6 +2286,11 @@ def main(argv) -> int:
         launches["sr"], served["sr"] = sr_serving_phase(torch, counters,
                                                         lr_images)
         log(f"serving phase: {time.monotonic() - t0:.1f} s")
+    if "generation" in phases:
+        t0 = time.monotonic()
+        launches["generation"], out["generated"] = generation_phase(
+            torch, counters)
+        log(f"generation phase: {time.monotonic() - t0:.1f} s")
     if "training" in phases:
         t0 = time.monotonic()
         trained = out["trained"] = {}
@@ -2148,6 +2298,10 @@ def main(argv) -> int:
             torch, counters, SR_SPEC, "sr", SR, SR_IMG, streaming=1)
         launches["base_train"], trained["base"] = train_phase(
             torch, counters, BASE_SPEC, "base", FLAGSHIP, IMG, streaming=0)
+        launches["cold_train"], trained["cold"] = train_phase(
+            torch, counters, COLD_SPEC, "cold", COLD, IMG, streaming=0)
+        launches["doodle_train"], trained["doodle"] = train_phase(
+            torch, counters, DOODLE_SPEC, "doodle", DOODLE, IMG, streaming=0)
         log(f"training phase: {time.monotonic() - t0:.1f} s")
 
     if not skipped:

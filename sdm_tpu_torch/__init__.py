@@ -10,10 +10,10 @@ Entry points run on the CUDA device unless the caller passes
 `device="cpu"`; on CPU tensors the kernel wrappers run their plain PyTorch
 versions.
 
-The port covers serving: the U-Net forward, the DDIM/DDPM and cold
-samplers, the bundle format, the HTTP server for BASE, BASE-COLD and SR
-bundles, and the SR and cold generators. Training and the extensions are
-later slices.
+The port covers the user flow of sdm_tpu's main path: the config wizards,
+the four trainers (base, cold, doodle, SR), export, the DDIM/DDPM, cold and
+SR generators, and the HTTP server for BASE, BASE-COLD and SR bundles. The
+extensions, distillation, eval and multi-device work are later slices.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,14 @@
-"""Export trained checkpoints into inference bundles (port of the
-programmatic half of sdm_tpu/cli/export_models.py: `_bundle_entry` and
-`export_bundle`; the interactive prompt is not ported).
+"""Export trained checkpoints into inference bundles (port of
+sdm_tpu/cli/export_models.py): the interactive prompt (`export_models`,
+`python -m sdm_tpu_torch.cli.export_models`) and its programmatic form
+(`export_bundle`).
 
 A bundle is a directory holding `config.json` with a "models" list and one
 checkpoint .pt per model, named `{name}_{min}-{max}.pt`. As in sdm_tpu,
-beta_1/beta_T are written for every model type.
+beta_1/beta_T are written for every model type. The prompt asks what
+sdm_tpu's asks, in the same order with the same defaults. It imports
+`click` when it runs, so the generators and chip_smoke.py, which import
+this module for `export_bundle`, do not need it.
 """
 
 from __future__ import annotations
@@ -65,3 +69,64 @@ def export_bundle(config_name: str, export_dest_path: str, *, img_c: int,
     with open(os.path.join(new_dest_path, "config.json"), "w") as f:
         json.dump(json_vals, f)
     return new_dest_path
+
+
+def export_models():
+    """The interactive export: name, destination, the images' C, H and W,
+    the model type, the number of models, then each model's training
+    config and checkpoint."""
+    import click
+    config_name = click.prompt(
+        "Config Name (Will be reflected in model names)?", type=str)
+    export_dest_path = click.prompt(
+        "Destination path for model and config file?",
+        type=click.Path(exists=True))
+
+    new_dest_path = os.path.join(export_dest_path, config_name)
+    os.makedirs(new_dest_path)
+
+    img_c = click.prompt("Model was trained on images with channel(C)?",
+                         type=click.IntRange(min=1), default=3)
+    img_h = click.prompt("Model was trained on images with Height (H)?",
+                         type=click.IntRange(min=2), default=128)
+    img_w = click.prompt("Model was trained on images with Width (W)?",
+                         type=click.IntRange(min=2), default=128)
+
+    model_type = click.prompt(
+        "Model type?",
+        type=click.Choice(["BASE", "BASE-COLD", "SR"], case_sensitive=False),
+        default="BASE")
+    models_num = click.prompt(
+        "How many models do you want to combine (For ensemble diffusion)?",
+        type=click.IntRange(min=1), default=1)
+
+    json_vals = {"models": []}
+    for model_index in range(models_num):
+        click.echo(f"Model: {model_index + 1} / {models_num}")
+        config_path = click.prompt("File path to config file?",
+                                   type=click.Path(exists=True))
+        model_path = click.prompt("File path to model checkpoint?",
+                                  type=click.Path(exists=True))
+        with open(config_path, "r") as f:
+            config_dict = json.loads(f.read())
+
+        entry = _bundle_entry(config_name, config_dict, img_c=img_c,
+                              img_h=img_h, img_w=img_w, model_type=model_type)
+        json_vals["models"].append(entry)
+
+        dest_path = os.path.join(new_dest_path, entry["model_name"])
+        shutil.copy(model_path, dest_path)
+        click.echo(f"Successfully copied model file to {dest_path}.")
+
+    json_file = os.path.join(new_dest_path, "config.json")
+    with open(json_file, "w") as f:
+        json.dump(json_vals, f)
+    click.echo(f"Successfully saved {json_file}")
+
+
+def run():
+    export_models()
+
+
+if __name__ == "__main__":
+    run()

@@ -91,14 +91,29 @@ def sampling_setup(args: dict):
     return device, generator, out_dir, dtype
 
 
-def entry_labels(args: dict, model_dict: dict, device):
-    """The entry's conditional labels as a (cond_dim,) tensor, or None."""
+def entry_labels(args: dict, model_dict: dict, device,
+                 message: str = "Invalid/No conditional labels passed!"):
+    """The entry's conditional labels as a (cond_dim,) tensor, or None;
+    ValueError(message) when -l does not give cond_dim of them."""
     import torch
     if model_dict["cond_dim"] is None:
         return None
     if args["labels"] is None or len(args["labels"]) != model_dict["cond_dim"]:
-        raise ValueError("Invalid/No conditional labels passed!")
+        raise ValueError(message)
     return torch.tensor(args["labels"], dtype=torch.float32, device=device)
+
+
+def finish_images(images, img_h, img_w, out_dir, log, save_locally):
+    """Return the images, or save them as one grid named after the time,
+    the size and a random id (the reference's naming) and return None."""
+    from sdm_tpu_torch.io.plotting import plot_sampled_images
+    if save_locally:
+        datetime_now = datetime.now().strftime("%d-%m-%Y %H:%M:%S")
+        unique_name = (datetime_now + "_" + f"({img_h},{img_w})" + "_"
+                       + uuid.uuid4().hex)
+        plot_sampled_images(images, unique_name, dest_path=out_dir, log=log)
+        return None
+    return images
 
 
 def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
@@ -111,7 +126,6 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
     from sdm_tpu_torch.diffusion.samplers import cold_sample
     from sdm_tpu_torch.io.bundles import (build_model_from_bundle,
                                           load_bundle_config)
-    from sdm_tpu_torch.io.plotting import plot_sampled_images
     from sdm_tpu_torch.ops.resize import area_resize
 
     parser = argparse.ArgumentParser(
@@ -184,13 +198,7 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
                                 skip_step_size=args["cold_step_size"],
                                 cond_img=cond, labels=labels)
         x0 = (upsampled + delta).cpu().numpy()
-    if save_locally:
-        datetime_now = datetime.now().strftime("%d-%m-%Y %H:%M:%S")
-        unique_name = (datetime_now + "_" + f"({img_h},{img_w})" + "_"
-                       + uuid.uuid4().hex)
-        plot_sampled_images(x0, unique_name, dest_path=out_dir, log=log)
-        return None
-    return x0
+    return finish_images(x0, img_h, img_w, out_dir, log, save_locally)
 
 
 def run(raw_args=None):

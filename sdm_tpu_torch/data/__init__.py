@@ -1,2 +1,3 @@
-from sdm_tpu_torch.data.datasets import ConditionalImgDataset, ImageDataset
+from sdm_tpu_torch.data.datasets import (ConditionalImgDataset,
+                                        DoodleImgDataset, ImageDataset)
 from sdm_tpu_torch.data.loader import DataLoader

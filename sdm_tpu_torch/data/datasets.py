@@ -1,12 +1,12 @@
 """Datasets with the reference's cv2 loading semantics, NHWC (the port's own
-copy of the plain and labelled datasets of sdm_tpu/data/datasets.py).
+copy of the plain, labelled and doodle datasets of sdm_tpu/data/datasets.py).
 
 cv2.imread gives **BGR** uint8 HWC images, and the order is kept: the plot
 writer un-permutes it as the reference does. `normalized=True` scales to
 [-1, 1] as (x - 127.5) / 127.5; the trainers take `normalized=False` and
 ship raw uint8 pixels, which the train step normalizes on the device with
-the same arithmetic. Labelled datasets read the reference's TinyDB JSON
-files and shuffle once at construction, seeded.
+the same arithmetic. Labelled and doodle datasets read the reference's
+TinyDB JSON files and shuffle once at construction, seeded.
 """
 
 from __future__ import annotations
@@ -102,3 +102,38 @@ class ConditionalImgDataset:
         path, labels = self.dataset[index]
         return {"image": self._cache.read(path),
                 "labels": np.asarray(labels, dtype=np.float32)}
+
+
+class DoodleImgDataset:
+    """TinyDB-backed image/conditioning-image pairs: each `Data` row maps
+    `filename` to the path of its conditioning (doodle) image, stored under
+    the first label name of table `Labels`."""
+
+    def __init__(self, dataset_path: Optional[str] = None,
+                 seed: Optional[int] = None, cache_decoded: bool = False,
+                 normalized: bool = True):
+        tables = read_tables(dataset_path)
+        data_rows = tables.get("Data", [])
+        if len(data_rows) <= 0:
+            raise Exception("No data found in Data table.")
+        label_rows = tables.get("Labels", [])
+        if len(label_rows) <= 0:
+            raise Exception("No data found in Labels table.")
+        self.all_labels: List[str] = label_rows[0]["labels"]
+        rng = random.Random(seed)
+        rng.shuffle(data_rows)
+        label = self.all_labels[0]
+        self.dataset: List[Tuple[str, str]] = [
+            (row["filename"], row[label]) for row in data_rows]
+        self._cache = _DecodeCache(cache_decoded, normalized)
+
+    def get_labels(self) -> List[str]:
+        return self.all_labels
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, index: int):
+        img_path, cond_path = self.dataset[index]
+        return {"image": self._cache.read(img_path),
+                "cond_img": self._cache.read(cond_path)}

@@ -1,5 +1,6 @@
-"""Training loop for the base eps and the SR trainers (port of
-sdm_tpu/train/loop.py's BASE_SPEC and SR_SPEC paths).
+"""Training loop for the four trainers: base eps, cold (x0), doodle (eps
+conditioned on an image) and SR (port of sdm_tpu/train/loop.py's BASE_SPEC,
+COLD_SPEC, DOODLE_SPEC and SR_SPEC paths).
 
 One loop parameterized by a `TrainerSpec`, consuming the reference's
 training-config JSON unchanged (same keys, same validation, same error
@@ -18,7 +19,11 @@ semantics, "epoch_checkpoint_every" and "seed".
 
 Config keys of sdm_tpu that this port does not carry yet raise
 NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
-COLD_SPEC and DOODLE_SPEC are ROADMAP Queue 1 items 4 and 5.
+
+The doodle trainer reads image/doodle pairs from a TinyDB file
+(DoodleImgDataset), writes the startup grid of its preview's conditioning
+images (`plots/label_plot.jpg`) and, as sdm_tpu does, draws that preview
+batch unseeded.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sdm_tpu_torch.data import ConditionalImgDataset, DataLoader, ImageDataset
+from sdm_tpu_torch.data import (ConditionalImgDataset, DataLoader,
+                                DoodleImgDataset, ImageDataset)
 from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
                                               ddpm_sample)
 from sdm_tpu_torch.enums import DiffusionAlg, NoiseScheduler, Objective
@@ -62,16 +68,22 @@ from sdm_tpu_torch.utils.profiling import StepTimer
 class TrainerSpec:
     project_name: str
     objective: Objective
-    preview: str                 # "base" | "sr"
-    uses_diffusion_alg: bool     # reads config "diffusion_alg"
+    preview: str                 # "base" | "cold" | "doodle" | "sr"
+    dataset: str                 # "cond_or_glob" | "doodle"
+    uses_diffusion_alg: bool     # reads config "diffusion_alg" (base/doodle)
     has_flip: bool               # reads config "flip_imgs"
     is_sr: bool = False          # reads lr_dim/sr_dim/cond_t
 
 
-BASE_SPEC = TrainerSpec("Diffusion", Objective.EPS, "base",
+BASE_SPEC = TrainerSpec("Diffusion", Objective.EPS, "base", "cond_or_glob",
                         uses_diffusion_alg=True, has_flip=True)
+COLD_SPEC = TrainerSpec("Noise-Cold-Diffusion", Objective.X0, "cold",
+                        "cond_or_glob", uses_diffusion_alg=False, has_flip=True)
+DOODLE_SPEC = TrainerSpec("Doodle-Diffusion", Objective.EPS, "doodle",
+                          "doodle", uses_diffusion_alg=True, has_flip=False)
 SR_SPEC = TrainerSpec("SR-Cold-Diffusion", Objective.RESIDUAL_X0, "sr",
-                      uses_diffusion_alg=False, has_flip=True, is_sr=True)
+                      "cond_or_glob", uses_diffusion_alg=False, has_flip=True,
+                      is_sr=True)
 
 # sdm_tpu config keys not ported yet: (key, is it set?, ROADMAP item).
 UNPORTED = (
@@ -188,7 +200,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     lr_steps = config_dict["lr_steps"]
     max_epoch = config_dict["max_epoch"]
     plot_img_count = config_dict["plot_img_count"]
-    use_conditional = config_dict["use_conditional"]
+    use_conditional = (config_dict["use_conditional"]
+                       if spec.dataset == "cond_or_glob" else False)
     flip_imgs = config_dict["flip_imgs"] if spec.has_flip else False
 
     dataset_path = config_dict["dataset_path"]
@@ -248,7 +261,10 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
 
     # ---- Dataset & loaders: raw uint8 batches, normalized on the device --
     cache = bool(config_dict.get("cache_dataset", False))
-    if use_conditional:
+    if spec.dataset == "doodle":
+        dataset = DoodleImgDataset(dataset_path=dataset_path, seed=seed,
+                                   cache_decoded=cache, normalized=False)
+    elif use_conditional:
         dataset = ConditionalImgDataset(dataset_path=dataset_path, seed=seed,
                                         cache_decoded=cache, normalized=False)
     else:
@@ -261,13 +277,19 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                             num_workers=8, seed=seed,
                             native_decode=bool(config_dict.get(
                                 "native_decode", True)))
+    # The doodle preview batch is shuffled unseeded, as in sdm_tpu.
     plot_loader = DataLoader(dataset,
                              batch_size=min(plot_img_count, len(dataset)),
-                             shuffle=False, num_workers=2, drop_last=False)
+                             shuffle=(spec.preview == "doodle"),
+                             num_workers=2, drop_last=False)
     plot_batch = next(iter(plot_loader))
-    plot_imgs = torch.from_numpy(
-        (plot_batch["image"].astype(np.float32) - 127.5) / 127.5).to(dev)
+
+    def host_norm(x):
+        return None if x is None else (x.astype(np.float32) - 127.5) / 127.5
+
+    plot_imgs = torch.from_numpy(host_norm(plot_batch["image"])).to(dev)
     plot_labels = plot_batch.get("labels")
+    plot_cond_imgs = host_norm(plot_batch.get("cond_img"))
     if use_conditional and plot_labels is not None:
         # labels.txt CSV append, as the reference does.
         with open(os.path.join(out_dir, "labels.txt"), "a") as f:
@@ -276,6 +298,12 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                          + [list(map(float, row)) for row in plot_labels])
     plot_labels = (torch.from_numpy(plot_labels).to(dev)
                    if plot_labels is not None else None)
+    if spec.preview == "doodle" and plot_cond_imgs is not None:
+        # The startup grid of the doodle conditioning images.
+        plot_sampled_images(plot_cond_imgs, "label_plot", dest_path=out_dir,
+                            log=logging.info)
+    if plot_cond_imgs is not None:
+        plot_cond_imgs = torch.from_numpy(plot_cond_imgs).to(dev)
 
     # ---- Model ----
     compute_dtype = {"bfloat16": torch.bfloat16, "float32": None,
@@ -389,29 +417,42 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     logging.info("#" * 100)
 
     def run_preview():
-        """The preview sampler (sdm_tpu loop.py:614-697): base DDIM/DDPM
-        from noise (or from q_sample at max_actual_noise_step), SR cold
-        sampling conditioned on the q-sampled upsampled LR, plus lr_plot."""
+        """The preview sampler (sdm_tpu loop.py:614-697). Base, cold and
+        doodle start from noise, or from the plot images q-sampled at
+        max_actual_noise_step when it is below max_noise_step. Base (with
+        the plot labels) and doodle (with the plot conditioning images, no
+        labels) sample by DDIM or DDPM; cold samples by cold_sample with
+        the same noise, and SR by cold_sample conditioned on the q-sampled
+        upsampled LR, plus lr_plot."""
         n, h, w = plot_imgs.shape[:3]
         noise_plot = torch.randn((n, h, w, config_dict["out_channel"]),
                                  generator=generator, device=dev)
         model_fn = lambda x, t, labels: net(x, t, labels)
-        if spec.preview == "base":
+        if spec.preview in ("base", "cold", "doodle"):
             x_t_plot = noise_plot
             if max_actual_noise_step < max_noise_step:
                 x_t_plot = schedule.q_sample(
                     plot_imgs, torch.tensor([max_actual_noise_step],
                                             device=dev), noise_plot)
+        if spec.preview in ("base", "doodle"):
+            cond = plot_cond_imgs if spec.preview == "doodle" else None
+            labels = plot_labels if spec.preview == "base" else None
             if diffusion_alg == DiffusionAlg.DDPM:
                 return ddpm_sample(model_fn, schedule, x_t_plot,
                                    generator=generator,
                                    min_noise=min_noise_step,
                                    max_noise=max_actual_noise_step,
-                                   labels=plot_labels)
+                                   cond_img=cond, labels=labels)
             return ddim_sample(model_fn, schedule, x_t_plot,
                                min_noise=min_noise_step,
                                max_noise=max_actual_noise_step,
-                               ddim_step_size=skip_step, labels=plot_labels)
+                               ddim_step_size=skip_step, cond_img=cond,
+                               labels=labels)
+        if spec.preview == "cold":
+            return cold_sample(model_fn, schedule, x_t_plot, noise_plot,
+                               min_noise=min_noise_step,
+                               max_noise=max_actual_noise_step,
+                               skip_step_size=skip_step, labels=plot_labels)
         lr_plot = area_resize(area_resize(plot_imgs, lr_dim, lr_dim),
                               sr_dim, sr_dim)
         x_t_lr = schedule.q_sample(lr_plot, torch.tensor([cond_t],

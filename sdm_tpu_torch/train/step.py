@@ -11,6 +11,10 @@ Functions (kernels/*.py). Objectives:
                is q-sampled at the fixed `cond_t` with the SAME eps and
                channel-concatenated (step.py:224-231)
 
+A batch's "cond_img" (the doodle trainer's conditioning image), under EPS
+or X0, is normalized like "image", never flipped, and concatenated onto x_t
+along channels (step.py:233-237).
+
 t is drawn per sample from [min_noise_step, max_actual_noise_step), the high
 end exclusive. Batches carry uint8 pixels, normalized on the device as
 (x - 127.5) / 127.5. Tests inject "t" and "eps" through the batch. Random
@@ -114,7 +118,8 @@ def make_train_step(schedule, *, objective: Objective,
     """Build train_step(state, batch, generator) -> {"loss": fp32 scalar
     tensor, not synchronized}. `schedule` is the noise schedule (on the
     model's device). batch: {"image": (N, H, W, C) uint8 or float [,
-    "labels": (N, D)] [, "t": (N,)] [, "eps": (N, H, W, C)]} on the device."""
+    "cond_img": (N, H, W, C') uint8 or float] [, "labels": (N, D)] [, "t":
+    (N,)] [, "eps": (N, H, W, C)]} on the device."""
     if objective == Objective.RESIDUAL_X0 and (cond_t is None
                                                or lr_dim is None):
         raise ValueError("RESIDUAL_X0 objective needs cond_t and lr_dim")
@@ -129,13 +134,16 @@ def make_train_step(schedule, *, objective: Objective,
         if on:
             raise _extension(name)
 
+    def denorm(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if x is not None and x.dtype == torch.uint8:
+            return (x.to(torch.float32) - 127.5) / 127.5
+        return x
+
     def loss_fn(model, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        images = batch["image"]
-        if images.dtype == torch.uint8:
-            images = (images.to(torch.float32) - 127.5) / 127.5
-        images = images.to(torch.float32)
+        images = denorm(batch["image"]).to(torch.float32)
         labels = batch.get("labels")
+        cond_img = denorm(batch.get("cond_img"))
         n = images.shape[0]
         dev = images.device
         if flip_imgs:
@@ -163,6 +171,8 @@ def make_train_step(schedule, *, objective: Objective,
             x_in = torch.cat([x_t, x_t_lr], dim=-1)
         else:
             x_in = schedule.q_sample(images, t, eps)
+            if cond_img is not None:
+                x_in = torch.cat([x_in, cond_img.to(x_in.dtype)], dim=-1)
             target = eps if objective == Objective.EPS else images
 
         pred = model(x_in, t, labels)

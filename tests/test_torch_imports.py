@@ -24,6 +24,12 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "data.datasets", "data.loader", "data.tinydb_compat",
                  "utils.logging_setup", "utils.profiling",
                  "cli.train_diffusion", "cli.train_SR_diffusion",
+                 "cli.train_noise_cold_diffusion",
+                 "cli.train_doodle_diffusion",
+                 "cli.generate_images_diffusion", "cli.config_wizards",
+                 "cli.create_diffusion_config",
+                 "cli.create_sr_diffusion_config",
+                 "cli.create_doodle_diffusion_config", "cli.export_models",
                  "kernels._autograd"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
@@ -36,6 +42,27 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'sdm_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_only_the_wizards_import_click():
+    """The chip machine has no click: chip_smoke.py and every port module
+    but the config wizards import without it (the export prompt imports it
+    when it runs)."""
+    wizards = ("sdm_tpu_torch.cli.config_wizards",
+               "sdm_tpu_torch.cli.create_")
+    modules = [m for m in _port_modules() if not m.startswith(wizards)]
+    assert "sdm_tpu_torch.cli.export_models" in modules
+    code = (
+        "import sys\n"
+        "sys.modules['click'] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

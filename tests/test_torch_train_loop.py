@@ -1,11 +1,15 @@
-"""The port's trainers (sdm_tpu_torch/train/loop.py, BASE_SPEC and SR_SPEC)
-against sdm_tpu's, on a tiny U-Net and six cv2-written 8x8 images.
+"""The port's trainers (sdm_tpu_torch/train/loop.py: BASE_SPEC, SR_SPEC,
+COLD_SPEC and DOODLE_SPEC) against sdm_tpu's, on a tiny U-Net and six
+cv2-written 8x8 images (paired, for the doodle trainer, with six 8x8
+conditioning images through a TinyDB file).
 
 The two packages draw their noise from different generators, so the losses
 differ; everything else is held equal: the log lines (timestamps, paths and
 loss values masked), the checkpoint and preview file names, and the
 checkpoints' contents. A checkpoint of either package resumes in the other,
-strictly, with its Adam moments and step count. The port's own semantics
+strictly, with its Adam moments and step count. Both packages draw the
+doodle preview batch unseeded, so its preview and label_plot grids are held
+by name and shape, as every trainer's are, never by pixels. The port's own semantics
 are checked beside: resume LR, determinism given "seed", the NaN guard,
 preemption, "epoch_checkpoint_every", previews that fail, and the config
 keys it refuses.
@@ -25,6 +29,7 @@ cv2 = pytest.importorskip("cv2")
 from sdm_tpu.train import loop as jax_loop  # noqa: E402
 from sdm_tpu.train.step import resume_lr_schedule  # noqa: E402
 from sdm_tpu_torch.cli import train_diffusion  # noqa: E402
+from sdm_tpu_torch.data.tinydb_compat import write_tables  # noqa: E402
 from sdm_tpu_torch.io.checkpoint import (  # noqa: E402
     load_checkpoint, load_optimizer_from_checkpoint)
 from sdm_tpu_torch.models import UNet  # noqa: E402
@@ -32,9 +37,15 @@ from sdm_tpu_torch.train import loop  # noqa: E402
 from sdm_tpu_torch.train.step import make_optimizer  # noqa: E402
 
 STEPS = 5          # two epochs of three batches, checkpoints every 2 steps
+SPECS = {"base": (jax_loop.BASE_SPEC, loop.BASE_SPEC),
+         "sr": (jax_loop.SR_SPEC, loop.SR_SPEC),
+         "cold": (jax_loop.COLD_SPEC, loop.COLD_SPEC),
+         "doodle": (jax_loop.DOODLE_SPEC, loop.DOODLE_SPEC)}
 
 
-def _config(img_glob, out_dir, sr=False, **over):
+def _config(img_glob, out_dir, trainer="base", **over):
+    """A tiny config for `trainer`; the doodle trainer reads the TinyDB
+    file that the `images` fixture writes beside the images."""
     cfg = dict(dataset_path=img_glob, use_conditional=False, cond_dim=None,
                out_dir=str(out_dir), checkpoint_steps=2, lr_steps=100,
                max_epoch=2, plot_img_count=4, flip_imgs=True,
@@ -47,9 +58,16 @@ def _config(img_glob, out_dir, sr=False, **over):
                attn_layers=[0], attn_heads=1, attn_dim_per_head=None,
                time_dim=8, min_channel=32, max_channel=32, img_recon=False,
                compute_dtype="float32")
-    if sr:
+    if trainer == "sr":
         cfg.update(in_channel=6, img_recon=True, lr_dim=4, sr_dim=8,
                    cond_t=5)
+    elif trainer == "cold":
+        cfg.update(diffusion_alg="COLD", img_recon=True)
+    elif trainer == "doodle":
+        # The doodle wizard's keys: no flip_imgs.
+        del cfg["flip_imgs"]
+        cfg.update(dataset_path=os.path.join(os.path.dirname(img_glob),
+                                             "doodle.json"), in_channel=6)
     cfg.update(over)
     return cfg
 
@@ -58,10 +76,16 @@ def _config(img_glob, out_dir, sr=False, **over):
 def images(tmp_path_factory):
     d = tmp_path_factory.mktemp("imgs")
     rng = np.random.default_rng(0)
+    rows = []
     for i in range(6):
-        cv2.imwrite(str(d / f"im_{i}.png"),
-                    rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
-    return str(d / "*.png")
+        for kind in ("im", "doodle"):
+            cv2.imwrite(str(d / f"{kind}_{i}.png"),
+                        rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+        rows.append({"filename": str(d / f"im_{i}.png"),
+                     "doodle": str(d / f"doodle_{i}.png")})
+    write_tables(str(d / "doodle.json"),
+                 {"Data": rows, "Labels": [{"labels": ["doodle"]}]})
+    return str(d / "im_*.png")
 
 
 def _run_port(spec, cfg, steps=STEPS):
@@ -76,14 +100,11 @@ def _run_jax(spec, cfg, steps=STEPS):
 def runs(images, tmp_path_factory):
     """{(package, trainer): out_dir} after STEPS steps of each trainer."""
     out = {}
-    for name, spec_j, spec_t, sr in (("base", jax_loop.BASE_SPEC,
-                                      loop.BASE_SPEC, False),
-                                     ("sr", jax_loop.SR_SPEC, loop.SR_SPEC,
-                                      True)):
+    for name, (spec_j, spec_t) in SPECS.items():
         for pkg, run, spec in (("jax", _run_jax, spec_j),
                                ("port", _run_port, spec_t)):
             d = tmp_path_factory.mktemp(f"{pkg}_{name}")
-            summary = run(spec, _config(images, d, sr=sr))
+            summary = run(spec, _config(images, d, name))
             assert summary["global_steps"] == STEPS
             assert np.isfinite(summary["last_loss"])
             out[(pkg, name)] = str(d)
@@ -115,7 +136,7 @@ NATIVE_NOTE = ("native decode is not ported to sdm_tpu_torch; using the "
                "per-image cv2 loader")
 
 
-@pytest.mark.parametrize("trainer", ["base", "sr"])
+@pytest.mark.parametrize("trainer", ["base", "sr", "cold", "doodle"])
 def test_log_lines_match_sdm_tpu(runs, trainer):
     """Banner, step, rate and epoch lines in the same order and format; the
     port adds one note that the native decoder is not ported, and names the
@@ -132,15 +153,22 @@ def test_log_lines_match_sdm_tpu(runs, trainer):
                      r"[0-9.]+ \| LR: 0\.000100000$", steps[0])
 
 
-@pytest.mark.parametrize("trainer", ["base", "sr"])
+@pytest.mark.parametrize("trainer", ["base", "sr", "cold", "doodle"])
 def test_checkpoint_and_preview_files_match_sdm_tpu(runs, trainer):
     jax_dir, port_dir = runs[("jax", trainer)], runs[("port", trainer)]
     for sub in ("checkpoint", "plots"):
         assert (sorted(os.listdir(os.path.join(port_dir, sub)))
                 == sorted(os.listdir(os.path.join(jax_dir, sub))))
     # Step 0 checkpoints with a preview; cadence 2; epoch ends at 3 and 5.
-    assert sorted(os.listdir(os.path.join(port_dir, "plots"))) == [
-        f"diffusion_plot_{s}.jpg" for s in (0, 2, 4)]
+    # The doodle trainer also writes its conditioning images' grid.
+    plots = sorted(os.listdir(os.path.join(port_dir, "plots")))
+    assert plots == sorted(
+        [f"diffusion_plot_{s}.jpg" for s in (0, 2, 4)]
+        + (["label_plot.jpg"] if trainer == "doodle" else []))
+    for name in plots:
+        shapes = [cv2.imread(os.path.join(d, "plots", name)).shape
+                  for d in (jax_dir, port_dir)]
+        assert shapes[0] == shapes[1], name
     for step in (0, 2, 3, 4, 5):
         cfg_j, cfg_t = (torch.load(os.path.join(d, "checkpoint",
                                                 f"config_{step}.pt"))
@@ -164,13 +192,15 @@ def _fresh(cfg):
     return net, opt
 
 
-def test_sdm_tpu_checkpoint_resumes_in_the_port(runs, images, tmp_path):
+@pytest.mark.parametrize("trainer", ["sr", "cold", "doodle"])
+def test_sdm_tpu_checkpoint_resumes_in_the_port(runs, images, tmp_path,
+                                                trainer):
     """sdm_tpu's step-4 checkpoint loads strictly into the port's model and
     Adam (moments and count), and the port's trainer resumes from it at the
     checkpointed step and lr."""
-    src = os.path.join(runs[("jax", "sr")], "checkpoint")
+    src = os.path.join(runs[("jax", trainer)], "checkpoint")
     ckpt = torch.load(os.path.join(src, "diffusion_4.pt"))
-    cfg = _config(images, tmp_path, sr=True,
+    cfg = _config(images, tmp_path, trainer,
                   model_checkpoint=os.path.join(src, "diffusion_4.pt"),
                   config_checkpoint=os.path.join(src, "config_4.pt"),
                   load_diffusion_optim=True)
@@ -183,7 +213,7 @@ def test_sdm_tpu_checkpoint_resumes_in_the_port(runs, images, tmp_path):
             torch.testing.assert_close(opt.state[p][key],
                                        ckpt["optimizer"]["state"][idx][key],
                                        rtol=0, atol=0)
-    summary = _run_port(loop.SR_SPEC, cfg, steps=6)
+    summary = _run_port(SPECS[trainer][1], cfg, steps=6)
     assert summary["global_steps"] == 6
     lines = _log(str(tmp_path))
     assert any("Resuming at checkpointed LR 0.000100000" in line
@@ -194,7 +224,8 @@ def test_sdm_tpu_checkpoint_resumes_in_the_port(runs, images, tmp_path):
     assert summary["state"].count == 7
 
 
-def test_port_checkpoint_resumes_in_sdm_tpu(runs, images, tmp_path):
+@pytest.mark.parametrize("trainer", ["base", "cold", "doodle"])
+def test_port_checkpoint_resumes_in_sdm_tpu(runs, images, tmp_path, trainer):
     """The port's step-4 checkpoint resumes sdm_tpu's trainer, which loads
     it with its own strict-or-log loader: no key is skipped, and its Adam
     state reads the port's moments."""
@@ -205,12 +236,12 @@ def test_port_checkpoint_resumes_in_sdm_tpu(runs, images, tmp_path):
     from sdm_tpu.io.torch_interop import params_to_torch_state_dict
     from sdm_tpu.train.step import make_optimizer as jax_make_optimizer
     import jax
-    src = os.path.join(runs[("port", "base")], "checkpoint")
+    src = os.path.join(runs[("port", trainer)], "checkpoint")
     ckpt = torch.load(os.path.join(src, "diffusion_4.pt"))
-    cfg = _config(images, tmp_path, model_checkpoint=os.path.join(
+    cfg = _config(images, tmp_path, trainer, model_checkpoint=os.path.join(
         src, "diffusion_4.pt"), config_checkpoint=os.path.join(
         src, "config_4.pt"), load_diffusion_optim=True)
-    summary = _run_jax(jax_loop.BASE_SPEC, cfg, steps=5)
+    summary = _run_jax(SPECS[trainer][0], cfg, steps=5)
     assert summary["global_steps"] == 5
     lines = _log(str(tmp_path))
     assert not any("Skipped" in line or "No Layer found" in line
@@ -376,7 +407,7 @@ def test_step_zero_checkpoint_reloads_strictly(runs):
     src = os.path.join(runs[("port", "sr")], "checkpoint", "diffusion_0.pt")
     ok, ckpt = load_checkpoint(src, log=lambda *a: None)
     assert ok
-    net, opt = _fresh(_config("x", "y", sr=True))
+    net, opt = _fresh(_config("x", "y", "sr"))
     net.load_state_dict(ckpt["model"], strict=True)
     assert load_optimizer_from_checkpoint(ckpt, opt) == 1
     moments = [opt.state[p]["exp_avg"] for p in net.parameters()]

@@ -8,6 +8,11 @@ gradients and the parameters after the update are compared in fp32. The
 port's model runs with use_kernels=True, so the kernels' autograd Functions
 (their plain versions on the CPU) carry the backward. Checkpoints the port
 writes load back into sdm_tpu's state, moments and count included.
+
+Cases are named by objective, "+cond_img" adding the doodle trainer's
+conditioning image to the batch. In bf16 compute (fp32 parameters), each
+package's gradient is held to its own fp32 gradient, the port's normwise
+error at most BF16_GRAD_FACTOR times sdm_tpu's.
 """
 
 import os
@@ -51,11 +56,19 @@ GRAD_RTOL, GRAD_OF_MAX = 1e-4, 1e-5
 # element by about lr, and the moments (bounded away from zero) keep that
 # move a smooth function of the gradient.
 PARAM_ATOL_LR = 1e-4
+# bf16 compute against fp32, whole gradient, normwise: the port may be at
+# most this many times further from its fp32 gradient than sdm_tpu is.
+BF16_GRAD_FACTOR = 2.0
 
 
-def _cfg(objective):
-    sr = objective == "RESIDUAL_X0"
-    return dict(num_resnet_blocks=1, in_channel=6 if sr else 3,
+def _objective(case):
+    return case.split("+")[0]
+
+
+def _cfg(case):
+    sr = _objective(case) == "RESIDUAL_X0"
+    six = sr or case.endswith("+cond_img")
+    return dict(num_resnet_blocks=1, in_channel=6 if six else 3,
                 out_channel=3, time_dim=8, cond_dim=None, num_layers=2,
                 attn_layers=(1,), num_heads=1, dim_per_head=None, groups=32,
                 min_channel=32, max_channel=64, image_recon=sr)
@@ -84,11 +97,15 @@ def _nonzero_moments(params, seed):
     return state.replace(opt_state=(adam,) + tuple(state.opt_state[1:]))
 
 
-def _batch(seed, cfg):
+def _batch(seed, case):
     rng = np.random.default_rng(seed)
-    return {"image": rng.integers(0, 256, (N, HW, HW, 3), dtype=np.uint8),
-            "t": np.array([3, 17], np.int32),
-            "eps": rng.standard_normal((N, HW, HW, 3)).astype(np.float32)}
+    batch = {"image": rng.integers(0, 256, (N, HW, HW, 3), dtype=np.uint8),
+             "t": np.array([3, 17], np.int32),
+             "eps": rng.standard_normal((N, HW, HW, 3)).astype(np.float32)}
+    if case.endswith("+cond_img"):
+        batch["cond_img"] = rng.integers(0, 256, (N, HW, HW, 3),
+                                         dtype=np.uint8)
+    return batch
 
 
 def _jax_step(net, state, batch, objective, grad_clip_norm=None):
@@ -162,7 +179,8 @@ def _compare_step(tmp_path, objective, grad_clip_norm=None):
         state_j.params, state_j.opt_state, lr=lr_ckpt))
     state_t = _port_state(cfg, ckpt)
     assert state_t.count == COUNT
-    batch = _batch(2, cfg)
+    batch = _batch(2, objective)
+    objective = _objective(objective)
 
     loss_j, grads_j, new_j = _jax_step(net, state_j, batch, objective,
                                        grad_clip_norm)
@@ -187,9 +205,48 @@ def _compare_step(tmp_path, objective, grad_clip_norm=None):
     return state_t
 
 
-@pytest.mark.parametrize("objective", ["EPS", "RESIDUAL_X0"])
+@pytest.mark.parametrize("objective", ["EPS", "RESIDUAL_X0", "X0",
+                                       "EPS+cond_img", "X0+cond_img"])
 def test_step_matches_sdm_tpu(tmp_path, objective):
     _compare_step(tmp_path, objective)
+
+
+def _flat(grads):
+    return np.concatenate([np.asarray(g, np.float64).ravel()
+                           for _, g in sorted(grads.items())])
+
+
+def _normwise(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("objective", ["EPS", "RESIDUAL_X0"])
+def test_bf16_gradient_is_as_close_to_fp32_as_sdm_tpu(tmp_path, objective):
+    """From the same fp32 parameters, moments and batch, each package's
+    gradient with bf16 compute against its own with fp32 compute."""
+    cfg = _cfg(objective)
+    _, params = _jax_params(cfg)
+    state_j = _nonzero_moments(params, 1)
+    ckpt = _save_load(tmp_path, jax_checkpoint_dict(
+        state_j.params, state_j.opt_state, lr=BASE_LR))
+    batch = _batch(2, objective)
+    errs = {}
+    for pkg in ("sdm_tpu", "port"):
+        grads = {}
+        for dtype in ("float32", "bfloat16"):
+            if pkg == "sdm_tpu":
+                net = JaxUNet(**cfg, dtype=(jnp.bfloat16 if dtype ==
+                                            "bfloat16" else None))
+                g = params_to_state_dict(
+                    _jax_step(net, state_j, batch, objective)[1])
+                grads[dtype] = _flat({k: v.numpy() for k, v in g.items()})
+            else:
+                state_t = _port_state(dict(cfg, dtype=(
+                    torch.bfloat16 if dtype == "bfloat16" else None)), ckpt)
+                g = _port_step(state_t, batch, objective)[1]
+                grads[dtype] = _flat({k: v.numpy() for k, v in g.items()})
+        errs[pkg] = _normwise(grads["bfloat16"], grads["float32"])
+    assert 0 < errs["port"] <= BF16_GRAD_FACTOR * errs["sdm_tpu"], errs
 
 
 def test_step_with_grad_clip_matches_sdm_tpu(tmp_path):
@@ -263,7 +320,7 @@ def test_flip_is_per_image_along_width():
     torch.manual_seed(0)
     net = UNet(**cfg)
     schedule = make_schedule("LINEAR", max_noise_step=T_MAX)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(4, cfg).items()}
+    batch = {k: torch.from_numpy(v) for k, v in _batch(4, "EPS").items()}
 
     def loss(flip, images, gen=None):
         fn = port_step.make_train_step(schedule, objective=Objective.EPS,
