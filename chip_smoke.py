@@ -6,8 +6,8 @@
 
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
-build, kernels, streaming, model, serving, generation, training (the build
-always),
+build, kernels, streaming, model, serving, generation, training,
+extensions (the build always),
 logs which it skipped, prints no `kernels` line and ends with
 {"ok": true, "partial": true, ...}.
 
@@ -81,6 +81,23 @@ logs which it skipped, prints no `kernels` line and ends with
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
+  7. Extensions ("extensions"): the sampler and training extensions at
+     full width and depth, bf16, batch 16, on the flagship and on the
+     label-conditional flagship (COND: 10 labels). Served by the engine:
+     DDIM-50 as this run's baseline, dpmpp and heun with Karras spacing (its step-20 list: one and two
+     U-Net calls per step), and the conditional bundle with guidance 3.0
+     (DDIM-50, each call at batch 32); one guided U-Net call (the doubled
+     batch of 32) held kernels on against off, and its guided combine; one
+     forward and backward of COND at the trainer's micro-batch of 8 (one t
+     per sample, one-hot labels) held kernels on against off. Generated: img2img from step 500 (26 calls), inpainting
+     with the left half kept (51), a v-bundle ("objective": "V") with
+     dpmpp (51), and the flagship at --dtype float32, which must launch no
+     kernel and give the plain U-Net's images. Trained: the base trainer
+     on the conditional flagship with V, ema_decay, min_snr_gamma,
+     cfg_drop_prob and grad_accum_steps 2 (EXT_TRAIN), as phase 6 checks
+     a trainer, plus the "ema" weights of both checkpoints reloaded
+     strictly. Every run's launches are held to its U-Net calls, every
+     attention and `linear` on mma.sync.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -136,6 +153,16 @@ COLD = dict(FLAGSHIP, image_recon=True)
 DOODLE = dict(FLAGSHIP, in_channel=6)
 # The generator's two-entry ensemble: the same weights over these ranges.
 ENSEMBLE = ((501, 1000), (1, 500))
+# The extensions phase: the label-conditional flagship (10 labels, the
+# flagship otherwise) served with classifier-free guidance at this scale
+# and trained with the step's extensions (EXT_TRAIN: V, EMA, min-SNR, CFG
+# label dropout, grad accumulation 2, so each step runs two batches of 8);
+# img2img from INIT_STEP (26 DDIM calls).
+COND = dict(FLAGSHIP, cond_dim=10)
+GUIDANCE_SCALE = 3.0
+INIT_STEP = 500
+EXT_TRAIN = dict(objective="V", ema_decay=0.999, min_snr_gamma=5.0,
+                 cfg_drop_prob=0.1, grad_accum_steps=2)
 SR_ADAGN_SHAPES = [(256, 256, 128), (128, 128, 256), (64, 64, 512),
                    (32, 32, 512), (16, 16, 1024), (32, 32, 1024),
                    (64, 64, 1024), (128, 128, 512)]
@@ -172,6 +199,10 @@ STATS_TOL = {"m": dict(atol=1e-4, rtol=1e-5, of_max=0.0),
              "l": dict(atol=0.0, rtol=1e-4, of_max=0.0)}
 # U-Net kernels-on vs kernels-off, normwise relative error of one call.
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The guided combine u + s (c - u) of kernels-on against kernels-off
+# branches: each branch's error within MODEL_TOL, scaled by |s| and |1 - s|.
+COMBINE_TOL = ((abs(GUIDANCE_SCALE) + abs(1.0 - GUIDANCE_SCALE))
+               * MODEL_TOL["bfloat16"])
 # Streaming backward kernels vs their plain versions. fp32: both sum fp32
 # products in another order, and dA = P (g v^T - corr) cancels, so an
 # element's error is set by the gradient's scale (of_max) more than by the
@@ -1300,13 +1331,9 @@ def model_phase(torch, name, cfg, img):
 
 
 def grad_phase(torch, name, cfg, img, streaming):
-    """One forward and backward of the U-Net under the trainers' loss (fp32
-    MSE against a target), fp32 parameters computing in fp32 or bf16 as the
-    trainers run, one t per sample: kernels on against off. Gradients are
-    held per tensor in fp32 and as a whole in bf16 (GRAD_TOL); the kernels-on
-    backward must launch dV, dK and dQ once per `streaming` block."""
-    from sdm_tpu_torch.kernels import streaming_attention as sa
-    from sdm_tpu_torch.models import UNet
+    """One forward and backward of the U-Net at batch 16 with one t per
+    sample (`grad_case`), fp32 parameters computing in fp32 or bf16 as the
+    trainers run."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((BATCH, img, img, cfg["in_channel"]), generator=gen,
@@ -1314,65 +1341,90 @@ def grad_phase(torch, name, cfg, img, streaming):
     target = torch.randn((BATCH, img, img, cfg["out_channel"]),
                          generator=gen, device=dev)
     t = torch.randint(1, 1000, (BATCH,), generator=gen, device=dev)
+    return {str(dtype).split(".")[-1]: grad_case(
+        torch, name, cfg, dtype, x, target, t, streaming=streaming)
+        for dtype in (torch.float32, torch.bfloat16)}
+
+
+def grad_case(torch, name, cfg, dtype, x, target, t, labels=None,
+              streaming=0, counters=None):
+    """One forward and backward of the U-Net under the trainers' loss (fp32
+    MSE against a target), fp32 parameters computing in `dtype`: kernels on
+    against off. Gradients are held per tensor in fp32 and as a whole in
+    bf16 (GRAD_TOL); the kernels-on backward must launch dV, dK and dQ once
+    per `streaming` block. With `counters`, they are zeroed just before the
+    kernels-on pass and held just after it to one forward and backward
+    call's launches (`expected_grad_launches`)."""
+    from sdm_tpu_torch.kernels import streaming_attention as sa
+    from sdm_tpu_torch.models import UNet
+    dev = torch.device("cuda")
+    dn = str(dtype).split(".")[-1]
     backward = (sa.streaming_dv, sa.streaming_dk, sa.streaming_dq)
-    report = {}
 
     def fwd_bwd(net):
         net.zero_grad(set_to_none=True)
-        loss = torch.mean(torch.square(net(x, t).float() - target))
+        loss = torch.mean(torch.square(net(x, t, labels).float() - target))
         loss.backward()
         return loss.detach()
 
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[-1]
-        torch.manual_seed(0)
-        compute = None if dtype == torch.float32 else dtype
-        nets = [UNet(**cfg, dtype=compute, use_kernels=on) for on in
-                (True, False)]
-        nets[1].load_state_dict(nets[0].state_dict())
-        nets = [n.to(dev, memory_format=torch.channels_last) for n in nets]
-        before = [fn.launches for fn in backward]
-        loss_k = fwd_bwd(nets[0])
-        torch.cuda.synchronize()
-        bwd_launches = {fn.__name__: fn.launches - b
-                        for fn, b in zip(backward, before)}
-        loss_p = fwd_bwd(nets[1])
-        pairs = list(zip(nets[0].named_parameters(), nets[1].parameters()))
-        for (pname, p_k), p_p in pairs:
-            if (p_k.grad is None) != (p_p.grad is None):
-                raise AssertionError(f"{name} U-Net {dn}: {pname} has a "
-                                     "gradient on one side only")
-        pairs = [(pname, p_k.grad.float(), p_p.grad.float())
-                 for (pname, p_k), p_p in pairs if p_p.grad is not None]
-        norms = [g_p.norm().item() for _, _, g_p in pairs]
-        floor = GRAD_FLOOR * max(norms)
-        per_tensor = {pname: (g_k - g_p).norm().item() / max(n, floor)
-                      for (pname, g_k, g_p), n in zip(pairs, norms)}
-        whole = (math.sqrt(sum((g_k - g_p).norm().item() ** 2
-                               for _, g_k, g_p in pairs))
-                 / math.sqrt(sum(n ** 2 for n in norms)))
-        worst = max(per_tensor, key=per_tensor.get)
-        ms_k = time_ms(lambda: fwd_bwd(nets[0]), 2)
-        ms_p = time_ms(lambda: fwd_bwd(nets[1]), 2)
-        log(f"{name} unet {dn:8s} gradients kernels vs plain: whole "
-            f"normwise rel {whole:.3e}, worst tensor {per_tensor[worst]:.3e} "
-            f"({worst}), loss {loss_k.item():.6f} vs {loss_p.item():.6f}; "
-            f"backward kernel launches {bwd_launches}; forward+backward "
-            f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain")
-        bound = whole if dtype == torch.bfloat16 else per_tensor[worst]
-        if not bound <= GRAD_TOL[dn]:
-            raise AssertionError(f"{name} U-Net {dn}: gradients kernels vs "
-                                 f"plain {bound:.3e} past {GRAD_TOL[dn]}")
-        if any(n != streaming for n in bwd_launches.values()):
-            raise AssertionError(f"{name} U-Net {dn}: backward kernels "
-                                 f"launched {bwd_launches}, expected "
-                                 f"{streaming} each")
-        report[dn] = dict(whole_rel=whole, worst_tensor=worst,
-                          worst_tensor_rel=per_tensor[worst],
-                          backward_launches=bwd_launches,
-                          ms_kernels=ms_k, ms_plain=ms_p)
-        del nets, pairs
-        torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    compute = None if dtype == torch.float32 else dtype
+    nets = [UNet(**cfg, dtype=compute, use_kernels=on) for on in
+            (True, False)]
+    nets[1].load_state_dict(nets[0].state_dict())
+    nets = [n.to(dev, memory_format=torch.channels_last) for n in nets]
+    before = [fn.launches for fn in backward]
+    if counters is not None:
+        zero_counts(counters)
+        before = [0] * len(backward)
+    loss_k = fwd_bwd(nets[0])
+    torch.cuda.synchronize()
+    bwd_launches = {fn.__name__: fn.launches - b
+                    for fn, b in zip(backward, before)}
+    launches = None
+    if counters is not None:
+        launches = read_counts(counters)
+        check_launches(f"{name} U-Net {dn} forward and backward at batch "
+                       f"{x.shape[0]}", launches,
+                       expected_grad_launches(cfg, 1, streaming))
+    loss_p = fwd_bwd(nets[1])
+    pairs = list(zip(nets[0].named_parameters(), nets[1].parameters()))
+    for (pname, p_k), p_p in pairs:
+        if (p_k.grad is None) != (p_p.grad is None):
+            raise AssertionError(f"{name} U-Net {dn}: {pname} has a "
+                                 "gradient on one side only")
+    pairs = [(pname, p_k.grad.float(), p_p.grad.float())
+             for (pname, p_k), p_p in pairs if p_p.grad is not None]
+    norms = [g_p.norm().item() for _, _, g_p in pairs]
+    floor = GRAD_FLOOR * max(norms)
+    per_tensor = {pname: (g_k - g_p).norm().item() / max(n, floor)
+                  for (pname, g_k, g_p), n in zip(pairs, norms)}
+    whole = (math.sqrt(sum((g_k - g_p).norm().item() ** 2
+                           for _, g_k, g_p in pairs))
+             / math.sqrt(sum(n ** 2 for n in norms)))
+    worst = max(per_tensor, key=per_tensor.get)
+    ms_k = time_ms(lambda: fwd_bwd(nets[0]), 2)
+    ms_p = time_ms(lambda: fwd_bwd(nets[1]), 2)
+    log(f"{name} unet {dn:8s} gradients kernels vs plain: whole "
+        f"normwise rel {whole:.3e}, worst tensor {per_tensor[worst]:.3e} "
+        f"({worst}), loss {loss_k.item():.6f} vs {loss_p.item():.6f}; "
+        f"backward kernel launches {bwd_launches}; forward+backward "
+        f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain")
+    bound = whole if dtype == torch.bfloat16 else per_tensor[worst]
+    if not bound <= GRAD_TOL[dn]:
+        raise AssertionError(f"{name} U-Net {dn}: gradients kernels vs "
+                             f"plain {bound:.3e} past {GRAD_TOL[dn]}")
+    if any(n != streaming for n in bwd_launches.values()):
+        raise AssertionError(f"{name} U-Net {dn}: backward kernels "
+                             f"launched {bwd_launches}, expected "
+                             f"{streaming} each")
+    report = dict(whole_rel=whole, worst_tensor=worst,
+                  worst_tensor_rel=per_tensor[worst],
+                  backward_launches=bwd_launches, ms_kernels=ms_k,
+                  ms_plain=ms_p, **({} if launches is None
+                                    else {"launches": launches}))
+    del nets, pairs
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1442,11 +1494,11 @@ def _images(resp):
 
 
 def _export(torch, tmp, name, cfg, img, model_type, cond_t=None,
-            ranges=((1, 1000),)):
+            ranges=((1, 1000),), objective=None):
     """cfg's U-Net from seed 0 exported as a bundle of one entry per
     (min, max) step range, each with those weights (by default one entry
-    over steps 1..1000; the linear schedule 5e-3 -> 9e-3); returns its
-    config.json."""
+    over steps 1..1000; the linear schedule 5e-3 -> 9e-3), its entries
+    tagged with `objective` ("V") when given; returns its config.json."""
     from sdm_tpu_torch.cli.export_models import export_bundle
     from sdm_tpu_torch.models import UNet
     torch.manual_seed(0)
@@ -1466,6 +1518,8 @@ def _export(torch, tmp, name, cfg, img, model_type, cond_t=None,
                  noise_scheduler="LINEAR", beta1=5e-3, betaT=9e-3)
     if cond_t is not None:
         train["cond_t"] = cond_t
+    if objective is not None:
+        train["objective"] = objective
     entries = [(dict(train, min_noise_step=lo, max_noise_step=hi), pt)
                for lo, hi in ranges]
     bundle = export_bundle(name, tmp, img_c=3, img_h=img, img_w=img,
@@ -1768,6 +1822,225 @@ def generation_phase(torch, counters):
     return total, report
 
 
+def extensions_phase(torch, counters):
+    """The sampler and training extensions at full width and depth, bf16,
+    batch 16, seeded random weights (see the module docstring, phase 7).
+    The launch counters are zeroed just before each run and read just
+    after. Returns the launches of each run and a report."""
+    import numpy as np
+    import cv2
+    from sdm_tpu_torch.cli.generate_images_diffusion import \
+        generate_images_diffusion
+    from sdm_tpu_torch.diffusion.samplers import (ddim_sample,
+                                                  ddim_step_list,
+                                                  karras_steps_matching)
+    from sdm_tpu_torch.io.bundles import (build_model_from_bundle,
+                                          load_bundle_config)
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.serving import SamplerEngine
+    from sdm_tpu_torch.train.loop import BASE_SPEC
+
+    dev = torch.device("cuda")
+    launches, report = {}, {}
+    uniform = len(ddim_step_list(1, 1000, DDIM_STEP))
+    karras = len(karras_steps_matching(
+        1, 1000, DDIM_STEP, make_schedule("LINEAR", max_noise_step=1000)))
+    labels = [float(i == 3) for i in range(COND["cond_dim"])]
+
+    def counted(name, cfg, calls, fn, into=launches):
+        zero_counts(counters)
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        into[name] = read_counts(counters)
+        check_launches(f"{name} ({calls} U-Net calls)", into[name],
+                       expected_launches(cfg, calls, 0))
+        return out, wall
+
+    def check_images(name, images, n=BATCH):
+        if images.shape != (n, IMG, IMG, 3) or not np.isfinite(images).all():
+            raise AssertionError(f"{name}: shape {images.shape} or "
+                                 "non-finite values")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flagship = _export(torch, tmp, "flagship", FLAGSHIP, IMG, "BASE")
+        cond = _export(torch, tmp, "cond", COND, IMG, "BASE")
+
+        # Served: DDIM-50 (the rate the others are read against in this
+        # run), dpmpp and heun with Karras spacing, guidance at batch 32.
+        for name, bundle, cfg, kw, calls, req in (
+                ("served ddim", flagship, FLAGSHIP, dict(diff_alg="ddim"),
+                 uniform, {}),
+                ("served dpmpp karras", flagship, FLAGSHIP,
+                 dict(diff_alg="dpmpp", karras=True), karras, {}),
+                ("served heun karras", flagship, FLAGSHIP,
+                 dict(diff_alg="heun", karras=True), 2 * karras - 1, {}),
+                ("served ddim guidance 3", cond, COND,
+                 dict(diff_alg="ddim", guidance=True), uniform,
+                 dict(labels=labels, guidance_scale=GUIDANCE_SCALE))):
+            engine = SamplerEngine(bundle, step_size=DDIM_STEP,
+                                   max_batch=BATCH, dtype="bfloat16",
+                                   log=log, **kw)
+            engine.generate(BATCH, seed=0, **req)          # warm-up
+            images, wall = counted(name, cfg, calls, lambda: engine.generate(
+                BATCH, seed=1, **req))
+            check_images(name, images)
+            log(f"{name}: {BATCH} images in {wall:.3f} s -> "
+                f"{BATCH / wall:.3f} img/s ({calls} U-Net calls"
+                + (f", each at batch {2 * BATCH})" if kw.get("guidance")
+                   else ")"))
+            report[name] = dict(seconds=wall, img_per_s=BATCH / wall,
+                                calls=calls)
+            del engine
+            torch.cuda.empty_cache()
+
+        # One guided U-Net call: the doubled batch of 32 (conditional rows,
+        # then zero-label rows), kernels on against off, the same bf16
+        # weights, held to the model phase's bf16 limit. The guided
+        # combine u + s (c - u) scales each branch's difference by |s| and
+        # |1 - s|, so it is held to COMBINE_TOL. A comparison: its launches
+        # are checked and reported, not counted as the main path's.
+        models, folder = load_bundle_config(cond)
+        net_k, _ = build_model_from_bundle(models["models"][0], folder,
+                                           max_T=1000, device=dev,
+                                           dtype=torch.bfloat16,
+                                           cast_params=True)
+        net_p = UNet.from_config(models["models"][0], dtype=torch.bfloat16,
+                                 use_kernels=False)
+        net_p.load_state_dict(net_k.state_dict())
+        net_p = net_p.to(dev, torch.bfloat16,
+                         memory_format=torch.channels_last).eval()
+        x = torch.randn((BATCH, IMG, IMG, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+        x2 = torch.cat([x, x])
+        lab = torch.tensor(labels, device=dev).expand(BATCH, -1)
+        l2 = torch.cat([lab, torch.zeros_like(lab)])
+        t = torch.tensor([500], device=dev)
+        with torch.inference_mode():
+            got, _ = counted("guided call", COND, 1,
+                             lambda: net_k(x2, t, l2).float(), into=report)
+            want = net_p(x2, t, l2).float()
+        rel = ((got - want).norm() / want.norm()).item()
+
+        def combine(out):
+            cond_rows, null_rows = out.chunk(2)
+            return null_rows + GUIDANCE_SCALE * (cond_rows - null_rows)
+        g_k, g_p = combine(got), combine(want)
+        rel_g = ((g_k - g_p).norm() / g_p.norm()).item()
+        log(f"guided U-Net call at batch 32, kernels vs plain: normwise rel "
+            f"{rel:.3e} (tol {MODEL_TOL['bfloat16']}), max abs "
+            f"{(got - want).abs().max().item():.3e}; the guided combine "
+            f"(scale {GUIDANCE_SCALE}): normwise rel {rel_g:.3e} (tol "
+            f"{COMBINE_TOL:.3g})")
+        if not rel <= MODEL_TOL["bfloat16"]:
+            raise AssertionError(f"guided call kernels vs plain: rel {rel}")
+        if not rel_g <= COMBINE_TOL:
+            raise AssertionError(f"guided combine kernels vs plain: rel "
+                                 f"{rel_g}")
+        report["guided_call_rel_err"] = rel
+        report["guided_combine_rel_err"] = rel_g
+        del net_k, net_p, got, want, g_k, g_p
+        torch.cuda.empty_cache()
+
+        # One training micro-batch as grad accumulation gives it to the
+        # kernels: batch 8, one t per sample, one-hot labels with the last
+        # two rows the null label (as cfg_drop_prob makes them), forward and
+        # backward kernels on against off (grad_case, GRAD_TOL), its
+        # launches held to one call's. A comparison, as the guided call.
+        micro = BATCH // EXT_TRAIN["grad_accum_steps"]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        xm = torch.randn((micro, IMG, IMG, 3), generator=gen, device=dev)
+        target = torch.randn((micro, IMG, IMG, 3), generator=gen,
+                             device=dev)
+        tm = torch.randint(1, 1000, (micro,), generator=gen, device=dev)
+        lm = torch.nn.functional.one_hot(
+            torch.randint(0, COND["cond_dim"], (micro,), generator=gen,
+                          device=dev), COND["cond_dim"]).float()
+        lm[-2:] = 0.0
+        report["micro-batch gradients"] = grad_case(
+            torch, f"cond micro-batch {micro}", COND, torch.bfloat16, xm,
+            target, tm, labels=lm, counters=counters)
+        del xm, target, tm, lm
+
+        # Generated: img2img, inpainting (left half kept), a v-bundle.
+        rng = np.random.default_rng(6)
+        init = os.path.join(tmp, "init.png")
+        mask = os.path.join(tmp, "mask.png")
+        cv2.imwrite(init, rng.integers(0, 256, (IMG, IMG, 3),
+                                       dtype=np.uint8))
+        half = np.zeros((IMG, IMG), np.uint8)
+        half[:, :IMG // 2] = 255
+        cv2.imwrite(mask, half)
+        vbundle = _export(torch, tmp, "vflag", FLAGSHIP, IMG, "BASE",
+                          objective="V")
+        quiet = dict(log=lambda *a, **k: None, save_locally=False)
+        common = ["-n", str(BATCH), "--ddim_step_size", str(DDIM_STEP),
+                  "--dtype", "bfloat16", "-s", "0"]
+        for name, bundle, flags, calls in (
+                ("generated img2img", flagship,
+                 ["--diff_alg", "ddim", "--init_img_path", init,
+                  "--init_noise_step", str(INIT_STEP)],
+                 len(ddim_step_list(1, INIT_STEP, DDIM_STEP))),
+                ("generated inpainting", flagship,
+                 ["--diff_alg", "ddim", "--inpaint_img_path", init,
+                  "--inpaint_mask_path", mask], uniform),
+                ("generated v-bundle dpmpp", vbundle,
+                 ["--diff_alg", "dpmpp"], uniform)):
+            images, wall = counted(name, FLAGSHIP, calls, lambda: (
+                generate_images_diffusion(["-c", bundle] + common + flags,
+                                          **quiet)))
+            check_images(name, images)
+            if "inpainting" in name:
+                known = (cv2.imread(init).astype(np.float32) - 127.5) / 127.5
+                dev_known = float(np.abs(images[:, :, :IMG // 2]
+                                         - known[:, :IMG // 2]).max())
+                log(f"{name}: kept half against the image: max abs "
+                    f"{dev_known:.3e}")
+                if dev_known > 1e-6:
+                    raise AssertionError(f"{name}: kept pixels moved by "
+                                         f"{dev_known}")
+            log(f"{name}: {BATCH} images in {wall:.3f} s (bundle load "
+                f"included) -> {BATCH / wall:.3f} img/s, {calls} U-Net calls")
+            report[name] = dict(seconds=wall, img_per_s=BATCH / wall,
+                                calls=calls)
+
+        # fp32 bundle: no kernel runs; the images are the plain U-Net's.
+        noise = torch.randn((BATCH, IMG, IMG, 3), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(3))
+        images, wall = counted("generated fp32", FLAGSHIP, 0, lambda: (
+            generate_images_diffusion(
+                ["-c", flagship, "-n", str(BATCH), "--diff_alg", "ddim",
+                 "--ddim_step_size", str(DDIM_STEP), "--dtype", "float32"],
+                noise=noise.cpu().numpy(), **quiet)))
+        # The exported weights (_export: seed 0), kernels off.
+        torch.manual_seed(0)
+        net_p = UNet(**dict(FLAGSHIP, use_kernels=False))
+        net_p = net_p.to(dev, memory_format=torch.channels_last).eval()
+        with torch.inference_mode():
+            want = ddim_sample(net_p, make_schedule(
+                "LINEAR", max_noise_step=1000, device=dev), noise,
+                ddim_step_size=DDIM_STEP).cpu().numpy()
+        rel = float(np.linalg.norm(images - want) / np.linalg.norm(want))
+        log(f"generated fp32: 0 kernel launches; against the plain U-Net's "
+            f"DDIM: normwise rel {rel:.3e} (tol {MODEL_TOL['float32']}); "
+            f"{BATCH} images in {wall:.3f} s")
+        if not rel <= MODEL_TOL["float32"]:
+            raise AssertionError(f"fp32 generator vs plain: rel {rel}")
+        report["generated fp32"] = dict(seconds=wall, rel_err_vs_plain=rel)
+        del net_p
+        torch.cuda.empty_cache()
+
+    # Trained: the base trainer on the conditional flagship with every
+    # extension of the step.
+    launches["ext_train"], report["trained"] = train_phase(
+        torch, counters, BASE_SPEC, "extended base", COND, IMG, streaming=0,
+        extra=EXT_TRAIN)
+    return launches, report
+
+
 def traced_batch(torch, engine, requests):
     """Device-busy share of one served batch: the device time in a
     torch.profiler (CUPTI) trace of engine.generate_batch over the batch's
@@ -1794,7 +2067,9 @@ def train_config(out_dir, data_glob, cfg, img):
     """A reference-format training config for cfg's U-Net at `img`, batch
     16, bf16, kernels on: checkpoints (with a preview) at step 0 only, so
     the run's U-Net calls are its steps plus one preview of 51 calls."""
-    out = dict(dataset_path=data_glob, use_conditional=False, cond_dim=None,
+    out = dict(dataset_path=data_glob,
+               use_conditional=cfg["cond_dim"] is not None,
+               cond_dim=cfg["cond_dim"],
                out_dir=out_dir, checkpoint_steps=1000, lr_steps=100_000,
                max_epoch=1, plot_img_count=BATCH, flip_imgs=True,
                model_checkpoint=None, load_diffusion_optim=False,
@@ -1816,27 +2091,41 @@ def train_config(out_dir, data_glob, cfg, img):
     return out
 
 
-def expected_train_launches(cfg, steps, streaming):
-    """Launches of a training run: one U-Net call per step and a preview of
-    1000 // DDIM_STEP + 1 calls forward (`expected_launches`), and dV, dK
-    and dQ once per streaming block per step backward, every dV on
-    stream_apply_mma, every dK and dQ on stream_da_mma. AdaGN, the whole-S attention and the blocks recompute
+def expected_grad_launches(cfg, calls, streaming):
+    """Launches of `calls` forward+backward U-Net calls: the forward's
+    (`expected_launches`), and dV, dK and dQ once per streaming block per
+    call backward, every dV on stream_apply_mma, every dK and dQ on
+    stream_da_mma. AdaGN, the whole-S attention and the blocks recompute
     their backward through the plain version, and `linear`'s backward is
     plain matmuls: no launches."""
-    out = expected_launches(cfg, steps + 1000 // DDIM_STEP + 1, streaming)
+    out = expected_launches(cfg, calls, streaming)
     for kernel in ("streaming_dv", "streaming_dk", "streaming_dq",
                    "streaming_dv_mma", "streaming_dk_mma",
                    "streaming_dq_mma"):
-        out[kernel] = streaming * steps
+        out[kernel] = streaming * calls
     return out
 
 
-def train_phase(torch, counters, spec, name, cfg, img, streaming):
-    """One trainer run at full width (see the module docstring, phase 6).
-    Returns its launches and a report."""
+def expected_train_launches(cfg, calls, streaming):
+    """Launches of a training run of `calls` forward+backward U-Net calls
+    (one per step, `grad_accum_steps` per step with accumulation;
+    `expected_grad_launches`) and a preview of 1000 // DDIM_STEP + 1 calls
+    forward (`expected_launches`)."""
+    preview = expected_launches(cfg, 1000 // DDIM_STEP + 1, streaming)
+    return {kernel: n + preview[kernel] for kernel, n in
+            expected_grad_launches(cfg, calls, streaming).items()}
+
+
+def train_phase(torch, counters, spec, name, cfg, img, streaming,
+                extra=None):
+    """One trainer run at full width (see the module docstring, phase 6),
+    its config updated with `extra` (the step's extensions). A
+    label-conditional cfg trains on images with one-hot labels from a
+    TinyDB file. Returns its launches and a report."""
     import numpy as np
     from sdm_tpu_torch.data import datasets
     from sdm_tpu_torch.data.tinydb_compat import write_tables
+    from sdm_tpu_torch.enums import Objective
     from sdm_tpu_torch.io.checkpoint import load_optimizer_from_checkpoint
     from sdm_tpu_torch.models import UNet
     from sdm_tpu_torch.ops.schedules import make_schedule
@@ -1844,7 +2133,10 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
     from sdm_tpu_torch.train.step import make_optimizer, make_train_step
 
     dev = torch.device("cuda")
+    extra = extra or {}
+    accum = extra.get("grad_accum_steps", 1)
     doodle = spec.dataset == "doodle"
+    cond_dim = cfg["cond_dim"]
     with tempfile.TemporaryDirectory() as tmp:
         # Seeded uint8 HWC images (and, for the doodle trainer, as many
         # conditioning images, paired with them in a TinyDB file). With
@@ -1861,6 +2153,9 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
                               dtype=np.uint8)
         conds = (rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
                               dtype=np.uint8) if doodle else None)
+        labels = (np.eye(cond_dim, dtype=np.float32)[
+            rng.integers(0, cond_dim, TRAIN_IMAGES)]
+            if cond_dim is not None else None)
         ext = "npy" if cv2 is None else "png"
         rows = []
         for i in range(TRAIN_IMAGES):
@@ -1876,10 +2171,16 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
                 rows.append({"filename": os.path.join(tmp, f"im_{i}.{ext}"),
                              "doodle": os.path.join(tmp,
                                                     f"doodle_{i}.{ext}")})
-        if doodle:
-            data_path = os.path.join(tmp, "doodle.json")
+            elif labels is not None:
+                rows.append(dict({f"l{j}": float(v)
+                                  for j, v in enumerate(labels[i])},
+                                 filename=os.path.join(tmp, f"im_{i}.{ext}")))
+        if doodle or labels is not None:
+            data_path = os.path.join(tmp, "data.json")
+            names = (["doodle"] if doodle
+                     else [f"l{j}" for j in range(cond_dim)])
             write_tables(data_path, {"Data": rows,
-                                     "Labels": [{"labels": ["doodle"]}]})
+                                     "Labels": [{"labels": names}]})
         else:
             data_path = os.path.join(tmp, f"im_*.{ext}")
         decode, plot = datasets._imread_u8, loop.plot_sampled_images
@@ -1890,11 +2191,13 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
                 log(f"{file_name}: not written (no cv2)"))
         log(f"{name} trainer: {TRAIN_IMAGES} "
             + ("image/doodle pairs" if doodle else "images")
+            + (f" with one-hot labels of {cond_dim}" if labels is not None
+               else "")
             + f" {img}x{img} as .{ext}, "
             + ("np.load in place of the cv2 decode" if cv2 is None
                else "the dataset's cv2 decode"))
         out_dir = os.path.join(tmp, "out")
-        config = train_config(out_dir, data_path, cfg, img)
+        config = dict(train_config(out_dir, data_path, cfg, img), **extra)
         try:
             zero_counts(counters)
             t0 = time.monotonic()
@@ -1906,9 +2209,10 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
         finally:
             datasets._imread_u8, loop.plot_sampled_images = decode, plot
 
-        check_launches(f"{name} trainer ({TRAIN_STEPS} steps, one preview "
-                       f"of {1000 // DDIM_STEP + 1} U-Net calls)", launches,
-                       expected_train_launches(cfg, TRAIN_STEPS, streaming))
+        check_launches(f"{name} trainer ({TRAIN_STEPS} steps of {accum} "
+                       f"U-Net calls, one preview of {1000 // DDIM_STEP + 1})",
+                       launches, expected_train_launches(
+                           cfg, TRAIN_STEPS * accum, streaming))
         with open(os.path.join(out_dir, f"{spec.project_name}.log")) as f:
             lines = f.read().splitlines()
         losses = [float(line.split("Diffusion: ")[1].split(" ")[0])
@@ -1935,10 +2239,20 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
             raise AssertionError(f"{name} trainer: checkpoints {names}")
 
         # The step-0 checkpoint into a fresh model and Adam: strict keys,
-        # the one step taken, its moments.
+        # the one step taken, its moments; with ema_decay, both
+        # checkpoints' "ema" weights load strictly too.
+        net = UNet.from_config(config)
+        if "ema_decay" in extra:
+            for at in (0, TRAIN_STEPS):
+                ck = torch.load(os.path.join(out_dir, "checkpoint",
+                                             f"diffusion_{at}.pt"),
+                                map_location="cpu")
+                net.load_state_dict(ck["ema"], strict=True)
+            log(f"{name} trainer: the step-0 and step-{TRAIN_STEPS} "
+                f"checkpoints' ema weights reload strictly")
+            del ck
         ckpt = torch.load(os.path.join(out_dir, "checkpoint",
                                        "diffusion_0.pt"), map_location="cpu")
-        net = UNet.from_config(config)
         net.load_state_dict(ckpt["model"], strict=True)
         opt, _ = make_optimizer(net.parameters(), config["diffusion_lr"],
                                 config["lr_steps"])
@@ -1968,12 +2282,22 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming):
         state = summary["state"]
         schedule = make_schedule("LINEAR", max_noise_step=1000, device=dev)
         step_fn = make_train_step(
-            schedule, objective=spec.objective, max_actual_noise_step=1000,
-            flip_imgs=spec.has_flip, cond_t=config.get("cond_t"),
-            lr_dim=config.get("lr_dim"))
-        batch = {"image": torch.from_numpy(images[:BATCH]).to(dev)}
+            schedule, objective=(Objective.V if extra.get("objective") == "V"
+                                 else spec.objective),
+            max_actual_noise_step=1000, flip_imgs=spec.has_flip,
+            cond_t=config.get("cond_t"), lr_dim=config.get("lr_dim"),
+            grad_accum_steps=accum,
+            cfg_drop_prob=extra.get("cfg_drop_prob", 0.0),
+            ema_decay=extra.get("ema_decay"),
+            min_snr_gamma=extra.get("min_snr_gamma"))
+        batch = {"image": images[:BATCH]}
         if doodle:
-            batch["cond_img"] = torch.from_numpy(conds[:BATCH]).to(dev)
+            batch["cond_img"] = conds[:BATCH]
+        if labels is not None:
+            batch["labels"] = labels[:BATCH]
+        batch = {k: torch.from_numpy(v.reshape(
+            (accum, BATCH // accum) + v.shape[1:]) if accum > 1 else v
+        ).to(dev) for k, v in batch.items()}
         gen = torch.Generator(device=dev).manual_seed(4)
         split = device_breakdown(torch, lambda: step_fn(state, batch, gen))
     log(f"{name} trainer: {TRAIN_STEPS} steps in {wall:.2f} s (with the "
@@ -2101,7 +2425,7 @@ def summarize(results, launches):
 
 
 PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
-          "training")
+          "training", "extensions")
 
 
 def parse_phases(argv):
@@ -2303,6 +2627,11 @@ def main(argv) -> int:
         launches["doodle_train"], trained["doodle"] = train_phase(
             torch, counters, DOODLE_SPEC, "doodle", DOODLE, IMG, streaming=0)
         log(f"training phase: {time.monotonic() - t0:.1f} s")
+    if "extensions" in phases:
+        t0 = time.monotonic()
+        ext_launches, out["extensions"] = extensions_phase(torch, counters)
+        launches.update(ext_launches)
+        log(f"extensions phase: {time.monotonic() - t0:.1f} s")
 
     if not skipped:
         out["kernels"] = summarize(results, launches)

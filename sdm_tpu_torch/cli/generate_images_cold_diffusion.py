@@ -9,8 +9,10 @@ bundle loader falls back to the wizard defaults, as sdm_tpu does.
     python -m sdm_tpu_torch.cli.generate_images_cold_diffusion \\
         -c exports/cold/config.json -n 4 --cold_step_size 20 -s 0
 
-Runs on the CUDA device unless --device cpu. The TPU build's --karras,
---num-devices and --sp options are not ported.
+--karras spaces the steps by Karras et al.'s rho-7 rule, as many as the
+uniform skip list (as sdm_tpu's generator does). Runs on the CUDA device
+unless --device cpu. The TPU build's --num-devices and --sp options are not
+ported.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
     the shared noise instead of drawing it from the seed."""
     import torch
 
-    from sdm_tpu_torch.diffusion.samplers import cold_sample
+    from sdm_tpu_torch.diffusion.samplers import (cold_sample,
+                                                  karras_steps_matching)
     from sdm_tpu_torch.io.bundles import (build_model_from_bundle,
                                           load_bundle_config)
     from sdm_tpu_torch.io.plotting import plot_sampled_images
@@ -42,6 +45,10 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
     add_sampling_args(parser)
     parser.add_argument("-n", "--num_images", default=1, type=int,
                         help="Number of images to generate(default=1).")
+    parser.add_argument("--karras", action="store_true",
+                        help="Karras rho-7 step spacing: as many steps as "
+                             "the uniform skip list, concentrated at low "
+                             "noise.")
     args = vars(parser.parse_args(raw_args))
     if args["num_images"] <= 0:
         raise ValueError("Invalid image numbers, should be greater than 0!")
@@ -76,10 +83,14 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
                 x_t = shared
             else:
                 x_t = schedule.q_sample(x0, [model_dict["max_noise"]], shared)
+            steps = (karras_steps_matching(
+                model_dict["min_noise"], model_dict["max_noise"],
+                args["cold_step_size"], schedule) if args["karras"] else None)
             x0 = cold_sample(net, schedule, x_t, shared,
                              min_noise=model_dict["min_noise"],
                              max_noise=model_dict["max_noise"],
                              skip_step_size=args["cold_step_size"],
+                             steps=steps,
                              labels=entry_labels(args, model_dict, device))
         x0 = x0.cpu().numpy()
     if save_locally:

@@ -8,13 +8,14 @@ micro-batching.
 
   curl -s localhost:8000/generate -d '{"num_images": 2, "seed": 7}'
 
-BASE bundles take --diff_alg ddim/ddpm/cold (cold for BASE-COLD bundles);
-SR bundles (entries with cond_t) always sample cold, with
+BASE bundles take --diff_alg ddim/ddpm/dpmpp/heun/cold (cold for
+BASE-COLD bundles), --karras spacing (not with ddpm) and, for
+label-conditional bundles, --guidance: requests then pass
+"guidance_scale". SR bundles (entries with cond_t) always sample cold, with
 --cold_step_size, and each request carries its low-resolution image
 ("lr_image_b64" + "lr_shape", or "lr_image_png_b64"; see
-serving/server.py). The options of later slices (dpmpp, heun, guidance,
---num-devices, --karras) are accepted and refused by the engine with
-NotImplementedError.
+serving/server.py). --num-devices > 1 is refused by the engine with
+NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -35,10 +36,13 @@ def serve_diffusion(raw_args=None, log=print, block: bool = True):
     parser.add_argument("--diff_alg", default="ddim",
                         choices=("ddim", "ddpm", "cold", "dpmpp", "heun"),
                         help="Sampler for BASE bundles (SR bundles always "
-                             "sample cold).")
+                             "sample cold; dpmpp = 2nd-order ODE solver, "
+                             "one model call per step; heun = 2nd-order "
+                             "predictor-corrector, two per step).")
     parser.add_argument("--ddim_step_size", "--cold_step_size",
                         dest="ddim_step_size", type=int, default=10,
-                        help="Skip-step size for ddim and cold sampling.")
+                        help="Skip-step size of the ddim, dpmpp, heun "
+                             "and cold step lists.")
     parser.add_argument("-T", "--max_T", type=int, default=1000)
     parser.add_argument("--max-batch", type=int, default=8,
                         help="Batch shape; requests coalesce and pad up to "
@@ -52,11 +56,17 @@ def serve_diffusion(raw_args=None, log=print, block: bool = True):
                              "bf16.")
     parser.add_argument("--use-ema", action="store_true",
                         help="Serve the EMA weights (training ema_decay).")
-    parser.add_argument("--guidance", action="store_true")
+    parser.add_argument("--guidance", action="store_true",
+                        help="Classifier-free guidance (label-conditional "
+                             "bundles): requests may pass guidance_scale.")
     parser.add_argument("--uint8-output", action="store_true",
                         help="Quantize images to uint8 on the device.")
-    parser.add_argument("--num-devices", type=int, default=None)
-    parser.add_argument("--karras", action="store_true")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="Data-parallel devices (not ported: more than "
+                             "one is refused).")
+    parser.add_argument("--karras", action="store_true",
+                        help="Karras rho-7 step spacing, as many steps as "
+                             "the uniform skip list (ddim/dpmpp/heun/cold).")
     parser.add_argument("--device", default=None,
                         help="Torch device; default the CUDA device (the "
                              "CPU only when asked: --device cpu).")

@@ -5,6 +5,12 @@ checkpoint .pt per model (cli/export_models.py). This loader reads both
 reference-written and sdm_tpu-written bundles: their checkpoints are
 `{"model": <torch state_dict>, ...}` in the reference's names, which the
 port's UNet loads strictly.
+
+As in sdm_tpu, the default fp32 path runs no kernel (the plain PyTorch
+versions, the reference's inference numerics); a compute dtype turns the
+kernels on. Entries with "objective": "V" are v-models: the returned U-Net
+carries `model_output = "v"`, the tag the samplers read
+(diffusion/vpred.py).
 """
 
 from __future__ import annotations
@@ -40,10 +46,8 @@ def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
 
     `dtype` is the compute dtype (None = fp32). `cast_params=True` also
     stores the weights in that dtype (sampling never updates them).
-    `param_key="ema"` loads the EMA weights stored beside "model"."""
-    if str(model_dict.get("objective", "EPS")).upper() == "V":
-        raise NotImplementedError(
-            "v-parameterized bundles are served by a later slice of the port")
+    `param_key="ema"` loads the EMA weights stored beside "model". The
+    kernels run only with a compute dtype (sdm_tpu/io/bundles.py:101-110)."""
     schedule = make_schedule(
         str(model_dict["noise_scheduler"]),
         # BASE-COLD LINEAR bundles written by the reference lack
@@ -51,7 +55,8 @@ def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
         beta_1=model_dict.get("beta_1", 5e-3),
         beta_T=model_dict.get("beta_T", 9e-3),
         max_noise_step=max_T, device=device)
-    net = UNet.from_config(model_dict, dtype=dtype)
+    net = UNet.from_config(model_dict, dtype=dtype,
+                           use_kernels=dtype is not None)
     model_path = os.path.join(bundle_folder, model_dict["model_name"])
     if not os.path.isfile(model_path):
         raise FileNotFoundError(
@@ -70,4 +75,6 @@ def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
     net = net.to(device, memory_format=torch.channels_last).eval()
     for p in net.parameters():
         p.requires_grad_(False)
+    if str(model_dict.get("objective", "EPS")).upper() == "V":
+        net.model_output = "v"
     return net, schedule

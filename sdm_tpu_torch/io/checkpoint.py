@@ -7,6 +7,10 @@ sdm_tpu/io/checkpoint.py).
 `{"model": <state_dict>, "optimizer": <Adam state_dict>}`; in torch that is
 the native format, so the port's state_dict goes in and out unchanged.
 
+A run with "ema_decay" also stores its EMA weights under "ema", in the
+same names as "model" (sdm_tpu/io/checkpoint.py:59-73); the reference's
+loader reads only "model" and "optimizer".
+
 The optimizer entry is what sdm_tpu writes (torch_interop.py::
 optax_adam_to_torch, :215-249): every parameter indexed in
 `UNet.parameters()` order, which is sdm_tpu's `torch_param_order`
@@ -54,13 +58,22 @@ def load_checkpoint(checkpoint_path: str, log=print
     return False, None
 
 
+def _cpu_fp32(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", torch.float32).clone()
+            for k, v in tensors.items()}
+
+
 def diffusion_checkpoint_dict(model: torch.nn.Module, optimizer=None,
-                              lr: float = 0.0) -> Dict[str, Any]:
-    """{"model": fp32 CPU state_dict[, "optimizer": Adam state_dict]}. Every
-    parameter gets an optimizer entry with the run's one step count (zero
-    moments where Adam never ran), and param_groups[0]["lr"] = lr."""
-    out = {"model": {k: v.detach().to("cpu", torch.float32).clone()
-                     for k, v in model.state_dict().items()}}
+                              lr: float = 0.0,
+                              ema: Optional[Dict[str, torch.Tensor]] = None
+                              ) -> Dict[str, Any]:
+    """{"model": fp32 CPU state_dict[, "optimizer": Adam state_dict][,
+    "ema": the EMA weights by parameter name]}. Every parameter gets an
+    optimizer entry with the run's one step count (zero moments where Adam
+    never ran), and param_groups[0]["lr"] = lr."""
+    out = {"model": _cpu_fp32(model.state_dict())}
+    if ema is not None:
+        out["ema"] = _cpu_fp32(ema)
     if optimizer is None:
         return out
     sd = optimizer.state_dict()
@@ -87,8 +100,23 @@ def load_params_from_checkpoint(ckpt: dict, model: torch.nn.Module,
     """The reference's custom_load_state_dict: a partial load into `model`
     that skips keys the model lacks and keys whose shape differs, keeping
     the model's own values there (sdm_tpu's merge_partial_params)."""
-    own = model.state_dict()
-    for name, value in ckpt[key].items():
+    model.load_state_dict(_merge_partial(model.state_dict(), ckpt[key], log),
+                          strict=True)
+
+
+def load_ema_from_checkpoint(ckpt: dict, ema: Dict[str, torch.Tensor],
+                             log=print) -> None:
+    """The checkpoint's "ema" weights into a state's `ema` in place, with
+    load_params_from_checkpoint's skip rules."""
+    merged = _merge_partial(dict(ema), ckpt["ema"], log)
+    with torch.no_grad():
+        for name, value in merged.items():
+            ema[name].copy_(value)
+
+
+def _merge_partial(own: dict, loaded: dict, log) -> dict:
+    """`own` with the entries of `loaded` whose name and shape it has."""
+    for name, value in loaded.items():
         if name not in own:
             log(f"No Layer found: {name}, skipping")
             continue
@@ -96,7 +124,7 @@ def load_params_from_checkpoint(ckpt: dict, model: torch.nn.Module,
             log(f"Skipped: {name}")
             continue
         own[name] = value
-    model.load_state_dict(own, strict=True)
+    return own
 
 
 def load_optimizer_from_checkpoint(ckpt: dict, optimizer) -> int:

@@ -6,7 +6,11 @@ at construction. Requests of any size <= max_batch are zero-padded to that
 batch and sliced after.
 
 Bundle kinds (detected from the bundle entries, as sdm_tpu does):
-  eps   BASE bundles, diff_alg ddim/ddpm: x_t chains model to model.
+  eps   BASE bundles, diff_alg ddim/ddpm/dpmpp/heun: x_t chains model to
+        model; v-bundles ("objective": "V") are sampled natively. With
+        guidance=True (label-conditional bundles) each call runs the
+        conditional and the zero-label rows as one doubled batch and
+        extrapolates by the batch's guidance_scale.
   cold  BASE-COLD bundles (diff_alg="cold"): the initial noise is shared by
         the trajectory; ensemble chaining re-degrades the previous x0 to
         the next model's max_noise with it.
@@ -19,7 +23,8 @@ Bundle kinds (detected from the bundle entries, as sdm_tpu does):
 A request's noise is a function of its own seed and image count only, so
 DDIM (eta = 0), cold and SR outputs are identical alone or coalesced.
 DDPM's per-step z comes from a batch generator seeded by the first request:
-reproducible only for an identical batch composition.
+reproducible only for an identical batch composition. karras=True swaps the
+uniform skip list for the Karras rho-7 list of as many steps (not ddpm).
 
 The engine runs on CUDA unless the caller passes device="cpu".
 """
@@ -34,8 +39,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from sdm_tpu_torch.diffusion.guidance import cfg_model_fn
 from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
-                                              ddpm_sample)
+                                              ddpm_sample, dpmpp_sample,
+                                              heun_sample,
+                                              karras_steps_matching)
 from sdm_tpu_torch.io.bundles import build_model_from_bundle, load_bundle_config
 from sdm_tpu_torch.ops.resize import area_resize
 
@@ -81,25 +89,21 @@ class SamplerEngine:
             raise ValueError(
                 f"diff_alg must be ddim/ddpm/cold/dpmpp/heun, "
                 f"got {diff_alg!r}")
+        if karras and diff_alg == "ddpm":
+            raise ValueError("karras spacing applies to skip-list samplers "
+                             "(ddim/dpmpp/heun/cold), not ddpm")
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(
                 f"output_dtype must be float32/uint8, got {output_dtype!r}")
-        later = {
-            f"diff_alg={diff_alg!r}": diff_alg in ("dpmpp", "heun"),
-            "guidance": bool(guidance),
-            "num_devices > 1": num_devices is not None and num_devices > 1,
-            "karras spacing": bool(karras),
-        }
-        for what, asked in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is served by a later slice of the port "
-                    "(the port serves ddim/ddpm, cold and SR bundles)")
+        if num_devices is not None and num_devices > 1:
+            raise NotImplementedError(
+                "num_devices > 1 is served by a later slice of the port "
+                "(ROADMAP Queue 1 item 9)")
         self.device = resolve_device(device)
         self._out_u8 = output_dtype == "uint8"
         self.max_batch = int(max_batch)
         self.step_size = int(step_size)
-        self.guidance = False
+        self.guidance = bool(guidance)
         self.stats = EngineStats()
         self._log = log
 
@@ -116,6 +120,13 @@ class SamplerEngine:
         else:
             self.kind = "eps"
             self.diff_alg = diff_alg
+        if guidance and self.cond_dim is None:
+            raise ValueError("guidance=True needs a label-conditional bundle")
+        if guidance and self.kind != "eps":
+            raise ValueError(
+                "guidance is supported for eps (BASE ddim/ddpm) bundles "
+                "only — cold/SR models predict x0, where CFG extrapolation "
+                "is not the reference-compatible formulation")
         compute_dtype = torch.bfloat16 if dtype == "bfloat16" else None
 
         self._entries = []
@@ -124,11 +135,12 @@ class SamplerEngine:
                 model_dict, folder, max_T=max_T, device=self.device,
                 dtype=compute_dtype, cast_params=compute_dtype is not None,
                 param_key="ema" if use_ema else "model")
+            mn, mx = model_dict["min_noise"], model_dict["max_noise"]
             self._entries.append(dict(
                 name=model_dict["model_name"], net=net, schedule=schedule,
-                min_noise=model_dict["min_noise"],
-                max_noise=model_dict["max_noise"],
-                cond_t=model_dict.get("cond_t")))
+                min_noise=mn, max_noise=mx, cond_t=model_dict.get("cond_t"),
+                steps=(karras_steps_matching(mn, mx, self.step_size,
+                                             schedule) if karras else None)))
 
     # ------------------------------------------------------------- sampling
 
@@ -140,27 +152,28 @@ class SamplerEngine:
         return torch.randn((n, h, w, c), generator=gen, device=self.device,
                            dtype=torch.float32)
 
-    def _run_entry(self, entry, x_t, labels, generator, noise, cond):
-        net = entry["net"]
-
-        def model_fn(x, t, lab):
-            return net(x, t, lab)
-
+    def _run_entry(self, entry, x_t, labels, generator, noise, cond, gs):
+        # The U-Net itself is the model_fn; it carries a v-bundle's tag.
+        model_fn = cfg_model_fn(entry["net"], gs) if self.guidance \
+            else entry["net"]
+        span = dict(min_noise=entry["min_noise"],
+                    max_noise=entry["max_noise"])
         if self.diff_alg == "cold":
             return cold_sample(model_fn, entry["schedule"], x_t, noise,
-                               min_noise=entry["min_noise"],
-                               max_noise=entry["max_noise"],
                                skip_step_size=self.step_size,
-                               cond_img=cond, labels=labels)
+                               steps=entry["steps"], cond_img=cond,
+                               labels=labels, **span)
         if self.diff_alg == "ddim":
             return ddim_sample(model_fn, entry["schedule"], x_t,
-                               min_noise=entry["min_noise"],
-                               max_noise=entry["max_noise"],
-                               ddim_step_size=self.step_size, labels=labels)
+                               ddim_step_size=self.step_size,
+                               steps=entry["steps"], labels=labels, **span)
+        if self.diff_alg in ("dpmpp", "heun"):
+            sample = dpmpp_sample if self.diff_alg == "dpmpp" else heun_sample
+            return sample(model_fn, entry["schedule"], x_t,
+                          step_size=self.step_size, steps=entry["steps"],
+                          labels=labels, **span)
         return ddpm_sample(model_fn, entry["schedule"], x_t,
-                           generator=generator,
-                           min_noise=entry["min_noise"],
-                           max_noise=entry["max_noise"], labels=labels)
+                           generator=generator, labels=labels, **span)
 
     def generate(self, num_images: int = 1, *, seed: int = 0,
                  labels: Optional[List[float]] = None,
@@ -194,7 +207,7 @@ class SamplerEngine:
         if len(scales) > 1:
             raise ValueError("coalesced requests must share guidance_scale")
         gs = scales.pop()
-        if gs != 1.0:
+        if gs != 1.0 and not self.guidance:
             raise ValueError(
                 "engine built without guidance=True cannot apply "
                 f"guidance_scale={gs}")
@@ -252,7 +265,7 @@ class SamplerEngine:
                     x_t = entry["schedule"].q_sample(
                         x0, [entry["max_noise"]], noise)
                 out = self._run_entry(entry, x_t, labels, generator, noise,
-                                      cond)
+                                      cond, gs)
                 if self.kind == "eps":
                     x_t = out
                 else:

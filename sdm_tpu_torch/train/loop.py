@@ -15,7 +15,11 @@ bfloat16), through the kernels' autograd Functions. Kept from sdm_tpu:
 checkpoint cadence including step 0, the NaN guard firing before anything
 is saved, the overlapped loss fetch (step k's loss is read after step k+1
 is launched), preemption checkpointing on SIGTERM/SIGINT, resume-LR
-semantics, "epoch_checkpoint_every" and "seed".
+semantics, "epoch_checkpoint_every" and "seed", and the step's extensions:
+"grad_accum_steps" (batches reshaped to (A, N/A, ...)), "cfg_drop_prob",
+"min_snr_gamma", "ema_decay" (the EMA is checkpointed under "ema", resumed
+from it, and previews sample from it) and "objective": "V" on the eps
+trainers (previews sample the v tag natively).
 
 Config keys of sdm_tpu that this port does not carry yet raise
 NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
@@ -48,9 +52,11 @@ from sdm_tpu_torch.data import (ConditionalImgDataset, DataLoader,
                                 DoodleImgDataset, ImageDataset)
 from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
                                               ddpm_sample)
+from sdm_tpu_torch.diffusion.vpred import tag_v
 from sdm_tpu_torch.enums import DiffusionAlg, NoiseScheduler, Objective
 from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
                                          load_checkpoint,
+                                         load_ema_from_checkpoint,
                                          load_optimizer_from_checkpoint,
                                          load_params_from_checkpoint,
                                          save_model)
@@ -91,13 +97,9 @@ UNPORTED = (
     ("sp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("tp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("fsdp", bool, "Queue 1 item 9 (parallel)"),
-    ("device_dataset", bool, "Queue 1 item 6 (the fused loop)"),
-    ("grad_accum_steps", lambda v: int(v) > 1, "Queue 1 item 6"),
-    ("cfg_drop_prob", lambda v: float(v) > 0.0, "Queue 1 item 6"),
-    ("ema_decay", lambda v: True, "Queue 1 item 6"),
-    ("min_snr_gamma", lambda v: True, "Queue 1 item 6"),
-    ("async_checkpoint", bool, "Queue 1 item 6"),
-    ("remat", bool, "Queue 1 item 6"),
+    ("device_dataset", bool, "Queue 1 item 6b (the fused loop)"),
+    ("async_checkpoint", bool, "Queue 1 item 6b"),
+    ("remat", bool, "Queue 1 item 6b"),
     ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
     ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
 )
@@ -111,10 +113,6 @@ def refuse_unported(config_dict: dict) -> None:
             raise NotImplementedError(
                 f'config "{key}" is not ported to sdm_tpu_torch yet '
                 f"(ROADMAP {item})")
-    if str(config_dict.get("objective", "")).upper() == "V":
-        raise NotImplementedError(
-            'config "objective": "V" is not ported to sdm_tpu_torch yet '
-            "(ROADMAP Queue 1 item 6)")
 
 
 def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
@@ -318,7 +316,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     net = net.to(dev, memory_format=torch.channels_last)
 
     load_diffusion_optim = config_dict["load_diffusion_optim"]
-    pending_optimizer = None
+    pending_optimizer = pending_ema = None
     if diffusion_checkpoint is not None and os.path.isdir(
             diffusion_checkpoint):
         raise NotImplementedError(
@@ -332,6 +330,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         load_params_from_checkpoint(ckpt, net, log=logging.info)
         if load_diffusion_optim:
             pending_optimizer = ckpt["optimizer"]
+        pending_ema = ckpt if "ema" in ckpt else None
 
     if config_checkpoint is not None:
         ok, cfg_ckpt = load_checkpoint(config_checkpoint, log=logging.info)
@@ -358,30 +357,55 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         resume_step=global_steps)
     resume_halvings = (max(0, (global_steps - 1) // lr_steps)
                        if resume_lr is not None else 0)
-    state = create_train_state(net, optimizer, lr_schedule, step=global_steps)
+    # EMA (config "ema_decay"): resumed from the checkpoint's "ema" when it
+    # has one, else started at the loaded parameters.
+    ema_decay = config_dict.get("ema_decay")
+    ema_decay = float(ema_decay) if ema_decay is not None else None
+    state = create_train_state(net, optimizer, lr_schedule, step=global_steps,
+                               ema=ema_decay is not None)
+    if ema_decay is not None and pending_ema is not None:
+        load_ema_from_checkpoint(pending_ema, state.ema, log=logging.info)
     if pending_optimizer is not None:
         state.count = load_optimizer_from_checkpoint(
             {"optimizer": pending_optimizer}, optimizer)
+
+    # Gradient accumulation (config "grad_accum_steps"): one Adam step per
+    # batch_size batch, activations for batch_size / A rows at a time.
+    grad_accum = int(config_dict.get("grad_accum_steps", 1))
+    if grad_accum < 1 or batch_size % grad_accum:
+        raise ValueError(
+            f"batch size {batch_size} must be divisible by "
+            f"grad_accum_steps {grad_accum}")
 
     schedule = make_schedule(config_dict["noise_scheduler"],
                              beta_1=beta_1 if beta_1 is not None else 5e-3,
                              beta_T=beta_T if beta_T is not None else 9e-3,
                              max_noise_step=max_noise_step, device=dev)
 
+    # Config "objective": "V" swaps the eps target for the velocity target
+    # on the eps trainers; cold and SR keep their parameterizations.
     objective = spec.objective
     obj_cfg = str(config_dict.get("objective", "")).upper()
     if obj_cfg and obj_cfg != objective.name:
-        raise ValueError(
-            f'config "objective": "{obj_cfg}" is not valid for this '
-            f"trainer (supported: {objective.name}, or V on the "
-            "eps-family trainers)")
+        if obj_cfg == "V" and objective == Objective.EPS:
+            objective = Objective.V
+        else:
+            raise ValueError(
+                f'config "objective": "{obj_cfg}" is not valid for this '
+                f"trainer (supported: {objective.name}, or V on the "
+                "eps-family trainers)")
+
+    def optional_float(key):
+        value = config_dict.get(key)
+        return float(value) if value is not None else None
+
     step_fn = make_train_step(
         schedule, objective=objective, min_noise_step=min_noise_step,
         max_actual_noise_step=max_actual_noise_step, flip_imgs=flip_imgs,
-        cond_t=cond_t, lr_dim=lr_dim,
-        grad_clip_norm=(float(config_dict["grad_clip_norm"])
-                        if config_dict.get("grad_clip_norm") is not None
-                        else None))
+        cond_t=cond_t, lr_dim=lr_dim, grad_accum_steps=grad_accum,
+        cfg_drop_prob=float(config_dict.get("cfg_drop_prob", 0.0)),
+        ema_decay=ema_decay, min_snr_gamma=optional_float("min_snr_gamma"),
+        grad_clip_norm=optional_float("grad_clip_norm"))
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     def lr_of(step_count) -> float:
@@ -423,11 +447,18 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         the plot labels) and doodle (with the plot conditioning images, no
         labels) sample by DDIM or DDPM; cold samples by cold_sample with
         the same noise, and SR by cold_sample conditioned on the q-sampled
-        upsampled LR, plus lr_plot."""
+        upsampled LR, plus lr_plot. With "ema_decay" the model runs on the
+        EMA weights; under V it carries the v tag."""
         n, h, w = plot_imgs.shape[:3]
         noise_plot = torch.randn((n, h, w, config_dict["out_channel"]),
                                  generator=generator, device=dev)
-        model_fn = lambda x, t, labels: net(x, t, labels)
+        model_fn = net
+        if state.ema is not None:
+            def model_fn(x, t, labels):
+                return torch.func.functional_call(net, state.ema,
+                                                  (x, t, labels))
+        if objective == Objective.V:
+            model_fn = tag_v(model_fn)
         if spec.preview in ("base", "cold", "doodle"):
             x_t_plot = noise_plot
             if max_actual_noise_step < max_noise_step:
@@ -473,7 +504,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             config_state["beta_T"] = beta_T
         save_model(config_state, "config", out_dir, checkpoint=True,
                    steps=int(steps), log=logging.info)
-        save_model(diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps)),
+        save_model(diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps),
+                                             ema=state.ema),
                    "diffusion", out_dir, checkpoint=True, steps=int(steps),
                    log=logging.info)
         if not with_preview:
@@ -487,7 +519,11 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             logging.info(f"Preview sampling failed: {e}")
 
     def to_device(b):
-        return {k: torch.from_numpy(v).to(dev, non_blocking=True)
+        # With grad_accum_steps A, each array is pre-split as (A, N/A, ...).
+        return {k: torch.from_numpy(
+                    v.reshape((grad_accum, v.shape[0] // grad_accum)
+                              + v.shape[1:]) if grad_accum > 1 else v
+                ).to(dev, non_blocking=True)
                 for k, v in b.items() if isinstance(v, np.ndarray)}
 
     # ---- Epoch loop (sdm_tpu loop.py:827-1011) ----

@@ -10,6 +10,7 @@ Functions (kernels/*.py). Objectives:
   RESIDUAL_X0  SR residual, target = x_hr - up(down(x_hr)); the LR branch
                is q-sampled at the fixed `cond_t` with the SAME eps and
                channel-concatenated (step.py:224-231)
+  V            velocity, target = a·eps − s·x0 (diffusion/vpred.py)
 
 A batch's "cond_img" (the doodle trainer's conditioning image), under EPS
 or X0, is normalized like "image", never flipped, and concatenated onto x_t
@@ -18,9 +19,9 @@ along channels (step.py:233-237).
 t is drawn per sample from [min_noise_step, max_actual_noise_step), the high
 end exclusive. Batches carry uint8 pixels, normalized on the device as
 (x - 127.5) / 127.5. Tests inject "t" and "eps" through the batch. Random
-draws (flip, t, eps, in that order) come from the caller's
-`torch.Generator`, so they are not sdm_tpu's numbers: a seed gives the same
-run in the port, not the same draws as in JAX.
+draws (flip, t, eps, then the cfg_drop_prob label mask, in that order) come
+from the caller's `torch.Generator`, so they are not sdm_tpu's numbers: a
+seed gives the same run in the port, not the same draws as in JAX.
 
 Adam is torch's, with betas (0.5, 0.999) and eps 1e-8; before each step the
 learning rate is set to the schedule at the state's count, which starts at
@@ -29,9 +30,17 @@ step.py:94-122). Parameters that get no gradient (the reference's dead
 weights) get a zero one, so Adam updates and checkpoints every parameter as
 optax does.
 
-sdm_tpu's extensions inside the step (grad_accum_steps > 1, cfg_drop_prob,
-ema_decay, min_snr_gamma, the V objective) raise NotImplementedError: they
-are ROADMAP Queue 1 item 6.
+Extensions, each off by default (sdm_tpu step.py:143-173):
+  grad_accum_steps A > 1  the batch arrives pre-split as (A, N/A, ...); A
+      backward passes sum into the gradients, which are divided by A before
+      the one Adam step; the loss is the mean of the micro-losses.
+  cfg_drop_prob  each sample's labels become the zero (null) vector with
+      this probability (diffusion/guidance.py::dropout_labels).
+  ema_decay d  the state's `ema` (fp32 tensors beside the parameters) moves
+      after each Adam step as e + (1-d)(p-e).
+  min_snr_gamma g  per-sample weights with SNR = abar/(1-abar):
+      min(SNR,g)/SNR for EPS, min(SNR,g)/(SNR+1) for V, min(SNR,g) for X0
+      and RESIDUAL_X0.
 """
 
 from __future__ import annotations
@@ -39,8 +48,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from sdm_tpu_torch.diffusion.guidance import dropout_labels
+from sdm_tpu_torch.diffusion.vpred import v_target
 from sdm_tpu_torch.enums import Objective
 from sdm_tpu_torch.ops.resize import area_resize
 
@@ -89,19 +101,20 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     count: int                   # the schedule's count (optax's)
+    # EMA of the parameters ({name: fp32 tensor}, in parameter order), or
+    # None when ema_decay is off.
+    ema: Optional[Dict[str, torch.Tensor]] = None
 
 
-def create_train_state(model, optimizer, schedule, step: int = 0
-                       ) -> TrainState:
+def create_train_state(model, optimizer, schedule, step: int = 0,
+                       ema: bool = False) -> TrainState:
     """A state at `step` (the restored global_steps); the schedule's count
-    starts there, so a resumed run applies the lr it logs."""
+    starts there, so a resumed run applies the lr it logs. `ema` starts
+    the average at the model's parameters."""
+    avg = ({name: p.detach().to(torch.float32).clone()
+            for name, p in model.named_parameters()} if ema else None)
     return TrainState(step=int(step), model=model, optimizer=optimizer,
-                      schedule=schedule, count=int(step))
-
-
-def _extension(name: str):
-    return NotImplementedError(
-        f"{name} is not ported to sdm_tpu_torch yet (ROADMAP Queue 1 item 6)")
+                      schedule=schedule, count=int(step), ema=avg)
 
 
 def make_train_step(schedule, *, objective: Objective,
@@ -119,20 +132,13 @@ def make_train_step(schedule, *, objective: Objective,
     tensor, not synchronized}. `schedule` is the noise schedule (on the
     model's device). batch: {"image": (N, H, W, C) uint8 or float [,
     "cond_img": (N, H, W, C') uint8 or float] [, "labels": (N, D)] [, "t":
-    (N,)] [, "eps": (N, H, W, C)]} on the device."""
+    (N,)] [, "eps": (N, H, W, C)]} on the device; with grad_accum_steps A
+    > 1 each entry carries a leading (A,) axis."""
     if objective == Objective.RESIDUAL_X0 and (cond_t is None
                                                or lr_dim is None):
         raise ValueError("RESIDUAL_X0 objective needs cond_t and lr_dim")
-    if objective == Objective.V:
-        raise _extension('the V objective (config "objective": "V")')
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
-    for name, on in (("grad_accum_steps > 1", grad_accum_steps > 1),
-                     ("cfg_drop_prob", cfg_drop_prob > 0.0),
-                     ("ema_decay", ema_decay is not None),
-                     ("min_snr_gamma", min_snr_gamma is not None)):
-        if on:
-            raise _extension(name)
 
     def denorm(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if x is not None and x.dtype == torch.uint8:
@@ -160,6 +166,7 @@ def make_train_step(schedule, *, objective: Objective,
             eps = batch["eps"].to(dev, torch.float32)
         else:
             eps = torch.randn(images.shape, generator=generator, device=dev)
+        labels = dropout_labels(labels, generator, cfg_drop_prob)
 
         if objective == Objective.RESIDUAL_X0:
             h, w = images.shape[1], images.shape[2]
@@ -173,24 +180,56 @@ def make_train_step(schedule, *, objective: Objective,
             x_in = schedule.q_sample(images, t, eps)
             if cond_img is not None:
                 x_in = torch.cat([x_in, cond_img.to(x_in.dtype)], dim=-1)
-            target = eps if objective == Objective.EPS else images
+            if objective == Objective.EPS:
+                target = eps
+            elif objective == Objective.V:
+                target = v_target(schedule, t, images, eps)
+            else:
+                target = images
 
         pred = model(x_in, t, labels)
-        return torch.mean(torch.square(pred.to(torch.float32) - target))
+        sq = torch.square(pred.to(torch.float32) - target)
+        if min_snr_gamma is None:
+            return torch.mean(sq)
+        abar = schedule.alpha_bar_at(t).to(device=dev, dtype=torch.float32)
+        snr = abar / (1.0 - abar)
+        w = torch.clamp(snr, max=float(min_snr_gamma))
+        if objective == Objective.EPS:
+            w = w / snr
+        elif objective == Objective.V:
+            w = w / (snr + 1.0)
+        return torch.mean(w * torch.mean(sq, dim=tuple(range(1, sq.ndim))))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
+        if (ema_decay is None) != (state.ema is None):
+            raise ValueError(
+                f"ema_decay={ema_decay} needs a state "
+                + ("created with ema=True" if state.ema is None
+                   else "without an EMA (create_train_state(ema=False))"))
         opt = state.optimizer
         lr = state.schedule(state.count)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model, batch, generator)
-        loss.backward()
         params = [p for group in opt.param_groups for p in group["params"]]
+        if grad_accum_steps == 1:
+            loss = loss_fn(state.model, batch, generator)
+            loss.backward()
+        else:
+            loss = 0.0
+            for a in range(grad_accum_steps):
+                micro = loss_fn(state.model,
+                                {k: v[a] for k, v in batch.items()},
+                                generator)
+                micro.backward()
+                loss = loss + micro.detach()
+            loss = loss / grad_accum_steps
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif grad_accum_steps > 1:
+                p.grad.div_(grad_accum_steps)
         if grad_clip_norm is not None:
             # sdm_tpu's clip: scale = min(1, c / max(global norm, 1e-12)).
             gnorm = torch.linalg.vector_norm(torch.stack(
@@ -200,6 +239,13 @@ def make_train_step(schedule, *, objective: Objective,
             for p in params:
                 p.grad.mul_(scale)
         opt.step()
+        if ema_decay is not None:
+            # e + (1-d)(p-e), with 1-d in fp32 as sdm_tpu computes it.
+            torch._foreach_lerp_(list(state.ema.values()),
+                                 [p.detach() for p in
+                                  state.model.parameters()],
+                                 float(np.float32(1.0)
+                                       - np.float32(ema_decay)))
         state.step += 1
         state.count += 1
         return {"loss": loss.detach()}

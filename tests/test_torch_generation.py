@@ -1,5 +1,6 @@
-"""The port's DDIM/DDPM generator (sdm_tpu_torch/cli/generate_images_diffusion)
-against sdm_tpu's, on CPU at a small size.
+"""The port's generator (sdm_tpu_torch/cli/generate_images_diffusion: DDIM,
+DDPM, DPM-Solver++(2M), Heun, Karras spacing, img2img, inpainting and
+classifier-free guidance) against sdm_tpu's, on CPU at a small size.
 
 Three bundles, exported by the port from sdm_tpu's own init weights: one
 label-conditional model over steps 1..T, a two-entry ensemble of
@@ -162,13 +163,132 @@ def test_validation_matches_sdm_tpu(bundles, tmp_path):
                 == _error(jax_generate, args, **kw)), args
 
 
+@pytest.fixture(scope="module")
+def images(tmp_path_factory):
+    """PNGs at the bundles' size: an init/inpaint image, a half-image keep
+    mask (left half white), a mask of another size and an image of
+    another size."""
+    cv2 = pytest.importorskip("cv2")
+    tmp = tmp_path_factory.mktemp("gen_images")
+    rng = np.random.default_rng(11)
+    paths = {}
+    mask = np.zeros((IMG, IMG), np.uint8)
+    mask[:, :IMG // 2] = 255
+    for name, img in (
+            ("init", rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)),
+            ("mask", mask), ("small_mask", mask[:8, :8]),
+            ("small", rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))):
+        paths[name] = str(tmp / f"{name}.png")
+        cv2.imwrite(paths[name], img)
+    return paths
+
+
+def _ext_flags(case, images):
+    return {
+        "dpmpp": ["--diff_alg", "dpmpp"],
+        "heun": ["--diff_alg", "heun"],
+        "karras": ["--diff_alg", "ddim", "--karras"],
+        "dpmpp+karras": ["--diff_alg", "dpmpp", "--karras"],
+        "img2img": ["--diff_alg", "ddim", "--init_img_path",
+                    images["init"], "--init_noise_step", "7"],
+        "img2img+ddpm": ["--diff_alg", "ddpm", "--init_img_path",
+                         images["init"], "--init_noise_step", "7"],
+        "inpaint": ["--diff_alg", "ddim", "--inpaint_img_path",
+                    images["init"], "--inpaint_mask_path", images["mask"]],
+        "inpaint+heun+karras": ["--diff_alg", "heun", "--karras",
+                                "--inpaint_img_path", images["init"],
+                                "--inpaint_mask_path", images["mask"]],
+        "guidance": ["--diff_alg", "ddim", "--guidance-scale", "3.0"],
+        "guidance+dpmpp": ["--diff_alg", "dpmpp", "--guidance-scale",
+                           "0.0"]}[case]
+
+
+@pytest.mark.parametrize("bundle,case", [
+    ("one", "dpmpp"), ("one", "heun"), ("one", "karras"),
+    ("ensemble", "dpmpp+karras"), ("one", "img2img"),
+    ("ensemble", "img2img+ddpm"), ("one", "inpaint"),
+    ("ensemble", "inpaint+heun+karras"), ("one", "guidance"),
+    ("ensemble", "guidance+dpmpp")])
+def test_generator_extensions_match_sdm_tpu(bundles, images, bundle, case):
+    """--diff_alg dpmpp|heun, --karras, img2img, inpainting and
+    --guidance-scale, each against sdm_tpu's generator from the same
+    seed."""
+    config, ranges = bundles[bundle]
+    flags = _ext_flags(case, images)
+    args = ["-c", config, "-n", str(N), "--ddim_step_size", "3", "-T",
+            str(T), "-s", str(SEED), "--device", "cpu", "-l", *LABELS]
+    ref = np.asarray(jax_generate(args + flags, **QUIET))
+    if "img2img" in case:          # the first model samples from step 7
+        ranges = [(lo, min(hi, 7)) for lo, hi in ranges[:1]] + ranges[1:]
+    noise, zs = _sdm_tpu_noise("ddpm" if "ddpm" in case else "ddim", ranges)
+    ours = generate_images_diffusion(args + flags, noise=noise, zs=zs,
+                                     **QUIET)
+    assert ours.shape == (N, IMG, IMG, 3) and np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, ref, **TRAJ_TOL)
+    if "inpaint" in case:          # the kept half is the image's own
+        import cv2
+        known = (cv2.imread(images["init"]).astype(np.float32)
+                 - 127.5) / 127.5
+        np.testing.assert_allclose(ours[:, :, :IMG // 2],
+                                   np.broadcast_to(known[:, :IMG // 2],
+                                                   ours[:, :, :IMG // 2]
+                                                   .shape), atol=1e-6)
+
+
+@pytest.mark.parametrize("case", [
+    "karras+ddpm", "init_without_step", "step_without_init",
+    "init_missing", "init_step_out_of_range", "init_wrong_size",
+    "inpaint_without_mask", "inpaint_ddpm", "inpaint_and_init",
+    "inpaint_mask_missing", "inpaint_mask_wrong_size",
+    "inpaint_wrong_size", "guidance_without_labels"])
+def test_extension_validation_matches_sdm_tpu(bundles, images, tmp_path,
+                                              case):
+    """Each refusal of the extension flags raises sdm_tpu's error with
+    sdm_tpu's message."""
+    config, _ = bundles["one"]
+    flags = {
+        "karras+ddpm": ["--diff_alg", "ddpm", "--karras"],
+        "init_without_step": ["--init_img_path", images["init"]],
+        "step_without_init": ["--init_noise_step", "5"],
+        "init_missing": ["--init_img_path", str(tmp_path / "no.png"),
+                         "--init_noise_step", "5"],
+        "init_step_out_of_range": ["--init_img_path", images["init"],
+                                   "--init_noise_step", str(T + 1)],
+        "init_wrong_size": ["--init_img_path", images["small"],
+                            "--init_noise_step", "5"],
+        "inpaint_without_mask": ["--inpaint_img_path", images["init"]],
+        "inpaint_ddpm": ["--diff_alg", "ddpm", "--inpaint_img_path",
+                         images["init"], "--inpaint_mask_path",
+                         images["mask"]],
+        "inpaint_and_init": ["--diff_alg", "ddim", "--inpaint_img_path",
+                             images["init"], "--inpaint_mask_path",
+                             images["mask"], "--init_img_path",
+                             images["init"], "--init_noise_step", "5"],
+        "inpaint_mask_missing": ["--diff_alg", "ddim", "--inpaint_img_path",
+                                 images["init"], "--inpaint_mask_path",
+                                 str(tmp_path / "no.png")],
+        "inpaint_mask_wrong_size": ["--diff_alg", "ddim",
+                                    "--inpaint_img_path", images["init"],
+                                    "--inpaint_mask_path",
+                                    images["small_mask"]],
+        "inpaint_wrong_size": ["--diff_alg", "ddim", "--inpaint_img_path",
+                               images["small"], "--inpaint_mask_path",
+                               images["small_mask"]],
+        "guidance_without_labels": ["--guidance-scale", "2.0"],
+    }[case]
+    if case == "guidance_without_labels":
+        config, _ = bundles["doodle"]
+        kw = dict(cond_img=np.zeros((IMG, IMG, 3), np.uint8))
+        base = ["-c", config, "-T", str(T), "--device", "cpu"]
+    else:
+        kw = {}
+        base = ["-c", config, "-T", str(T), "--device", "cpu", "-l",
+                *LABELS]
+    got = _error(generate_images_diffusion, base + flags, **kw)
+    assert got == _error(jax_generate, base + flags, **kw)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--diff_alg", "dpmpp"], "item 6"), (["--diff_alg", "heun"], "item 6"),
-    (["--diff_alg", "ddim", "--karras"], "item 6"),
-    (["--init_img_path", "x.png", "--init_noise_step", "5"], "item 6"),
-    (["--inpaint_img_path", "x.png", "--inpaint_mask_path", "m.png"],
-     "item 6"),
-    (["--guidance-scale", "2.0"], "item 6"),
     (["--num-devices", "2"], "item 9"), (["--sp", "2"], "item 9"),
     (["--pipeline", "2"], "item 9")])
 def test_unported_flags_name_their_roadmap_item(bundles, flags, item):

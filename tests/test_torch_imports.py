@@ -30,7 +30,10 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "cli.create_diffusion_config",
                  "cli.create_sr_diffusion_config",
                  "cli.create_doodle_diffusion_config", "cli.export_models",
-                 "kernels._autograd"):
+                 "kernels._autograd", "diffusion.vpred",
+                 "diffusion.guidance", "diffusion.samplers",
+                 "cli.generate_images_cold_diffusion",
+                 "cli.serve_diffusion"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -31,7 +31,7 @@ from sdm_tpu.train.step import resume_lr_schedule  # noqa: E402
 from sdm_tpu_torch.cli import train_diffusion  # noqa: E402
 from sdm_tpu_torch.data.tinydb_compat import write_tables  # noqa: E402
 from sdm_tpu_torch.io.checkpoint import (  # noqa: E402
-    load_checkpoint, load_optimizer_from_checkpoint)
+    load_checkpoint, load_ema_from_checkpoint, load_optimizer_from_checkpoint)
 from sdm_tpu_torch.models import UNet  # noqa: E402
 from sdm_tpu_torch.train import loop  # noqa: E402
 from sdm_tpu_torch.train.step import make_optimizer  # noqa: E402
@@ -372,14 +372,60 @@ def test_a_failing_preview_does_not_stop_training(images, tmp_path,
 
 @pytest.mark.parametrize("key,value", [
     ("multihost", True), ("sp", 2), ("tp", 2), ("fsdp", True),
-    ("device_dataset", True), ("grad_accum_steps", 2),
-    ("cfg_drop_prob", 0.1), ("ema_decay", 0.999), ("min_snr_gamma", 5.0),
-    ("async_checkpoint", True), ("remat", True), ("native_checkpoint", True),
-    ("profile_trace_dir", "trace"), ("objective", "V")])
+    ("device_dataset", True), ("async_checkpoint", True), ("remat", True),
+    ("native_checkpoint", True), ("profile_trace_dir", "trace")])
 def test_unported_config_keys_raise(images, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         _run_port(loop.BASE_SPEC, _config(images, tmp_path,
                                           **{key: value}))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("grad_accum_steps", 2), ("cfg_drop_prob", 0.1), ("ema_decay", 0.999),
+    ("min_snr_gamma", 5.0), ("objective", "V")])
+def test_extension_config_keys_match_sdm_tpu(images, tmp_path, key, value):
+    """The base trainer with each of the step's extensions, in both
+    packages: the same log lines, checkpoint and preview files and
+    checkpoint keys ("ema" beside "model" under ema_decay), finite losses.
+    An EMA checkpoint of either package loads into the other's EMA with
+    every key."""
+    dirs = {}
+    for pkg, run, spec in (("jax", _run_jax, jax_loop.BASE_SPEC),
+                           ("port", _run_port, loop.BASE_SPEC)):
+        dirs[pkg] = str(tmp_path / pkg)
+        summary = run(spec, _config(images, dirs[pkg], **{key: value}),
+                      steps=3)
+        assert summary["global_steps"] == 3
+        assert np.isfinite(summary["last_loss"])
+    port = [line for line in _log(dirs["port"]) if NATIVE_NOTE not in line]
+    assert _masked(port, dirs["port"]) == _masked(_log(dirs["jax"]),
+                                                  dirs["jax"])
+    for sub in ("checkpoint", "plots"):
+        assert (sorted(os.listdir(os.path.join(dirs["port"], sub)))
+                == sorted(os.listdir(os.path.join(dirs["jax"], sub))))
+    ck_j, ck_t = (torch.load(os.path.join(d, "checkpoint", "diffusion_2.pt"))
+                  for d in (dirs["jax"], dirs["port"]))
+    want = {"model", "optimizer"} | ({"ema"} if key == "ema_decay"
+                                     else set())
+    assert set(ck_t) == set(ck_j) == want
+    if key != "ema_decay":
+        return
+    from sdm_tpu.io.checkpoint import \
+        load_params_from_checkpoint as jax_load_params
+    from sdm_tpu.io.torch_interop import (params_to_torch_state_dict,
+                                          torch_state_dict_to_params)
+    assert list(ck_t["ema"]) == list(ck_t["model"])
+    assert set(ck_t["ema"]) == set(ck_j["ema"])
+    net = UNet.from_config(_config(images, tmp_path))
+    ema = {name: p.detach().clone() for name, p in net.named_parameters()}
+    load_ema_from_checkpoint(ck_j, ema, log=pytest.fail)
+    for name, value in ck_j["ema"].items():
+        torch.testing.assert_close(ema[name], value, rtol=0, atol=0)
+    loaded = params_to_torch_state_dict(jax_load_params(
+        ck_t, torch_state_dict_to_params(ck_j["ema"]), log=pytest.fail,
+        key="ema"))
+    for name, value in ck_t["ema"].items():
+        np.testing.assert_array_equal(loaded[name].numpy(), value.numpy())
 
 
 def test_native_checkpoint_directory_is_refused(images, tmp_path):

@@ -38,6 +38,7 @@ from sdm_tpu.train import step as jax_step
 from sdm_tpu_torch.enums import Objective
 from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
                                          load_checkpoint,
+                                         load_ema_from_checkpoint,
                                          load_optimizer_from_checkpoint,
                                          load_params_from_checkpoint)
 from sdm_tpu_torch.io.interop import params_to_state_dict
@@ -77,8 +78,10 @@ def _cfg(case):
 def _jax_params(cfg, seed=0):
     net = JaxUNet(**cfg)
     x = jnp.zeros((1, HW, HW, cfg["in_channel"]), jnp.float32)
+    labels = (None if cfg["cond_dim"] is None
+              else jnp.zeros((1, cfg["cond_dim"]), jnp.float32))
     params = net.init(jax.random.PRNGKey(seed), x, jnp.array([1]),
-                      None)["params"]
+                      labels)["params"]
     return net, jax.tree.map(np.asarray, params)
 
 
@@ -348,12 +351,189 @@ def test_flip_is_per_image_along_width():
     assert len(seen) > 1
 
 
-def test_step_refuses_unported_extensions():
-    schedule = make_schedule("LINEAR", max_noise_step=T_MAX)
-    for kwargs in (dict(grad_accum_steps=2), dict(cfg_drop_prob=0.1),
-                   dict(ema_decay=0.999), dict(min_snr_gamma=5.0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            port_step.make_train_step(schedule, objective=Objective.EPS,
-                                      **kwargs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port_step.make_train_step(schedule, objective=Objective.V)
+# ----------------------------------------------- the step's extensions
+
+# Cases: "<OBJECTIVE>[+min_snr][+accum2][+cfg_drop][+ema]". Two steps each,
+# t and eps injected; "+cfg_drop" runs the port at cfg_drop_prob 1.0, whose
+# mask zeroes every label vector whatever the draw, against sdm_tpu given
+# the zeroed labels.
+EXT_CASES = ["V", "EPS+min_snr", "V+min_snr", "X0+min_snr",
+             "RESIDUAL_X0+min_snr", "EPS+accum2", "EPS+cfg_drop", "EPS+ema",
+             "V+min_snr+accum2+ema"]
+EMA_DECAY, GAMMA, ACCUM = 0.9, 5.0, 2
+# After two steps a parameter may also differ in its last bit: Adam's
+# second update starts from first ones that each package rounded.
+LAST_BIT = float(np.finfo(np.float32).eps)
+
+
+def _ext_kwargs(case):
+    return dict(min_snr_gamma=GAMMA if "+min_snr" in case else None,
+                grad_accum_steps=ACCUM if "+accum2" in case else 1,
+                ema_decay=EMA_DECAY if "+ema" in case else None)
+
+
+def _ext_batch(seed, case, port):
+    batch = _batch(seed, case)
+    if "+cfg_drop" in case:
+        labels = np.random.default_rng(seed).standard_normal(
+            (N, 2)).astype(np.float32)
+        batch["labels"] = labels if port else np.zeros_like(labels)
+    if "+accum2" in case:
+        batch = {k: v.reshape((ACCUM, N // ACCUM) + v.shape[1:])
+                 for k, v in batch.items()}
+    return batch
+
+
+def _jax_steps(net, state, batches, objective, **kw):
+    """sdm_tpu's step run on each batch in turn: ([(loss, grads)], params,
+    EMA params), with the gradient captured as in _jax_step."""
+    tx = jax_step.make_optimizer(BASE_LR, LR_STEPS)
+
+    def update(g, s, p=None):
+        updates, inner = tx.update(g, s[0], p)
+        return updates, (inner, g)
+
+    capture = optax.GradientTransformation(
+        lambda p: (tx.init(p), jax.tree.map(jnp.zeros_like, p)), update)
+    schedule = jax_make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                                 max_noise_step=T_MAX)
+    step = jax.jit(jax_step.make_train_step(
+        lambda p, x, t, l: net.apply({"params": p}, x, t, l), schedule,
+        capture, objective=JaxObjective[objective], min_noise_step=1,
+        max_actual_noise_step=T_MAX, cond_t=COND_T, lr_dim=LR_DIM, **kw))
+    state = state.replace(opt_state=(
+        state.opt_state, jax.tree.map(jnp.zeros_like, state.params)))
+    out = []
+    for batch in batches:
+        state, metrics = step(state, {k: jnp.asarray(v)
+                                      for k, v in batch.items()},
+                              jax.random.PRNGKey(0))
+        out.append((float(metrics["loss"]), params_to_state_dict(
+            jax.tree.map(np.asarray, state.opt_state[1]))))
+    ema = (None if state.ema_params is None else params_to_state_dict(
+        jax.tree.map(np.asarray, state.ema_params)))
+    return out, params_to_state_dict(jax.tree.map(np.asarray,
+                                                  state.params)), ema
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_step_extensions_match_sdm_tpu(tmp_path, case):
+    """The V objective, each objective's min-SNR weighting, grad_accum_steps
+    2, cfg_drop_prob and ema_decay: losses and gradients of both steps, the
+    parameters and the EMA after them."""
+    objective = _objective(case)
+    cfg = _cfg(objective)
+    if "+cfg_drop" in case:
+        cfg = dict(cfg, cond_dim=2)
+    net, params = _jax_params(cfg)
+    kw = _ext_kwargs(case)
+    state_j = _nonzero_moments(params, 1)
+    if kw["ema_decay"] is not None:
+        state_j = state_j.replace(ema_params=jax.tree.map(jnp.array,
+                                                          state_j.params))
+    ckpt = _save_load(tmp_path, jax_checkpoint_dict(
+        state_j.params, state_j.opt_state, lr=BASE_LR))
+    batches = [_ext_batch(seed, case, port=False) for seed in (2, 3)]
+    steps_j, params_j, ema_j = _jax_steps(net, state_j, batches, objective,
+                                          **kw)
+
+    torch.manual_seed(1)
+    model = UNet(**cfg)
+    load_params_from_checkpoint(ckpt, model, log=lambda *a: None)
+    opt, lr_schedule = port_step.make_optimizer(model.parameters(), BASE_LR,
+                                                LR_STEPS)
+    state_t = port_step.create_train_state(
+        model, opt, lr_schedule, ema=kw["ema_decay"] is not None)
+    state_t.count = load_optimizer_from_checkpoint(ckpt, opt)
+    step = port_step.make_train_step(
+        make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                      max_noise_step=T_MAX),
+        objective=Objective[objective], min_noise_step=1,
+        max_actual_noise_step=T_MAX, cond_t=COND_T, lr_dim=LR_DIM,
+        cfg_drop_prob=1.0 if "+cfg_drop" in case else 0.0, **kw)
+    gen = torch.Generator().manual_seed(0)
+    for seed, (loss_j, grads_j) in zip((2, 3), steps_j):
+        batch = _ext_batch(seed, case, port=True)
+        lr = state_t.schedule(state_t.count)
+        loss_t = float(step(state_t, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()}, gen)["loss"])
+        np.testing.assert_allclose(loss_t, loss_j, rtol=LOSS_RTOL)
+        scale = max(float(np.abs(g.numpy()).max()) for g in grads_j.values())
+        for name, p in state_t.model.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(),
+                                       grads_j[name].numpy(),
+                                       rtol=GRAD_RTOL,
+                                       atol=GRAD_OF_MAX * scale,
+                                       err_msg=name)
+    for name, p in state_t.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   params_j[name].numpy(), rtol=LAST_BIT,
+                                   atol=2 * PARAM_ATOL_LR * lr, err_msg=name)
+    if kw["ema_decay"] is None:
+        assert state_t.ema is None and ema_j is None
+        return
+    assert list(state_t.ema) == [n for n, _ in
+                                 state_t.model.named_parameters()]
+    for name, e in state_t.ema.items():
+        # The EMA moves by (1 - d) of each parameter's step.
+        np.testing.assert_allclose(e.numpy(), ema_j[name].numpy(),
+                                   rtol=LAST_BIT,
+                                   atol=2 * PARAM_ATOL_LR * lr, err_msg=name)
+    assert state_t.step == 2
+
+
+def test_ema_checkpoints_resume_in_both_packages(tmp_path):
+    """The port's checkpoint carries "ema" in the reference's names, which
+    sdm_tpu's loader reads; sdm_tpu's "ema" loads back into a port state."""
+    cfg = _cfg("EPS")
+    _, params = _jax_params(cfg)
+    torch.manual_seed(0)
+    model = UNet(**cfg)
+    opt, sched = port_step.make_optimizer(model.parameters(), BASE_LR,
+                                          LR_STEPS)
+    state = port_step.create_train_state(model, opt, sched, ema=True)
+    for i, e in enumerate(state.ema.values()):
+        e.add_(0.01 * (i + 1))         # the EMA apart from the parameters
+    ckpt = _save_load(tmp_path, diffusion_checkpoint_dict(
+        model, opt, lr=BASE_LR, ema=state.ema))
+    assert set(ckpt) == {"model", "optimizer", "ema"}
+    assert list(ckpt["ema"]) == list(ckpt["model"])
+    skipped = []
+    ema_j = jax_load_params(ckpt, params, log=skipped.append, key="ema")
+    assert skipped == []
+    sd = params_to_state_dict(ema_j)
+    for name, e in state.ema.items():
+        np.testing.assert_array_equal(sd[name].numpy(), e.numpy())
+
+    back = _save_load(tmp_path, jax_checkpoint_dict(
+        jax.tree.map(jnp.asarray, params), ema_params=ema_j))
+    fresh = port_step.create_train_state(UNet(**cfg), opt, sched, ema=True)
+    load_ema_from_checkpoint(back, fresh.ema, log=pytest.fail)
+    for name, e in state.ema.items():
+        np.testing.assert_array_equal(fresh.ema[name].numpy(), e.numpy())
+
+
+@pytest.mark.parametrize("ema_decay,state_ema", [(EMA_DECAY, False),
+                                                 (None, True)])
+def test_step_refuses_a_state_that_disagrees_on_the_ema(ema_decay,
+                                                        state_ema):
+    """ema_decay and the state's EMA are one decision: a step with an EMA
+    decay on a state without an EMA, or the other way round, raises before
+    it touches the parameters."""
+    cfg = _cfg("EPS")
+    torch.manual_seed(0)
+    model = UNet(**cfg)
+    opt, sched = port_step.make_optimizer(model.parameters(), BASE_LR,
+                                          LR_STEPS)
+    state = port_step.create_train_state(model, opt, sched, ema=state_ema)
+    before = [p.detach().clone() for p in model.parameters()]
+    step = port_step.make_train_step(
+        make_schedule("LINEAR", max_noise_step=T_MAX),
+        objective=Objective.EPS, max_actual_noise_step=T_MAX,
+        ema_decay=ema_decay)
+    batch = _ext_batch(2, "EPS", port=True)
+    with pytest.raises(ValueError, match="ema_decay"):
+        step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert state.step == 0
+    for p, b in zip(model.parameters(), before):
+        assert torch.equal(p.detach(), b)
