@@ -7,7 +7,7 @@
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
 build, kernels, streaming, model, serving, generation, training,
-extensions (the build always),
+extensions, remat, loop, distill, eval (the build always),
 logs which it skipped, prints no `kernels` line and ends with
 {"ok": true, "partial": true, ...}.
 
@@ -98,6 +98,32 @@ logs which it skipped, prints no `kernels` line and ends with
      a trainer, plus the "ema" weights of both checkpoints reloaded
      strictly. Every run's launches are held to its U-Net calls, every
      attention and `linear` on mma.sync.
+  8. Remat ("remat"): the SR U-Net (bf16, batch 16, kernels on) with
+     config "remat" against without, one forward and backward each: the
+     loss equal, the whole gradient within GRAD_TOL, the launches of each
+     held (under remat every forward kernel runs three times: the
+     backward replays each block, then each nested sublayer), the peak
+     device memory of each, and of the remat step at batch 64.
+  9. Loop ("loop"): the base trainer on the flagship with
+     "device_dataset" (steps_per_call 4, 8 steps: the resident data's
+     line, step-cadence checkpoints at the chunk boundaries, launches
+     held), then 24 steps fused and 24 per step for the median step
+     interval and launches per step of each; then "async_checkpoint", the
+     saved parameters and Adam moments at steps 2 and 4 held bit for bit
+     to synchronous clones taken right after those steps.
+ 10. Distillation ("distill"): one step of progressive distillation on the
+     flagship (bf16, batch 16) kernels on against off, injected rows and
+     eps (the loss and the student's gradients within GRAD_TOL; 3 U-Net
+     forwards of launches), its device time and median; then
+     cli/distill_diffusion.py for 2 phases of DISTILL_STEPS steps from a
+     saved teacher, per-step and device-resident data, launches held, both
+     students reloaded strictly, the last exported and sampled at its own
+     step size.
+ 11. Eval ("eval"): randconv and pixel features of 64 images on the card
+     against the CPU (FEATURE_TOL), their extraction time; FID and KID of
+     the set against itself (0) and a dimmed copy; then
+     cli/evaluate_samples.py --gen-config on the exported flagship (bf16,
+     DDIM-50, 16 images), launches held.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2116,6 +2142,79 @@ def expected_train_launches(cfg, calls, streaming):
             expected_grad_launches(cfg, calls, streaming).items()}
 
 
+def write_dataset(tmp, img, doodle=False, cond_dim=None, n=TRAIN_IMAGES,
+                  seed=3):
+    """n seeded uint8 HWC images in `tmp` (and, for the doodle trainer, as
+    many conditioning images, paired with them in a TinyDB file; with
+    `cond_dim`, one-hot labels in one). With OpenCV they are PNGs read by
+    the dataset's own cv2 decode; a machine without it gets .npy files, read
+    under `decoders`. Returns {path (the config's dataset_path), images,
+    conds, labels, ext, cv2 (the module or None)}."""
+    import numpy as np
+    from sdm_tpu_torch.data.tinydb_compat import write_tables
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8)
+    conds = (rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8)
+             if doodle else None)
+    labels = (np.eye(cond_dim, dtype=np.float32)[
+        rng.integers(0, cond_dim, n)] if cond_dim is not None else None)
+    ext = "npy" if cv2 is None else "png"
+    rows = []
+    for i in range(n):
+        pair = [("im", images[i])] + ([("doodle", conds[i])] if doodle
+                                      else [])
+        for kind, im in pair:
+            path = os.path.join(tmp, f"{kind}_{i}.{ext}")
+            if cv2 is None:
+                np.save(path, im)
+            else:
+                cv2.imwrite(path, im)
+        if doodle:
+            rows.append({"filename": os.path.join(tmp, f"im_{i}.{ext}"),
+                         "doodle": os.path.join(tmp, f"doodle_{i}.{ext}")})
+        elif labels is not None:
+            rows.append(dict({f"l{j}": float(v)
+                              for j, v in enumerate(labels[i])},
+                             filename=os.path.join(tmp, f"im_{i}.{ext}")))
+    if doodle or labels is not None:
+        path = os.path.join(tmp, "data.json")
+        names = ["doodle"] if doodle else [f"l{j}" for j in range(cond_dim)]
+        write_tables(path, {"Data": rows, "Labels": [{"labels": names}]})
+    else:
+        path = os.path.join(tmp, f"im_*.{ext}")
+    return dict(path=path, images=images, conds=conds, labels=labels,
+                ext=ext, cv2=cv2)
+
+
+class decoders:
+    """Without OpenCV (cv2 None): the dataset's decode swapped for np.load
+    and the grid writer for a log line while the block runs; the loader,
+    the trainers and all after them stay the real path."""
+
+    def __init__(self, cv2):
+        self.cv2 = cv2
+
+    def __enter__(self):
+        import numpy as np
+        from sdm_tpu_torch.data import datasets
+        from sdm_tpu_torch.train import loop
+        self.saved = datasets._imread_u8, loop.plot_sampled_images
+        if self.cv2 is None:
+            datasets._imread_u8 = np.load
+            loop.plot_sampled_images = (
+                lambda imgs, file_name, dest_path=None, log=print:
+                log(f"{file_name}: not written (no cv2)"))
+
+    def __exit__(self, *exc):
+        from sdm_tpu_torch.data import datasets
+        from sdm_tpu_torch.train import loop
+        datasets._imread_u8, loop.plot_sampled_images = self.saved
+
+
 def train_phase(torch, counters, spec, name, cfg, img, streaming,
                 extra=None):
     """One trainer run at full width (see the module docstring, phase 6),
@@ -2123,8 +2222,6 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming,
     label-conditional cfg trains on images with one-hot labels from a
     TinyDB file. Returns its launches and a report."""
     import numpy as np
-    from sdm_tpu_torch.data import datasets
-    from sdm_tpu_torch.data.tinydb_compat import write_tables
     from sdm_tpu_torch.enums import Objective
     from sdm_tpu_torch.io.checkpoint import load_optimizer_from_checkpoint
     from sdm_tpu_torch.models import UNet
@@ -2138,67 +2235,20 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming,
     doodle = spec.dataset == "doodle"
     cond_dim = cfg["cond_dim"]
     with tempfile.TemporaryDirectory() as tmp:
-        # Seeded uint8 HWC images (and, for the doodle trainer, as many
-        # conditioning images, paired with them in a TinyDB file). With
-        # OpenCV they are PNGs read by the dataset's own cv2 decode. A
-        # machine without OpenCV gets .npy files, and only the decode
-        # function is swapped for np.load and the grid writer for a log line
-        # (the loader, the trainer and all after them stay the real path).
-        try:
-            import cv2
-        except ImportError:
-            cv2 = None
-        rng = np.random.default_rng(3)
-        images = rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
-                              dtype=np.uint8)
-        conds = (rng.integers(0, 256, (TRAIN_IMAGES, img, img, 3),
-                              dtype=np.uint8) if doodle else None)
-        labels = (np.eye(cond_dim, dtype=np.float32)[
-            rng.integers(0, cond_dim, TRAIN_IMAGES)]
-            if cond_dim is not None else None)
-        ext = "npy" if cv2 is None else "png"
-        rows = []
-        for i in range(TRAIN_IMAGES):
-            pair = [("im", images[i])] + ([("doodle", conds[i])] if doodle
-                                          else [])
-            for kind, im in pair:
-                path = os.path.join(tmp, f"{kind}_{i}.{ext}")
-                if cv2 is None:
-                    np.save(path, im)
-                else:
-                    cv2.imwrite(path, im)
-            if doodle:
-                rows.append({"filename": os.path.join(tmp, f"im_{i}.{ext}"),
-                             "doodle": os.path.join(tmp,
-                                                    f"doodle_{i}.{ext}")})
-            elif labels is not None:
-                rows.append(dict({f"l{j}": float(v)
-                                  for j, v in enumerate(labels[i])},
-                                 filename=os.path.join(tmp, f"im_{i}.{ext}")))
-        if doodle or labels is not None:
-            data_path = os.path.join(tmp, "data.json")
-            names = (["doodle"] if doodle
-                     else [f"l{j}" for j in range(cond_dim)])
-            write_tables(data_path, {"Data": rows,
-                                     "Labels": [{"labels": names}]})
-        else:
-            data_path = os.path.join(tmp, f"im_*.{ext}")
-        decode, plot = datasets._imread_u8, loop.plot_sampled_images
-        if cv2 is None:
-            datasets._imread_u8 = np.load
-            loop.plot_sampled_images = (
-                lambda imgs, file_name, dest_path=None, log=print:
-                log(f"{file_name}: not written (no cv2)"))
+        data = write_dataset(tmp, img, doodle, cond_dim)
+        data_path, images, conds, labels, cv2 = (
+            data["path"], data["images"], data["conds"], data["labels"],
+            data["cv2"])
         log(f"{name} trainer: {TRAIN_IMAGES} "
             + ("image/doodle pairs" if doodle else "images")
             + (f" with one-hot labels of {cond_dim}" if labels is not None
                else "")
-            + f" {img}x{img} as .{ext}, "
+            + f" {img}x{img} as .{data['ext']}, "
             + ("np.load in place of the cv2 decode" if cv2 is None
                else "the dataset's cv2 decode"))
         out_dir = os.path.join(tmp, "out")
         config = dict(train_config(out_dir, data_path, cfg, img), **extra)
-        try:
+        with decoders(cv2):
             zero_counts(counters)
             t0 = time.monotonic()
             summary = loop.run_training(spec, config, device=dev,
@@ -2206,8 +2256,6 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming,
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             launches = read_counts(counters)
-        finally:
-            datasets._imread_u8, loop.plot_sampled_images = decode, plot
 
         check_launches(f"{name} trainer ({TRAIN_STEPS} steps of {accum} "
                        f"U-Net calls, one preview of {1000 // DDIM_STEP + 1})",
@@ -2323,6 +2371,544 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming,
                           device_breakdown=split)
 
 
+# --------------------------------------------------------------- phase 8
+
+def expected_remat_launches(cfg, streaming):
+    """Launches of one forward+backward with "remat": the backward replays
+    each checkpointed block's forward twice (the block's checkpoint
+    replays it to reach the nested checkpoints' inputs, then each nested
+    checkpoint replays its own sublayer), so every forward kernel runs
+    three times; dV, dK and dQ once per streaming block, as without."""
+    out = expected_grad_launches(cfg, 1, streaming)
+    forward = expected_launches(cfg, 1, streaming)
+    for kernel, n in forward.items():
+        out[kernel] += 2 * n
+    return out
+
+
+def remat_phase(torch, counters):
+    """The SR U-Net (256x256, bf16, batch 16, kernels on) with "remat"
+    against without: one forward and backward each under the trainers'
+    loss, the same weights and inputs; the loss equal, the whole bf16
+    gradient within GRAD_TOL, each run's launches held (`expected_remat_
+    launches`), its peak device memory and time; then the remat step at
+    batch 64, the batch sdm_tpu's remat exists for. Returns the remat
+    run's launches and a report."""
+    from sdm_tpu_torch.models import UNet
+    dev = torch.device("cuda")
+    report = {}
+
+    def inputs(n, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((n, SR_IMG, SR_IMG, SR["in_channel"]),
+                        generator=gen, device=dev)
+        target = torch.randn((n, SR_IMG, SR_IMG, SR["out_channel"]),
+                             generator=gen, device=dev)
+        t = torch.randint(1, 1000, (n,), generator=gen, device=dev)
+        return x, target, t
+
+    def fwd_bwd(net, x, target, t):
+        net.zero_grad(set_to_none=True)
+        loss = torch.mean(torch.square(net(x, t).float() - target))
+        loss.backward()
+        return loss.detach()
+
+    torch.manual_seed(0)
+    nets = {on: UNet(**SR, dtype=torch.bfloat16, remat=on) for on in
+            (False, True)}
+    nets[True].load_state_dict(nets[False].state_dict())
+    nets = {on: n.to(dev, memory_format=torch.channels_last)
+            for on, n in nets.items()}
+    x, target, t = inputs(BATCH, 8)
+    launches = {}
+    for on, net in nets.items():
+        name = "remat" if on else "no remat"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        loss = fwd_bwd(net, x, target, t)
+        torch.cuda.synchronize()
+        launches[on] = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"sr U-Net forward and backward, {name}",
+                       launches[on],
+                       expected_remat_launches(SR, 1) if on
+                       else expected_grad_launches(SR, 1, 1))
+        ms = time_ms(lambda: fwd_bwd(net, x, target, t), 2)
+        report[name] = dict(loss=loss.item(), peak_bytes=peak, ms=ms)
+        log(f"sr U-Net bf16 batch {BATCH} forward+backward, {name}: loss "
+            f"{loss.item():.6f}, peak device memory {peak / 2 ** 30:.3f} "
+            f"GiB, {ms:.2f} ms")
+    if report["remat"]["loss"] != report["no remat"]["loss"]:
+        raise AssertionError(f"remat changed the loss: {report}")
+    pairs = [(p.grad.float(), q.grad.float()) for p, q in
+             zip(nets[True].parameters(), nets[False].parameters())
+             if q.grad is not None]
+    whole = (math.sqrt(sum((a - b).norm().item() ** 2 for a, b in pairs))
+             / math.sqrt(sum(b.norm().item() ** 2 for _, b in pairs)))
+    log(f"sr U-Net gradients, remat vs not: whole normwise rel {whole:.3e} "
+        f"(tol {GRAD_TOL['bfloat16']}); launches per step "
+        f"{launches[False]['fused_adagn']} -> {launches[True]['fused_adagn']} "
+        f"AdaGN, {launches[False]['streaming_stats']} -> "
+        f"{launches[True]['streaming_stats']} streaming stats: the backward "
+        "replays every checkpointed sublayer twice (the block's checkpoint, "
+        "then the sublayer's own nested one)")
+    if not whole <= GRAD_TOL["bfloat16"]:
+        raise AssertionError(f"remat gradients differ: {whole}")
+    report["grad_whole_rel"] = whole
+    del pairs, nets[False], x, target, t
+    torch.cuda.empty_cache()
+
+    x, target, t = inputs(64, 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = fwd_bwd(nets[True], x, target, t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.monotonic()
+    loss = fwd_bwd(nets[True], x, target, t)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"remat at batch 64: loss {loss.item()}")
+    log(f"sr U-Net bf16 batch 64 forward+backward with remat: peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB, {wall * 1e3:.1f} ms (wall, "
+        f"synchronized), loss {loss.item():.6f}")
+    report["remat batch 64"] = dict(peak_bytes=peak, ms=wall * 1e3)
+    del nets, x, target, t
+    torch.cuda.empty_cache()
+    return launches[True], report
+
+
+# --------------------------------------------------------------- phase 9
+
+def run_trainer(torch, counters, out_dir, data, extra, steps, wrap=None):
+    """run_training(BASE_SPEC) of the flagship on `data` (write_dataset)
+    for `steps` steps with `extra` config keys, the launch counters zeroed
+    just before and read just after. `wrap(step)` may wrap the train step.
+    Returns (summary, launches, log lines)."""
+    from sdm_tpu_torch.train import loop
+    config = dict(train_config(out_dir, data["path"], FLAGSHIP, IMG),
+                  max_epoch=10, **extra)
+    make = loop.make_train_step
+    if wrap is not None:
+        loop.make_train_step = lambda *a, **k: wrap(make(*a, **k))
+    try:
+        with decoders(data["cv2"]):
+            zero_counts(counters)
+            summary = loop.run_training(loop.BASE_SPEC, config,
+                                        device=torch.device("cuda"),
+                                        max_steps=steps)
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+    finally:
+        loop.make_train_step = make
+    with open(os.path.join(out_dir, "Diffusion.log")) as f:
+        lines = f.read().splitlines()
+    return summary, launches, lines
+
+
+def step_losses(lines):
+    return [float(line.split("Diffusion: ")[1].split(" ")[0])
+            for line in lines if "Cum. Steps:" in line]
+
+
+def loop_phase(torch, counters):
+    """The base trainer's loop options on the flagship (128x128, bf16,
+    batch 16, the 96 seeded images): "device_dataset" with steps_per_call 4
+    for 8 steps (the resident data's line, 8 step lines, step-cadence
+    checkpoints at the chunk boundaries 4 and 8, launches held); then 24
+    steps fused and 24 per step, checkpoints off, for the median step
+    interval and the launches per step of each; then "async_checkpoint":
+    the parameters and Adam moments the worker saved at steps 2 and 4
+    against synchronous clones taken right after those steps, bit for bit.
+    Returns the fused run's launches and a report."""
+    from sdm_tpu_torch.diffusion.samplers import ddim_step_list
+    report = {}
+    preview = len(ddim_step_list(1, 1000, DDIM_STEP))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(tmp, IMG)
+        out = os.path.join(tmp, "fused")
+        summary, launches, lines = run_trainer(
+            torch, counters, out, data, dict(
+                device_dataset=True, steps_per_call=4, checkpoint_steps=4),
+            8)
+        losses = step_losses(lines)
+        resident = [line for line in lines
+                    if "Device-resident dataset" in line]
+        names = sorted(os.listdir(os.path.join(out, "checkpoint")))
+        epoch_ends = list(range(TRAIN_IMAGES // BATCH, 9,
+                                TRAIN_IMAGES // BATCH))
+        want = sorted(f"{k}_{s}.pt" for k in ("config", "diffusion")
+                      for s in {4, 8, *epoch_ends})
+        mib = TRAIN_IMAGES * IMG * IMG * 3 / 2 ** 20
+        log(f"fused base trainer: {resident}; losses {losses}; "
+            f"checkpoints {names}")
+        if (summary["global_steps"] != 8 or len(losses) != 8
+                or not all(math.isfinite(v) for v in losses)
+                or len(resident) != 1
+                or f"{TRAIN_IMAGES} rows ({mib:.1f} MiB)" not in resident[0]
+                or names != want
+                or sum(re.search(r" Epoch: \d+ \| Diffusion", line)
+                       is not None for line in lines) != len(epoch_ends)):
+            raise AssertionError(f"fused base trainer: {summary['global_steps']}"
+                                 f" steps, {resident}, {names}")
+        # Previews at the chunk boundaries 4 and 8 and at the end.
+        check_launches("fused base trainer (8 steps, 3 previews of "
+                       f"{preview} U-Net calls)", launches,
+                       {k: n + 3 * expected_launches(FLAGSHIP, preview, 0)[k]
+                        for k, n in expected_grad_launches(FLAGSHIP, 8,
+                                                           0).items()})
+        report["fused"] = dict(losses=losses, checkpoints=names)
+
+        # The rate of each path, checkpoints off (one at the end, and the
+        # per-step path's at step 0, each with a preview).
+        quiet = dict(checkpoint_steps=10 ** 6, epoch_checkpoint_every=10 ** 6)
+        for name, extra in (("per-step", {}),
+                            ("fused", dict(device_dataset=True,
+                                           steps_per_call=4))):
+            summary, runs, _ = run_trainer(
+                torch, counters, os.path.join(tmp, f"rate_{name}"), data,
+                dict(quiet, **extra), 24)
+            times = sorted(summary["step_times"])
+            median = times[len(times) // 2]
+            per_step = {k: (n - expected_launches(FLAGSHIP, preview, 0)[k])
+                        / 24 for k, n in runs.items()}
+            log(f"{name} base trainer, 24 steps: median step interval "
+                f"{median * 1e3:.2f} ms ({len(times)} intervals), launches "
+                f"per step {per_step['fused_adagn']:.0f} AdaGN, "
+                f"{per_step['fused_attention']:.0f} attention, "
+                f"{per_step['linear']:.0f} linear")
+            report[f"{name} rate"] = dict(median_step_ms=median * 1e3,
+                                          launches_per_step=per_step)
+
+        # Async checkpoints: clones taken right after the steps that the
+        # checkpoints at 2 and 4 save, synchronously.
+        clones = {}
+
+        def wrap(step):
+            def wrapped(state, batch, generator=None):
+                metrics = step(state, batch, generator)
+                if state.step - 1 in (2, 4):
+                    torch.cuda.synchronize()
+                    opt = state.optimizer
+                    clones[state.step - 1] = dict(
+                        model={k: v.detach().cpu().clone() for k, v in
+                               state.model.state_dict().items()},
+                        moments=[(opt.state[p]["exp_avg"].cpu().clone(),
+                                  opt.state[p]["exp_avg_sq"].cpu().clone())
+                                 for p in state.model.parameters()])
+                return metrics
+            return wrapped
+        out = os.path.join(tmp, "async")
+        t0 = time.monotonic()
+        summary, _, lines = run_trainer(
+            torch, counters, out, data, dict(async_checkpoint=True,
+                                             checkpoint_steps=2), 6, wrap)
+        wall = time.monotonic() - t0
+        for at, clone in sorted(clones.items()):
+            ckpt = torch.load(os.path.join(out, "checkpoint",
+                                           f"diffusion_{at}.pt"),
+                              map_location="cpu")
+            same = all(torch.equal(ckpt["model"][k], v)
+                       for k, v in clone["model"].items())
+            same_m = all(
+                torch.equal(ckpt["optimizer"]["state"][i]["exp_avg"], m)
+                and torch.equal(ckpt["optimizer"]["state"][i]["exp_avg_sq"],
+                                v)
+                for i, (m, v) in enumerate(clone["moments"]))
+            log(f"async checkpoint at step {at}: parameters "
+                f"{'equal' if same else 'DIFFER from'} the synchronous "
+                f"clone, Adam moments {'equal' if same_m else 'DIFFER'}")
+            if not (same and same_m):
+                raise AssertionError(f"async checkpoint {at} is not the "
+                                     "step's state")
+        if sorted(clones) != [2, 4] or summary["global_steps"] != 6:
+            raise AssertionError(f"async run: clones {sorted(clones)}")
+        plots = sorted(os.listdir(os.path.join(out, "plots")))
+        log(f"async checkpoint run: 6 steps in {wall:.2f} s, previews "
+            f"{plots}")
+        report["async"] = dict(seconds=wall, previews=plots)
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+# --------------------------------------------------------------- phase 10
+
+DISTILL_STEPS = 4
+
+
+def distill_phase(torch, counters):
+    """Progressive distillation of the flagship (128x128, bf16, batch 16):
+    one step's loss and student gradients kernels on against off with
+    injected rows and eps (GRAD_TOL), its launches (3 U-Net forwards: the
+    teacher's two and the student's) held; its device time (profiler) and
+    median wall time; then `cli/distill_diffusion.py` for 2 phases of
+    DISTILL_STEPS steps from a saved teacher, the dataset loaded per step
+    and device-resident, launches held; both runs' students reload
+    strictly, and the last one exports and samples through the generator
+    at its step size. Returns the CLI runs' launches and a report."""
+    import copy
+
+    import numpy as np
+    from sdm_tpu_torch.cli import distill_diffusion
+    from sdm_tpu_torch.cli.generate_images_diffusion import \
+        generate_images_diffusion
+    from sdm_tpu_torch.diffusion.samplers import ddim_step_list
+    from sdm_tpu_torch.io.checkpoint import diffusion_checkpoint_dict
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.train.distill import make_distill_step
+    from sdm_tpu_torch.train.step import create_train_state, make_optimizer
+    dev = torch.device("cuda")
+    report = {}
+    schedule = make_schedule("LINEAR", max_noise_step=1000, device=dev)
+    step_list = ddim_step_list(1, 1000, 2 * DDIM_STEP)
+    step = make_distill_step(schedule, step_list=step_list)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    batch = {"image": torch.randint(0, 256, (BATCH, IMG, IMG, 3),
+                                    generator=gen, device=dev,
+                                    dtype=torch.uint8),
+             "row": torch.randint(0, len(step_list), (BATCH,), generator=gen,
+                                  device=dev),
+             "eps": torch.randn((BATCH, IMG, IMG, 3), generator=gen,
+                                device=dev)}
+    torch.manual_seed(0)
+    teachers = {on: UNet(**FLAGSHIP, dtype=torch.bfloat16, use_kernels=on)
+                for on in (True, False)}
+    teachers[False].load_state_dict(teachers[True].state_dict())
+    teachers = {on: n.to(dev, memory_format=torch.channels_last)
+                .requires_grad_(False) for on, n in teachers.items()}
+    students = {on: copy.deepcopy(n).requires_grad_(True)
+                for on, n in teachers.items()}
+    out = {}
+    for on in (True, False):
+        zero_counts(counters)
+        loss = step.loss_fn(students[on], teachers[on], batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[on] = (loss.item(), read_counts(counters))
+    check_launches("distill step, kernels on (3 U-Net forwards, 1 "
+                   "backward)", out[True][1],
+                   expected_launches(FLAGSHIP, 3, 0))
+    pairs = [(p.grad.float(), q.grad.float()) for p, q in
+             zip(students[True].parameters(), students[False].parameters())
+             if q.grad is not None]
+    whole = (math.sqrt(sum((a - b).norm().item() ** 2 for a, b in pairs))
+             / math.sqrt(sum(b.norm().item() ** 2 for _, b in pairs)))
+    loss_rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    log(f"distill step kernels vs plain: loss {out[True][0]:.6f} vs "
+        f"{out[False][0]:.6f} (rel {loss_rel:.3e}), student gradients whole "
+        f"normwise rel {whole:.3e} (tol {GRAD_TOL['bfloat16']})")
+    if not (whole <= GRAD_TOL["bfloat16"]
+            and loss_rel <= GRAD_TOL["bfloat16"]):
+        raise AssertionError(f"distill step kernels vs plain: loss rel "
+                             f"{loss_rel}, gradients {whole}")
+    report.update(loss_rel=loss_rel, grad_whole_rel=whole)
+    del pairs, teachers[False], students[False]
+
+    # Time: a whole step (Adam included) on the kernels path.
+    student = students[True]
+    opt, sched = make_optimizer(student.parameters(), 2e-5, 100_000)
+    state = create_train_state(student, opt, sched)
+    full = {"image": batch["image"]}
+
+    def one():
+        return step(state, teachers[True], full, gen)
+    split = device_breakdown(torch, one)
+    walls = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        one()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    median = sorted(walls)[2]
+    if split is None:
+        log("distill step device time: not measured (the profiler trace "
+            "holds no device time)")
+    else:
+        log(f"distill step device breakdown (profiler): "
+            f"{split['total_ms']:.3f} ms in {split['launches']} kernel "
+            "launches; " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in
+                sorted(split["families"].items(), key=lambda kv: -kv[1])))
+    log(f"distill step: median wall {median * 1e3:.2f} ms of 5 "
+        "(synchronized)")
+    report.update(device_breakdown=split, median_step_ms=median * 1e3)
+    del state, opt, student, students, teachers, batch, full
+    torch.cuda.empty_cache()
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(tmp, IMG)
+        torch.manual_seed(0)
+        teacher = os.path.join(tmp, "teacher.pt")
+        fresh = UNet(**FLAGSHIP)
+        torch.save(diffusion_checkpoint_dict(fresh), teacher)
+        students_written = []
+        for resident in (False, True):
+            out_dir = os.path.join(tmp, f"distill_{int(resident)}")
+            os.makedirs(out_dir)
+            cfg_path = os.path.join(tmp, f"distill_{int(resident)}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(dict(train_config(out_dir, data["path"], FLAGSHIP,
+                                            IMG), device_dataset=resident),
+                          f)
+            with decoders(data["cv2"]):
+                zero_counts(counters)
+                t0 = time.monotonic()
+                res = distill_diffusion.run(
+                    ["-c", cfg_path, "--teacher-checkpoint", teacher,
+                     "--phases", "2", "--steps-per-phase",
+                     str(DISTILL_STEPS)])
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches[resident] = read_counts(counters)
+            check_launches(f"distill CLI, device_dataset {resident} (2 x "
+                           f"{DISTILL_STEPS} steps of 3 forwards)",
+                           launches[resident], expected_launches(
+                               FLAGSHIP, 3 * 2 * DISTILL_STEPS, 0))
+            names = sorted(os.listdir(os.path.join(out_dir, "checkpoint")))
+            want = [f"distilled_ss{2 * DDIM_STEP}_{DISTILL_STEPS}.pt",
+                    f"distilled_ss{4 * DDIM_STEP}_{2 * DISTILL_STEPS}.pt"]
+            if (names != sorted(want)
+                    or res["phase_step_sizes"] != [2 * DDIM_STEP,
+                                                   4 * DDIM_STEP]
+                    or not all(math.isfinite(v)
+                               for v in res["phase_losses"])):
+                raise AssertionError(f"distill CLI: {names}, {res}")
+            for name in names:
+                ck = torch.load(os.path.join(out_dir, "checkpoint", name),
+                                map_location="cpu")
+                fresh.load_state_dict(ck["model"], strict=True)
+            log(f"distill CLI, device_dataset {resident}: {names} in "
+                f"{wall:.2f} s, phase losses {res['phase_losses']}; both "
+                "students reload strictly")
+            report[f"cli device_dataset {resident}"] = dict(
+                seconds=wall, phase_losses=res["phase_losses"])
+            students_written.append(os.path.join(out_dir, "checkpoint",
+                                                 want[-1]))
+
+        # The last student, exported, sampled at its own step size.
+        from sdm_tpu_torch.cli.export_models import export_bundle
+        train = train_config(tmp, data["path"], FLAGSHIP, IMG)
+        bundle = export_bundle("student", tmp, img_c=3, img_h=IMG, img_w=IMG,
+                               model_type="BASE",
+                               entries=[(train, students_written[-1])])
+        calls = len(ddim_step_list(1, 1000, 4 * DDIM_STEP))
+        zero_counts(counters)
+        t0 = time.monotonic()
+        images = generate_images_diffusion(
+            ["-c", os.path.join(bundle, "config.json"), "-n", str(BATCH),
+             "--diff_alg", "ddim", "--ddim_step_size", str(4 * DDIM_STEP),
+             "--dtype", "bfloat16", "-s", "0"], log=lambda *a, **k: None,
+            save_locally=False)
+        wall = time.monotonic() - t0
+        launches["student generated"] = read_counts(counters)
+        check_launches(f"distilled student generated ({calls} U-Net calls)",
+                       launches["student generated"],
+                       expected_launches(FLAGSHIP, calls, 0))
+        if images.shape != (BATCH, IMG, IMG, 3) or \
+                not np.isfinite(images).all():
+            raise AssertionError(f"distilled student: images {images.shape}")
+        log(f"distilled student (step size {4 * DDIM_STEP}, {calls} calls) "
+            f"generated {BATCH} images in {wall:.3f} s (bundle load "
+            "included)")
+        report["student generated"] = dict(seconds=wall, calls=calls)
+    torch.cuda.empty_cache()
+    total = {k: sum(run[k] for run in launches.values())
+             for k in launches[True]}
+    return total, report
+
+
+# --------------------------------------------------------------- phase 11
+
+FEATURE_TOL = {"randconv": 1e-2, "pixel": 1e-5}
+
+
+def eval_phase(torch, counters):
+    """Sample-quality evaluation: the randconv and pixel features of 64
+    seeded images on the card against the port on the CPU (normwise,
+    FEATURE_TOL: randconv's four bf16 convs and swishes round in cuDNN's
+    order there and oneDNN's here), their extraction time; FID and KID of
+    the set against itself (FID 0; KID within a tenth of the dimmed
+    copy's) and against a dimmed copy; then `cli/evaluate_samples.py --gen-config` on an
+    exported flagship bundle (bf16, DDIM step 20, 16 images) against 16
+    real images, launches held. Returns its launches and a report."""
+    import numpy as np
+    from sdm_tpu_torch.cli.evaluate_samples import evaluate_samples
+    from sdm_tpu_torch.eval import fid, make_feature_extractor
+    report = {}
+    x = np.random.default_rng(11).uniform(
+        -1, 1, (64, IMG, IMG, 3)).astype(np.float32)
+    for spec in ("randconv", "pixel"):
+        f_gpu, name = make_feature_extractor(spec, device="cuda")
+        f_cpu, _ = make_feature_extractor(spec, device="cpu")
+        f_gpu(x)                         # warm-up: cuDNN plans, the build
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = f_gpu(x)
+        secs = time.monotonic() - t0
+        want = f_cpu(x)
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        log(f"{name} features of 64 images {IMG}x{IMG}: card vs CPU "
+            f"normwise rel {rel:.3e} (tol {FEATURE_TOL[spec]}); extraction "
+            f"{secs * 1e3:.2f} ms on the card (wall, to host)")
+        if got.shape != want.shape or not rel <= FEATURE_TOL[spec]:
+            raise AssertionError(f"{name} features: {got.shape} rel {rel}")
+        self_fid = fid.frechet_from_features(got, got)
+        self_kid = fid.kernel_distance(got, got)[0]
+        dim = f_gpu(np.clip(0.5 * x + 0.2, -1, 1))
+        other = (fid.frechet_from_features(got, dim),
+                 fid.kernel_distance(got, dim)[0])
+        log(f"{name}: the set against itself FID {self_fid:.3e}, KID "
+            f"{self_kid:.3e}; against a dimmed copy FID {other[0]:.4f}, KID "
+            f"{other[1]:.4e}")
+        # FID of a set against itself is 0 (clamped at 0); KID's unbiased
+        # estimator reads a small negative value there (the within-set
+        # terms drop their diagonals, the cross term keeps it), so it is
+        # held to a tenth of the dimmed copy's.
+        if not (self_fid <= 1e-9 and other[0] > 1e-6
+                and abs(self_kid) <= 0.1 * other[1]):
+            raise AssertionError(f"{name}: self FID {self_fid}, KID "
+                                 f"{self_kid}; other {other}")
+        report[name] = dict(rel_err_vs_cpu=rel, extract_ms=secs * 1e3,
+                            self_fid=self_fid, self_kid=self_kid,
+                            dimmed_fid=other[0], dimmed_kid=other[1])
+
+    calls = 1000 // DDIM_STEP + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = _export(torch, tmp, "flagship", FLAGSHIP, IMG, "BASE")
+        real = os.path.join(tmp, "real")
+        os.makedirs(real)
+        data = write_dataset(real, IMG, n=BATCH, seed=12)
+        with decoders(data["cv2"]):
+            zero_counts(counters)
+            t0 = time.monotonic()
+            res = evaluate_samples(
+                ["--real-path", data["path"], "--gen-config", bundle,
+                 "-n", str(BATCH), "--gen-batch", str(BATCH), "--gen-args",
+                 f"--diff_alg ddim --ddim_step_size {DDIM_STEP} "
+                 "--dtype bfloat16", "--out", os.path.join(tmp, "m.json")]
+                + (["--save-gen-grid", os.path.join(tmp, "grid.jpg")]
+                   if data["cv2"] is not None else []),
+                log=lambda *a, **k: None)
+            wall = time.monotonic() - t0
+            launches = read_counts(counters)
+        check_launches(f"evaluate_samples --gen-config ({calls} U-Net "
+                       "calls)", launches, expected_launches(FLAGSHIP, calls,
+                                                             0))
+        if (res["n_generated"] != BATCH or res["n_real"] != BATCH
+                or not math.isfinite(res["fid"])
+                or not math.isfinite(res["kid"])):
+            raise AssertionError(f"evaluate_samples: {res}")
+        log(f"evaluate_samples --gen-config: {res} in {wall:.2f} s "
+            "(bundle load, sampling and both feature passes)")
+        report["cli"] = dict(result=res, seconds=wall)
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def summarize(results, launches):
     """One entry per kernel: the main path's shapes (bf16, query axis),
     times summed over one U-Net call: the flagship's for the kernels of
@@ -2425,7 +3011,7 @@ def summarize(results, launches):
 
 
 PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
-          "training", "extensions")
+          "training", "extensions", "remat", "loop", "distill", "eval")
 
 
 def parse_phases(argv):
@@ -2632,6 +3218,14 @@ def main(argv) -> int:
         ext_launches, out["extensions"] = extensions_phase(torch, counters)
         launches.update(ext_launches)
         log(f"extensions phase: {time.monotonic() - t0:.1f} s")
+    for name, path, fn in (("remat", "sr_remat", remat_phase),
+                           ("loop", "fused_train", loop_phase),
+                           ("distill", "distill", distill_phase),
+                           ("eval", "eval", eval_phase)):
+        if name in phases:
+            t0 = time.monotonic()
+            launches[path], out[name] = fn(torch, counters)
+            log(f"{name} phase: {time.monotonic() - t0:.1f} s")
 
     if not skipped:
         out["kernels"] = summarize(results, launches)

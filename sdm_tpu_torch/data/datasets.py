@@ -31,6 +31,11 @@ def _norm(img_u8: np.ndarray) -> np.ndarray:
     return (img_u8.astype(np.float32) - 127.5) / 127.5  # [-1, 1]
 
 
+def _imread_norm(path: str) -> np.ndarray:
+    """cv2.imread's BGR image in [-1, 1] (the eval CLI's loader)."""
+    return _norm(_imread_u8(path))
+
+
 class _DecodeCache:
     """Optional in-RAM cache of decoded uint8 images (config
     "cache_dataset"); returns raw uint8 or [-1, 1] floats."""

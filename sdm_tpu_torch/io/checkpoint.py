@@ -58,22 +58,24 @@ def load_checkpoint(checkpoint_path: str, log=print
     return False, None
 
 
-def _cpu_fp32(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", torch.float32).clone()
-            for k, v in tensors.items()}
+def _fp32_copy(t: torch.Tensor, device) -> torch.Tensor:
+    return t.detach().to(device or t.device, torch.float32, copy=True)
 
 
 def diffusion_checkpoint_dict(model: torch.nn.Module, optimizer=None,
                               lr: float = 0.0,
-                              ema: Optional[Dict[str, torch.Tensor]] = None
-                              ) -> Dict[str, Any]:
-    """{"model": fp32 CPU state_dict[, "optimizer": Adam state_dict][,
-    "ema": the EMA weights by parameter name]}. Every parameter gets an
-    optimizer entry with the run's one step count (zero moments where Adam
-    never ran), and param_groups[0]["lr"] = lr."""
-    out = {"model": _cpu_fp32(model.state_dict())}
+                              ema: Optional[Dict[str, torch.Tensor]] = None,
+                              device="cpu") -> Dict[str, Any]:
+    """{"model": fp32 state_dict[, "optimizer": Adam state_dict][, "ema":
+    the EMA weights by parameter name]}, every tensor a copy on `device`
+    (None: where it lies, a snapshot that later in-place updates do not
+    reach; `to_cpu` it before saving). Every parameter gets an optimizer
+    entry with the run's one step count (zero moments where Adam never
+    ran), and param_groups[0]["lr"] = lr."""
+    out = {"model": {k: _fp32_copy(v, device)
+                     for k, v in model.state_dict().items()}}
     if ema is not None:
-        out["ema"] = _cpu_fp32(ema)
+        out["ema"] = {k: _fp32_copy(v, device) for k, v in ema.items()}
     if optimizer is None:
         return out
     sd = optimizer.state_dict()
@@ -85,14 +87,26 @@ def diffusion_checkpoint_dict(model: torch.nn.Module, optimizer=None,
         st = sd["state"].get(idx)
         state[idx] = {
             "step": torch.tensor(count),
-            "exp_avg": (st["exp_avg"] if st else torch.zeros_like(p))
-            .detach().to("cpu", torch.float32).clone(),
-            "exp_avg_sq": (st["exp_avg_sq"] if st else torch.zeros_like(p))
-            .detach().to("cpu", torch.float32).clone()}
+            "exp_avg": _fp32_copy(st["exp_avg"] if st
+                                  else torch.zeros_like(p), device),
+            "exp_avg_sq": _fp32_copy(st["exp_avg_sq"] if st
+                                     else torch.zeros_like(p), device)}
     groups = [dict(g) for g in sd["param_groups"]]
     groups[0]["lr"] = float(lr)
     out["optimizer"] = {"state": state, "param_groups": groups}
     return out
+
+
+def to_cpu(tree):
+    """`tree` (dicts and lists of tensors and scalars) with every tensor
+    on the CPU."""
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree
 
 
 def load_params_from_checkpoint(ckpt: dict, model: torch.nn.Module,

@@ -213,17 +213,18 @@ def fused_attention_block(tokens, w_qkv, b_qkv, w_out, b_out, scale: float,
     linear kernel again, or raise. Differentiable: `FusedAttentionBlock` at
     whole-S shapes, the composed path (`_composed_block`) past them."""
     args = (tokens, w_qkv, b_qkv, w_out, b_out, scale, softmax_axis)
+    if tokens.device.type != "cpu":
+        # Counted before the launches: a checkpoint's replay (the U-Net's
+        # "remat") may stop inside the block's last autograd node, after
+        # its kernels ran but before this call returns.
+        fused_attention_block.launches += 1
     if not wants_grad(*args):
         if tokens.device.type == "cpu":
             return attention_block_reference(*args)
-        out = _launch_block(*args)
-    elif _whole_s(tokens, w_out):
-        out = FusedAttentionBlock.apply(*args)
-    else:
-        out = _composed_block(*args)
-    if tokens.device.type != "cpu":
-        fused_attention_block.launches += 1
-    return out
+        return _launch_block(*args)
+    if _whole_s(tokens, w_out):
+        return FusedAttentionBlock.apply(*args)
+    return _composed_block(*args)
 
 
 fused_attention_block.launches = 0

@@ -31,12 +31,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sdm_tpu_torch.enums import UNetBlockType
 from sdm_tpu_torch.kernels.adagn import fused_adagn
 from sdm_tpu_torch.kernels.attention import attention
 from sdm_tpu_torch.kernels.attention_block import fused_attention_block
 from sdm_tpu_torch.ops.norms import group_norm
+
+
+def remat_call(fn, *args, remat: bool = False):
+    """fn(*args), under `remat` a checkpoint whenever autograd records:
+    only the inputs are kept, and the backward runs fn again (sdm_tpu's
+    nn.checkpoint). No layer draws random numbers, so the replay equals
+    the first run; the RNG state is still preserved around it."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -305,15 +316,19 @@ class ResidualBlock(nn.Module):
 
 class UNetBlock(nn.Module):
     """num_resnet_blocks x (ResidualBlock -> Attention | identity) at the
-    input width, then a Down-/Upsample to out_ch (custom_layers.py:293-341)."""
+    input width, then a Down-/Upsample to out_ch (custom_layers.py:293-341).
+    With `remat` each of those sublayers is its own checkpoint, nested in
+    the U-Net's checkpoint of the whole block, so the block's backward
+    holds one sublayer's activations at a time (sdm_tpu layers.py:427-445)."""
 
     def __init__(self, in_ch: int, out_ch: int, num_resnet_blocks: int = 1,
                  use_attn: bool = True, num_heads: int = 1,
                  dim_per_head: Optional[int] = None, groups: int = 32,
                  block_type: UNetBlockType = UNetBlockType.DOWN,
                  emb_dim: Optional[int] = None, parity: bool = True,
-                 use_kernels: bool = True, dtype=None):
+                 use_kernels: bool = True, dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.res_layers = nn.ModuleList([
             ResidualBlock(in_ch, in_ch, True, emb_dim, groups, parity,
                           use_kernels, dtype)
@@ -328,7 +343,7 @@ class UNetBlock(nn.Module):
 
     def forward(self, x, emb=None):
         for j, res in enumerate(self.res_layers):
-            x = res(x, emb)
+            x = remat_call(res, x, emb, remat=self.remat)
             if self.attn_layers is not None:
-                x = self.attn_layers[j](x)
-        return self.out_layer(x)
+                x = remat_call(self.attn_layers[j], x, remat=self.remat)
+        return remat_call(self.out_layer, x, remat=self.remat)

@@ -6,6 +6,12 @@ DOWN UNetBlock per layer (attention on `attn_layers`), each output kept as a
 skip; two plain conv blocks in the middle; UP UNetBlocks consuming
 channel-concatenated skips; conv+Swish, conv, optional tanh out.
 
+`remat` (config "remat") checkpoints each UNetBlock, each of its
+sublayers (nested), and each two-conv in, middle and out stack as one unit,
+as sdm_tpu's UNet(remat=True) does: the backward re-runs those forwards
+(kernels included) instead of holding their activations. Parameter names
+do not change, so checkpoints load with or without it.
+
 `forward(x, t, cond)` takes and returns NHWC, as sdm_tpu does; inside, the
 activations are NCHW in channels_last memory (see models/layers.py).
 """
@@ -19,13 +25,12 @@ from torch import nn
 
 from sdm_tpu_torch.enums import UNetBlockType
 from sdm_tpu_torch.models.layers import (ConditionalEmbedding, UNetBlock,
-                                         UNetConvBlock)
+                                         UNetConvBlock, remat_call)
 
 
 class UNet(nn.Module):
     """Denoiser U-Net. Constructor surface mirrors sdm_tpu's UNet
-    (`use_pallas` becomes `use_kernels`; `remat` is a training option of a
-    later slice)."""
+    (`use_pallas` becomes `use_kernels`)."""
 
     def __init__(self, num_resnet_blocks: int = 5, in_channel: int = 3,
                  out_channel: int = 3, time_dim: Optional[int] = 64,
@@ -34,7 +39,7 @@ class UNet(nn.Module):
                  dim_per_head: Optional[int] = None, groups: int = 32,
                  min_channel: int = 128, max_channel: int = 512,
                  image_recon: bool = False, parity: bool = True,
-                 use_kernels: bool = True, dtype=None):
+                 use_kernels: bool = True, dtype=None, remat: bool = False):
         super().__init__()
         # Validation as U_Net.py:29-38 (sdm_tpu unet.py:72-84).
         if not isinstance(num_layers, int) or not isinstance(
@@ -51,6 +56,7 @@ class UNet(nn.Module):
         self.min_channel, self.max_channel = min_channel, max_channel
         self.image_recon = image_recon
         self.dtype = dtype
+        self.remat = remat
 
         ch = self.channel_schedule()
         emb_dim = time_dim
@@ -59,7 +65,7 @@ class UNet(nn.Module):
         plain = dict(common, emb_dim=None)
         block = dict(common, num_resnet_blocks=num_resnet_blocks,
                      num_heads=num_heads, dim_per_head=dim_per_head,
-                     emb_dim=emb_dim)
+                     emb_dim=emb_dim, remat=remat)
         self.cond_emb = (ConditionalEmbedding(time_dim, cond_dim, dtype)
                          if time_dim is not None else None)
         self.in_layer = nn.ModuleList([
@@ -97,22 +103,29 @@ class UNet(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         emb = self.cond_emb(t, cond) if self.cond_emb is not None else None
 
-        for layer in self.in_layer:
-            x = layer(x)
+        x = self._stack(self.in_layer, x)
         skips = []
         for layer in self.down_layers:
-            x = layer(x, emb)
+            x = remat_call(layer, x, emb, remat=self.remat)
             skips.append(x)
-        for layer in self.middle_layer:
-            x = layer(x)
+        x = self._stack(self.middle_layer, x)
         for layer in self.up_layers:
             x = torch.cat([x, skips.pop()], dim=1)
-            x = layer(x, emb)
-        for layer in self.out_layers:
-            x = layer(x)
+            x = remat_call(layer, x, emb, remat=self.remat)
+        x = self._stack(self.out_layers, x)
         if self.image_recon:
             x = torch.tanh(x)
         return x.permute(0, 2, 3, 1)
+
+    def _stack(self, layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """A two-conv stack; under remat one checkpoint, so only the
+        stack's input is kept (a checkpoint per conv would keep the
+        full-resolution tensor between them too)."""
+        def run(h):
+            for layer in layers:
+                h = layer(h)
+            return h
+        return remat_call(run, x, remat=self.remat)
 
     @classmethod
     def from_config(cls, config: dict, **overrides) -> "UNet":
@@ -132,6 +145,7 @@ class UNet(nn.Module):
             min_channel=config["min_channel"],
             max_channel=config["max_channel"],
             image_recon=recon,
+            remat=bool(config.get("remat", False)),
         )
         kwargs.update(overrides)
         return cls(**kwargs)

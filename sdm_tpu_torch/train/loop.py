@@ -19,10 +19,21 @@ semantics, "epoch_checkpoint_every" and "seed", and the step's extensions:
 "grad_accum_steps" (batches reshaped to (A, N/A, ...)), "cfg_drop_prob",
 "min_snr_gamma", "ema_decay" (the EMA is checkpointed under "ema", resumed
 from it, and previews sample from it) and "objective": "V" on the eps
-trainers (previews sample the v tag natively).
+trainers (previews sample the v tag natively). Also as in sdm_tpu:
 
-Config keys of sdm_tpu that this port does not carry yet raise
-NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
+  "remat"             the U-Net checkpoints its blocks (models/unet.py).
+  "async_checkpoint"  a checkpoint snapshots the parameters, Adam state and
+      EMA on the device, in stream order before the next step's in-place
+      Adam update, and one worker thread at a time fetches, saves and
+      previews it while training goes on.
+  "device_dataset"    the fused loop (`_run_fused_loop`): the decoded
+      dataset lives on the device, "steps_per_call" K steps gather their
+      rows there, and a chunk's K losses are read with one sync.
+
+Previews draw their noise from a generator of their own (seeded from
+"seed"), so the training draws do not depend on whether or where a
+preview runs. Config keys of sdm_tpu that this port does not carry yet
+raise NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
 
 The doodle trainer reads image/doodle pairs from a TinyDB file
 (DoodleImgDataset), writes the startup grid of its preview's conditioning
@@ -33,6 +44,7 @@ batch unseeded.
 from __future__ import annotations
 
 import argparse
+import copy
 import csv
 import dataclasses
 import glob
@@ -59,7 +71,7 @@ from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
                                          load_ema_from_checkpoint,
                                          load_optimizer_from_checkpoint,
                                          load_params_from_checkpoint,
-                                         save_model)
+                                         save_model, to_cpu)
 from sdm_tpu_torch.io.plotting import plot_sampled_images
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.resize import area_resize
@@ -97,9 +109,6 @@ UNPORTED = (
     ("sp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("tp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("fsdp", bool, "Queue 1 item 9 (parallel)"),
-    ("device_dataset", bool, "Queue 1 item 6b (the fused loop)"),
-    ("async_checkpoint", bool, "Queue 1 item 6b"),
-    ("remat", bool, "Queue 1 item 6b"),
     ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
     ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
 )
@@ -137,7 +146,41 @@ def checkpoint_dominates_epoch(ckpt_seconds: float,
     return ckpt_seconds > 5.0 and ckpt_seconds > 0.5 * max(compute_s, 1e-9)
 
 
-def _device(device) -> torch.device:
+class CheckpointWorker:
+    """Runs one background checkpoint at a time (config
+    "async_checkpoint"). `start` first waits for the one in flight;
+    `finish` waits and re-raises what the last one raised."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+
+    def _run(self, fn, args):
+        try:
+            fn(*args)
+        except Exception as e:  # kept for finish(); training goes on
+            logging.exception("Background checkpoint failed")
+            self._error = e
+
+    def start(self, fn, *args) -> None:
+        self.finish()
+        self._thread = threading.Thread(target=self._run, args=(fn, args),
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def finish(self) -> None:
+        self.wait()
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+
+def train_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu) "
@@ -153,7 +196,7 @@ def run_training(spec: TrainerSpec, config_dict: dict, *,
     steps_per_sec and step_times (per-step wall seconds, the first step
     excluded)."""
     project_name = spec.project_name
-    dev = _device(device)
+    dev = train_device(device)
     refuse_unported(config_dict)
 
     # Preemption: the first SIGTERM/SIGINT sets a flag; the loop finishes
@@ -182,15 +225,17 @@ def run_training(spec: TrainerSpec, config_dict: dict, *,
             except (ValueError, TypeError):
                 pass
 
+    worker = CheckpointWorker()
     try:
         return _train(spec, config_dict, dev, max_steps, max_epoch_override,
-                      preempt, project_name)
+                      preempt, project_name, worker)
     finally:
+        worker.wait()
         _restore_signal_handlers()
 
 
 def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
-           project_name):
+           project_name, worker):
     # ---- Param unpack & validation (sdm_tpu loop.py:159-223) ----
     starting_epoch = 0
     global_steps = 0
@@ -407,6 +452,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         ema_decay=ema_decay, min_snr_gamma=optional_float("min_snr_gamma"),
         grad_clip_norm=optional_float("grad_clip_norm"))
     generator = torch.Generator(device=dev).manual_seed(seed)
+    preview_generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def lr_of(step_count) -> float:
         # The active schedule in plain Python, for the log lines.
@@ -440,22 +486,23 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     logging.info(f"Max Actual Noise Step: {max_actual_noise_step:,}")
     logging.info("#" * 100)
 
-    def run_preview():
-        """The preview sampler (sdm_tpu loop.py:614-697). Base, cold and
-        doodle start from noise, or from the plot images q-sampled at
-        max_actual_noise_step when it is below max_noise_step. Base (with
-        the plot labels) and doodle (with the plot conditioning images, no
-        labels) sample by DDIM or DDPM; cold samples by cold_sample with
-        the same noise, and SR by cold_sample conditioned on the q-sampled
-        upsampled LR, plus lr_plot. With "ema_decay" the model runs on the
-        EMA weights; under V it carries the v tag."""
+    def run_preview(module, weights):
+        """The preview sampler (sdm_tpu loop.py:614-697) on `module`, or on
+        `module` with `weights` ({name: tensor}: the EMA, or a snapshot)
+        in place of its own. Base, cold and doodle start from noise, or
+        from the plot images q-sampled at max_actual_noise_step when it is
+        below max_noise_step. Base (with the plot labels) and doodle (with
+        the plot conditioning images, no labels) sample by DDIM or DDPM;
+        cold samples by cold_sample with the same noise, and SR by
+        cold_sample conditioned on the q-sampled upsampled LR, plus
+        lr_plot. Under V the model carries the v tag."""
         n, h, w = plot_imgs.shape[:3]
         noise_plot = torch.randn((n, h, w, config_dict["out_channel"]),
-                                 generator=generator, device=dev)
-        model_fn = net
-        if state.ema is not None:
+                                 generator=preview_generator, device=dev)
+        model_fn = module
+        if weights is not None:
             def model_fn(x, t, labels):
-                return torch.func.functional_call(net, state.ema,
+                return torch.func.functional_call(module, weights,
                                                   (x, t, labels))
         if objective == Objective.V:
             model_fn = tag_v(model_fn)
@@ -470,7 +517,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             labels = plot_labels if spec.preview == "base" else None
             if diffusion_alg == DiffusionAlg.DDPM:
                 return ddpm_sample(model_fn, schedule, x_t_plot,
-                                   generator=generator,
+                                   generator=preview_generator,
                                    min_noise=min_noise_step,
                                    max_noise=max_actual_noise_step,
                                    cond_img=cond, labels=labels)
@@ -496,7 +543,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                          labels=plot_labels)
         return x0 + lr_plot
 
-    def checkpoint_and_preview(steps, with_preview=True):
+    def checkpoint_and_preview(ckpt, steps, with_preview, module, weights):
         config_state = {"starting_epoch": starting_epoch,
                         "global_steps": int(steps)}
         if noise_scheduling == NoiseScheduler.LINEAR:
@@ -504,19 +551,39 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             config_state["beta_T"] = beta_T
         save_model(config_state, "config", out_dir, checkpoint=True,
                    steps=int(steps), log=logging.info)
-        save_model(diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps),
-                                             ema=state.ema),
-                   "diffusion", out_dir, checkpoint=True, steps=int(steps),
-                   log=logging.info)
+        save_model(to_cpu(ckpt), "diffusion", out_dir, checkpoint=True,
+                   steps=int(steps), log=logging.info)
         if not with_preview:
             return
         try:
             with torch.no_grad():
-                imgs = run_preview().cpu().numpy()
+                imgs = run_preview(module, weights).cpu().numpy()
             plot_sampled_images(imgs, f"diffusion_plot_{int(steps)}",
                                 dest_path=out_dir, log=logging.info)
         except Exception as e:  # a preview must never stop training
             logging.info(f"Preview sampling failed: {e}")
+
+    # Async checkpointing (config "async_checkpoint"; sdm_tpu loop.py:
+    # 699-754). torch's Adam updates the parameters in place, so the
+    # snapshot is a copy on the device, enqueued on the training stream
+    # before the next step's update; the worker previews it on a module of
+    # its own, since functional_call swaps a module's parameters while the
+    # training thread runs it.
+    async_ckpt = bool(config_dict.get("async_checkpoint", False))
+    preview_net = copy.deepcopy(net) if async_ckpt else None
+
+    def submit_checkpoint(steps, with_preview=True):
+        if not async_ckpt:
+            checkpoint_and_preview(
+                diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps),
+                                          ema=state.ema),
+                steps, with_preview, net, state.ema)
+            return
+        worker.finish()  # at most one in flight
+        snap = diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps),
+                                         ema=state.ema, device=None)
+        worker.start(checkpoint_and_preview, snap, steps, with_preview,
+                     preview_net, snap.get("ema", snap["model"]))
 
     def to_device(b):
         # With grad_accum_steps A, each array is pre-split as (A, N/A, ...).
@@ -526,8 +593,24 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                 ).to(dev, non_blocking=True)
                 for k, v in b.items() if isinstance(v, np.ndarray)}
 
-    # ---- Epoch loop (sdm_tpu loop.py:827-1011) ----
     timer = StepTimer()
+    if bool(config_dict.get("device_dataset", False)):
+        if grad_accum > 1:
+            raise ValueError(
+                '"device_dataset" fused training supports single-process '
+                "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
+        summary = _run_fused_loop(
+            config_dict=config_dict, dataset=dataset, dev=dev,
+            batch_size=batch_size, seed=seed, state=state, step_fn=step_fn,
+            generator=generator, timer=timer, preempt=preempt,
+            max_steps=max_steps, max_epoch=max_epoch,
+            checkpoint_steps=checkpoint_steps,
+            starting_epoch=starting_epoch, global_steps=global_steps,
+            lr_of=lr_of, submit_checkpoint=submit_checkpoint)
+        worker.finish()
+        return summary
+
+    # ---- Epoch loop (sdm_tpu loop.py:827-1011) ----
     last_loss = float("nan")
     stop = False
     # Overlapped loss fetch (config "overlapped_loss_fetch", default true):
@@ -583,7 +666,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             if global_steps % checkpoint_steps == 0 and global_steps >= 0:
                 # The NaN guard fires BEFORE anything is saved.
                 loss = fetch_loss(metrics)
-                checkpoint_and_preview(global_steps)
+                submit_checkpoint(global_steps)
                 sps = timer.steps_per_sec()
                 if np.isfinite(sps):
                     logging.info(
@@ -599,7 +682,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                 if pending is not None:
                     process_metrics(*pending)
                     pending = None
-                checkpoint_and_preview(global_steps, with_preview=False)
+                submit_checkpoint(global_steps, with_preview=False)
                 logging.info(
                     "Preempted: checkpointed at step {:,}; exiting.".format(
                         global_steps))
@@ -618,7 +701,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         if ((every <= 1 or (epoch + 1) % every == 0 or stop
              or epoch + 1 == max_epoch) and not preempt["flag"]):
             t_ck = time.monotonic()
-            checkpoint_and_preview(global_steps, with_preview=False)
+            submit_checkpoint(global_steps, with_preview=False)
             ck_s = time.monotonic() - t_ck
             epoch_s = time.monotonic() - epoch_t0
             if checkpoint_dominates_epoch(ck_s, epoch_s) and not ckpt_warned:
@@ -626,9 +709,9 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                 logging.warning(
                     "Epoch-end checkpoint took {:.0f}s vs {:.0f}s of epoch "
                     "compute — epochs are short for this dataset/batch. Set "
-                    '"epoch_checkpoint_every": N to stop checkpoint I/O '
-                    "dominating the run.".format(ck_s,
-                                                 max(epoch_s - ck_s, 0.0)))
+                    '"epoch_checkpoint_every": N and/or "async_checkpoint": '
+                    "true to stop checkpoint I/O dominating the run."
+                    .format(ck_s, max(epoch_s - ck_s, 0.0)))
         if training_count:
             avg = total_diffusion_loss / training_count
             logging.info("Epoch: {:,} | Diffusion: {:.5f} | LR: {:.9f}".format(
@@ -636,10 +719,144 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         if stop:
             break
 
+    worker.finish()
     return {"global_steps": global_steps, "last_loss": last_loss,
             "preempted": preempt["flag"], "state": state,
             "steps_per_sec": timer.steps_per_sec(),
             "step_times": timer.intervals()}
+
+
+def fused_index_blocks(seed: int, n_rows: int, b_sz: int,
+                       steps_per_epoch: int, k_steps: int):
+    """The fused loop's (k_steps, b_sz) row-index blocks, endlessly:
+    epoch-sized permutations (each cut to steps_per_epoch * b_sz rows) from
+    one seeded stream, concatenated and cut into blocks, as sdm_tpu's
+    `_run_fused_loop` cuts them (loop.py:1088-1103), so a seed gives both
+    packages the same batch order."""
+    perm_rng = np.random.default_rng((int(seed) + 0x9E3779B9) % 2 ** 63)
+    buf = np.empty((0,), np.int64)
+    while True:
+        while buf.size < k_steps * b_sz:
+            perm = perm_rng.permutation(n_rows)[:steps_per_epoch * b_sz]
+            buf = np.concatenate([buf, perm])
+        yield buf[:k_steps * b_sz].reshape(k_steps, b_sz)
+        buf = buf[k_steps * b_sz:]
+
+
+def load_resident(dataset, dev, native_decode: bool) -> dict:
+    """The whole decoded dataset as {field: tensor on `dev`}, one transfer
+    per array field ("image", and "cond_img" or "labels" where the samples
+    carry them), rows in dataset order."""
+    loader = DataLoader(dataset, batch_size=min(512, len(dataset)),
+                        shuffle=False, num_workers=8, drop_last=False,
+                        native_decode=native_decode)
+    parts = {}
+    for b in loader:
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                parts.setdefault(k, []).append(v)
+    if "image" not in parts:
+        raise ValueError('"device_dataset" needs array-valued samples')
+    return {k: torch.from_numpy(np.concatenate(v, axis=0)).to(dev)
+            for k, v in parts.items()}
+
+
+def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
+                    step_fn, generator, timer, preempt, max_steps, max_epoch,
+                    checkpoint_steps, starting_epoch, global_steps, lr_of,
+                    submit_checkpoint):
+    """The device-resident fused loop (config "device_dataset"; sdm_tpu
+    loop.py:1014-1158).
+
+    The decoded uint8 dataset goes to the device once. Each chunk of
+    `steps_per_call` K steps (default: an epoch's steps, at most 64) takes
+    one host index block (`fused_index_blocks`), gathers each step's rows
+    on the device and runs the same train step as the per-step loop; the
+    K losses stay on the device and are read once, the chunk's only sync.
+    The NaN guard fires per chunk, before any checkpoint. Log lines keep
+    the per-step format, a chunk's K lines in a burst; --steps may
+    overshoot by up to K-1 steps; step-cadence checkpoints land at the
+    first chunk boundary at or after their step. On the card the chunk is
+    K steps of launches with no host sync between them, not one graph."""
+    data = load_resident(dataset, dev,
+                         bool(config_dict.get("native_decode", True)))
+    n_rows = data["image"].shape[0]
+    nbytes = sum(v.numel() * v.element_size() for v in data.values())
+    b_sz = min(batch_size, n_rows)
+    steps_per_epoch = max(n_rows // b_sz, 1)
+    k_steps = int(config_dict.get("steps_per_call", 0)) or min(
+        steps_per_epoch, 64)
+    logging.info(
+        "Device-resident dataset: {:,} rows ({:.1f} MiB) in device memory; "
+        "{} steps fused per call.".format(n_rows, nbytes / 2 ** 20, k_steps))
+
+    blocks = fused_index_blocks(seed, n_rows, b_sz, steps_per_epoch, k_steps)
+    epoch = starting_epoch
+    epoch_idx = 0      # step index within the current epoch
+    epoch_loss = 0.0
+    last_loss = float("nan")
+    last_ckpt_bucket = global_steps // max(checkpoint_steps, 1)
+    every = int(config_dict.get("epoch_checkpoint_every", 1))
+    stop = False
+
+    while not stop and epoch < max_epoch:
+        idx = torch.from_numpy(next(blocks))
+        if dev.type == "cuda":
+            # Pinned, so the copy waits for no earlier work on the stream
+            # (a checkpoint worker's preview may be running there).
+            idx = idx.pin_memory()
+        idx = idx.to(dev, non_blocking=True)
+        losses = []
+        for rows in idx:
+            batch = {k: v.index_select(0, rows) for k, v in data.items()}
+            losses.append(step_fn(state, batch, generator)["loss"])
+        losses = torch.stack(losses).to("cpu", torch.float64).numpy()
+        timer.tick()
+        if np.isnan(losses).any():
+            raise Exception("NaN encountered during training")
+        for lv in losses:
+            last_loss = float(lv)
+            epoch_loss += last_loss
+            epoch_idx += 1
+            logging.info(
+                "Cum. Steps: {:,} | Steps: {:,} / {:,} | Diffusion: {:.5f} "
+                "| LR: {:.9f}".format(
+                    global_steps + 1, epoch_idx, steps_per_epoch,
+                    epoch_loss / epoch_idx, lr_of(global_steps)))
+            global_steps += 1
+            if epoch_idx == steps_per_epoch:
+                logging.info(
+                    "Epoch: {:,} | Diffusion: {:.5f} | LR: {:.9f}".format(
+                        epoch, epoch_loss / steps_per_epoch,
+                        lr_of(global_steps)))
+                epoch += 1
+                epoch_idx = 0
+                epoch_loss = 0.0
+                if every >= 1 and epoch % every == 0:
+                    submit_checkpoint(global_steps, with_preview=False)
+        bucket = global_steps // max(checkpoint_steps, 1)
+        if bucket > last_ckpt_bucket:
+            last_ckpt_bucket = bucket
+            submit_checkpoint(global_steps)
+            iv = timer.intervals()
+            if iv:
+                logging.info(
+                    "Rate: {:.3f} steps/sec | {:.1f} imgs/sec".format(
+                        k_steps / iv[-1], k_steps * b_sz / iv[-1]))
+        if preempt["flag"] or (max_steps is not None
+                               and global_steps >= max_steps):
+            stop = True
+
+    submit_checkpoint(global_steps, with_preview=not preempt["flag"])
+    if preempt["flag"]:
+        logging.info("Preempted: checkpointed at step {:,}; exiting.".format(
+            global_steps))
+    iv = timer.intervals()
+    per_step = [s / k_steps for s in iv for _ in range(k_steps)]
+    sps = (k_steps * len(iv) / sum(iv)) if iv else float("nan")
+    return {"global_steps": global_steps, "last_loss": last_loss,
+            "preempted": preempt["flag"], "state": state,
+            "steps_per_sec": sps, "step_times": per_step}
 
 
 def main(spec: TrainerSpec, raw_args=None):

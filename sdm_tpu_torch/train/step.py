@@ -207,12 +207,7 @@ def make_train_step(schedule, *, objective: Objective,
                 f"ema_decay={ema_decay} needs a state "
                 + ("created with ema=True" if state.ema is None
                    else "without an EMA (create_train_state(ema=False))"))
-        opt = state.optimizer
-        lr = state.schedule(state.count)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.zero_grad(set_to_none=True)
-        params = [p for group in opt.param_groups for p in group["params"]]
+        begin_step(state)
         if grad_accum_steps == 1:
             loss = loss_fn(state.model, batch, generator)
             loss.backward()
@@ -225,20 +220,7 @@ def make_train_step(schedule, *, objective: Objective,
                 micro.backward()
                 loss = loss + micro.detach()
             loss = loss / grad_accum_steps
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            elif grad_accum_steps > 1:
-                p.grad.div_(grad_accum_steps)
-        if grad_clip_norm is not None:
-            # sdm_tpu's clip: scale = min(1, c / max(global norm, 1e-12)).
-            gnorm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad) for p in params]))
-            scale = torch.clamp(float(grad_clip_norm)
-                                / torch.clamp(gnorm, min=1e-12), max=1.0)
-            for p in params:
-                p.grad.mul_(scale)
-        opt.step()
+        finish_step(state, grad_clip_norm, grad_accum_steps)
         if ema_decay is not None:
             # e + (1-d)(p-e), with 1-d in fp32 as sdm_tpu computes it.
             torch._foreach_lerp_(list(state.ema.values()),
@@ -246,9 +228,41 @@ def make_train_step(schedule, *, objective: Objective,
                                   state.model.parameters()],
                                  float(np.float32(1.0)
                                        - np.float32(ema_decay)))
-        state.step += 1
-        state.count += 1
         return {"loss": loss.detach()}
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def begin_step(state: TrainState) -> None:
+    """The optimizer's lr set to the schedule at the state's count, and
+    its gradients cleared, before a step's backward."""
+    lr = state.schedule(state.count)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.zero_grad(set_to_none=True)
+
+
+def finish_step(state: TrainState, grad_clip_norm: Optional[float] = None,
+                grad_accum_steps: int = 1) -> None:
+    """The Adam step on the gradients that the backward left: a zero one
+    where a parameter got none, the sum of A micro-batches divided by A,
+    then sdm_tpu's direct pre-Adam clip, scale = min(1, c / max(global
+    norm, 1e-12)). The step and the schedule's count advance by one."""
+    params = [p for group in state.optimizer.param_groups
+              for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif grad_accum_steps > 1:
+            p.grad.div_(grad_accum_steps)
+    if grad_clip_norm is not None:
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in params]))
+        scale = torch.clamp(float(grad_clip_norm)
+                            / torch.clamp(gnorm, min=1e-12), max=1.0)
+        for p in params:
+            p.grad.mul_(scale)
+    state.optimizer.step()
+    state.step += 1
+    state.count += 1

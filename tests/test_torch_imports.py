@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "kernels._autograd", "diffusion.vpred",
                  "diffusion.guidance", "diffusion.samplers",
                  "cli.generate_images_cold_diffusion",
-                 "cli.serve_diffusion"):
+                 "cli.serve_diffusion", "train.distill",
+                 "cli.distill_diffusion", "eval.fid", "eval.features",
+                 "cli.evaluate_samples"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

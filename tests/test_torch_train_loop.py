@@ -12,7 +12,10 @@ doodle preview batch unseeded, so its preview and label_plot grids are held
 by name and shape, as every trainer's are, never by pixels. The port's own semantics
 are checked beside: resume LR, determinism given "seed", the NaN guard,
 preemption, "epoch_checkpoint_every", previews that fail, and the config
-keys it refuses.
+keys it refuses. The fused device-resident loop ("device_dataset") is held
+to sdm_tpu's by its index blocks, log lines and files, and to the port's
+own per-step train step; "async_checkpoint" and "remat" write the same
+files as a run without them.
 """
 
 import json
@@ -32,9 +35,13 @@ from sdm_tpu_torch.cli import train_diffusion  # noqa: E402
 from sdm_tpu_torch.data.tinydb_compat import write_tables  # noqa: E402
 from sdm_tpu_torch.io.checkpoint import (  # noqa: E402
     load_checkpoint, load_ema_from_checkpoint, load_optimizer_from_checkpoint)
+from sdm_tpu_torch.data import ImageDataset  # noqa: E402
+from sdm_tpu_torch.io.checkpoint import diffusion_checkpoint_dict  # noqa: E402
 from sdm_tpu_torch.models import UNet  # noqa: E402
+from sdm_tpu_torch.ops.schedules import make_schedule  # noqa: E402
 from sdm_tpu_torch.train import loop  # noqa: E402
-from sdm_tpu_torch.train.step import make_optimizer  # noqa: E402
+from sdm_tpu_torch.train.step import (  # noqa: E402
+    create_train_state, make_optimizer, make_train_step)
 
 STEPS = 5          # two epochs of three batches, checkpoints every 2 steps
 SPECS = {"base": (jax_loop.BASE_SPEC, loop.BASE_SPEC),
@@ -372,7 +379,6 @@ def test_a_failing_preview_does_not_stop_training(images, tmp_path,
 
 @pytest.mark.parametrize("key,value", [
     ("multihost", True), ("sp", 2), ("tp", 2), ("fsdp", True),
-    ("device_dataset", True), ("async_checkpoint", True), ("remat", True),
     ("native_checkpoint", True), ("profile_trace_dir", "trace")])
 def test_unported_config_keys_raise(images, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -459,3 +465,230 @@ def test_step_zero_checkpoint_reloads_strictly(runs):
     moments = [opt.state[p]["exp_avg"] for p in net.parameters()]
     assert len(moments) == len(list(net.parameters()))
     assert any(float(m.abs().max()) > 0 for m in moments)
+
+
+# ---- the fused device-resident loop ("device_dataset") ----
+
+FUSED = dict(device_dataset=True, steps_per_call=2)
+
+
+@pytest.fixture(scope="module")
+def fused_runs(images, tmp_path_factory):
+    """Both packages' base trainer fused, K = 2, over 5 steps (three
+    chunks: the run overshoots to 6), and sdm_tpu's index blocks as its
+    fused call received them."""
+    import jax
+    blocks = []
+    real_jit = jax.jit
+
+    def spy_jit(fn=None, *args, **kwargs):
+        if fn is None:
+            return lambda f: spy_jit(f, *args, **kwargs)
+        jitted = real_jit(fn, *args, **kwargs)
+        if getattr(fn, "__name__", "") != "fused_fn":
+            return jitted
+
+        def call(st, data, idx, key):
+            blocks.append(np.asarray(idx))
+            return jitted(st, data, idx, key)
+        return call
+
+    out = {"jax_blocks": blocks}
+    for pkg, run, spec in (("jax", _run_jax, jax_loop.BASE_SPEC),
+                           ("port", _run_port, loop.BASE_SPEC)):
+        d = str(tmp_path_factory.mktemp(f"fused_{pkg}"))
+        jax.jit = spy_jit
+        try:
+            summary = run(spec, _config(images, d, **FUSED))
+        finally:
+            jax.jit = real_jit
+        assert summary["global_steps"] == 6
+        assert np.isfinite(summary["last_loss"])
+        out[pkg] = d
+    return out
+
+
+def test_fused_index_blocks_match_sdm_tpu(fused_runs):
+    """The port's index blocks equal the ones sdm_tpu's fused call got,
+    exactly, across the epoch-permutation boundaries (6 rows, batch 2,
+    K = 2: three steps an epoch, blocks that straddle two epochs)."""
+    want = fused_runs["jax_blocks"]
+    assert len(want) == 3
+    got = loop.fused_index_blocks(0, 6, 2, 3, 2)
+    for block in want:
+        np.testing.assert_array_equal(next(got), block)
+    more = loop.fused_index_blocks(7, 13, 4, 3, 5)
+    perm = np.random.default_rng((7 + 0x9E3779B9) % 2 ** 63)
+    stream = np.concatenate([perm.permutation(13)[:12] for _ in range(4)])
+    for i in range(2):
+        np.testing.assert_array_equal(next(more),
+                                      stream[i * 20:(i + 1) * 20]
+                                      .reshape(5, 4))
+
+
+def test_fused_log_lines_and_files_match_sdm_tpu(fused_runs):
+    """The banner, the resident dataset's line, the burst of per-step
+    lines, the epoch and rate lines (losses and rates masked), and the
+    checkpoint and preview files: chunk-boundary checkpoints at 2, 4 and 6
+    with previews, epoch ends at 3 and 6."""
+    jax_dir, port_dir = fused_runs["jax"], fused_runs["port"]
+    port = [line for line in _log(port_dir) if NATIVE_NOTE not in line]
+    assert _masked(port, port_dir) == _masked(_log(jax_dir), jax_dir)
+    assert any(line.endswith("Device-resident dataset: 6 rows (0.0 MiB) "
+                             "in device memory; 2 steps fused per call.")
+               for line in port)
+    for sub in ("checkpoint", "plots"):
+        assert (sorted(os.listdir(os.path.join(port_dir, sub)))
+                == sorted(os.listdir(os.path.join(jax_dir, sub))))
+    assert sorted(os.listdir(os.path.join(port_dir, "checkpoint"))) == \
+        sorted(f"{k}_{s}.pt" for k in ("config", "diffusion")
+               for s in (2, 3, 4, 6))
+
+
+def test_fused_chunk_equals_per_step_train_steps(images, tmp_path):
+    """One fused chunk of K = 3 steps leaves the parameters that three
+    calls of the port's own train step leave, given the same initial
+    model, the same gathered batches (the first index block over the
+    resident dataset) and a generator of the same seed: bit-identical."""
+    cfg = _config(images, tmp_path / "out", device_dataset=True,
+                  steps_per_call=3, seed=5)
+    summary = _run_port(loop.BASE_SPEC, cfg, steps=3)
+    assert summary["global_steps"] == 3
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        net = UNet.from_config(cfg, dtype=None, use_kernels=True)
+    net = net.to("cpu", memory_format=torch.channels_last)
+    opt, sched = make_optimizer(net.parameters(), cfg["diffusion_lr"],
+                                cfg["lr_steps"])
+    state = create_train_state(net, opt, sched)
+    step = make_train_step(
+        make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                      max_noise_step=10), objective=loop.BASE_SPEC.objective,
+        min_noise_step=1, max_actual_noise_step=10, flip_imgs=True)
+    import glob
+    data = loop.load_resident(ImageDataset(glob.glob(images),
+                                           normalized=False),
+                              torch.device("cpu"), False)
+    gen = torch.Generator().manual_seed(5)
+    block = next(loop.fused_index_blocks(5, 6, 2, 3, 3))
+    for rows in torch.from_numpy(block):
+        step(state, {k: v.index_select(0, rows) for k, v in data.items()},
+             gen)
+    fused = summary["state"].model.state_dict()
+    for name, value in net.state_dict().items():
+        torch.testing.assert_close(fused[name], value, rtol=0, atol=0)
+
+
+def test_fused_doodle_run_carries_the_conditioning_images(images, tmp_path):
+    """The doodle trainer fused: image and cond_img both resident (the
+    MiB line counts both), losses finite, the same files as the base
+    trainer's fused run plus the conditioning grid."""
+    summary = _run_port(loop.DOODLE_SPEC, _config(images, tmp_path,
+                                                  "doodle", **FUSED))
+    assert summary["global_steps"] == 6
+    assert np.isfinite(summary["last_loss"])
+    lines = _log(str(tmp_path))
+    assert any("Device-resident dataset: 6 rows" in line for line in lines)
+    assert sorted(os.listdir(tmp_path / "plots")) == sorted(
+        ["label_plot.jpg"] + [f"diffusion_plot_{s}.jpg" for s in (2, 4, 6)])
+
+
+@pytest.mark.parametrize("extra,saved,unsaved", [
+    (dict(async_checkpoint=True), "diffusion_0.pt", "diffusion_2.pt"),
+    (FUSED, "diffusion_2.pt", "diffusion_4.pt")])
+def test_nan_guard_fires_before_an_async_or_fused_checkpoint(
+        images, tmp_path, monkeypatch, extra, saved, unsaved):
+    """A NaN in the third step's loss stops the run before the next
+    checkpoint is written: with async checkpoints the step-2 one (step 0's
+    was saved by the worker), in the fused loop (K = 2) the step-4 one at
+    the end of the NaN's chunk (the first chunk's step-2 one was saved)."""
+    _step_wrapper(monkeypatch, lambda i, m: (
+        {"loss": torch.tensor(float("nan"))} if i == 3 else m))
+    with pytest.raises(Exception, match="NaN encountered during training"):
+        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **extra))
+    names = os.listdir(tmp_path / "checkpoint")
+    assert saved in names and unsaved not in names
+
+
+def test_fused_loop_rejects_grad_accumulation(images, tmp_path):
+    with pytest.raises(ValueError, match='"device_dataset" fused training '
+                                         "supports single-process runs "
+                                         "without sp/grad_accum_steps"):
+        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **FUSED,
+                                          grad_accum_steps=2))
+
+
+# ---- "async_checkpoint" and "remat" in the trainer ----
+
+def _checkpoints(out_dir):
+    d = os.path.join(out_dir, "checkpoint")
+    return {name: torch.load(os.path.join(d, name))
+            for name in sorted(os.listdir(d))}
+
+
+def _assert_same_tree(a, b, where=""):
+    if torch.is_tensor(a):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=where)
+    elif isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{where}/{k}")
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("key", ["async_checkpoint", "remat"])
+def test_async_checkpoint_and_remat_write_the_sync_run_files(images,
+                                                             tmp_path, key):
+    """With the same seed, a run with "async_checkpoint" (the worker
+    thread saves and previews a device snapshot) or "remat" writes the
+    same checkpoint files as a run without it, every tensor bit-identical
+    (parameters, Adam moments and counts, lr), and the same previews; the
+    log lines match (rates masked)."""
+    dirs = {}
+    for name, extra in (("plain", {}), (key, {key: True})):
+        dirs[name] = str(tmp_path / name)
+        summary = _run_port(loop.BASE_SPEC, _config(images, dirs[name],
+                                                    ema_decay=0.9, **extra))
+        assert summary["global_steps"] == STEPS
+    want, got = _checkpoints(dirs["plain"]), _checkpoints(dirs[key])
+    assert list(got) == list(want)
+    for name in want:
+        _assert_same_tree(got[name], want[name], name)
+    assert (sorted(os.listdir(os.path.join(dirs[key], "plots")))
+            == sorted(os.listdir(os.path.join(dirs["plain"], "plots"))))
+    got, want = (_masked(_log(dirs[k]), dirs[k]) for k in (key, "plain"))
+    previews = [[line for line in lines if "Saving generated image" in line]
+                for lines in (got, want)]
+    assert sorted(previews[0]) == sorted(previews[1]) != []
+    if key == "async_checkpoint":
+        got, want = ([line for line in lines
+                      if "Saving generated image" not in line]
+                     for lines in (got, want))
+    assert got == want
+
+
+def test_async_snapshot_survives_a_later_in_place_step(images):
+    """diffusion_checkpoint_dict(device=None), the async snapshot, copies
+    the parameters, Adam moments and EMA: a later in-place Adam step moves
+    the live tensors but not the snapshot."""
+    cfg = _config(images, "unused")
+    net, opt = _fresh(cfg)
+    state = create_train_state(net, opt, lambda c: 1e-2, ema=True)
+    step = make_train_step(make_schedule("LINEAR", max_noise_step=10),
+                           objective=loop.BASE_SPEC.objective,
+                           max_actual_noise_step=10, ema_decay=0.5)
+    batch = {"image": torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 8, 8, 3), dtype=np.uint8))}
+    step(state, batch, torch.Generator().manual_seed(0))
+    snap = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema,
+                                     device=None)
+    frozen = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema)
+    step(state, batch, torch.Generator().manual_seed(1))
+    _assert_same_tree(loop.to_cpu(snap), frozen)
+    moved = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema)
+    assert not torch.equal(moved["model"]["out_layers.1.conv_layer.0.bias"],
+                           snap["model"]["out_layers.1.conv_layer.0.bias"])
+    assert not torch.equal(moved["optimizer"]["state"][0]["exp_avg"],
+                           snap["optimizer"]["state"][0]["exp_avg"])
