@@ -7,9 +7,12 @@
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
 build, kernels, streaming, model, serving, generation, training,
-extensions, remat, loop, distill, eval (the build always),
+extensions, remat, loop, distill, eval, parallel (the build always),
 logs which it skipped, prints no `kernels` line and ends with
-{"ok": true, "partial": true, ...}.
+{"ok": true, "partial": true, ...}. It needs one card; on a machine with
+more, the trainers and the distiller stay on card 0 (num_devices=1),
+while the generators take replicas on as many cards as divide the batch,
+as a user's run would.
 
   1. Device and build ("build"): the card's name and power limit
      (nvidia-smi), TF32 off for the fp32 comparisons, and every kernel
@@ -124,6 +127,24 @@ logs which it skipped, prints no `kernels` line and ends with
      the set against itself (0) and a dimmed copy; then
      cli/evaluate_samples.py --gen-config on the exported flagship (bf16,
      DDIM-50, 16 images), launches held.
+
+ 12. Parallel ("parallel"): (a) a one-rank NCCL group, then the flagship
+     base trainer through run_training (so under DistributedDataParallel,
+     the real reducer) for TRAIN_STEPS steps, its losses and final
+     parameters held to the same seeded run without a group (1e-6
+     normwise; bit-equality logged), its launches to the per-step
+     trainer's, its median step beside the plain one's; (b) one SR train
+     step (256x256, batch 16, bf16) under FSDP2 (fully_shard) at one rank
+     against the unwrapped U-Net: gradients within GRAD_TOL, the streaming
+     dV, dK and dQ once each, step ms, peak memory and state bytes per
+     device of both; (c) the two-entry flagship ensemble generated with
+     --pipeline 2 against the sequential ensemble (normwise, MODEL_TOL's
+     bf16 limit; bit-equality logged), launches held (the pipeline's are
+     twice the sequential run's: each microbatch of 8 runs every stage's
+     sampler); (d) with two or more
+     cards, a two-rank --num-devices 2 base run and the engine at
+     num_devices=2 against one card; with one card a line says they were
+     skipped.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2252,6 +2273,7 @@ def train_phase(torch, counters, spec, name, cfg, img, streaming,
             zero_counts(counters)
             t0 = time.monotonic()
             summary = loop.run_training(spec, config, device=dev,
+                                        num_devices=1,
                                         max_steps=TRAIN_STEPS)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
@@ -2498,7 +2520,7 @@ def run_trainer(torch, counters, out_dir, data, extra, steps, wrap=None):
             zero_counts(counters)
             summary = loop.run_training(loop.BASE_SPEC, config,
                                         device=torch.device("cuda"),
-                                        max_steps=steps)
+                                        num_devices=1, max_steps=steps)
             torch.cuda.synchronize()
             launches = read_counts(counters)
     finally:
@@ -2760,7 +2782,7 @@ def distill_phase(torch, counters):
                 res = distill_diffusion.run(
                     ["-c", cfg_path, "--teacher-checkpoint", teacher,
                      "--phases", "2", "--steps-per-phase",
-                     str(DISTILL_STEPS)])
+                     str(DISTILL_STEPS), "--num-devices", "1"])
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
                 launches[resident] = read_counts(counters)
@@ -2909,6 +2931,254 @@ def eval_phase(torch, counters):
     return launches, report
 
 
+# --------------------------------------------------------------- phase 12
+
+def _add_counts(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _params_rel(a, b):
+    """Normwise distance of two state dicts over all their tensors."""
+    num = sum(float((a[k].float() - b[k].float()).norm()) ** 2 for k in b)
+    den = sum(float(b[k].float().norm()) ** 2 for k in b)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def parallel_phase(torch, counters):
+    """The data-parallel paths (see the module docstring, phase 12) on one
+    card: (a) the flagship base trainer through run_training in a one-rank
+    NCCL group (DDP's reducer) against the same seeded run without one;
+    (b) one SR train step under FSDP2 at one rank against the unwrapped
+    U-Net; (c) the two-entry flagship ensemble with --pipeline 2 against
+    the sequential ensemble; (d) with two or more cards, a two-rank
+    --num-devices 2 base run and the engine at num_devices=2. Returns the
+    phase's launches (a, b and c together) and a report."""
+    import numpy as np
+    from sdm_tpu_torch.cli.generate_images_diffusion import \
+        generate_images_diffusion
+    from sdm_tpu_torch.diffusion.samplers import ddim_step_list
+    from sdm_tpu_torch.enums import Objective
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.parallel import fsdp, multihost as mh
+    from sdm_tpu_torch.parallel.mesh import make_mesh
+    from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
+                                          make_train_step)
+    dev = torch.device("cuda", 0)
+    total, report = {}, {}
+    preview = len(ddim_step_list(1, 1000, DDIM_STEP))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(tmp, IMG)
+        # (a) The same seeded run without a group, then in a one-rank NCCL
+        # group, where the loop wraps the U-Net in DDP.
+        runs = {}
+        for name in ("plain", "ddp"):
+            if name == "ddp":
+                mh.init_group(dev, init_method="file://" + os.path.join(
+                    tmp, "rendezvous"), world_size=1, global_rank=0)
+            summary, launches, lines = run_trainer(
+                torch, counters, os.path.join(tmp, name), data, {},
+                TRAIN_STEPS)
+            times = sorted(summary["step_times"])
+            net = summary["state"].model
+            runs[name] = dict(
+                losses=step_losses(lines), launches=launches,
+                median_ms=times[len(times) // 2] * 1e3,
+                wrapped=type(net).__name__,
+                params={k: v.detach().clone() for k, v in
+                        getattr(net, "module", net).state_dict().items()})
+            del summary
+        plain, ddp = runs["plain"], runs["ddp"]
+        rel = _params_rel(ddp["params"], plain["params"])
+        equal = all(torch.equal(ddp["params"][k], v)
+                    for k, v in plain["params"].items())
+        log(f"parallel (a): base trainer, {TRAIN_STEPS} steps, in a "
+            f"one-rank NCCL group ({ddp['wrapped']}) vs without: losses "
+            f"{ddp['losses']} vs {plain['losses']}; final parameters "
+            f"normwise rel {rel:.3e} ({'equal to the bit' if equal else 'not bit-equal'}); "
+            f"median step {ddp['median_ms']:.2f} ms under DDP, "
+            f"{plain['median_ms']:.2f} ms plain")
+        if (ddp["wrapped"] != "DistributedDataParallel"
+                or len(ddp["losses"]) != TRAIN_STEPS
+                or not np.allclose(ddp["losses"], plain["losses"],
+                                   rtol=1e-6, atol=0) or not rel <= 1e-6):
+            raise AssertionError(f"parallel (a): DDP run differs "
+                                 f"({ddp['wrapped']}, {rel})")
+        expect = expected_train_launches(FLAGSHIP, TRAIN_STEPS, 0)
+        check_launches(f"parallel (a): DDP base trainer ({TRAIN_STEPS} "
+                       f"steps, a preview of {preview} calls)",
+                       ddp["launches"], expect)
+        check_launches("parallel (a): plain base trainer", plain["launches"],
+                       expect)
+        _add_counts(total, ddp["launches"])
+        report["ddp"] = dict(
+            losses=ddp["losses"], plain_losses=plain["losses"],
+            params_rel=rel, params_equal=equal,
+            median_step_ms=ddp["median_ms"],
+            plain_median_step_ms=plain["median_ms"])
+        del runs, plain, ddp
+        torch.cuda.empty_cache()
+
+        # (b) One SR step under FSDP2 at one rank against the unwrapped
+        # U-Net: gradients, launches, step time and peak memory.
+        gen = torch.Generator().manual_seed(11)
+        batch = {"image": torch.randint(0, 256, (BATCH, SR_IMG, SR_IMG, 3),
+                                        generator=gen, dtype=torch.uint8),
+                 "t": torch.randint(1, 1000, (BATCH,), generator=gen),
+                 "eps": torch.randn((BATCH, SR_IMG, SR_IMG, 3),
+                                    generator=gen)}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        schedule = make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                                 max_noise_step=1000, device=dev)
+        step = make_train_step(schedule, objective=Objective.RESIDUAL_X0,
+                               cond_t=SR_COND_T, lr_dim=SR_IMG // 2)
+        sides = {}
+        for name in ("unwrapped", "fsdp"):
+            torch.manual_seed(0)
+            net = UNet(**SR, dtype=torch.bfloat16)
+            if name == "fsdp":
+                net = fsdp.shard_model(net.to(dev), make_mesh("cuda"))
+            else:
+                net = net.to(dev, memory_format=torch.channels_last)
+            optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
+                                                    100_000)
+            state = create_train_state(net, optimizer, lr_schedule)
+            # Gradients of one forward and backward, launches counted.
+            net.zero_grad(set_to_none=True)
+            zero_counts(counters)
+            step.loss_fn(net, batch, None).backward()
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            grads = {n: (p.grad.full_tensor() if hasattr(p.grad,
+                                                         "full_tensor")
+                         else p.grad).float().clone()
+                     for n, p in net.named_parameters()
+                     if p.grad is not None}
+            # The whole step (Adam included): its time and peak memory.
+            step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: step(state, batch), 3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            sides[name] = dict(launches=launches, grads=grads, ms=ms,
+                               peak_gib=peak,
+                               state_bytes=fsdp.state_bytes_per_device(
+                                   net, optimizer))
+            del net, optimizer, state
+            torch.cuda.empty_cache()
+        un, fs = sides["unwrapped"], sides["fsdp"]
+        norms = {n: float(g.norm()) for n, g in un["grads"].items()}
+        whole = math.sqrt(sum(float((fs["grads"][n] - g).norm()) ** 2
+                              for n, g in un["grads"].items())
+                          / sum(v ** 2 for v in norms.values()))
+        log(f"parallel (b): SR step (batch {BATCH}, bf16) under FSDP2 at "
+            f"one rank vs unwrapped: gradients whole normwise rel "
+            f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); step "
+            f"{fs['ms']:.2f} ms vs {un['ms']:.2f} ms; peak "
+            f"{fs['peak_gib']:.3f} GiB vs {un['peak_gib']:.3f} GiB; state "
+            f"bytes per device {fs['state_bytes']} vs {un['state_bytes']}")
+        if set(fs["grads"]) != set(un["grads"]) or \
+                not whole <= GRAD_TOL["bfloat16"]:
+            raise AssertionError(f"parallel (b): FSDP gradients {whole}")
+        check_launches("parallel (b): SR forward and backward under FSDP2",
+                       fs["launches"], expected_grad_launches(SR, 1, 1))
+        _add_counts(total, fs["launches"])
+        report["fsdp"] = dict(
+            grad_whole_rel=whole, step_ms=fs["ms"], plain_step_ms=un["ms"],
+            peak_gib=fs["peak_gib"], plain_peak_gib=un["peak_gib"],
+            state_bytes_per_device=fs["state_bytes"],
+            plain_state_bytes=un["state_bytes"])
+        del sides, un, fs, batch
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # (c) The two-entry ensemble, sequential then --pipeline 2.
+        config = _export(torch, tmp, "ensemble", FLAGSHIP, IMG, "BASE",
+                         ranges=ENSEMBLE)
+        args = ["-c", config, "-n", str(BATCH), "--diff_alg", "ddim",
+                "--ddim_step_size", str(DDIM_STEP), "--dtype", "bfloat16",
+                "-s", "0"]
+        calls = sum(len(ddim_step_list(lo, hi, DDIM_STEP))
+                    for lo, hi in ENSEMBLE)
+        out = {}
+        # The pipeline runs each stage's sampler once a microbatch: twice
+        # the sequential U-Net calls, each at half the batch.
+        for name, extra, micro in (("sequential", [], 1),
+                                   ("pipeline", ["--pipeline", "2"], 2)):
+            zero_counts(counters)
+            t0 = time.monotonic()
+            out[name] = generate_images_diffusion(
+                args + extra, log=lambda *a, **k: None, save_locally=False)
+            wall = time.monotonic() - t0
+            launches = read_counts(counters)
+            check_launches(f"parallel (c): ensemble, {name} ({micro} x "
+                           f"{calls} U-Net calls at batch {BATCH // micro})",
+                           launches,
+                           expected_launches(FLAGSHIP, micro * calls, 0))
+            out[name + "_s"] = wall
+            if name == "pipeline":
+                _add_counts(total, launches)
+        seq, pipe = out["sequential"], out["pipeline"]
+        rel = float(np.linalg.norm(pipe - seq) / np.linalg.norm(seq))
+        bit = bool(np.array_equal(pipe, seq))
+        log(f"parallel (c): --pipeline 2 vs sequential ensemble, {BATCH} "
+            f"images bf16: normwise rel {rel:.3e} (tol "
+            f"{MODEL_TOL['bfloat16']}; {'equal to the bit' if bit else 'not bit-equal'}); "
+            f"{out['pipeline_s']:.3f} s vs {out['sequential_s']:.3f} s")
+        if not (pipe.shape == seq.shape and np.isfinite(pipe).all()
+                and rel <= MODEL_TOL["bfloat16"]):
+            raise AssertionError(f"parallel (c): pipeline images {rel}")
+        report["pipeline"] = dict(rel=rel, bit_equal=bit,
+                                  seconds=out["pipeline_s"],
+                                  sequential_seconds=out["sequential_s"])
+
+        # (d) Two cards, where there are two.
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log(f"parallel (d): two-card checks skipped: {cards} CUDA "
+                "device visible")
+            report["two_card"] = dict(skipped=True, devices=cards)
+        else:
+            report["two_card"] = two_card_checks(torch, tmp, data, config)
+    torch.cuda.empty_cache()
+    return total, report
+
+
+def two_card_checks(torch, tmp, data, config):
+    """A two-rank --num-devices 2 base run (one process per card) and the
+    engine at num_devices=2 against one card."""
+    import numpy as np
+    from sdm_tpu_torch.serving import SamplerEngine
+    from sdm_tpu_torch.train import loop
+    cfg = dict(train_config(os.path.join(tmp, "two"), data["path"],
+                            FLAGSHIP, IMG), max_epoch=10)
+    t0 = time.monotonic()
+    with decoders(data["cv2"]):
+        summary = loop.run_training(loop.BASE_SPEC, cfg, device="cuda",
+                                    num_devices=2, max_steps=TRAIN_STEPS)
+    wall = time.monotonic() - t0
+    if summary["global_steps"] != TRAIN_STEPS or \
+            not math.isfinite(summary["last_loss"]):
+        raise AssertionError(f"parallel (d): two-rank run {summary}")
+    images = {}
+    for n in (1, 2):
+        engine = SamplerEngine(config, diff_alg="ddim", step_size=DDIM_STEP,
+                               max_batch=BATCH, dtype="bfloat16",
+                               num_devices=n, log=log)
+        images[n] = engine.generate(BATCH, seed=7)
+        del engine
+    rel = float(np.linalg.norm(images[2] - images[1])
+                / np.linalg.norm(images[1]))
+    log(f"parallel (d): --num-devices 2 base run, {TRAIN_STEPS} steps in "
+        f"{wall:.2f} s, last loss {summary['last_loss']:.5f}; engine on two "
+        f"cards vs one: normwise rel {rel:.3e}")
+    if not rel <= MODEL_TOL["bfloat16"]:
+        raise AssertionError(f"parallel (d): engine on two cards {rel}")
+    return dict(skipped=False, seconds=wall, engine_rel=rel,
+                last_loss=summary["last_loss"])
+
+
 def summarize(results, launches):
     """One entry per kernel: the main path's shapes (bf16, query axis),
     times summed over one U-Net call: the flagship's for the kernels of
@@ -3011,7 +3281,8 @@ def summarize(results, launches):
 
 
 PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
-          "training", "extensions", "remat", "loop", "distill", "eval")
+          "training", "extensions", "remat", "loop", "distill", "eval",
+          "parallel")
 
 
 def parse_phases(argv):
@@ -3221,7 +3492,8 @@ def main(argv) -> int:
     for name, path, fn in (("remat", "sr_remat", remat_phase),
                            ("loop", "fused_train", loop_phase),
                            ("distill", "distill", distill_phase),
-                           ("eval", "eval", eval_phase)):
+                           ("eval", "eval", eval_phase),
+                           ("parallel", "parallel", parallel_phase)):
         if name in phases:
             t0 = time.monotonic()
             launches[path], out[name] = fn(torch, counters)

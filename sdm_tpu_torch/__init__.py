@@ -12,8 +12,10 @@ versions.
 
 The port covers the user flow of sdm_tpu's main path: the config wizards,
 the four trainers (base, cold, doodle, SR), export, the DDIM/DDPM, cold and
-SR generators, and the HTTP server for BASE, BASE-COLD and SR bundles. The
-extensions, distillation, eval and multi-device work are later slices.
+SR generators, and the HTTP server for BASE, BASE-COLD and SR bundles, with
+the extensions, distillation, eval and data-parallel training, serving and
+generation (`parallel/`). Tensor and spatial partitioning are later
+slices.
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,7 @@ through export_models and samples through `generate_images_diffusion
       --start-step-size 20 --phases 4 --steps-per-phase 4000
 
 gives students at step sizes 40, 80, 160, 320 (25, 13, 7, 4 calls).
+--num-devices N trains data-parallel on N cards, one process each.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ def parse_args(raw_args=None) -> dict:
     parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
                         default="cuda", help="Device to distill on.")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="Devices for data parallelism (one until "
-                             "ROADMAP Queue 1 item 9).")
+                        help="Data-parallel devices, one process each "
+                             "(default: the most visible cards that divide "
+                             "the batch; with --device cpu, 1).")
     return vars(parser.parse_args(raw_args))
 
 

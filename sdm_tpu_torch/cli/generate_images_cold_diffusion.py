@@ -11,8 +11,10 @@ bundle loader falls back to the wizard defaults, as sdm_tpu does.
 
 --karras spaces the steps by Karras et al.'s rho-7 rule, as many as the
 uniform skip list (as sdm_tpu's generator does). Runs on the CUDA device
-unless --device cpu. The TPU build's --num-devices and --sp options are not
-ported.
+unless --device cpu. --num-devices N samples data-parallel (a replica of
+each model per card, the batch's rows split over them; default: the most
+visible cards that divide -n); --sp raises NotImplementedError (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 
 from sdm_tpu_torch.cli.generate_sr_images_diffusion import (add_sampling_args,
                                                             entry_labels,
+                                                            replicated,
                                                             sampling_setup)
 
 
@@ -86,7 +89,9 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
             steps = (karras_steps_matching(
                 model_dict["min_noise"], model_dict["max_noise"],
                 args["cold_step_size"], schedule) if args["karras"] else None)
-            x0 = cold_sample(net, schedule, x_t, shared,
+            x0 = cold_sample(replicated(net, device, args,
+                                        args["num_images"]),
+                             schedule, x_t, shared,
                              min_noise=model_dict["min_noise"],
                              max_noise=model_dict["max_noise"],
                              skip_step_size=args["cold_step_size"],

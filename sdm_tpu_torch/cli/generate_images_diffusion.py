@@ -20,9 +20,14 @@ the image q-sampled to that step (img2img); --inpaint_img_path with
 (ddim/dpmpp/heun); --guidance-scale extrapolates a label-conditional model
 away from its zero-label branch; v-bundles are sampled natively.
 
-Runs on the CUDA device unless --device cpu. The parallel paths
-(--num-devices > 1, --sp > 1, --pipeline) raise NotImplementedError naming
-their ROADMAP Queue 1 item (`refuse_unported`).
+Runs on the CUDA device unless --device cpu. --num-devices N samples
+data-parallel: a replica of each model per card, the batch's rows split
+over them (default: the most visible cards that divide -n; with --device
+cpu, N replicas on the CPU). --pipeline M runs an ensemble bundle as a
+pipeline: model k on card k mod (the visible count), the batch cut into M
+microbatches that stream through the models (parallel/pipeline.py;
+`_pipeline_generate`). --sp (spatial partitioning) raises
+NotImplementedError naming its ROADMAP Queue 1 item (`refuse_sp`).
 """
 
 from __future__ import annotations
@@ -34,23 +39,34 @@ import pathlib
 import numpy as np
 
 from sdm_tpu_torch.cli.generate_sr_images_diffusion import (
-    SUPPORTED_IMG_FORMATS, _detect_img_format, entry_labels, finish_images)
+    SUPPORTED_IMG_FORMATS, _detect_img_format, add_parallel_args,
+    entry_labels, finish_images, refuse_sp, replicated)
 
-PARALLEL = "ROADMAP Queue 1 item 9 (parallel)"
+
+def check_pipeline(args: dict, num_models: int) -> None:
+    """sdm_tpu's checks of --pipeline (generate_images_diffusion.py:
+    210-224), in its order."""
+    if args["init_img_path"] is not None:
+        raise ValueError("--pipeline does not support --init_img_path")
+    if args["inpaint_img_path"] is not None:
+        raise ValueError("--pipeline does not support inpainting")
+    if args["num_devices"] and args["num_devices"] > 1:
+        raise ValueError("--pipeline and --num-devices data parallelism "
+                         "are mutually exclusive")
+    if args["sp"] > 1:
+        raise ValueError("--pipeline and --sp spatial partitioning "
+                         "are mutually exclusive")
+    if num_models < 2:
+        raise ValueError("--pipeline needs a multi-model (ensemble) "
+                         "bundle; single-model bundles gain nothing")
 
 
-def refuse_unported(args: dict) -> None:
-    """Raise NotImplementedError for a set flag the port lacks."""
-    asked = (
-        ("--num-devices > 1",
-         args["num_devices"] is not None and args["num_devices"] > 1),
-        ("--sp > 1", args["sp"] > 1),
-        ("--pipeline", args["pipeline"] is not None),
-    )
-    for flag, on in asked:
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to sdm_tpu_torch yet ({PARALLEL})")
+def microbatch_generator(stage_seed: int, m: int, device):
+    """DDPM's noise stream for microbatch m of a pipeline stage (the
+    counterpart of sdm_tpu's fold_in(stage_key, m))."""
+    import torch
+    return torch.Generator(device=device).manual_seed(
+        (int(stage_seed) + m) % 2 ** 63)
 
 
 def _check_image(path, message: str) -> None:
@@ -71,9 +87,6 @@ def _parser() -> argparse.ArgumentParser:
         description="Generate Images using Diffusion models.")
     parser.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
                         help="Torch device (default the CUDA device).")
-    parser.add_argument("--num-devices", type=int, default=None,
-                        help="Data-parallel devices (not ported: more than "
-                             "one is refused).")
     parser.add_argument("-c", "--config", required=True, type=pathlib.Path,
                         help="File path to config file.")
     parser.add_argument("-s", "--seed", type=int, default=None,
@@ -136,12 +149,15 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--use-ema", action="store_true",
                         help="Sample from the EMA weights stored in the "
                              "checkpoint (training config \"ema_decay\").")
-    parser.add_argument("--sp", type=int, default=1, metavar="N",
-                        help="Spatial partitioning (not ported: more than "
-                             "one is refused).")
+    add_parallel_args(parser)
     parser.add_argument("--pipeline", type=int, default=None, metavar="M",
-                        help="Pipeline-parallel ensemble sampling (not "
-                             "ported).")
+                        help="Pipeline-parallel ensemble sampling: each "
+                             "bundle model on its own device (model k on "
+                             "device k mod the visible count), the batch "
+                             "split into M microbatches streaming through "
+                             "the chain. Needs an ensemble bundle; not "
+                             "with --num-devices, --sp, --init_img_path or "
+                             "inpainting.")
     return parser
 
 
@@ -164,7 +180,6 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
     from sdm_tpu_torch.serving.engine import resolve_device
 
     args = vars(_parser().parse_args(raw_args))
-    refuse_unported(args)
     device = resolve_device("cpu" if args["device"] == "cpu" else None)
     seed = (args["seed"] if args["seed"] is not None
             else np.random.SeedSequence().entropy % (2 ** 32))
@@ -202,6 +217,11 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
                                           axis=0)).to(device)
 
     models_details, folder = load_bundle_config(args["config"])
+    if args["pipeline"]:
+        check_pipeline(args, len(models_details["models"]))
+        return _pipeline_generate(args, models_details, folder, generator,
+                                  cond, out_dir, log, save_locally, noise)
+    refuse_sp(args)
 
     # img2img: the init image, validated and read up front.
     init_img = None
@@ -308,7 +328,8 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
             if gs != 1.0 and labels is None:
                 raise ValueError("--guidance-scale needs a label-conditional "
                                  "model and -l labels")
-            model_fn = cfg_model_fn(net, gs)
+            model_fn = cfg_model_fn(
+                replicated(net, device, args, args["num_images"]), gs)
             span = dict(min_noise=model_dict["min_noise"],
                         max_noise=max_noise, cond_img=cond, labels=labels)
             steps = (karras_steps_matching(model_dict["min_noise"],
@@ -329,6 +350,101 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
                 x_t = sample(model_fn, schedule, x_t,
                              step_size=args["ddim_step_size"], steps=steps,
                              **ink, **span)
+        x_t = x_t.cpu().numpy()
+    return finish_images(x_t, img_h, img_w, out_dir, log, save_locally)
+
+
+def _pipeline_generate(args, models_details, folder, generator, cond,
+                       out_dir, log, save_locally, noise=None):
+    """Pipeline-parallel ensemble sampling (sdm_tpu's _pipeline_generate,
+    generate_images_diffusion.py:405-511): stage k (bundle model k) lives
+    on CUDA device k mod the visible count (every stage on the CPU with
+    --device cpu), and --pipeline M microbatches stream through the chain
+    (parallel/pipeline.py). x_T is drawn once up front, as the sequential
+    path draws it, so DDIM/DPM++/Heun give the sequential images; each
+    DDPM stage draws a seed from the run's generator and each microbatch
+    its own stream from it (`microbatch_generator`)."""
+    import torch
+
+    from sdm_tpu_torch.diffusion.guidance import cfg_model_fn
+    from sdm_tpu_torch.diffusion.samplers import (ddim_sample, ddpm_sample,
+                                                  dpmpp_sample, heun_sample,
+                                                  karras_steps_matching)
+    from sdm_tpu_torch.io.bundles import build_model_from_bundle
+    from sdm_tpu_torch.parallel.pipeline import pipeline_chain
+
+    models = models_details["models"]
+    home = generator.device
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if home.type == "cuda" else [home])
+    n_imgs, n_micro = args["num_images"], args["pipeline"]
+    alg = args["diff_alg"]
+    compute_dtype = torch.bfloat16 if args["dtype"] == "bfloat16" else None
+    md0 = models[0]
+    img_c, img_h, img_w = md0["img_C"], md0["img_H"], md0["img_W"]
+    shape = (n_imgs, img_h, img_w, img_c)
+    if noise is not None:
+        x_t = torch.tensor(np.asarray(noise, np.float32), device=home)
+        if tuple(x_t.shape) != shape:
+            raise ValueError(f"noise must be {shape}")
+    else:
+        x_t = torch.randn(shape, generator=generator, device=home)
+    if n_imgs % n_micro != 0:
+        raise ValueError(f"--pipeline {n_micro} must divide -n {n_imgs}")
+    size = n_imgs // n_micro
+
+    stage_fns, stage_devs = [], []
+    for i, model_dict in enumerate(models):
+        dev = devices[i % len(devices)]
+        log(f"Pipeline stage {i + 1}/{len(models)} on {dev}: "
+            f"{model_dict['model_name']} "
+            f"[{model_dict['min_noise']}..{model_dict['max_noise']}]")
+        labels = entry_labels(args, model_dict, dev,
+                              message="Invalid / No conditional labels "
+                                      "passed!")
+        net, schedule = build_model_from_bundle(
+            model_dict, folder, max_T=args["max_T"], device=dev,
+            dtype=compute_dtype, cast_params=compute_dtype is not None,
+            param_key="ema" if args["use_ema"] else "model")
+        gs = args["guidance_scale"]
+        if gs != 1.0 and labels is None:
+            raise ValueError("--guidance-scale needs a label-conditional "
+                             "model and -l labels")
+        span = dict(model_fn=cfg_model_fn(net, gs), schedule=schedule,
+                    min_noise=model_dict["min_noise"],
+                    max_noise=model_dict["max_noise"], labels=labels)
+        chunks = (None if cond is None else
+                  [cond[m * size:(m + 1) * size].to(dev)
+                   for m in range(n_micro)])
+        if alg == "ddpm":
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=home))
+
+            def stage(xm, m, span=span, chunks=chunks, seed=seed, dev=dev):
+                return ddpm_sample(
+                    x_t=xm, generator=microbatch_generator(seed, m, dev),
+                    cond_img=chunks[m] if chunks else None, **span)
+        else:
+            sample = {"ddim": ddim_sample, "dpmpp": dpmpp_sample,
+                      "heun": heun_sample}[alg]
+            step_kw = ({"ddim_step_size": args["ddim_step_size"]}
+                       if alg == "ddim"
+                       else {"step_size": args["ddim_step_size"]})
+            if args["karras"]:
+                step_kw["steps"] = karras_steps_matching(
+                    model_dict["min_noise"], model_dict["max_noise"],
+                    args["ddim_step_size"], schedule)
+
+            def stage(xm, m, span=span, chunks=chunks, sample=sample,
+                      step_kw=step_kw):
+                return sample(x_t=xm, cond_img=chunks[m] if chunks else None,
+                              **span, **step_kw)
+        stage_fns.append(stage)
+        stage_devs.append(dev)
+
+    with torch.inference_mode():
+        x_t = pipeline_chain(stage_fns, stage_devs, x_t, n_micro)
         x_t = x_t.cpu().numpy()
     return finish_images(x_t, img_h, img_w, out_dir, log, save_locally)
 

@@ -12,8 +12,12 @@ and returns or saves `upsampled + delta`.
         -c exports/sr/config.json --lr_img_path lr.png --cold_step_size 20 \\
         --dtype bfloat16 -s 0
 
-Runs on the CUDA device unless --device cpu. The TPU build's --num-devices
-and --sp options are not ported.
+Runs on the CUDA device unless --device cpu. --num-devices N samples
+data-parallel: a replica of each model per card, the LR images' rows
+split over them (default: the most visible cards that divide the number
+of LR images; with --device cpu, N replicas on the CPU). --sp (spatial
+partitioning) raises NotImplementedError: it is not ported yet (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -67,6 +71,34 @@ def add_sampling_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--use-ema", action="store_true",
                         help="Sample from the EMA weights stored in the "
                              "checkpoint (training config \"ema_decay\").")
+    add_parallel_args(parser)
+
+
+def add_parallel_args(parser: argparse.ArgumentParser) -> None:
+    """--num-devices and --sp, which every generator takes."""
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="Data-parallel devices: a replica of each model "
+                             "per card, the batch's rows split over them "
+                             "(default: the most visible cards that divide "
+                             "the batch).")
+    parser.add_argument("--sp", type=int, default=1, metavar="N",
+                        help="Spatial partitioning over N devices (not "
+                             "ported: more than one is refused).")
+
+
+def refuse_sp(args: dict) -> None:
+    if args["sp"] > 1:
+        from sdm_tpu_torch.parallel import PARALLEL_ITEM
+        raise NotImplementedError(
+            f"--sp > 1 is not ported to sdm_tpu_torch yet ({PARALLEL_ITEM})")
+
+
+def replicated(net, device, args: dict, batch: int):
+    """`net`, or its Replicas over --num-devices devices for a batch of
+    `batch` rows."""
+    from sdm_tpu_torch.parallel.mesh import Replicas, sampling_devices
+    devices = sampling_devices(device, args["num_devices"], batch)
+    return Replicas(net, devices) if len(devices) > 1 else net
 
 
 def sampling_setup(args: dict):
@@ -75,6 +107,7 @@ def sampling_setup(args: dict):
     import torch
 
     from sdm_tpu_torch.serving.engine import resolve_device
+    refuse_sp(args)
     device = resolve_device("cpu" if args["device"] == "cpu" else None)
     seed = (args["seed"] if args["seed"] is not None
             else np.random.SeedSequence().entropy % (2 ** 32))
@@ -192,7 +225,8 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
                 x_t = schedule.q_sample(delta, [model_dict["max_noise"]],
                                         shared)
             labels = entry_labels(args, model_dict, device)
-            delta = cold_sample(net, schedule, x_t, shared,
+            delta = cold_sample(replicated(net, device, args, lr.shape[0]),
+                                schedule, x_t, shared,
                                 min_noise=model_dict["min_noise"],
                                 max_noise=model_dict["max_noise"],
                                 skip_step_size=args["cold_step_size"],

@@ -14,8 +14,9 @@ label-conditional bundles, --guidance: requests then pass
 "guidance_scale". SR bundles (entries with cond_t) always sample cold, with
 --cold_step_size, and each request carries its low-resolution image
 ("lr_image_b64" + "lr_shape", or "lr_image_png_b64"; see
-serving/server.py). --num-devices > 1 is refused by the engine with
-NotImplementedError (ROADMAP Queue 1 item 9).
+serving/server.py). --num-devices N > 1 serves data-parallel: one replica
+of each model per card, each batch's rows split over them (N must divide
+--max-batch).
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ def serve_diffusion(raw_args=None, log=print, block: bool = True):
     parser.add_argument("--uint8-output", action="store_true",
                         help="Quantize images to uint8 on the device.")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="Data-parallel devices (not ported: more than "
-                             "one is refused).")
+                        help="Data-parallel devices: a replica per card, "
+                             "each batch's rows split over them (default "
+                             "1).")
     parser.add_argument("--karras", action="store_true",
                         help="Karras rho-7 step spacing, as many steps as "
                              "the uniform skip list (ddim/dpmpp/heun/cold).")

@@ -7,6 +7,10 @@ Batch shapes are static (`drop_last` defaults to True for training). The
 shuffle is a `random.Random(seed)` permutation per epoch, as in sdm_tpu, so
 a seed gives the same batch order in both packages.
 
+On a data-parallel run a loader may keep only some positions of each batch
+(`rows`, this rank's share; the order stays the whole batch's), and a
+multi-host rank reads its `DatasetShard`.
+
 sdm_tpu's native batched decoder (csrc/sdm_decode.cc) is not ported: a
 loader asked for it says so in the log and takes the per-image path.
 """
@@ -18,7 +22,7 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -32,11 +36,33 @@ def _collate(samples) -> dict:
     return out
 
 
+class DatasetShard:
+    """Per-process view of a dataset for multi-host training (port of
+    sdm_tpu/data/loader.py:38-62): a fixed index subset (the strided split
+    of parallel/multihost.py::shard_indices, truncated so every process
+    has the same length). Other attributes (e.g. get_labels) delegate to
+    the base."""
+
+    def __init__(self, dataset, indices):
+        self._dataset = dataset
+        self._indices = list(indices)
+
+    def __len__(self):
+        return len(self._indices)
+
+    def __getitem__(self, i):
+        return self._dataset[self._indices[i]]
+
+    def __getattr__(self, name):
+        return getattr(self._dataset, name)
+
+
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, drop_last: bool = True,
                  prefetch: int = 2, seed: Optional[int] = None,
-                 native_decode: bool = False):
+                 native_decode: bool = False,
+                 rows: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = (min(batch_size, len(dataset)) if len(dataset)
                            else batch_size)
@@ -45,6 +71,8 @@ class DataLoader:
         self.drop_last = drop_last and len(dataset) >= batch_size
         self.prefetch = prefetch
         self._rng = random.Random(seed)
+        # The positions of each batch this loader decodes and yields.
+        self.rows = None if rows is None else list(rows)
         if native_decode:
             logging.info("native decode is not ported to sdm_tpu_torch; "
                          "using the per-image cv2 loader")
@@ -64,6 +92,8 @@ class DataLoader:
             b = idx[i:i + self.batch_size]
             if len(b) < self.batch_size and self.drop_last:
                 continue
+            if self.rows is not None:
+                b = [b[i] for i in self.rows]
             batches.append(b)
         return batches
 

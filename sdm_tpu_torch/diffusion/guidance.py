@@ -53,12 +53,17 @@ def cfg_model_fn(model_fn: ModelFn, guidance_scale: float) -> ModelFn:
 
 def dropout_labels(labels: Optional[torch.Tensor],
                    generator: Optional[torch.Generator],
-                   drop_prob: float) -> Optional[torch.Tensor]:
+                   drop_prob: float, shard=(0, 1)) -> Optional[torch.Tensor]:
     """Per-sample label dropout for CFG training: with probability
     `drop_prob` a sample's label vector becomes the zero vector, drawn from
-    `generator`. No-op when labels is None or drop_prob == 0."""
+    `generator`. No-op when labels is None or drop_prob == 0. `shard` =
+    (rank, world): labels are rank's rows of a world-times larger batch,
+    and the mask is drawn over the whole batch."""
     if labels is None or drop_prob <= 0.0:
         return labels
-    keep = torch.rand((labels.shape[0],), generator=generator,
-                      device=labels.device) < 1.0 - drop_prob
+    rank, world = shard
+    n = labels.shape[0]
+    keep = torch.rand((n * world,), generator=generator,
+                      device=labels.device)[rank * n:(rank + 1) * n] \
+        < 1.0 - drop_prob
     return torch.where(keep[:, None], labels, torch.zeros_like(labels))

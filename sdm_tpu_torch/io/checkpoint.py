@@ -80,21 +80,32 @@ def diffusion_checkpoint_dict(model: torch.nn.Module, optimizer=None,
         return out
     sd = optimizer.state_dict()
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    steps = [float(st["step"]) for st in sd["state"].values()]
+    out["optimizer"] = optimizer_entry(sd["state"], sd["param_groups"],
+                                       params, lr, device)
+    return out
+
+
+def optimizer_entry(state: dict, param_groups: list, params: list,
+                    lr: float, device) -> Dict[str, Any]:
+    """The checkpoint's "optimizer" entry from Adam's state_dict() parts
+    (`state` keyed by parameter index): an entry for every parameter of
+    `params` with the one step count (zero moments where Adam never ran,
+    shaped as that parameter), copies on `device`, and lr in
+    param_groups[0]."""
+    steps = [float(st["step"]) for st in state.values()]
     count = max(steps) if steps else 0.0
-    state = {}
+    entries = {}
     for idx, p in enumerate(params):
-        st = sd["state"].get(idx)
-        state[idx] = {
+        st = state.get(idx)
+        entries[idx] = {
             "step": torch.tensor(count),
             "exp_avg": _fp32_copy(st["exp_avg"] if st
                                   else torch.zeros_like(p), device),
             "exp_avg_sq": _fp32_copy(st["exp_avg_sq"] if st
                                      else torch.zeros_like(p), device)}
-    groups = [dict(g) for g in sd["param_groups"]]
+    groups = [dict(g) for g in param_groups]
     groups[0]["lr"] = float(lr)
-    out["optimizer"] = {"state": state, "param_groups": groups}
-    return out
+    return {"state": entries, "param_groups": groups}
 
 
 def to_cpu(tree):
@@ -125,7 +136,14 @@ def load_ema_from_checkpoint(ckpt: dict, ema: Dict[str, torch.Tensor],
     merged = _merge_partial(dict(ema), ckpt["ema"], log)
     with torch.no_grad():
         for name, value in merged.items():
-            ema[name].copy_(value)
+            target = ema[name]
+            if hasattr(target, "device_mesh"):
+                # A sharded run's EMA (parallel/fsdp.py): this rank's shard.
+                from torch.distributed.tensor import distribute_tensor
+                value = distribute_tensor(value.to(target.device),
+                                          target.device_mesh,
+                                          target.placements)
+            target.copy_(value)
 
 
 def _merge_partial(own: dict, loaded: dict, log) -> dict:

@@ -127,6 +127,14 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     return code
 
 
+def on_device(device: torch.device):
+    """The context every ctypes launch runs in: `device` (the card that
+    owns the tensors and the stream) made current, so the C entry point's
+    cudaFuncSetAttribute and kernel launch act on that card, whichever is
+    current around the call (a replica or pipeline stage on cuda:1)."""
+    return torch.cuda.device(device)
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -139,12 +139,13 @@ def _forward(x, gn_scale, gn_bias, mod_scale, mod_shift, num_groups, eps):
                           device=x.device)
     row_stride = 0 if rows == 1 else mod_scale.stride(0)
     lib = _build.library("adagn", _SIGNATURES)
-    rc = lib.sdm_adagn_forward(
-        x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
-        mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), n, h * w, c, num_groups, chunks, float(eps),
-        row_stride,
-        *codes, out_code, _build.stream_handle(x.device))
+    with _build.on_device(x.device):
+        rc = lib.sdm_adagn_forward(
+            x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
+            mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, h * w, c, num_groups, chunks, float(eps),
+            row_stride,
+            *codes, out_code, _build.stream_handle(x.device))
     _build.check(lib, rc, what)
     fused_adagn.launches += 1
     return out

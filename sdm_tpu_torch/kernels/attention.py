@@ -197,10 +197,12 @@ def _forward(q, k, v, scale, softmax_axis):
         st for t in (q, k, v, out)
         for st in (t.stride(0), t.stride(2), t.stride(1))])
     lib = _build.library("attention", _SIGNATURES)
-    rc = lib.sdm_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), n, h, s, d,
-        float(scale), int(axis_q), code, _build.stream_handle(q.device))
+    with _build.on_device(q.device):
+        rc = lib.sdm_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), n, h,
+            s, d, float(scale), int(axis_q), code,
+            _build.stream_handle(q.device))
     if rc == _ERR_TOKENS:
         raise NotImplementedError(
             f"{what}: S={s} is past the longest grid the whole-S kernel "

@@ -181,10 +181,11 @@ def _linear_forward(x, weight, bias, residual):
     bias_code = _build.dtype_code(bias, what)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.library("linear", _SIGNATURES)
-    rc = lib.sdm_linear_forward(
-        x.data_ptr(), x.stride(0), weight.data_ptr(), bias.data_ptr(),
-        bias_code, residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), m, n, k, code, _build.stream_handle(x.device))
+    with _build.on_device(x.device):
+        rc = lib.sdm_linear_forward(
+            x.data_ptr(), x.stride(0), weight.data_ptr(), bias.data_ptr(),
+            bias_code, residual.data_ptr() if residual is not None else None,
+            out.data_ptr(), m, n, k, code, _build.stream_handle(x.device))
     _build.check(lib, rc, what)
     linear.launches += 1
     linear.mma_launches += linear_takes_mma(x, weight, residual)

@@ -359,12 +359,14 @@ def _strides(*tensors):
         st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _launch(symbol, what, args, ref, mma=False):
-    """Launch `symbol` of the streaming library; raise on a CUDA error.
-    `mma`: the launch runs a tensor-core kernel (attn_stats_mma,
-    stream_apply_mma or stream_da_mma; counted in ref.mma_launches)."""
+def _launch(symbol, what, device, args, ref, mma=False):
+    """Launch `symbol` of the streaming library on `device`; raise on a
+    CUDA error. `mma`: the launch runs a tensor-core kernel
+    (attn_stats_mma, stream_apply_mma or stream_da_mma; counted in
+    ref.mma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
-    rc = getattr(lib, symbol)(*args)
+    with _build.on_device(device):
+        rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
     ref.launches += 1
     if mma:
@@ -383,7 +385,7 @@ def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
     b, s, d = _check(what, softmax_axis, q, k)
     m = torch.empty((b, 1, s), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    _launch("sdm_streaming_stats", what, (
+    _launch("sdm_streaming_stats", what, q.device, (
         q.data_ptr(), k.data_ptr(), m.data_ptr(), l.data_ptr(),
         ctypes.cast(_strides(q, k), _P), b, s, d, float(scale),
         int(softmax_axis == "q"), _build.dtype_code(q, what),
@@ -414,7 +416,7 @@ def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"{what}: out_dtype must be q's dtype or float32")
     out = torch.empty((b, s, d), dtype=out_dtype, device=q.device)
-    _launch("sdm_streaming_apply", what, (
+    _launch("sdm_streaming_apply", what, q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, v, out), _P),
         b, s, d, float(scale), int(softmax_axis == "q"),
@@ -441,7 +443,7 @@ def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):
     b, s, d = _check(what, softmax_axis, q, k, g)
     _check_stats(what, b, s, q.device, m, l)
     dv = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
-    _launch("sdm_streaming_dv", what, (
+    _launch("sdm_streaming_dv", what, q.device, (
         q.data_ptr(), k.data_ptr(), g.data_ptr(), dv.data_ptr(),
         m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, g, dv), _P),
         b, s, d, float(scale), int(softmax_axis == "q"),
@@ -459,7 +461,7 @@ def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,
     b, s, d = _check(what, softmax_axis, q, k, v, g)
     _check_stats(what, b, s, q.device, m, l, corr)
     out = torch.empty((b, s, d), dtype=torch.float32, device=q.device)
-    _launch(symbol, what, (
+    _launch(symbol, what, q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), corr.data_ptr(),
         ctypes.cast(_strides(q, k, v, g, out), _P), b, s, d, float(scale),

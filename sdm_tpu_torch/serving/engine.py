@@ -26,6 +26,14 @@ DDPM's per-step z comes from a batch generator seeded by the first request:
 reproducible only for an identical batch composition. karras=True swaps the
 uniform skip list for the Karras rho-7 list of as many steps (not ddpm).
 
+Data-parallel serving (num_devices n > 1, sdm_tpu engine.py:119-130): each
+bundle entry has one replica per device (parallel/mesh.py::Replicas), and
+every U-Net call of the padded batch splits its rows over them, launched
+on every device from this one thread. The sampler's own arithmetic and
+draws (_noise_for's noise, DDPM's z) stay whole on the first device, so
+the images equal the one-device run's. n must divide max_batch and be at
+most the visible CUDA count; with device="cpu", n replicas share the CPU.
+
 The engine runs on CUDA unless the caller passes device="cpu".
 """
 
@@ -46,6 +54,7 @@ from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
                                               karras_steps_matching)
 from sdm_tpu_torch.io.bundles import build_model_from_bundle, load_bundle_config
 from sdm_tpu_torch.ops.resize import area_resize
+from sdm_tpu_torch.parallel.mesh import Replicas, sampling_devices
 
 
 @dataclass
@@ -95,11 +104,9 @@ class SamplerEngine:
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(
                 f"output_dtype must be float32/uint8, got {output_dtype!r}")
-        if num_devices is not None and num_devices > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is served by a later slice of the port "
-                "(ROADMAP Queue 1 item 9)")
         self.device = resolve_device(device)
+        self.devices = sampling_devices(self.device, num_devices or 1,
+                                        int(max_batch))
         self._out_u8 = output_dtype == "uint8"
         self.max_batch = int(max_batch)
         self.step_size = int(step_size)
@@ -137,7 +144,9 @@ class SamplerEngine:
                 param_key="ema" if use_ema else "model")
             mn, mx = model_dict["min_noise"], model_dict["max_noise"]
             self._entries.append(dict(
-                name=model_dict["model_name"], net=net, schedule=schedule,
+                name=model_dict["model_name"],
+                net=Replicas(net, self.devices) if len(self.devices) > 1
+                else net, schedule=schedule,
                 min_noise=mn, max_noise=mx, cond_t=model_dict.get("cond_t"),
                 steps=(karras_steps_matching(mn, mx, self.step_size,
                                              schedule) if karras else None)))

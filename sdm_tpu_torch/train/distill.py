@@ -24,6 +24,13 @@ the reference's checkpoint format, which sdm_tpu loads and which exports
 and samples like any trained checkpoint. Random draws come from a
 `torch.Generator`, so they are not sdm_tpu's numbers; tests inject "row"
 and "eps" through the batch.
+
+Data parallelism is the trainers' (train/loop.py): `num_devices` N > 1
+spawns N ranks, the student runs under DistributedDataParallel inside a
+process group, each rank's batch (and so its teacher calls) holds its
+rows of the global batch, and its draws are its rows of the global draws
+(`shard`). Rank 0 logs the mean loss over the ranks and writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
                                          save_model)
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.schedules import make_schedule
+from sdm_tpu_torch.parallel import multihost as mh
+from sdm_tpu_torch.parallel.mesh import (batch_positions, device_count,
+                                         shard_rows)
 from sdm_tpu_torch.train.loop import load_resident, train_device
 from sdm_tpu_torch.train.step import (TrainState, begin_step,
                                       create_train_state, finish_step,
@@ -102,7 +112,8 @@ def distill_target(apply_teacher: Callable, schedule, x_t: torch.Tensor,
 
 def make_distill_step(schedule, *, step_list: List[int],
                       objective: Optional[Objective] = None,
-                      grad_clip_norm: Optional[float] = None) -> Callable:
+                      grad_clip_norm: Optional[float] = None,
+                      shard=(0, 1)) -> Callable:
     """Build distill_step(state, teacher, batch, generator) -> {"loss":
     fp32 scalar tensor, not synchronized}: one Adam step of the student
     `state.model` against the module `teacher`. batch = {"image" [,
@@ -111,8 +122,11 @@ def make_distill_step(schedule, *, step_list: List[int],
 
     objective=Objective.V distills a v-teacher into a v-student: both
     models' (eps, x0) come natively from v inside the same x0-space target
-    math. grad_clip_norm is the trainers' direct pre-Adam clip."""
+    math. grad_clip_norm is the trainers' direct pre-Adam clip. `shard` =
+    (rank, world): the batch is rank's rows of a world-times larger global
+    batch, and the row and eps draws are its rows of the global draws."""
     v_mode = objective == Objective.V
+    rank, world = shard
     pairs_np = distill_pairs(step_list)
     n_rows = int(pairs_np.shape[0])
     pairs_on = {}
@@ -138,22 +152,27 @@ def make_distill_step(schedule, *, step_list: List[int],
                 return x
             return torch.cat([x, cond_img.to(x.dtype)], dim=-1)
 
+        def own(v):
+            # This rank's rows of a draw over the global batch.
+            return v if world == 1 else v[rank * n:(rank + 1) * n]
+
         if "row" in batch:
             i = batch["row"].to(dev, torch.int64)
         else:
             # Intervals uniform; the endpoint row (near-trivial, since the
             # student starts as the teacher) capped at 10 % of a batch.
-            i = torch.randint(0, n_rows - 1, (n,), generator=generator,
-                              device=dev)
+            i = own(torch.randint(0, n_rows - 1, (n * world,),
+                                  generator=generator, device=dev))
             endpoint_p = min(0.1, 1.0 / n_rows)
-            at_end = torch.rand((n,), generator=generator,
-                                device=dev) < endpoint_p
+            at_end = own(torch.rand((n * world,), generator=generator,
+                                    device=dev)) < endpoint_p
             i = torch.where(at_end, torch.full_like(i, n_rows - 1), i)
         t, m, u = pairs[i].unbind(-1)
         if "eps" in batch:
             eps = batch["eps"].to(dev, torch.float32)
         else:
-            eps = torch.randn(images.shape, generator=generator, device=dev)
+            eps = own(torch.randn((n * world,) + images.shape[1:],
+                                  generator=generator, device=dev))
 
         x_t = schedule.q_sample(images, t, eps)
         if v_mode:
@@ -207,12 +226,26 @@ def run_distillation(config_dict: dict, *, teacher_checkpoint: str,
     `out_dir/checkpoint/distilled_ss{N}_{steps}.pt`.
 
     Returns {"phase_step_sizes", "phase_losses", "model" (the last
-    student), "state", "global_steps"}."""
-    if num_devices is not None and num_devices > 1:
-        raise NotImplementedError(
-            "data-parallel distillation is not ported to sdm_tpu_torch yet "
-            "(ROADMAP Queue 1 item 9 (parallel))")
+    student), "state", "global_steps"}; a run that spawned its ranks
+    (num_devices > 1, or more than one visible card dividing the batch)
+    returns rank 0's without "model" and "state"."""
     dev = train_device(device)
+    if not torch.distributed.is_initialized():
+        n = device_count(dev, config_dict["batch_size"], num_devices)
+        if n > 1:
+            return mh.spawn(_spawned_distillation, n, dev.type, config_dict,
+                            dict(teacher_checkpoint=teacher_checkpoint,
+                                 start_step_size=start_step_size,
+                                 phases=phases,
+                                 steps_per_phase=steps_per_phase,
+                                 distill_lr=distill_lr,
+                                 dataset_kind=dataset_kind,
+                                 use_ema_teacher=use_ema_teacher,
+                                 device=dev.type))
+    dev = train_device(dev)
+    world, rank = mh.world(), mh.rank()
+    if rank != 0:
+        log = logging.debug
     objective = (Objective.V
                  if str(config_dict.get("objective", "")).upper() == "V"
                  else Objective.EPS)
@@ -247,19 +280,24 @@ def run_distillation(config_dict: dict, *, teacher_checkpoint: str,
             raise Exception("No dataset found!")
         dataset = ImageDataset(img_paths=img_list, cache_decoded=cache,
                                normalized=False)
+    own = shard_rows(batch_size, rank, world)
     native_decode = bool(config_dict.get("native_decode", True))
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True,
-                        num_workers=8, seed=seed, native_decode=native_decode)
+                        num_workers=8, seed=seed, native_decode=native_decode,
+                        rows=(batch_positions(batch_size, 1, rank, world)
+                              if world > 1 else None))
 
     compute_dtype = {"bfloat16": torch.bfloat16, "float32": None,
                      "fp32": None, "bf16": torch.bfloat16}[
                          str(config_dict.get("compute_dtype",
                                              "bfloat16")).lower()]
+    use_kernels = config_dict.get("use_pallas", "auto") is not False
+    if use_kernels:
+        mh.build_kernels_once(dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        teacher = UNet.from_config(
-            config_dict, dtype=compute_dtype,
-            use_kernels=config_dict.get("use_pallas", "auto") is not False)
+        teacher = UNet.from_config(config_dict, dtype=compute_dtype,
+                                   use_kernels=use_kernels)
     beta_1 = config_dict.get("beta1", 5e-3)
     beta_T = config_dict.get("betaT", 9e-3)
     schedule = make_schedule(config_dict["noise_scheduler"],
@@ -306,7 +344,7 @@ def run_distillation(config_dict: dict, *, teacher_checkpoint: str,
                 idx_buf = np.concatenate(
                     [idx_buf, perm_rng.permutation(n_rows)])
             idx, idx_buf = idx_buf[:batch_size], idx_buf[batch_size:]
-            rows = torch.from_numpy(idx)
+            rows = torch.from_numpy(idx[own])
             if dev.type == "cuda":
                 rows = rows.pin_memory()
             rows = rows.to(dev, non_blocking=True)
@@ -337,27 +375,45 @@ def run_distillation(config_dict: dict, *, teacher_checkpoint: str,
         optimizer, lr_schedule = make_optimizer(student.parameters(), lr,
                                                 lr_steps)
         state = create_train_state(student, optimizer, lr_schedule)
+        if torch.distributed.is_initialized():
+            state.model = torch.nn.parallel.DistributedDataParallel(
+                student, device_ids=[dev.index] if dev.type == "cuda"
+                else None, find_unused_parameters=True)
         step_fn = make_distill_step(schedule, step_list=step_list,
                                     objective=objective,
-                                    grad_clip_norm=grad_clip_norm)
+                                    grad_clip_norm=grad_clip_norm,
+                                    shard=(rank, world))
 
         total = float("nan")
         for i in range(steps_per_phase):
             metrics = step_fn(state, teacher, next_batch(), generator)
             global_steps += 1
             if (i + 1) % 50 == 0 or i + 1 == steps_per_phase:
-                total = float(metrics["loss"])
+                loss = metrics["loss"]
+                if world > 1:
+                    torch.distributed.all_reduce(loss)
+                total = float(loss) / world
                 if np.isnan(total):
                     raise Exception("NaN encountered during training")
                 log("Phase {} | Steps: {:,} / {:,} | Distill: {:.6f}".format(
                     p + 1, i + 1, steps_per_phase, total))
         phase_losses.append(total)
         phase_sizes.append(ss)
-        save_model(diffusion_checkpoint_dict(student, optimizer, lr=lr),
-                   f"distilled_ss{ss}", out_dir, checkpoint=True,
-                   steps=global_steps, log=log)
+        if rank == 0:
+            save_model(diffusion_checkpoint_dict(student, optimizer, lr=lr),
+                       f"distilled_ss{ss}", out_dir, checkpoint=True,
+                       steps=global_steps, log=log)
         teacher = student  # the student becomes the next teacher
 
+    mh.barrier("distill-end")
     return {"phase_step_sizes": phase_sizes, "phase_losses": phase_losses,
             "model": state.model, "state": state,
             "global_steps": global_steps}
+
+
+def _spawned_distillation(config_dict, kwargs):
+    if mh.rank() == 0:
+        from sdm_tpu_torch.utils import setup_logging
+        setup_logging(config_dict["out_dir"], "Distill-Diffusion")
+    out = run_distillation(config_dict, **kwargs)
+    return {k: v for k, v in out.items() if k not in ("model", "state")}

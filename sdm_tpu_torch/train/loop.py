@@ -30,6 +30,25 @@ trainers (previews sample the v tag natively). Also as in sdm_tpu:
       dataset lives on the device, "steps_per_call" K steps gather their
       rows there, and a chunk's K losses are read with one sync.
 
+Data parallelism (sdm_tpu loop.py:415-500): one process per device, the
+U-Net wrapped in DistributedDataParallel whenever the loop runs inside a
+process group (at any size, so a one-rank group runs the real reducer).
+`num_devices` (--num-devices) N > 1 from one command spawns N ranks (one
+per card; gloo processes with --device cpu); None takes sdm_tpu's count,
+the most visible cards that divide the micro-batch. Each rank then trains
+on its rows of the global batch the one-device loader gives (a shared
+seeded order, each rank decoding only its rows) with the one-device
+run's draws (train/step.py), so the run equals the one-device run. Under
+"multihost" (or the SDM_* env, parallel/multihost.py) each rank reads its
+own DatasetShard instead, as sdm_tpu's hosts do. "fsdp" (more than one
+rank) shards the parameters, Adam state and EMA with FSDP2
+(parallel/fsdp.py; "fsdp_min_size" sets its units). Only rank 0 writes
+the log file, the CSV, checkpoints and previews; the logged loss is the
+mean over the ranks, and the NaN guard, the preemption flag and the fused
+loop's chunk boundaries come from the same all-reduce on every rank, so
+no rank leaves while another waits in a collective. The run ends on a
+barrier.
+
 Previews draw their noise from a generator of their own (seeded from
 "seed"), so the training draws do not depend on whether or where a
 preview runs. Config keys of sdm_tpu that this port does not carry yet
@@ -62,6 +81,7 @@ import torch
 
 from sdm_tpu_torch.data import (ConditionalImgDataset, DataLoader,
                                 DoodleImgDataset, ImageDataset)
+from sdm_tpu_torch.data.loader import DatasetShard
 from sdm_tpu_torch.diffusion.samplers import (cold_sample, ddim_sample,
                                               ddpm_sample)
 from sdm_tpu_torch.diffusion.vpred import tag_v
@@ -75,6 +95,9 @@ from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
 from sdm_tpu_torch.io.plotting import plot_sampled_images
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.resize import area_resize
+from sdm_tpu_torch.parallel import fsdp, multihost as mh
+from sdm_tpu_torch.parallel.mesh import (batch_positions, device_count,
+                                         make_mesh, shard_rows)
 from sdm_tpu_torch.ops.schedules import make_schedule
 from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
                                       make_train_step)
@@ -105,10 +128,8 @@ SR_SPEC = TrainerSpec("SR-Cold-Diffusion", Objective.RESIDUAL_X0, "sr",
 
 # sdm_tpu config keys not ported yet: (key, is it set?, ROADMAP item).
 UNPORTED = (
-    ("multihost", bool, "Queue 1 item 9 (parallel)"),
     ("sp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("tp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
-    ("fsdp", bool, "Queue 1 item 9 (parallel)"),
     ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
     ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
 )
@@ -132,6 +153,10 @@ def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
                         help="File path to load json config file.")
     parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
                         default="cuda", help="Device to train on.")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="Data-parallel devices, one process each "
+                             "(default: the most visible cards that divide "
+                             "the batch; with --device cpu, 1).")
     parser.add_argument("--steps", type=int, default=None,
                         help="Stop after this many global steps (smoke runs; "
                              "default: run to max_epoch).")
@@ -181,29 +206,64 @@ class CheckpointWorker:
 
 
 def train_device(device) -> torch.device:
+    """`device` as a torch.device; inside a process group, CUDA is this
+    rank's card."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu) "
                            "to train on the CPU")
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_initialized()):
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
+def ranks_to_spawn(config_dict: dict, dev: torch.device,
+                   num_devices: Optional[int]) -> int:
+    """How many ranks a one-command run spawns (1: train here): sdm_tpu's
+    count rule over the micro-batch; any count of CPU processes. None
+    inside a process group or under a multi-host launch, which fix the
+    ranks themselves."""
+    if torch.distributed.is_initialized() or mh.wants_multihost(config_dict):
+        return 1
+    batch_size = config_dict["batch_size"]
+    grad_accum = int(config_dict.get("grad_accum_steps", 1))
+    micro = batch_size // grad_accum if grad_accum >= 1 else batch_size
+    return device_count(dev, micro, num_devices)
+
+
+def _spawned_training(spec, config_dict, device, max_steps,
+                      max_epoch_override):
+    summary = run_training(spec, config_dict, device=device,
+                           max_steps=max_steps,
+                           max_epoch_override=max_epoch_override)
+    return {k: v for k, v in summary.items() if k != "state"}
+
+
 def run_training(spec: TrainerSpec, config_dict: dict, *,
-                 device="cuda", max_steps: Optional[int] = None,
+                 device="cuda", num_devices: Optional[int] = None,
+                 max_steps: Optional[int] = None,
                  max_epoch_override: Optional[int] = None) -> dict:
     """Run training from a reference-format config dict on `device`.
     Returns a summary: global_steps, last_loss, preempted, state,
     steps_per_sec and step_times (per-step wall seconds, the first step
-    excluded)."""
+    excluded). A run that spawned its ranks returns rank 0's summary
+    without "state"."""
     project_name = spec.project_name
     dev = train_device(device)
     refuse_unported(config_dict)
+    n_spawn = ranks_to_spawn(config_dict, dev, num_devices)
+    if n_spawn > 1:
+        return mh.spawn(_spawned_training, n_spawn, dev.type, spec,
+                        config_dict, dev.type, max_steps, max_epoch_override)
+    mh.maybe_initialize(config_dict, dev)
+    dev = train_device(dev)
 
     # Preemption: the first SIGTERM/SIGINT sets a flag; the loop finishes
     # the in-flight step, checkpoints (NaN guard first) and returns with
     # summary["preempted"] = True. A second signal restores the previous
     # handler and interrupts. Handlers install on the main thread only.
-    preempt = {"flag": False, "prev": {}}
+    preempt = {"flag": False, "agreed": False, "prev": {}}
 
     def _on_preempt_signal(signum, frame):
         if preempt["flag"]:
@@ -227,11 +287,13 @@ def run_training(spec: TrainerSpec, config_dict: dict, *,
 
     worker = CheckpointWorker()
     try:
-        return _train(spec, config_dict, dev, max_steps, max_epoch_override,
-                      preempt, project_name, worker)
+        summary = _train(spec, config_dict, dev, max_steps,
+                         max_epoch_override, preempt, project_name, worker)
     finally:
         worker.wait()
         _restore_signal_handlers()
+    mh.barrier("train-end")
+    return summary
 
 
 def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
@@ -297,7 +359,13 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     if max_epoch_override is not None:
         max_epoch = max_epoch_override
 
-    setup_logging(out_dir, project_name)
+    world, rank = mh.world(), mh.rank()
+    is_main = mh.is_main_process()
+    multihost = mh.wants_multihost(config_dict) and world > 1
+    if is_main:
+        setup_logging(out_dir, project_name)
+    else:
+        logging.getLogger().setLevel(logging.WARNING)
     # Config "seed" (default 0) makes the run deterministic: model init,
     # the per-step flip/t/eps draws, preview noise and the batch order.
     seed = int(config_dict.get("seed", 0))
@@ -316,10 +384,33 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             raise Exception("No dataset found!")
         dataset = ImageDataset(img_paths=img_list, cache_decoded=cache,
                                normalized=False)
-    dataloader = DataLoader(dataset, batch_size=batch_size, shuffle=True,
+    # Gradient accumulation (config "grad_accum_steps"): one Adam step per
+    # batch_size batch, activations for batch_size / A rows at a time.
+    grad_accum = int(config_dict.get("grad_accum_steps", 1))
+    if grad_accum < 1 or batch_size % grad_accum:
+        raise ValueError(
+            f"batch size {batch_size} must be divisible by "
+            f"grad_accum_steps {grad_accum}")
+    micro_batch = batch_size // grad_accum
+    if micro_batch % world:
+        raise ValueError(f"microbatch {micro_batch} must be divisible by "
+                         f"{world} devices")
+    local_batch, rows = batch_size, None
+    if multihost:
+        # batch_size is the global batch; each rank reads its own shard of
+        # the dataset and contributes batch_size / world rows.
+        local_batch = batch_size // world
+        dataset = DatasetShard(dataset, mh.shard_indices(len(dataset)))
+        if len(dataset) < local_batch:
+            raise ValueError(
+                f"dataset shard of {len(dataset)} items cannot fill a "
+                f"per-host batch of {local_batch}")
+    elif world > 1:
+        rows = batch_positions(batch_size, grad_accum, rank, world)
+    dataloader = DataLoader(dataset, batch_size=local_batch, shuffle=True,
                             num_workers=8, seed=seed,
                             native_decode=bool(config_dict.get(
-                                "native_decode", True)))
+                                "native_decode", True)), rows=rows)
     # The doodle preview batch is shuffled unseeded, as in sdm_tpu.
     plot_loader = DataLoader(dataset,
                              batch_size=min(plot_img_count, len(dataset)),
@@ -333,7 +424,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     plot_imgs = torch.from_numpy(host_norm(plot_batch["image"])).to(dev)
     plot_labels = plot_batch.get("labels")
     plot_cond_imgs = host_norm(plot_batch.get("cond_img"))
-    if use_conditional and plot_labels is not None:
+    if use_conditional and plot_labels is not None and is_main:
         # labels.txt CSV append, as the reference does.
         with open(os.path.join(out_dir, "labels.txt"), "a") as f:
             wr = csv.writer(f)
@@ -341,7 +432,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                          + [list(map(float, row)) for row in plot_labels])
     plot_labels = (torch.from_numpy(plot_labels).to(dev)
                    if plot_labels is not None else None)
-    if spec.preview == "doodle" and plot_cond_imgs is not None:
+    if (spec.preview == "doodle" and plot_cond_imgs is not None
+            and is_main):
         # The startup grid of the doodle conditioning images.
         plot_sampled_images(plot_cond_imgs, "label_plot", dest_path=out_dir,
                             log=logging.info)
@@ -354,11 +446,21 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                          str(config_dict.get("compute_dtype",
                                              "bfloat16")).lower()]
     use_kernels = config_dict.get("use_pallas", "auto") is not False
+    if use_kernels:
+        mh.build_kernels_once(dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         net = UNet.from_config(config_dict, dtype=compute_dtype,
                                use_kernels=use_kernels)
-    net = net.to(dev, memory_format=torch.channels_last)
+    fsdp_on = bool(config_dict.get("fsdp", False)) and world > 1
+    # FSDP2 shards contiguous parameters only, so a sharded run keeps the
+    # conv weights in their default layout (the activations stay
+    # channels_last). Its checkpoint previews sample on a plain copy, from
+    # the gathered weights.
+    plain_net = (copy.deepcopy(net).to(dev, memory_format=torch.channels_last)
+                 if fsdp_on and is_main else None)
+    net = net.to(dev) if fsdp_on else net.to(
+        dev, memory_format=torch.channels_last)
 
     load_diffusion_optim = config_dict["load_diffusion_optim"]
     pending_optimizer = pending_ema = None
@@ -397,6 +499,12 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             resume_lr = float(pgs[0]["lr"])
             logging.info(f"Resuming at checkpointed LR {resume_lr:.9f} "
                          f"(halving every {lr_steps:,} steps).")
+    if fsdp_on:
+        # Every rank starts from rank 0's weights (DDP broadcasts them
+        # itself).
+        mh.replicate([*net.parameters(), *net.buffers()])
+        fsdp.shard_model(net, make_mesh(dev.type), min_size=int(
+            config_dict.get("fsdp_min_size", 2 ** 15)))
     optimizer, lr_schedule = make_optimizer(
         net.parameters(), diffusion_lr, lr_steps, resume_lr=resume_lr,
         resume_step=global_steps)
@@ -411,16 +519,15 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     if ema_decay is not None and pending_ema is not None:
         load_ema_from_checkpoint(pending_ema, state.ema, log=logging.info)
     if pending_optimizer is not None:
-        state.count = load_optimizer_from_checkpoint(
-            {"optimizer": pending_optimizer}, optimizer)
-
-    # Gradient accumulation (config "grad_accum_steps"): one Adam step per
-    # batch_size batch, activations for batch_size / A rows at a time.
-    grad_accum = int(config_dict.get("grad_accum_steps", 1))
-    if grad_accum < 1 or batch_size % grad_accum:
-        raise ValueError(
-            f"batch size {batch_size} must be divisible by "
-            f"grad_accum_steps {grad_accum}")
+        load = fsdp.load_optimizer if fsdp_on else (
+            lambda ckpt, _, opt: load_optimizer_from_checkpoint(ckpt, opt))
+        state.count = load({"optimizer": pending_optimizer}, net, optimizer)
+    if torch.distributed.is_initialized() and not fsdp_on:
+        # The real reducer at any group size; the reference's dead weights
+        # get no gradient, hence find_unused_parameters.
+        state.model = torch.nn.parallel.DistributedDataParallel(
+            net, device_ids=[dev.index] if dev.type == "cuda" else None,
+            find_unused_parameters=True)
 
     schedule = make_schedule(config_dict["noise_scheduler"],
                              beta_1=beta_1 if beta_1 is not None else 5e-3,
@@ -450,7 +557,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         cond_t=cond_t, lr_dim=lr_dim, grad_accum_steps=grad_accum,
         cfg_drop_prob=float(config_dict.get("cfg_drop_prob", 0.0)),
         ema_decay=ema_decay, min_snr_gamma=optional_float("min_snr_gamma"),
-        grad_clip_norm=optional_float("grad_clip_norm"))
+        grad_clip_norm=optional_float("grad_clip_norm"),
+        shard=(rank, world))
     generator = torch.Generator(device=dev).manual_seed(seed)
     preview_generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
@@ -472,7 +580,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     logging.info(f"Diffusion LR: {lr_of(global_steps):.5f}")
     logging.info(f"Using Conditional Info.: {use_conditional}")
     logging.info(f"Image Augmentation (Random Horizontal Flip): {flip_imgs}")
-    logging.info("Devices (data mesh): 1")
+    logging.info(f"Devices (data mesh): {world}"
+                 + (" [FSDP state sharding]" if fsdp_on else ""))
     logging.info(f"Compute dtype: {compute_dtype or torch.float32}")
     if spec.is_sr:
         logging.info(f"Low Resolution Dim: {lr_dim:,}")
@@ -501,6 +610,9 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                                  generator=preview_generator, device=dev)
         model_fn = module
         if weights is not None:
+            weights = {k: v.to(dev, non_blocking=True)
+                       for k, v in weights.items()}
+
             def model_fn(x, t, labels):
                 return torch.func.functional_call(module, weights,
                                                   (x, t, labels))
@@ -570,9 +682,28 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     # its own, since functional_call swaps a module's parameters while the
     # training thread runs it.
     async_ckpt = bool(config_dict.get("async_checkpoint", False))
-    preview_net = copy.deepcopy(net) if async_ckpt else None
+    preview_net = (copy.deepcopy(net) if async_ckpt and not fsdp_on
+                   else plain_net)
 
     def submit_checkpoint(steps, with_preview=True):
+        if fsdp_on:
+            # A collective on every rank: the whole state on rank 0's CPU.
+            worker.finish()
+            snap = fsdp.checkpoint_dict(net, optimizer, lr_of(steps),
+                                        state.ema)
+            if snap is None:
+                return
+            if async_ckpt:
+                worker.start(checkpoint_and_preview, snap, steps,
+                             with_preview, preview_net,
+                             snap.get("ema", snap["model"]))
+            else:
+                checkpoint_and_preview(snap, steps, with_preview,
+                                       preview_net,
+                                       snap.get("ema", snap["model"]))
+            return
+        if not is_main:
+            return
         if not async_ckpt:
             checkpoint_and_preview(
                 diffusion_checkpoint_dict(net, optimizer, lr=lr_of(steps),
@@ -593,9 +724,35 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                 ).to(dev, non_blocking=True)
                 for k, v in b.items() if isinstance(v, np.ndarray)}
 
+    # The ranks agree (sdm_tpu loop.py:722-733, 824): each step's loss goes
+    # out with this rank's preemption flag in one all-reduce, launched
+    # right after the step and read where the loss is read, so every rank
+    # logs the global mean and stops, checkpoints or raises at one step.
+    flags = torch.tensor([0.0, 1.0], device=dev)
+
+    def agree(losses: torch.Tensor) -> torch.Tensor:
+        """[*losses, flag], summed over the ranks (no-op at one rank)."""
+        if world == 1:
+            return losses
+        v = torch.cat([losses.to(torch.float32).reshape(-1),
+                       flags[int(preempt["flag"]):][:1]])
+        torch.distributed.all_reduce(v)
+        return v
+
+    def read(v: torch.Tensor) -> np.ndarray:
+        """The mean losses of an `agree`d tensor; records the agreed flag."""
+        vals = v.to("cpu", torch.float64).numpy().reshape(-1)
+        if world == 1:
+            return vals
+        preempt["agreed"] = preempt["agreed"] or bool(vals[-1] > 0)
+        return vals[:-1] / world
+
+    def stopping() -> bool:
+        return preempt["flag"] if world == 1 else preempt["agreed"]
+
     timer = StepTimer()
     if bool(config_dict.get("device_dataset", False)):
-        if grad_accum > 1:
+        if multihost or grad_accum > 1:
             raise ValueError(
                 '"device_dataset" fused training supports single-process '
                 "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
@@ -606,7 +763,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             max_steps=max_steps, max_epoch=max_epoch,
             checkpoint_steps=checkpoint_steps,
             starting_epoch=starting_epoch, global_steps=global_steps,
-            lr_of=lr_of, submit_checkpoint=submit_checkpoint)
+            lr_of=lr_of, submit_checkpoint=submit_checkpoint, agree=agree,
+            read=read, stopping=stopping, rank=rank, world=world)
         worker.finish()
         return summary
 
@@ -631,7 +789,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         pending = None  # deferred (metrics, epoch_index, global_steps)
 
         def fetch_loss(metrics):
-            loss = float(metrics["loss"])
+            loss = float(read(metrics["loss"])[0])
             timer.tick()
             if np.isnan(loss):
                 raise Exception("NaN encountered during training")
@@ -657,6 +815,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             index += 1
             training_count += 1
             metrics = step_fn(state, device_batch, generator)
+            metrics["loss"] = agree(metrics["loss"])
             batch = next(batch_iter, None)
             device_batch = to_device(batch) if batch is not None else None
             if pending is not None:
@@ -678,7 +837,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             else:
                 process_metrics(metrics, index, global_steps)
             global_steps += 1
-            if preempt["flag"]:
+            if stopping():
                 if pending is not None:
                     process_metrics(*pending)
                     pending = None
@@ -699,7 +858,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         # N-th epoch only (default 1 = the reference's every epoch).
         every = int(config_dict.get("epoch_checkpoint_every", 1))
         if ((every <= 1 or (epoch + 1) % every == 0 or stop
-             or epoch + 1 == max_epoch) and not preempt["flag"]):
+             or epoch + 1 == max_epoch) and not stopping()):
             t_ck = time.monotonic()
             submit_checkpoint(global_steps, with_preview=False)
             ck_s = time.monotonic() - t_ck
@@ -721,7 +880,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
 
     worker.finish()
     return {"global_steps": global_steps, "last_loss": last_loss,
-            "preempted": preempt["flag"], "state": state,
+            "preempted": stopping(), "state": state,
             "steps_per_sec": timer.steps_per_sec(),
             "step_times": timer.intervals()}
 
@@ -764,7 +923,8 @@ def load_resident(dataset, dev, native_decode: bool) -> dict:
 def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
                     step_fn, generator, timer, preempt, max_steps, max_epoch,
                     checkpoint_steps, starting_epoch, global_steps, lr_of,
-                    submit_checkpoint):
+                    submit_checkpoint, agree, read, stopping, rank=0,
+                    world=1):
     """The device-resident fused loop (config "device_dataset"; sdm_tpu
     loop.py:1014-1158).
 
@@ -777,12 +937,16 @@ def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
     the per-step format, a chunk's K lines in a burst; --steps may
     overshoot by up to K-1 steps; step-cadence checkpoints land at the
     first chunk boundary at or after their step. On the card the chunk is
-    K steps of launches with no host sync between them, not one graph."""
+    K steps of launches with no host sync between them, not one graph.
+    With several ranks each holds the whole dataset (sdm_tpu replicates
+    it too) and each step gathers the rank's rows of the global block; a
+    chunk's losses and preemption flag go through one all-reduce."""
     data = load_resident(dataset, dev,
                          bool(config_dict.get("native_decode", True)))
     n_rows = data["image"].shape[0]
     nbytes = sum(v.numel() * v.element_size() for v in data.values())
     b_sz = min(batch_size, n_rows)
+    own = shard_rows(b_sz, rank, world)
     steps_per_epoch = max(n_rows // b_sz, 1)
     k_steps = int(config_dict.get("steps_per_call", 0)) or min(
         steps_per_epoch, 64)
@@ -807,10 +971,10 @@ def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
             idx = idx.pin_memory()
         idx = idx.to(dev, non_blocking=True)
         losses = []
-        for rows in idx:
+        for rows in idx[:, own]:
             batch = {k: v.index_select(0, rows) for k, v in data.items()}
             losses.append(step_fn(state, batch, generator)["loss"])
-        losses = torch.stack(losses).to("cpu", torch.float64).numpy()
+        losses = read(agree(torch.stack(losses)))
         timer.tick()
         if np.isnan(losses).any():
             raise Exception("NaN encountered during training")
@@ -843,19 +1007,19 @@ def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
                 logging.info(
                     "Rate: {:.3f} steps/sec | {:.1f} imgs/sec".format(
                         k_steps / iv[-1], k_steps * b_sz / iv[-1]))
-        if preempt["flag"] or (max_steps is not None
-                               and global_steps >= max_steps):
+        if stopping() or (max_steps is not None
+                          and global_steps >= max_steps):
             stop = True
 
-    submit_checkpoint(global_steps, with_preview=not preempt["flag"])
-    if preempt["flag"]:
+    submit_checkpoint(global_steps, with_preview=not stopping())
+    if stopping():
         logging.info("Preempted: checkpointed at step {:,}; exiting.".format(
             global_steps))
     iv = timer.intervals()
     per_step = [s / k_steps for s in iv for _ in range(k_steps)]
     sps = (k_steps * len(iv) / sum(iv)) if iv else float("nan")
     return {"global_steps": global_steps, "last_loss": last_loss,
-            "preempted": preempt["flag"], "state": state,
+            "preempted": stopping(), "state": state,
             "steps_per_sec": sps, "step_times": per_step}
 
 
@@ -864,4 +1028,5 @@ def main(spec: TrainerSpec, raw_args=None):
     with open(args["config_path"], "r") as f:
         config_dict = json.loads(f.read())
     return run_training(spec, config_dict, device=args["device"],
+                        num_devices=args["num_devices"],
                         max_steps=args["steps"])

@@ -41,12 +41,22 @@ Extensions, each off by default (sdm_tpu step.py:143-173):
   min_snr_gamma g  per-sample weights with SNR = abar/(1-abar):
       min(SNR,g)/SNR for EPS, min(SNR,g)/(SNR+1) for V, min(SNR,g) for X0
       and RESIDUAL_X0.
+
+Data parallelism (`shard=(rank, world)`, train/loop.py): the model is
+wrapped in DistributedDataParallel (or sharded by FSDP2) and the batch
+holds this rank's contiguous block of each global (micro-)batch. Every
+rank draws the flips, t, eps and the label mask of the whole global
+batch from the shared seeded generator and keeps its own rows, as
+sdm_tpu draws one key over the global array and shards it: N ranks train
+on the one-device run's draws. Under grad_accum_steps only the last
+micro-batch's backward all-reduces the gradients (`no_sync`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,18 +137,21 @@ def make_train_step(schedule, *, objective: Objective,
                     cfg_drop_prob: float = 0.0,
                     ema_decay: Optional[float] = None,
                     min_snr_gamma: Optional[float] = None,
-                    grad_clip_norm: Optional[float] = None) -> Callable:
+                    grad_clip_norm: Optional[float] = None,
+                    shard: Tuple[int, int] = (0, 1)) -> Callable:
     """Build train_step(state, batch, generator) -> {"loss": fp32 scalar
     tensor, not synchronized}. `schedule` is the noise schedule (on the
     model's device). batch: {"image": (N, H, W, C) uint8 or float [,
     "cond_img": (N, H, W, C') uint8 or float] [, "labels": (N, D)] [, "t":
     (N,)] [, "eps": (N, H, W, C)]} on the device; with grad_accum_steps A
-    > 1 each entry carries a leading (A,) axis."""
+    > 1 each entry carries a leading (A,) axis. `shard` = (rank, world):
+    the batch is this rank's rows of a world-times larger global batch."""
     if objective == Objective.RESIDUAL_X0 and (cond_t is None
                                                or lr_dim is None):
         raise ValueError("RESIDUAL_X0 objective needs cond_t and lr_dim")
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
+    rank, world = shard
 
     def denorm(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if x is not None and x.dtype == torch.uint8:
@@ -152,21 +165,29 @@ def make_train_step(schedule, *, objective: Objective,
         cond_img = denorm(batch.get("cond_img"))
         n = images.shape[0]
         dev = images.device
+
+        def own(v):
+            # This rank's rows of a draw over the global batch.
+            return v if world == 1 else v[rank * n:(rank + 1) * n]
+
         if flip_imgs:
             # Per-image horizontal flip, p = 0.5 (W is axis 2 in NHWC).
-            flip = torch.rand((n,), generator=generator, device=dev) < 0.5
+            flip = own(torch.rand((n * world,), generator=generator,
+                                  device=dev)) < 0.5
             images = torch.where(flip[:, None, None, None],
                                  images.flip(2), images)
         if "t" in batch:
             t = batch["t"].to(dev, torch.int64)
         else:
-            t = torch.randint(min_noise_step, max_actual_noise_step, (n,),
-                              generator=generator, device=dev)
+            t = own(torch.randint(min_noise_step, max_actual_noise_step,
+                                  (n * world,), generator=generator,
+                                  device=dev))
         if "eps" in batch:
             eps = batch["eps"].to(dev, torch.float32)
         else:
-            eps = torch.randn(images.shape, generator=generator, device=dev)
-        labels = dropout_labels(labels, generator, cfg_drop_prob)
+            eps = own(torch.randn((n * world,) + images.shape[1:],
+                                  generator=generator, device=dev))
+        labels = dropout_labels(labels, generator, cfg_drop_prob, shard)
 
         if objective == Objective.RESIDUAL_X0:
             h, w = images.shape[1], images.shape[2]
@@ -214,10 +235,11 @@ def make_train_step(schedule, *, objective: Objective,
         else:
             loss = 0.0
             for a in range(grad_accum_steps):
-                micro = loss_fn(state.model,
-                                {k: v[a] for k, v in batch.items()},
-                                generator)
-                micro.backward()
+                with grad_sync(state.model, a == grad_accum_steps - 1):
+                    micro = loss_fn(state.model,
+                                    {k: v[a] for k, v in batch.items()},
+                                    generator)
+                    micro.backward()
                 loss = loss + micro.detach()
             loss = loss / grad_accum_steps
         finish_step(state, grad_clip_norm, grad_accum_steps)
@@ -232,6 +254,15 @@ def make_train_step(schedule, *, objective: Objective,
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def grad_sync(model, sync: bool):
+    """A context in which a DistributedDataParallel model's backward
+    all-reduces the gradients only when `sync` (otherwise they accumulate
+    locally, `no_sync`); any other model runs as it is."""
+    if sync or not hasattr(model, "no_sync"):
+        return contextlib.nullcontext()
+    return model.no_sync()
 
 
 def begin_step(state: TrainState) -> None:

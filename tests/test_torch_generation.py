@@ -288,15 +288,26 @@ def test_extension_validation_matches_sdm_tpu(bundles, images, tmp_path,
     assert got == _error(jax_generate, base + flags, **kw)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num-devices", "2"], "item 9"), (["--sp", "2"], "item 9"),
-    (["--pipeline", "2"], "item 9")])
-def test_unported_flags_name_their_roadmap_item(bundles, flags, item):
+@pytest.mark.parametrize("generator,flags,item", [
+    ("ddim_ddpm", ["--sp", "2"], "item 9"),
+    ("cold", ["--sp", "2"], "item 9"), ("sr", ["--sp", "2"], "item 9")])
+def test_unported_flags_name_their_roadmap_item(bundles, generator, flags,
+                                                item):
+    """--sp is the one parallel flag of the three generators not ported
+    (the data-parallel and pipeline paths are: tests/test_torch_parallel.py
+    runs them)."""
+    from sdm_tpu_torch.cli.generate_images_cold_diffusion import \
+        generate_images_cold_diffusion
+    from sdm_tpu_torch.cli.generate_sr_images_diffusion import \
+        generate_sr_images_diffusion
     config, _ = bundles["one"]
+    fn = {"ddim_ddpm": generate_images_diffusion,
+          "cold": generate_images_cold_diffusion,
+          "sr": generate_sr_images_diffusion}[generator]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 {item}"):
-        generate_images_diffusion(["-c", config, "--device", "cpu", "-l",
-                                   *LABELS] + flags, **QUIET)
+        fn(["-c", config, "--device", "cpu", "-l", *LABELS] + flags,
+           **QUIET)
 
 
 def test_device_defaults_to_cuda(bundles):

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "cli.generate_images_cold_diffusion",
                  "cli.serve_diffusion", "train.distill",
                  "cli.distill_diffusion", "eval.fid", "eval.features",
-                 "cli.evaluate_samples"):
+                 "cli.evaluate_samples", "parallel", "parallel.multihost",
+                 "parallel.mesh", "parallel.fsdp", "parallel.pipeline"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

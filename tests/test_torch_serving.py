@@ -172,9 +172,15 @@ def test_port_engine_validation(bundle):
 
 
 @pytest.mark.parametrize("kw", [dict(num_devices=2)])
-def test_port_engine_refuses_later_slices(bundle, kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _port(bundle, **kw)
+def test_port_engine_refuses_later_slices(bundle, kw, monkeypatch):
+    """Data-parallel serving is ported (tests/test_torch_parallel.py); a
+    count above the visible CUDA cards is refused before anything is
+    built, naming the count, where sdm_tpu would slice its device list."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 devices asked for, 1 visible"):
+        SamplerEngine(bundle, device="cuda", max_batch=4,
+                      log=lambda *a, **k: None, **kw)
 
 
 def _params_cond(seed, cond_dim):

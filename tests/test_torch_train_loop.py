@@ -378,8 +378,8 @@ def test_a_failing_preview_does_not_stop_training(images, tmp_path,
 
 
 @pytest.mark.parametrize("key,value", [
-    ("multihost", True), ("sp", 2), ("tp", 2), ("fsdp", True),
-    ("native_checkpoint", True), ("profile_trace_dir", "trace")])
+    ("sp", 2), ("tp", 2), ("native_checkpoint", True),
+    ("profile_trace_dir", "trace")])
 def test_unported_config_keys_raise(images, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         _run_port(loop.BASE_SPEC, _config(images, tmp_path,
