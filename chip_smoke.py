@@ -7,7 +7,8 @@
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
 build, kernels, streaming, model, serving, generation, training,
-extensions, remat, loop, distill, eval, parallel (the build always),
+extensions, remat, loop, distill, eval, parallel, model_parallel (the
+build always),
 logs which it skipped, prints no `kernels` line and ends with
 {"ok": true, "partial": true, ...}. It needs one card; on a machine with
 more, the trainers and the distiller stay on card 0 (num_devices=1),
@@ -145,6 +146,26 @@ as a user's run would.
      cards, a two-rank --num-devices 2 base run and the engine at
      num_devices=2 against one card; with one card a line says they were
      skipped.
+ 13. Model parallelism ("model_parallel"): (a) in a one-rank NCCL group,
+     the flagship's base train step (batch 16, bf16, kernels on) with
+     every conv and linear column-parallel (parallel/tp.py, tp_min_width
+     1) against the unwrapped U-Net: the loss within MODEL_TOL, the whole
+     gradient within GRAD_TOL, the same AdaGN, attention, block and
+     `linear` launches (the phase's launches), the step's ms beside the
+     unwrapped one's; (b) one SR train step (256x256, batch 16, bf16,
+     kernels off) inside the SP context (parallel/sp.py) at one rank
+     against the plain U-Net: gradients within GRAD_TOL, no launch, peak
+     memory of both; (c) with two or more cards, run_training(BASE_SPEC)
+     with "tp": 2 and with "sp": 2 (four cards: also tp2 x sp2 and dp2 x
+     tp2) for TRAIN_STEPS steps, each logged loss within MODEL_TOL of the
+     one-card run's; on two cards, the whole gradients of one SR step at
+     sp=2 and of one flagship step at tp=2 against the same seeded batch
+     on one card (GRAD_TOL), and the U-Net's output on a seeded probe,
+     row by row (MODEL_TOL); the sp=2 step's peak per card beside (b)'s;
+     the collective bytes (parallel/analysis.py) and ms of a two-card DP
+     and TP flagship step; the SR generator with --sp 2 on one image
+     against one card (its residual, image minus upsampled, normwise
+     within MODEL_TOL). With one card a line says (c) was skipped.
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2945,6 +2966,31 @@ def _params_rel(a, b):
     return math.sqrt(num / max(den, 1e-30))
 
 
+def _seeded_batch(torch, img, seed, dev):
+    """A seeded training batch at `img` (uint8 images, injected t and eps),
+    batch 16, on `dev`."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"image": torch.randint(0, 256, (BATCH, img, img, 3),
+                                    generator=gen, dtype=torch.uint8),
+             "t": torch.randint(1, 1000, (BATCH,), generator=gen),
+             "eps": torch.randn((BATCH, img, img, 3), generator=gen)}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _grads(net):
+    return {n: p.grad.float().clone() for n, p in net.named_parameters()
+            if p.grad is not None}
+
+
+def _grad_rel(got, want):
+    """Whole normwise distance of two gradient dicts (the same names)."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradient sets differ: {set(got) ^ set(want)}")
+    return math.sqrt(sum(float((got[n] - g).norm()) ** 2
+                         for n, g in want.items())
+                     / sum(float(g.norm()) ** 2 for g in want.values()))
+
+
 def parallel_phase(torch, counters):
     """The data-parallel paths (see the module docstring, phase 12) on one
     card: (a) the flagship base trainer through run_training in a one-rank
@@ -3022,13 +3068,7 @@ def parallel_phase(torch, counters):
 
         # (b) One SR step under FSDP2 at one rank against the unwrapped
         # U-Net: gradients, launches, step time and peak memory.
-        gen = torch.Generator().manual_seed(11)
-        batch = {"image": torch.randint(0, 256, (BATCH, SR_IMG, SR_IMG, 3),
-                                        generator=gen, dtype=torch.uint8),
-                 "t": torch.randint(1, 1000, (BATCH,), generator=gen),
-                 "eps": torch.randn((BATCH, SR_IMG, SR_IMG, 3),
-                                    generator=gen)}
-        batch = {k: v.to(dev) for k, v in batch.items()}
+        batch = _seeded_batch(torch, SR_IMG, 11, dev)
         schedule = make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
                                  max_noise_step=1000, device=dev)
         step = make_train_step(schedule, objective=Objective.RESIDUAL_X0,
@@ -3068,18 +3108,14 @@ def parallel_phase(torch, counters):
             del net, optimizer, state
             torch.cuda.empty_cache()
         un, fs = sides["unwrapped"], sides["fsdp"]
-        norms = {n: float(g.norm()) for n, g in un["grads"].items()}
-        whole = math.sqrt(sum(float((fs["grads"][n] - g).norm()) ** 2
-                              for n, g in un["grads"].items())
-                          / sum(v ** 2 for v in norms.values()))
+        whole = _grad_rel(fs["grads"], un["grads"])
         log(f"parallel (b): SR step (batch {BATCH}, bf16) under FSDP2 at "
             f"one rank vs unwrapped: gradients whole normwise rel "
             f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); step "
             f"{fs['ms']:.2f} ms vs {un['ms']:.2f} ms; peak "
             f"{fs['peak_gib']:.3f} GiB vs {un['peak_gib']:.3f} GiB; state "
             f"bytes per device {fs['state_bytes']} vs {un['state_bytes']}")
-        if set(fs["grads"]) != set(un["grads"]) or \
-                not whole <= GRAD_TOL["bfloat16"]:
+        if not whole <= GRAD_TOL["bfloat16"]:
             raise AssertionError(f"parallel (b): FSDP gradients {whole}")
         check_launches("parallel (b): SR forward and backward under FSDP2",
                        fs["launches"], expected_grad_launches(SR, 1, 1))
@@ -3177,6 +3213,406 @@ def two_card_checks(torch, tmp, data, config):
         raise AssertionError(f"parallel (d): engine on two cards {rel}")
     return dict(skipped=False, seconds=wall, engine_rel=rel,
                 last_loss=summary["last_loss"])
+
+
+def model_parallel_phase(torch, counters):
+    """Tensor parallelism and spatial partitioning (the module docstring,
+    phase 13): (a) the flagship's base train step with every eligible
+    layer tensor-parallel in a one-rank NCCL group against the unwrapped
+    U-Net, kernels on; (b) one SR train step inside the SP context at one
+    rank against the plain U-Net; (c) with two or more cards, the trainer
+    with "tp": 2 and "sp": 2 against one card, an SR step's peak at sp=2,
+    the SR generator with --sp 2, and the collective bytes of a two-card
+    DP and TP step (`mp_cards_worker`). Returns (a)'s launches and a
+    report."""
+    from sdm_tpu_torch.enums import Objective
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.parallel import multihost as mh, sp, tp
+    from sdm_tpu_torch.parallel.mesh import make_model_mesh
+    from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
+                                          make_train_step)
+    dev = torch.device("cuda", 0)
+    report = {}
+    schedule = make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                             max_noise_step=1000, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        mh.init_group(dev, init_method="file://" + os.path.join(
+            tmp, "rendezvous"), world_size=1, global_rank=0)
+        mesh = make_model_mesh(dev.type, 1, 1)
+        # (a) The base step, every conv and linear column-parallel over a
+        # model group of one (tp_min_width 1), against the unwrapped U-Net.
+        batch = _seeded_batch(torch, IMG, 21, dev)
+        step = make_train_step(schedule, objective=Objective.EPS)
+        sides = {}
+        for name in ("unwrapped", "tp"):
+            torch.manual_seed(0)
+            net = UNet(**FLAGSHIP, dtype=torch.bfloat16).to(
+                dev, memory_format=torch.channels_last)
+            names = (tp.shard_model(net, mesh.model_group, min_width=1)
+                     if name == "tp" else {})
+            optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
+                                                    100_000)
+            state = create_train_state(net, optimizer, lr_schedule)
+            net.zero_grad(set_to_none=True)
+            zero_counts(counters)
+            loss = step.loss_fn(net, batch, None)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            sides[name] = dict(loss=loss.item(), grads=_grads(net),
+                               launches=launches, sharded=len(names),
+                               ms=time_ms(lambda: step(state, batch), 3))
+            del net, optimizer, state
+            torch.cuda.empty_cache()
+        un, tpr = sides["unwrapped"], sides["tp"]
+        whole = _grad_rel(tpr["grads"], un["grads"])
+        loss_rel = abs(tpr["loss"] - un["loss"]) / abs(un["loss"])
+        log(f"model_parallel (a): base step (batch {BATCH}, bf16, kernels "
+            f"on), {tpr['sharded']} layers column-parallel in a one-rank "
+            f"NCCL group vs unwrapped: loss {tpr['loss']:.6f} vs "
+            f"{un['loss']:.6f} (rel {loss_rel:.3e}, tol "
+            f"{MODEL_TOL['bfloat16']}); gradients whole normwise rel "
+            f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); step "
+            f"{tpr['ms']:.2f} ms vs {un['ms']:.2f} ms")
+        if not (loss_rel <= MODEL_TOL["bfloat16"]
+                and whole <= GRAD_TOL["bfloat16"]):
+            raise AssertionError(f"model_parallel (a): TP step {loss_rel} "
+                                 f"{whole}")
+        for kernel in ("fused_adagn", "fused_attention",
+                       "fused_attention_block", "linear"):
+            if tpr["launches"][kernel] != un["launches"][kernel] or \
+                    un["launches"][kernel] == 0:
+                raise AssertionError(
+                    f"model_parallel (a): {kernel} launched "
+                    f"{tpr['launches'][kernel]} times under TP, "
+                    f"{un['launches'][kernel]} unwrapped")
+        check_launches("model_parallel (a): TP base forward and backward",
+                       tpr["launches"], expected_grad_launches(FLAGSHIP, 1,
+                                                               0))
+        report["tp_one_rank"] = dict(
+            loss=tpr["loss"], plain_loss=un["loss"], loss_rel=loss_rel,
+            grad_whole_rel=whole, step_ms=tpr["ms"], plain_step_ms=un["ms"],
+            layers_sharded=tpr["sharded"])
+        launches = tpr["launches"]
+        del sides, un, tpr, batch
+
+        # (b) One SR step inside the SP context (a space group of one)
+        # against the plain U-Net: gradients, no kernel, peak memory.
+        batch = _seeded_batch(torch, SR_IMG, 22, dev)
+        shard = sp.SpaceShard(mesh.space_group, 0, 1)
+        sides = {}
+        for name, space in (("plain", None), ("sp", shard)):
+            step = make_train_step(schedule, objective=Objective.RESIDUAL_X0,
+                                   cond_t=SR_COND_T, lr_dim=SR_IMG // 2,
+                                   space=space)
+            torch.manual_seed(0)
+            net = UNet(**SR, dtype=torch.bfloat16, use_kernels=False).to(
+                dev, memory_format=torch.channels_last)
+            optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
+                                                    100_000)
+            state = create_train_state(net, optimizer, lr_schedule)
+            zero_counts(counters)
+            with sp.spatial(space):
+                loss = step.loss_fn(net, batch, None)
+                loss.backward()
+            torch.cuda.synchronize()
+            n_launch = sum(read_counts(counters).values())
+            grads = _grads(net)
+            net.zero_grad(set_to_none=True)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            step(state, batch)
+            torch.cuda.synchronize()
+            sides[name] = dict(loss=loss.item(), grads=grads,
+                               launches=n_launch,
+                               step_s=time.monotonic() - t0,
+                               peak_gib=torch.cuda.max_memory_allocated()
+                               / 2 ** 30)
+            del net, optimizer, state, grads
+            torch.cuda.empty_cache()
+        pl, spr = sides["plain"], sides["sp"]
+        whole = _grad_rel(spr["grads"], pl["grads"])
+        log(f"model_parallel (b): SR step (batch {BATCH}, bf16) in the SP "
+            f"context at one rank vs plain: gradients whole normwise rel "
+            f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); kernel launches "
+            f"{spr['launches']} vs {pl['launches']}; peak "
+            f"{spr['peak_gib']:.3f} GiB vs {pl['peak_gib']:.3f} GiB; step "
+            f"{spr['step_s']:.3f} s vs {pl['step_s']:.3f} s (one run each)")
+        if not whole <= GRAD_TOL["bfloat16"] or spr["launches"] or \
+                pl["launches"]:
+            raise AssertionError(f"model_parallel (b): SP step {whole}, "
+                                 f"{spr['launches']} launches")
+        report["sp_one_rank"] = dict(
+            grad_whole_rel=whole, loss=spr["loss"], plain_loss=pl["loss"],
+            peak_gib=spr["peak_gib"], plain_peak_gib=pl["peak_gib"],
+            step_s=spr["step_s"], plain_step_s=pl["step_s"])
+        del sides, pl, spr, batch
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log(f"model_parallel (c): two-card checks skipped: {cards} CUDA "
+                "device visible")
+            report["cards"] = dict(skipped=True, devices=cards)
+        else:
+            report["cards"] = model_parallel_cards(torch, tmp, cards,
+                                                   report)
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def model_parallel_cards(torch, tmp, cards, report):
+    """Phase 13 (c): the base trainer with "tp": 2 and "sp": 2 (and with
+    four cards tp2 x sp2 and dp2 x tp2) against one card, loss by loss;
+    `mp_cards_worker` on two cards (tp=2 and sp=2 gradients against one
+    card's); the SR generator with --sp 2 on one image against one card,
+    its sampled residual held."""
+    import numpy as np
+    from sdm_tpu_torch.cli.generate_sr_images_diffusion import \
+        generate_sr_images_diffusion
+    from sdm_tpu_torch.ops.resize import area_resize
+    from sdm_tpu_torch.parallel import multihost as mh
+    from sdm_tpu_torch.train import loop
+    out = dict(skipped=False, devices=cards)
+    data = write_dataset(tmp, IMG)
+    layouts = [("one", {}, 1), ("tp2", {"tp": 2}, 2), ("sp2", {"sp": 2}, 2)]
+    if cards >= 4:
+        layouts += [("tp2_sp2", {"tp": 2, "sp": 2}, 4),
+                    ("dp2_tp2", {"tp": 2}, 4)]
+    losses = {}
+    for name, extra, n in layouts:
+        out_dir = os.path.join(tmp, "mp_" + name)
+        cfg = dict(train_config(out_dir, data["path"], FLAGSHIP, IMG),
+                   max_epoch=10, **extra)
+        t0 = time.monotonic()
+        with decoders(data["cv2"]):
+            loop.run_training(loop.BASE_SPEC, cfg, device="cuda",
+                              num_devices=n, max_steps=TRAIN_STEPS)
+        wall = time.monotonic() - t0
+        with open(os.path.join(out_dir, "Diffusion.log")) as f:
+            losses[name] = step_losses(f.read().splitlines())
+        rel = (max(abs(a - b) / abs(b) for a, b in
+                   zip(losses[name], losses["one"]))
+               if name != "one" else 0.0)
+        log(f"model_parallel (c): base trainer {name} on {n} card(s), "
+            f"{TRAIN_STEPS} steps in {wall:.2f} s: losses {losses[name]} "
+            f"(worst rel to one card {rel:.3e}, tol {MODEL_TOL['bfloat16']})")
+        if len(losses[name]) != TRAIN_STEPS or \
+                not rel <= MODEL_TOL["bfloat16"]:
+            raise AssertionError(f"model_parallel (c): {name} losses {rel}")
+        out[name] = dict(losses=losses[name], worst_rel=rel, seconds=wall)
+
+    worker = mh.spawn(mp_cards_worker, 2, "cuda")
+    for name, what in (("sp2_grads", "SR step (kernels off) at sp=2"),
+                       ("tp2", "flagship step (kernels on) at tp=2")):
+        w = worker[name]
+        log(f"model_parallel (c): {what} on two cards vs one card, the "
+            f"same seeded batch {BATCH}, bf16: gradients whole normwise rel "
+            f"{w['grad_whole_rel']:.3e} (tol {GRAD_TOL['bfloat16']}); loss "
+            f"{w['loss']:.6f} vs {w['one_card_loss']:.6f} (rel "
+            f"{w['loss_rel']:.3e}); the U-Net's output on a seeded probe, "
+            f"worst row normwise rel {w['output_row_rel']:.3e} (tol "
+            f"{MODEL_TOL['bfloat16']})")
+    one_peak = report["sp_one_rank"]["plain_peak_gib"]
+    log(f"model_parallel (c): SR step (batch {BATCH}, bf16) at sp=2 on two "
+        f"cards: peak {worker['sp_peak_gib']:.3f} GiB per card vs "
+        f"{one_peak:.3f} GiB on one; step {worker['sp_ms']:.2f} ms")
+    for name in ("dp2", "tp2"):
+        w = worker[name]
+        log(f"model_parallel (c): flagship step (batch {BATCH}, bf16) "
+            f"{name} on two cards: {w['ms']:.2f} ms; collective bytes per "
+            f"card {w['bytes']} (parameters {w['param_bytes']} bytes fp32)")
+    out["worker"] = worker
+
+    lr = np.random.default_rng(5).integers(0, 256, (SR_IMG // 2,
+                                                    SR_IMG // 2, 3),
+                                           dtype=np.uint8)
+    config = _export(torch, tmp, "sr_mp", SR, SR_IMG, "SR",
+                     cond_t=SR_COND_T)
+    args = ["-c", config, "--cold_step_size", str(DDIM_STEP), "--dtype",
+            "bfloat16", "-s", "3"]
+    images, wall = {}, {}
+    for name, extra in (("one", ["--num-devices", "1"]), ("sp2", ["--sp",
+                                                                  "2"])):
+        t0 = time.monotonic()
+        images[name] = generate_sr_images_diffusion(
+            args + extra, lr_img=lr, log=lambda *a, **k: None,
+            save_locally=False)
+        wall[name] = time.monotonic() - t0
+    # The sampled residual (image minus the upsampled LR input, which both
+    # runs share), and the whole image.
+    up = area_resize(torch.from_numpy(
+        (lr.astype(np.float32) - 127.5) / 127.5)[None], SR_IMG,
+        SR_IMG).numpy()
+    delta = {k: v - up for k, v in images.items()}
+    rel = float(np.linalg.norm(delta["sp2"] - delta["one"])
+                / np.linalg.norm(delta["one"]))
+    image_rel = float(np.linalg.norm(images["sp2"] - images["one"])
+                      / np.linalg.norm(images["one"]))
+    share = float(np.linalg.norm(delta["one"])
+                  / np.linalg.norm(images["one"]))
+    log(f"model_parallel (c): SR generator --sp 2 on one {SR_IMG}x{SR_IMG} "
+        f"image vs one card (kernels on there): residual (image minus "
+        f"upsampled) normwise rel {rel:.3e} (tol {MODEL_TOL['bfloat16']}; "
+        f"the residual's norm is {share:.3f} of the image's); image rel "
+        f"{image_rel:.3e}; {wall['sp2']:.2f} s vs {wall['one']:.2f} s")
+    if not (images["sp2"].shape == images["one"].shape
+            and np.isfinite(images["sp2"]).all()
+            and rel <= MODEL_TOL["bfloat16"]):
+        raise AssertionError(f"model_parallel (c): SR --sp 2 residual {rel}")
+    out["sr_generator"] = dict(residual_rel=rel, image_rel=image_rel,
+                               residual_share=share,
+                               seconds=wall["sp2"],
+                               one_card_seconds=wall["one"])
+    return out
+
+
+def mp_cards_worker():
+    """A rank of phase 13 (c)'s two-card group. One SR step's gradients at
+    sp=2 (kernels off) and one flagship step's at tp=2 (tp_min_width 256,
+    kernels on), each on the whole seeded batch, held at GRAD_TOL to the
+    same step on this card alone (the unwrapped U-Net, the same seed and
+    kernels), and the U-Net's output on a seeded probe held row by row at
+    MODEL_TOL; the sp=2 step's peak memory and time; then one flagship step
+    under DP and under TP, each's collective bytes on this card
+    (parallel/analysis.py) and time. Rank 0's result is returned; a rank
+    whose gradients disagree raises."""
+    import torch
+    from sdm_tpu_torch.enums import Objective
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.ops.schedules import make_schedule
+    from sdm_tpu_torch.parallel import _comm, analysis, sp, tp
+    from sdm_tpu_torch.parallel.mesh import make_model_mesh, shard_rows
+    from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
+                                          make_train_step)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    schedule = make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                             max_noise_step=1000, device=dev)
+    out = {}
+
+    def unet(cfg, kernels):
+        torch.manual_seed(0)
+        return UNet(**cfg, dtype=torch.bfloat16, use_kernels=kernels).to(
+            dev, memory_format=torch.channels_last)
+
+    def setup(cfg, mesh, kernels):
+        net = unet(cfg, kernels)
+        sharded = (tp.shard_model(net, mesh.model_group)
+                   if mesh.tp > 1 else {})
+        optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
+                                                100_000)
+        state = create_train_state(net, optimizer, lr_schedule)
+        state.model = _comm.data_parallel(net, dev, mesh.reduce_group,
+                                          count_bytes=True)
+        params = sum(p.numel() * p.element_size() for p in net.parameters())
+        return state, params, sharded
+
+    def probe(cfg, seed):
+        """A seeded U-Net input and t for the forward check."""
+        gen = torch.Generator().manual_seed(seed)
+        hw = SR_IMG if cfg is SR else IMG
+        return (torch.randn((BATCH, hw, hw, cfg["in_channel"]),
+                            generator=gen).to(dev, torch.bfloat16),
+                torch.randint(1, 1000, (BATCH,), generator=gen).to(dev))
+
+    def one_card(cfg, kernels, step, batch, x):
+        """The step's loss and gradients, and the U-Net's output on the
+        probe `x`, on this card alone."""
+        net = unet(cfg, kernels)
+        loss = step.loss_fn(net, batch, None)
+        loss.backward()
+        with torch.no_grad():
+            y = net(*x, None)
+        got = (loss.item(), _grads(net), y)
+        del net
+        torch.cuda.empty_cache()
+        return got
+
+    def held(name, state, sharded, mesh, step, batch, want, x, space=None):
+        """The parallel step's global loss and whole gradients (the
+        shards gathered over the model group), and the output on the probe
+        `x` (the slabs gathered over the space group), against `want`.
+        The output is held row by row: a wrong halo or gather shows in the
+        rows at a slab's edge, which the whole gradients dilute."""
+        net = state.model.module
+        net.zero_grad(set_to_none=True)
+        with torch.no_grad(), sp.spatial(space):
+            y = net(x[0] if space is None else sp.slab(x[0], space), x[1],
+                    None)
+        if space is not None:
+            y = _comm.all_gather(y.contiguous(), mesh.space_group, 1)
+        diff = (y.float() - want[2].float()).square().sum(dim=(0, 2, 3))
+        row_rel = float((diff / want[2].float().square().sum(
+            dim=(0, 2, 3))).sqrt().max())
+        with sp.spatial(space):
+            loss = step.loss_fn(state.model, batch, None)
+            loss.backward()
+        world = torch.distributed.get_world_size()
+        loss = float(_comm.all_reduce(loss.detach().float().reshape(1),
+                                      None)) / world
+        grads = {n: (_comm.all_gather(g, mesh.model_group, sharded[n])
+                     if n in sharded else g)
+                 for n, g in _grads(net).items()}
+        net.zero_grad(set_to_none=True)
+        rel = _grad_rel(grads, want[1])
+        loss_rel = abs(loss - want[0]) / abs(want[0])
+        if not (rel <= GRAD_TOL["bfloat16"]
+                and loss_rel <= MODEL_TOL["bfloat16"]
+                and row_rel <= MODEL_TOL["bfloat16"]):
+            raise AssertionError(f"model_parallel (c): {name} gradients "
+                                 f"{rel}, loss {loss_rel}, output rows "
+                                 f"{row_rel}")
+        return dict(loss=loss, one_card_loss=want[0], loss_rel=loss_rel,
+                    grad_whole_rel=rel, output_row_rel=row_rel)
+
+    mesh = make_model_mesh("cuda", 1, 2)
+    batch = _seeded_batch(torch, SR_IMG, 23, dev)
+    space = sp.SpaceShard(mesh.space_group, mesh.space, 2)
+    step = make_train_step(schedule, objective=Objective.RESIDUAL_X0,
+                           cond_t=SR_COND_T, lr_dim=SR_IMG // 2, space=space)
+    plain = make_train_step(schedule, objective=Objective.RESIDUAL_X0,
+                            cond_t=SR_COND_T, lr_dim=SR_IMG // 2)
+    x = probe(SR, 25)
+    want = one_card(SR, False, plain, batch, x)
+    state, _, _ = setup(SR, mesh, False)
+    out["sp2_grads"] = held("sp2", state, {}, mesh, step, batch, want, x,
+                            space)
+    del want, x
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["sp_ms"] = time_ms(lambda: step(state, batch), 2)
+    out["sp_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, batch
+    torch.cuda.empty_cache()
+
+    batch = _seeded_batch(torch, IMG, 24, dev)
+    for name, tp_n in (("dp2", 1), ("tp2", 2)):
+        mesh = make_model_mesh("cuda", tp_n, 1)
+        rows = shard_rows(BATCH, mesh.data, mesh.dp)
+        local = {k: v[rows] for k, v in batch.items()}
+        step = make_train_step(schedule, objective=Objective.EPS,
+                               shard=(mesh.data, mesh.dp))
+        if name == "tp2":
+            x = probe(FLAGSHIP, 26)
+            want = one_card(FLAGSHIP, True, step, batch, x)
+        state, param_bytes, sharded = setup(FLAGSHIP, mesh, True)
+        out[name] = {}
+        if name == "tp2":
+            out[name] = held(name, state, sharded, mesh, step, local, want,
+                             x)
+            del want, x
+        step(state, local)
+        nbytes = analysis.step_collective_bytes(step, state, local)
+        torch.cuda.synchronize()
+        out[name].update(bytes=nbytes, layers_sharded=len(sharded),
+                         param_bytes=param_bytes,
+                         ms=time_ms(lambda: step(state, local), 3))
+        del state
+        torch.cuda.empty_cache()
+    return out
 
 
 def summarize(results, launches):
@@ -3282,7 +3718,7 @@ def summarize(results, launches):
 
 PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
           "training", "extensions", "remat", "loop", "distill", "eval",
-          "parallel")
+          "parallel", "model_parallel")
 
 
 def parse_phases(argv):
@@ -3493,7 +3929,9 @@ def main(argv) -> int:
                            ("loop", "fused_train", loop_phase),
                            ("distill", "distill", distill_phase),
                            ("eval", "eval", eval_phase),
-                           ("parallel", "parallel", parallel_phase)):
+                           ("parallel", "parallel", parallel_phase),
+                           ("model_parallel", "model_parallel",
+                            model_parallel_phase)):
         if name in phases:
             t0 = time.monotonic()
             launches[path], out[name] = fn(torch, counters)

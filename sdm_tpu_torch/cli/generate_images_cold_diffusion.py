@@ -13,8 +13,8 @@ bundle loader falls back to the wizard defaults, as sdm_tpu does.
 uniform skip list (as sdm_tpu's generator does). Runs on the CUDA device
 unless --device cpu. --num-devices N samples data-parallel (a replica of
 each model per card, the batch's rows split over them; default: the most
-visible cards that divide -n); --sp raises NotImplementedError (ROADMAP
-Queue 1 item 9).
+visible cards that divide -n); --sp N splits every U-Net activation
+along H over N ranks (generate_sr_images_diffusion.py::spatial_launch).
 """
 
 from __future__ import annotations
@@ -25,16 +25,17 @@ from datetime import datetime
 
 import numpy as np
 
-from sdm_tpu_torch.cli.generate_sr_images_diffusion import (add_sampling_args,
-                                                            entry_labels,
-                                                            replicated,
-                                                            sampling_setup)
+from sdm_tpu_torch.cli.generate_sr_images_diffusion import (
+    add_sampling_args, entry_labels, replicated, sampling_setup,
+    spatial_launch)
 
 
 def generate_images_cold_diffusion(raw_args=None, log=print,
-                                   save_locally=True, noise=None):
+                                   save_locally=True, noise=None,
+                                   spatial_mesh=None):
     """`noise`: a numpy (num_images, img_H, img_W, img_C) array to use as
-    the shared noise instead of drawing it from the seed."""
+    the shared noise instead of drawing it from the seed. `spatial_mesh`:
+    a rank's mesh, passed by `spatial_launch` (--sp)."""
     import torch
 
     from sdm_tpu_torch.diffusion.samplers import (cold_sample,
@@ -58,6 +59,10 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
     device, generator, out_dir, compute_dtype = sampling_setup(args)
 
     models_details, folder = load_bundle_config(args["config"])
+    if args["sp"] > 1 and spatial_mesh is None:
+        return spatial_launch(generate_images_cold_diffusion, raw_args, args,
+                              args["num_images"], models_details, log,
+                              save_locally, noise=noise)
     shared = x0 = None
     img_h = img_w = None
     num_models = len(models_details["models"])
@@ -69,7 +74,8 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
             net, schedule = build_model_from_bundle(
                 model_dict, folder, max_T=args["max_T"], device=device,
                 dtype=compute_dtype, cast_params=compute_dtype is not None,
-                param_key="ema" if args["use_ema"] else "model")
+                param_key="ema" if args["use_ema"] else "model",
+                use_kernels=args["sp"] == 1)
             if shared is None:
                 img_c, img_h, img_w = (model_dict["img_C"],
                                        model_dict["img_H"],
@@ -90,7 +96,7 @@ def generate_images_cold_diffusion(raw_args=None, log=print,
                 model_dict["min_noise"], model_dict["max_noise"],
                 args["cold_step_size"], schedule) if args["karras"] else None)
             x0 = cold_sample(replicated(net, device, args,
-                                        args["num_images"]),
+                                        args["num_images"], spatial_mesh),
                              schedule, x_t, shared,
                              min_noise=model_dict["min_noise"],
                              max_noise=model_dict["max_noise"],

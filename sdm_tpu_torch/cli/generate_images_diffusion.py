@@ -26,8 +26,9 @@ over them (default: the most visible cards that divide -n; with --device
 cpu, N replicas on the CPU). --pipeline M runs an ensemble bundle as a
 pipeline: model k on card k mod (the visible count), the batch cut into M
 microbatches that stream through the models (parallel/pipeline.py;
-`_pipeline_generate`). --sp (spatial partitioning) raises
-NotImplementedError naming its ROADMAP Queue 1 item (`refuse_sp`).
+`_pipeline_generate`). --sp N splits every U-Net activation along H over
+N ranks, the rows over --num-devices / N of them
+(generate_sr_images_diffusion.py::spatial_launch); not with --pipeline.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import numpy as np
 
 from sdm_tpu_torch.cli.generate_sr_images_diffusion import (
     SUPPORTED_IMG_FORMATS, _detect_img_format, add_parallel_args,
-    entry_labels, finish_images, refuse_sp, replicated)
+    entry_labels, finish_images, replicated, spatial_launch)
 
 
 def check_pipeline(args: dict, num_models: int) -> None:
@@ -162,13 +163,15 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
-                              save_locally=True, noise=None, zs=None):
+                              save_locally=True, noise=None, zs=None,
+                              spatial_mesh=None):
     """`cond_img`: a numpy (H, W, C) image in [0, 255], BGR, instead of
     --cond_img_path. `noise`: a numpy (num_images, img_H, img_W, img_C)
     array to use as x_T instead of drawing it from the seed (img2img and
     inpainting q-sample with it, as with the drawn one). `zs`: for DDPM,
     one numpy (num_steps, num_images, img_H, img_W, img_C) array of
-    per-step noise for each bundle model, instead of drawing it."""
+    per-step noise for each bundle model, instead of drawing it.
+    `spatial_mesh`: a rank's mesh, passed by `spatial_launch` (--sp)."""
     import torch
 
     from sdm_tpu_torch.diffusion.guidance import cfg_model_fn
@@ -202,6 +205,7 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
     elif args["karras"]:
         raise ValueError("--karras applies to --diff_alg ddim/dpmpp/heun")
 
+    cond_img_arg = cond_img
     cond_img_path = args["cond_img_path"]
     if cond_img_path is not None:
         _check_image(cond_img_path, "Invalid path for conditional image, "
@@ -221,7 +225,6 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
         check_pipeline(args, len(models_details["models"]))
         return _pipeline_generate(args, models_details, folder, generator,
                                   cond, out_dir, log, save_locally, noise)
-    refuse_sp(args)
 
     # img2img: the init image, validated and read up front.
     init_img = None
@@ -259,6 +262,11 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
             raise ValueError(
                 f"mask {inpaint_mask.shape[:2]} must match the inpaint "
                 f"image {inpaint_img.shape[:2]}")
+    if args["sp"] > 1 and spatial_mesh is None:
+        return spatial_launch(generate_images_diffusion, raw_args, args,
+                              args["num_images"], models_details, log,
+                              save_locally, cond_img=cond_img_arg,
+                              noise=noise, zs=zs)
 
     compute_dtype = torch.bfloat16 if args["dtype"] == "bfloat16" else None
     x_t = x_T = None
@@ -290,7 +298,8 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
             net, schedule = build_model_from_bundle(
                 model_dict, folder, max_T=args["max_T"], device=device,
                 dtype=compute_dtype, cast_params=compute_dtype is not None,
-                param_key="ema" if args["use_ema"] else "model")
+                param_key="ema" if args["use_ema"] else "model",
+                use_kernels=args["sp"] == 1)
 
             # img2img: the first model starts from the init image q-sampled
             # to init_noise_step with x_T.
@@ -329,7 +338,8 @@ def generate_images_diffusion(raw_args=None, log=print, cond_img=None,
                 raise ValueError("--guidance-scale needs a label-conditional "
                                  "model and -l labels")
             model_fn = cfg_model_fn(
-                replicated(net, device, args, args["num_images"]), gs)
+                replicated(net, device, args, args["num_images"],
+                           spatial_mesh), gs)
             span = dict(min_noise=model_dict["min_noise"],
                         max_noise=max_noise, cond_img=cond, labels=labels)
             steps = (karras_steps_matching(model_dict["min_noise"],

@@ -15,16 +15,18 @@ and returns or saves `upsampled + delta`.
 Runs on the CUDA device unless --device cpu. --num-devices N samples
 data-parallel: a replica of each model per card, the LR images' rows
 split over them (default: the most visible cards that divide the number
-of LR images; with --device cpu, N replicas on the CPU). --sp (spatial
-partitioning) raises NotImplementedError: it is not ported yet (ROADMAP
-Queue 1 item 9).
+of LR images; with --device cpu, N replicas on the CPU). --sp N splits
+every U-Net activation along H over N ranks (`spatial_launch`), the one
+way to spread a single image over several cards.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import pathlib
+import sys
 import uuid
 from datetime import datetime
 
@@ -82,21 +84,72 @@ def add_parallel_args(parser: argparse.ArgumentParser) -> None:
                              "(default: the most visible cards that divide "
                              "the batch).")
     parser.add_argument("--sp", type=int, default=1, metavar="N",
-                        help="Spatial partitioning over N devices (not "
-                             "ported: more than one is refused).")
+                        help="Spatial partitioning: every U-Net activation "
+                             "split along H over N devices, one process "
+                             "each, the batch's rows over the rest of "
+                             "--num-devices (default: the most cards that "
+                             "divide the batch; with --device cpu, N "
+                             "processes). The kernels are off.")
 
 
-def refuse_sp(args: dict) -> None:
-    if args["sp"] > 1:
-        from sdm_tpu_torch.parallel import PARALLEL_ITEM
-        raise NotImplementedError(
-            f"--sp > 1 is not ported to sdm_tpu_torch yet ({PARALLEL_ITEM})")
+def spatial_launch(fn, raw_args, args: dict, batch: int, models: dict,
+                   log, save_locally: bool, **kwargs):
+    """Run generator `fn` under --sp, sdm_tpu's sampling_put_fn rule: dp =
+    --num-devices / sp, or the most devices dividing `batch` (--device cpu:
+    --num-devices defaults to sp); the image height, and every level's of
+    each bundle model, must divide by sp. Spawns dp * sp ranks
+    (parallel/multihost.py::spawn), each running `fn` with the same
+    arguments, a fixed seed (so each draws the one-device run's noise) and
+    its ("data", "model", "space") mesh as `spatial_mesh`, with which
+    `replicated` gives it a SpatialModel. Returns rank 0's images (or None
+    when it saved them)."""
+    import torch
+
+    from sdm_tpu_torch.parallel import multihost as mh
+    from sdm_tpu_torch.parallel import sp as sp_mod
+    from sdm_tpu_torch.serving.engine import resolve_device
+    device = resolve_device("cpu" if args["device"] == "cpu" else None)
+    num_devices = args["num_devices"]
+    if device.type == "cpu":
+        num_devices = num_devices or args["sp"]
+        available = num_devices
+    else:
+        available = torch.cuda.device_count()
+    dp, sp = sp_mod.auto_dp_sp(batch, num_devices, args["sp"], available)
+    first = models["models"][0]
+    sp_mod.validate_spatial_divisibility(
+        (batch, first["img_H"], first["img_W"], first["img_C"]), sp)
+    for md in models["models"]:
+        sp_mod.check_levels(md["img_H"], md["num_layers"], sp)
+    seed = (args["seed"] if args["seed"] is not None
+            else np.random.SeedSequence().entropy % (2 ** 32))
+    raw = list(sys.argv[1:] if raw_args is None else raw_args)
+    log(f"Spatial partitioning: {dp * sp} ranks ({dp} data x {sp} space), "
+        "kernels off")
+    return mh.spawn(_run_rank, dp * sp, device.type, device.type, sp,
+                    fn.__module__, fn.__name__, raw + ["-s", str(int(seed))],
+                    kwargs, save_locally)
 
 
-def replicated(net, device, args: dict, batch: int):
+def _run_rank(device_type: str, sp: int, module: str, name: str, raw_args,
+              kwargs, save_locally):
+    from sdm_tpu_torch.parallel import multihost as mh
+    from sdm_tpu_torch.parallel.mesh import make_model_mesh
+    mesh = make_model_mesh(device_type, 1, sp)
+    fn = getattr(importlib.import_module(module), name)
+    return fn(raw_args, log=lambda *a, **k: None,
+              save_locally=save_locally and mh.is_main_process(),
+              spatial_mesh=mesh, **kwargs)
+
+
+def replicated(net, device, args: dict, batch: int, spatial_mesh=None):
     """`net`, or its Replicas over --num-devices devices for a batch of
-    `batch` rows."""
+    `batch` rows; in a rank of `spatial_launch` (`spatial_mesh`, its
+    parallel/mesh.py ModelMesh), its SpatialModel."""
     from sdm_tpu_torch.parallel.mesh import Replicas, sampling_devices
+    if spatial_mesh is not None:
+        from sdm_tpu_torch.parallel.sp import SpatialModel
+        return SpatialModel(net, spatial_mesh)
     devices = sampling_devices(device, args["num_devices"], batch)
     return Replicas(net, devices) if len(devices) > 1 else net
 
@@ -107,7 +160,6 @@ def sampling_setup(args: dict):
     import torch
 
     from sdm_tpu_torch.serving.engine import resolve_device
-    refuse_sp(args)
     device = resolve_device("cpu" if args["device"] == "cpu" else None)
     seed = (args["seed"] if args["seed"] is not None
             else np.random.SeedSequence().entropy % (2 ** 32))
@@ -150,10 +202,12 @@ def finish_images(images, img_h, img_w, out_dir, log, save_locally):
 
 
 def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
-                                 save_locally=True, noise=None):
+                                 save_locally=True, noise=None,
+                                 spatial_mesh=None):
     """`lr_img`: a numpy (H, W, C) or (N, H, W, C) image in [0, 255], BGR,
     instead of --lr_img_path. `noise`: a numpy (N, img_H, img_W, img_C)
-    array to use as the shared noise instead of drawing it from the seed."""
+    array to use as the shared noise instead of drawing it from the seed.
+    `spatial_mesh`: a rank's mesh, passed by `spatial_launch` (--sp)."""
     import torch
 
     from sdm_tpu_torch.diffusion.samplers import cold_sample
@@ -168,6 +222,7 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
                         help="File path to low resolution image.")
     args = vars(parser.parse_args(raw_args))
     device, generator, out_dir, compute_dtype = sampling_setup(args)
+    lr_img_arg = lr_img
 
     if lr_img is not None:
         if not type(lr_img).__module__ == np.__name__:
@@ -189,6 +244,10 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
     lr = torch.from_numpy(np.ascontiguousarray(lr_img)).to(device)
 
     models_details, folder = load_bundle_config(args["config"])
+    if args["sp"] > 1 and spatial_mesh is None:
+        return spatial_launch(generate_sr_images_diffusion, raw_args, args,
+                              lr.shape[0], models_details, log, save_locally,
+                              lr_img=lr_img_arg, noise=noise)
     shared = delta = upsampled = cond = None
     img_h = img_w = None
     num_models = len(models_details["models"])
@@ -200,7 +259,8 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
             net, schedule = build_model_from_bundle(
                 model_dict, folder, max_T=args["max_T"], device=device,
                 dtype=compute_dtype, cast_params=compute_dtype is not None,
-                param_key="ema" if args["use_ema"] else "model")
+                param_key="ema" if args["use_ema"] else "model",
+                use_kernels=args["sp"] == 1)
             if shared is None:
                 img_c, img_h, img_w = (model_dict["img_C"],
                                        model_dict["img_H"],
@@ -225,7 +285,8 @@ def generate_sr_images_diffusion(raw_args=None, log=print, lr_img=None,
                 x_t = schedule.q_sample(delta, [model_dict["max_noise"]],
                                         shared)
             labels = entry_labels(args, model_dict, device)
-            delta = cold_sample(replicated(net, device, args, lr.shape[0]),
+            delta = cold_sample(replicated(net, device, args, lr.shape[0],
+                                           spatial_mesh),
                                 schedule, x_t, shared,
                                 min_noise=model_dict["min_noise"],
                                 max_noise=model_dict["max_noise"],

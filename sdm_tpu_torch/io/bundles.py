@@ -39,7 +39,8 @@ def load_bundle_config(config_path: str) -> Tuple[dict, str]:
 def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
                             max_T: int, device, dtype=None,
                             cast_params: bool = False,
-                            param_key: str = "model"):
+                            param_key: str = "model",
+                            use_kernels: bool = True):
     """Returns (model, schedule) for one bundle entry: the UNet in eval
     mode on `device` with its checkpoint loaded, and the schedule rebuilt
     from the bundle's parameters.
@@ -47,7 +48,9 @@ def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
     `dtype` is the compute dtype (None = fp32). `cast_params=True` also
     stores the weights in that dtype (sampling never updates them).
     `param_key="ema"` loads the EMA weights stored beside "model". The
-    kernels run only with a compute dtype (sdm_tpu/io/bundles.py:101-110)."""
+    kernels run with a compute dtype and `use_kernels`
+    (sdm_tpu/io/bundles.py:101-110; the generators pass False under
+    --sp)."""
     schedule = make_schedule(
         str(model_dict["noise_scheduler"]),
         # BASE-COLD LINEAR bundles written by the reference lack
@@ -56,7 +59,7 @@ def build_model_from_bundle(model_dict: dict, bundle_folder: str, *,
         beta_T=model_dict.get("beta_T", 9e-3),
         max_noise_step=max_T, device=device)
     net = UNet.from_config(model_dict, dtype=dtype,
-                           use_kernels=dtype is not None)
+                           use_kernels=dtype is not None and use_kernels)
     model_path = os.path.join(bundle_folder, model_dict["model_name"])
     if not os.path.isfile(model_path):
         raise FileNotFoundError(

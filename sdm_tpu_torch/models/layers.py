@@ -21,10 +21,19 @@ convs run in the compute dtype. `use_kernels` routes AdaGN to
 `fused_adagn`, single-head attention to `fused_attention_block` and
 multi-head attention to `fused_attention`; without it the layers run the
 plain composed PyTorch path.
+
+Model parallelism (parallel/tp.py, parallel/sp.py). A conv, transposed
+conv or linear whose weight is a tensor-parallel shard (its `tp` set by
+tp.shard_model; `tp_out_dim` names the weight's output-channel dim) runs
+column-parallel, and an attention block gathers whole weights for its
+kernel. Inside sp.spatial(...) each layer works on an H slab: convs take
+their halo rows, GroupNorm and attention reduce over the space group.
+Neither changes a layer's one-device path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -38,15 +47,19 @@ from sdm_tpu_torch.kernels.adagn import fused_adagn
 from sdm_tpu_torch.kernels.attention import attention
 from sdm_tpu_torch.kernels.attention_block import fused_attention_block
 from sdm_tpu_torch.ops.norms import group_norm
+from sdm_tpu_torch.parallel import sp, tp
 
 
 def remat_call(fn, *args, remat: bool = False):
     """fn(*args), under `remat` a checkpoint whenever autograd records:
     only the inputs are kept, and the backward runs fn again (sdm_tpu's
-    nn.checkpoint). No layer draws random numbers, so the replay equals
-    the first run; the RNG state is still preserved around it."""
+    nn.checkpoint), inside the SP context the first run saw. No layer
+    draws random numbers, so the replay equals the first run; the RNG
+    state is still preserved around it."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        shard = sp.active()
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), sp.spatial(shard)))
     return fn(*args)
 
 
@@ -69,9 +82,22 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def _no_kernels(use_kernels: bool, what: str) -> None:
+    """The kernels take whole images: inside an SP context a layer built
+    with them raises (the trainers and generators build their U-Nets with
+    use_kernels=False under sp > 1)."""
+    if use_kernels:
+        raise RuntimeError(f"{what}: the kernels run on whole images; build "
+                           "the U-Net with use_kernels=False under spatial "
+                           "partitioning")
+
+
 class TorchLinear(nn.Module):
     """nn.Linear parameters and init; fp32 accumulation, fp32 bias, one
     rounding to the compute dtype (sdm_tpu layers.py:62-64)."""
+
+    tp_out_dim = 0
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__()
@@ -84,14 +110,40 @@ class TorchLinear(nn.Module):
 
     def forward(self, x):
         dtype = self.dtype or x.dtype
-        y = F.linear(x.to(dtype).to(torch.float32),
-                     self.weight.to(dtype).to(torch.float32),
+        x = x.to(dtype).to(torch.float32)
+        if self.tp is not None:
+            y = tp.column(self, x, lambda x, w: F.linear(
+                x, w.to(dtype).to(torch.float32)), -1)
+            return (y + self.bias.to(torch.float32)).to(dtype)
+        y = F.linear(x, self.weight.to(dtype).to(torch.float32),
                      self.bias.to(torch.float32))
         return y.to(dtype)
 
 
+def _conv(layer, x, dtype, conv, transposed: bool):
+    """A conv layer's forward, conv(x, weight, bias, padding) in `dtype`:
+    on one device as it is; under SP with halo rows (H padding 0, or the
+    transposed conv's); under TP column-parallel, the bias added whole."""
+    padding = layer.padding
+    shard = sp.active()
+    if shard is not None:
+        above, below, pad_h = sp.conv_halo(layer.kernel_size[0],
+                                           layer.stride[0], layer.padding[0],
+                                           transposed)
+        x = sp.halo(x, shard, above, below)
+        padding = (pad_h, layer.padding[1])
+    if layer.tp is None:
+        return conv(x, layer.weight.to(dtype), layer.bias.to(dtype), padding)
+    y = tp.column(layer, x, lambda x, w: conv(x, w.to(dtype), None,
+                                              padding), 1)
+    return y + layer.bias.to(dtype)[None, :, None, None]
+
+
 class TorchConv(nn.Conv2d):
     """nn.Conv2d run in the compute dtype."""
+
+    tp_out_dim = 0
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, dtype=None):
@@ -101,13 +153,17 @@ class TorchConv(nn.Conv2d):
 
     def forward(self, x):
         dtype = self.compute_dtype or x.dtype
-        return F.conv2d(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype), self.stride, self.padding)
+        return _conv(
+            self, x.to(dtype), dtype,
+            lambda x, w, b, p: F.conv2d(x, w, b, self.stride, p), False)
 
 
 class TorchConvTranspose(nn.ConvTranspose2d):
     """nn.ConvTranspose2d (weight (in, out, kh, kw)) run in the compute
     dtype."""
+
+    tp_out_dim = 1
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1, dtype=None):
@@ -117,9 +173,10 @@ class TorchConvTranspose(nn.ConvTranspose2d):
 
     def forward(self, x):
         dtype = self.compute_dtype or x.dtype
-        return F.conv_transpose2d(x.to(dtype), self.weight.to(dtype),
-                                  self.bias.to(dtype), self.stride,
-                                  self.padding)
+        return _conv(
+            self, x.to(dtype), dtype,
+            lambda x, w, b, p: F.conv_transpose2d(x, w, b, self.stride, p),
+            True)
 
 
 class TorchGroupNorm(nn.Module):
@@ -138,12 +195,18 @@ class TorchGroupNorm(nn.Module):
 
     def forward(self, x, mod_scale=None, mod_shift=None):
         xh = _nhwc(x)
-        if mod_scale is not None and self.use_kernels:
+        shard = sp.active()
+        if shard is not None:
+            _no_kernels(self.use_kernels and mod_scale is not None, "AdaGN")
+            out = sp.group_norm(xh, self.weight, self.bias, self.num_groups,
+                                self.eps, shard)
+        elif mod_scale is not None and self.use_kernels:
             out = fused_adagn(xh.contiguous(), self.weight, self.bias,
                               mod_scale, mod_shift, self.num_groups, self.eps)
             return _nchw(out)
-        out = group_norm(xh, self.weight, self.bias, self.num_groups,
-                         self.eps)
+        else:
+            out = group_norm(xh, self.weight, self.bias, self.num_groups,
+                             self.eps)
         if mod_scale is not None:
             out = (mod_scale[:, None, None, :] * out
                    + mod_shift[:, None, None, :])
@@ -230,15 +293,24 @@ class AttentionBlock(nn.Module):
         axis = "q" if self.parity else "k"
         dtype = self.dtype or x.dtype
         tokens = _nhwc(x).reshape(n, h * w, c)
+        shard = sp.active()
+        _no_kernels(self.use_kernels and shard is not None, "attention")
         if self.use_kernels and heads == 1:
+            # Under TP the kernel takes the whole (gathered) weights.
             res = fused_attention_block(
                 tokens.to(dtype).contiguous(),
-                self.projection.weight.to(dtype), self.projection.bias,
-                self.output.weight.to(dtype), self.output.bias, scale, axis)
+                tp.full_weight(self.projection).to(dtype),
+                self.projection.bias,
+                tp.full_weight(self.output).to(dtype), self.output.bias,
+                scale, axis)
             return _nchw(res.reshape(n, h, w, c))
         qkv = self.projection(tokens).reshape(n, h * w, heads, 3 * d_k)
         q, k, v = qkv.split(d_k, dim=-1)
-        res = attention(q, k, v, scale, axis, use_kernels=self.use_kernels)
+        if shard is not None:
+            res = sp.attention(q, k, v, scale, axis, shard)
+        else:
+            res = attention(q, k, v, scale, axis,
+                            use_kernels=self.use_kernels)
         res = self.output(res.reshape(n, h * w, heads * d_k)) + tokens
         return _nchw(res.reshape(n, h, w, c))
 

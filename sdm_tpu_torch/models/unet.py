@@ -14,6 +14,7 @@ do not change, so checkpoints load with or without it.
 
 `forward(x, t, cond)` takes and returns NHWC, as sdm_tpu does; inside, the
 activations are NCHW in channels_last memory (see models/layers.py).
+Under spatial partitioning (parallel/sp.py) it takes and returns a slab.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 from sdm_tpu_torch.enums import UNetBlockType
 from sdm_tpu_torch.models.layers import (ConditionalEmbedding, UNetBlock,
                                          UNetConvBlock, remat_call)
+from sdm_tpu_torch.parallel import sp
 
 
 class UNet(nn.Module):
@@ -96,7 +98,13 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (N, H, W, C_in) -> (N, H, W, C_out); t (N,) or (1,) steps."""
+        """x (N, H, W, C_in) -> (N, H, W, C_out); t (N,) or (1,) steps.
+        Inside sp.spatial(shard), x and the output are this rank's H slab
+        of the image."""
+        shard = sp.active()
+        if shard is not None:
+            sp.check_levels(x.shape[1] * shard.size, self.num_layers,
+                            shard.size)
         x = x.permute(0, 3, 1, 2)
         if self.dtype is not None:
             x = x.to(self.dtype)

@@ -8,12 +8,15 @@ DistributedDataParallel (train/loop.py), the mesh is a 1-D
 takes its contiguous block of each global batch's rows (`shard_batch`),
 as P("data") places them. Sampling (the engine and the generators) stays
 in one process: `Replicas` holds one copy of a U-Net per device and
-splits each call's rows over them.
+splits each call's rows over them. Under tensor parallelism or spatial
+partitioning the ranks form sdm_tpu's [dp, tp, sp] mesh, with a group for
+each axis (`make_model_mesh`).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import List, Optional, Sequence
 
 import torch
@@ -59,6 +62,56 @@ def make_mesh(device_type: str):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (dist.get_world_size(),),
                             mesh_dim_names=("data",))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """The ("data", "model", "space") layout of the process group (sdm_tpu
+    train/loop.py:447-466): global rank r = d*tp*sp + m*sp + s holds batch
+    row block d, weight shard m and H slab s, as sdm_tpu's device r does.
+    `reduce_group` joins the ranks of one model index (data x space): the
+    gradients average over it (parallel/sp.py explains the factor)."""
+    dp: int
+    tp: int
+    sp: int
+    data: int
+    model: int
+    space: int
+    mesh: object
+    model_group: object
+    space_group: object
+    reduce_group: object
+
+
+def make_model_mesh(device_type: str, tp: int, sp: int) -> ModelMesh:
+    """The [dp, tp, sp] mesh over every rank of the group (dp = world /
+    (tp * sp)) and its sub-groups. A collective: every rank calls it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    world, r = dist.get_world_size(), dist.get_rank()
+    if world % (tp * sp):
+        raise ValueError(f"tp={tp} x sp={sp} must divide the device count "
+                         f"{world}")
+    dp = world // (tp * sp)
+    mesh = init_device_mesh(device_type, (dp, tp, sp),
+                            mesh_dim_names=("data", "model", "space"))
+    if tp == 1:
+        reduce_group = None                      # the whole world
+    elif sp == 1:
+        reduce_group = mesh["data"].get_group()
+    else:
+        reduce_group = None
+        for m in range(tp):                      # every rank makes each
+            ranks = [d * tp * sp + m * sp + s for d in range(dp)
+                     for s in range(sp)]
+            g = dist.new_group(ranks)
+            if r in ranks:
+                reduce_group = g
+    return ModelMesh(dp=dp, tp=tp, sp=sp, data=r // (tp * sp),
+                     model=(r // sp) % tp, space=r % sp, mesh=mesh,
+                     model_group=mesh["model"].get_group(),
+                     space_group=mesh["space"].get_group(),
+                     reduce_group=reduce_group)
 
 
 def shard_rows(n: int, rank: int, world: int) -> slice:

@@ -49,6 +49,20 @@ loop's chunk boundaries come from the same all-reduce on every rank, so
 no rank leaves while another waits in a collective. The run ends on a
 barrier.
 
+Model parallelism (sdm_tpu loop.py:303-316, 416-502): "tp" shards the
+wide weights over a "model" group (parallel/tp.py; "tp_min_width",
+default 256) and "sp" splits every image activation along H over a
+"space" group (parallel/sp.py). The ranks form the [dp, tp, sp] mesh
+(parallel/mesh.py::make_model_mesh): dp = ranks / (tp * sp), each data
+rank's rows shared by its tp * sp ranks, which draw the same randomness
+and train on the one-device run's numbers. A one-command run spawns dp *
+tp * sp ranks (--num-devices, default all visible cards, or tp * sp CPU
+processes). Under sp > 1 the kernels are off, as sdm_tpu turns its
+kernels off. A TP checkpoint gathers the whole state to rank 0 in the
+unsharded format, and previews sample on a plain copy from it. "fsdp"
+with tp or sp > 1 and "device_dataset" with tp > 1 are not ported
+(`refuse_unported`).
+
 Previews draw their noise from a generator of their own (seeded from
 "seed"), so the training draws do not depend on whether or where a
 preview runs. Config keys of sdm_tpu that this port does not carry yet
@@ -95,9 +109,14 @@ from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
 from sdm_tpu_torch.io.plotting import plot_sampled_images
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.resize import area_resize
-from sdm_tpu_torch.parallel import fsdp, multihost as mh
+from sdm_tpu_torch.parallel import (PARALLEL_ITEM, fsdp, multihost as mh,
+                                    tp as tp_mod)
+from sdm_tpu_torch.parallel._comm import data_parallel
 from sdm_tpu_torch.parallel.mesh import (batch_positions, device_count,
-                                         make_mesh, shard_rows)
+                                         make_mesh, make_model_mesh,
+                                         shard_rows)
+from sdm_tpu_torch.parallel.sp import (SpaceShard, check_levels,
+                                       validate_spatial_divisibility)
 from sdm_tpu_torch.ops.schedules import make_schedule
 from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
                                       make_train_step)
@@ -128,21 +147,45 @@ SR_SPEC = TrainerSpec("SR-Cold-Diffusion", Objective.RESIDUAL_X0, "sr",
 
 # sdm_tpu config keys not ported yet: (key, is it set?, ROADMAP item).
 UNPORTED = (
-    ("sp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
-    ("tp", lambda v: int(v) > 1, "Queue 1 item 9 (parallel)"),
     ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
     ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
 )
 
 
+def model_parallel_sizes(config_dict: dict):
+    """(tp, sp, tp_min_width) with sdm_tpu's checks (loop.py:426-431)."""
+    sp = int(config_dict.get("sp", 1))
+    tp = int(config_dict.get("tp", 1))
+    if sp < 1:
+        raise ValueError(f'"sp" must be >= 1, got {sp}')
+    if tp < 1:
+        raise ValueError(f'"tp" must be >= 1, got {tp}')
+    return tp, sp, int(config_dict.get("tp_min_width", 256))
+
+
 def refuse_unported(config_dict: dict) -> None:
-    """Raise NotImplementedError for a set config key the port lacks."""
+    """Raise NotImplementedError for a set config key the port lacks, or a
+    combination of model parallelism it lacks; sdm_tpu's ValueError for
+    "device_dataset" with sp (loop.py:811)."""
     for key, is_set, item in UNPORTED:
         value = config_dict.get(key)
         if value is not None and is_set(value):
             raise NotImplementedError(
                 f'config "{key}" is not ported to sdm_tpu_torch yet '
                 f"(ROADMAP {item})")
+    tp, sp, _ = model_parallel_sizes(config_dict)
+    fused = bool(config_dict.get("device_dataset", False))
+    for key, on in (("fsdp", bool(config_dict.get("fsdp", False))
+                     and tp * sp > 1),
+                    ("device_dataset", fused and tp > 1)):
+        if on:
+            raise NotImplementedError(
+                f'config "{key}" with "tp" or "sp" > 1 is not ported to '
+                f"sdm_tpu_torch yet ({PARALLEL_ITEM})")
+    if fused and sp > 1:
+        raise ValueError(
+            '"device_dataset" fused training supports single-process '
+            "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
 
 
 def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
@@ -154,9 +197,10 @@ def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
     parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
                         default="cuda", help="Device to train on.")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="Data-parallel devices, one process each "
-                             "(default: the most visible cards that divide "
-                             "the batch; with --device cpu, 1).")
+                        help="Devices, one process each (default: the most "
+                             "visible cards that divide the batch, or all "
+                             "of them under \"tp\"/\"sp\"; with --device "
+                             "cpu, 1, or tp * sp).")
     parser.add_argument("--steps", type=int, default=None,
                         help="Stop after this many global steps (smoke runs; "
                              "default: run to max_epoch).")
@@ -218,18 +262,43 @@ def train_device(device) -> torch.device:
     return dev
 
 
+def data_axis_size(micro: int, n_total: int, tp: int, sp: int) -> int:
+    """dp for n_total ranks under tp x sp, with sdm_tpu's checks
+    (loop.py:447-457)."""
+    if n_total % (tp * sp):
+        raise ValueError(
+            f"tp={tp} x sp={sp} must divide the device count {n_total}")
+    dp = n_total // (tp * sp)
+    if micro % dp:
+        raise ValueError(
+            f"microbatch {micro} must be divisible by the data-axis size "
+            f"{dp} ({n_total} devices / tp={tp} / sp={sp})")
+    return dp
+
+
 def ranks_to_spawn(config_dict: dict, dev: torch.device,
                    num_devices: Optional[int]) -> int:
     """How many ranks a one-command run spawns (1: train here): sdm_tpu's
-    count rule over the micro-batch; any count of CPU processes. None
-    inside a process group or under a multi-host launch, which fix the
-    ranks themselves."""
+    count rule over the micro-batch; any count of CPU processes. Under
+    "tp"/"sp", num_devices ranks (default: every visible card, or tp * sp
+    CPU processes), validated as sdm_tpu validates its mesh. 1 inside a
+    process group or under a multi-host launch, which fix the ranks
+    themselves."""
     if torch.distributed.is_initialized() or mh.wants_multihost(config_dict):
         return 1
     batch_size = config_dict["batch_size"]
     grad_accum = int(config_dict.get("grad_accum_steps", 1))
     micro = batch_size // grad_accum if grad_accum >= 1 else batch_size
-    return device_count(dev, micro, num_devices)
+    tp, sp, _ = model_parallel_sizes(config_dict)
+    if tp * sp == 1:
+        return device_count(dev, micro, num_devices)
+    visible = (torch.cuda.device_count() if dev.type == "cuda"
+               else num_devices or tp * sp)
+    n_total = num_devices or visible
+    if n_total > visible:
+        raise ValueError(f"{n_total} devices asked for, {visible} visible")
+    data_axis_size(micro, n_total, tp, sp)
+    return n_total
 
 
 def _spawned_training(spec, config_dict, device, max_steps,
@@ -392,21 +461,39 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             f"batch size {batch_size} must be divisible by "
             f"grad_accum_steps {grad_accum}")
     micro_batch = batch_size // grad_accum
-    if micro_batch % world:
+    tp, sp, tp_min_width = model_parallel_sizes(config_dict)
+    mesh = None
+    if tp * sp > 1:
+        if multihost:
+            per_host = (torch.cuda.device_count() if dev.type == "cuda" else
+                        int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+            if per_host % (tp * sp):
+                raise ValueError(
+                    f"tp*sp = {tp * sp} must divide the per-host device "
+                    f"count {per_host} (model/space groups must not span "
+                    "hosts)")
+        data_axis_size(micro_batch, world, tp, sp)
+        mesh = make_model_mesh(dev.type, tp, sp)
+        data_rank, data_world = mesh.data, mesh.dp
+    elif micro_batch % world:
         raise ValueError(f"microbatch {micro_batch} must be divisible by "
                          f"{world} devices")
+    else:
+        data_rank, data_world = rank, world
     local_batch, rows = batch_size, None
     if multihost:
-        # batch_size is the global batch; each rank reads its own shard of
-        # the dataset and contributes batch_size / world rows.
-        local_batch = batch_size // world
-        dataset = DatasetShard(dataset, mh.shard_indices(len(dataset)))
+        # batch_size is the global batch; each data rank reads its own
+        # shard of the dataset and contributes batch_size / dp rows (its
+        # model and space ranks read the same shard).
+        local_batch = batch_size // data_world
+        dataset = DatasetShard(dataset, mh.shard_indices(
+            len(dataset), num_processes=data_world, process_id=data_rank))
         if len(dataset) < local_batch:
             raise ValueError(
                 f"dataset shard of {len(dataset)} items cannot fill a "
                 f"per-host batch of {local_batch}")
-    elif world > 1:
-        rows = batch_positions(batch_size, grad_accum, rank, world)
+    elif data_world > 1:
+        rows = batch_positions(batch_size, grad_accum, data_rank, data_world)
     dataloader = DataLoader(dataset, batch_size=local_batch, shuffle=True,
                             num_workers=8, seed=seed,
                             native_decode=bool(config_dict.get(
@@ -439,6 +526,9 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                             log=logging.info)
     if plot_cond_imgs is not None:
         plot_cond_imgs = torch.from_numpy(plot_cond_imgs).to(dev)
+    if sp > 1:
+        validate_spatial_divisibility(plot_imgs.shape, sp)
+        check_levels(plot_imgs.shape[1], config_dict["num_layers"], sp)
 
     # ---- Model ----
     compute_dtype = {"bfloat16": torch.bfloat16, "float32": None,
@@ -446,6 +536,14 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                          str(config_dict.get("compute_dtype",
                                              "bfloat16")).lower()]
     use_kernels = config_dict.get("use_pallas", "auto") is not False
+    if sp > 1 and use_kernels:
+        # The kernels take whole images (parallel/sp.py), as sdm_tpu's
+        # Pallas kernels would replicate attention sp times.
+        if config_dict.get("use_pallas") is True:
+            logging.info('"sp" > 1: overriding use_pallas=True to False - '
+                         "the kernels run on whole images; the plain path "
+                         "splits attention at 1x work.")
+        use_kernels = False
     if use_kernels:
         mh.build_kernels_once(dev)
     with torch.random.fork_rng(devices=[]):
@@ -453,12 +551,13 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         net = UNet.from_config(config_dict, dtype=compute_dtype,
                                use_kernels=use_kernels)
     fsdp_on = bool(config_dict.get("fsdp", False)) and world > 1
+    tp_on = tp > 1
     # FSDP2 shards contiguous parameters only, so a sharded run keeps the
     # conv weights in their default layout (the activations stay
-    # channels_last). Its checkpoint previews sample on a plain copy, from
-    # the gathered weights.
+    # channels_last). Its (and a TP run's) checkpoint previews sample on a
+    # plain copy, from the gathered weights.
     plain_net = (copy.deepcopy(net).to(dev, memory_format=torch.channels_last)
-                 if fsdp_on and is_main else None)
+                 if (fsdp_on or tp_on) and is_main else None)
     net = net.to(dev) if fsdp_on else net.to(
         dev, memory_format=torch.channels_last)
 
@@ -505,6 +604,19 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         mh.replicate([*net.parameters(), *net.buffers()])
         fsdp.shard_model(net, make_mesh(dev.type), min_size=int(
             config_dict.get("fsdp_min_size", 2 ** 15)))
+    tp_names = {}
+    if tp_on:
+        # Every rank cuts its shard from rank 0's weights; the optimizer,
+        # the EMA and a resumed state then follow the shards.
+        mh.replicate([*net.parameters(), *net.buffers()])
+        param_names = [n for n, _ in net.named_parameters()]
+        tp_names = tp_mod.shard_model(net, mesh.model_group, tp_min_width)
+        if pending_optimizer is not None:
+            pending_optimizer = tp_mod.shard_optimizer_entry(
+                pending_optimizer, param_names, tp_names, mesh.model, tp)
+        if pending_ema is not None:
+            pending_ema = {"ema": tp_mod.shard_tree(
+                pending_ema["ema"], tp_names, mesh.model, tp)}
     optimizer, lr_schedule = make_optimizer(
         net.parameters(), diffusion_lr, lr_steps, resume_lr=resume_lr,
         resume_step=global_steps)
@@ -522,12 +634,14 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         load = fsdp.load_optimizer if fsdp_on else (
             lambda ckpt, _, opt: load_optimizer_from_checkpoint(ckpt, opt))
         state.count = load({"optimizer": pending_optimizer}, net, optimizer)
+    if tp_on:
+        state.grad_norm = tp_mod.grad_norm_fn(net, tp_names,
+                                              mesh.model_group)
     if torch.distributed.is_initialized() and not fsdp_on:
-        # The real reducer at any group size; the reference's dead weights
-        # get no gradient, hence find_unused_parameters.
-        state.model = torch.nn.parallel.DistributedDataParallel(
-            net, device_ids=[dev.index] if dev.type == "cuda" else None,
-            find_unused_parameters=True)
+        # The real reducer at any group size, over the data x space ranks
+        # of this model index (all ranks without tp/sp).
+        state.model = data_parallel(
+            net, dev, mesh.reduce_group if mesh is not None else None)
 
     schedule = make_schedule(config_dict["noise_scheduler"],
                              beta_1=beta_1 if beta_1 is not None else 5e-3,
@@ -558,7 +672,9 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         cfg_drop_prob=float(config_dict.get("cfg_drop_prob", 0.0)),
         ema_decay=ema_decay, min_snr_gamma=optional_float("min_snr_gamma"),
         grad_clip_norm=optional_float("grad_clip_norm"),
-        shard=(rank, world))
+        shard=(data_rank, data_world),
+        space=(SpaceShard(mesh.space_group, mesh.space, sp) if sp > 1
+               else None))
     generator = torch.Generator(device=dev).manual_seed(seed)
     preview_generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
@@ -581,6 +697,8 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     logging.info(f"Using Conditional Info.: {use_conditional}")
     logging.info(f"Image Augmentation (Random Horizontal Flip): {flip_imgs}")
     logging.info(f"Devices (data mesh): {world}"
+                 + (f" [tensor parallelism tp={tp}]" if tp > 1 else "")
+                 + (f" [spatial partitioning sp={sp}]" if sp > 1 else "")
                  + (" [FSDP state sharding]" if fsdp_on else ""))
     logging.info(f"Compute dtype: {compute_dtype or torch.float32}")
     if spec.is_sr:
@@ -682,15 +800,20 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
     # its own, since functional_call swaps a module's parameters while the
     # training thread runs it.
     async_ckpt = bool(config_dict.get("async_checkpoint", False))
-    preview_net = (copy.deepcopy(net) if async_ckpt and not fsdp_on
-                   else plain_net)
+    preview_net = (copy.deepcopy(net)
+                   if async_ckpt and not (fsdp_on or tp_on) else plain_net)
 
     def submit_checkpoint(steps, with_preview=True):
-        if fsdp_on:
+        if fsdp_on or tp_on:
             # A collective on every rank: the whole state on rank 0's CPU.
             worker.finish()
-            snap = fsdp.checkpoint_dict(net, optimizer, lr_of(steps),
-                                        state.ema)
+            if fsdp_on:
+                snap = fsdp.checkpoint_dict(net, optimizer, lr_of(steps),
+                                            state.ema)
+            else:
+                snap = tp_mod.checkpoint_dict(net, optimizer, lr_of(steps),
+                                              state.ema, tp_names,
+                                              mesh.model_group)
             if snap is None:
                 return
             if async_ckpt:
@@ -718,6 +841,11 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
 
     def to_device(b):
         # With grad_accum_steps A, each array is pre-split as (A, N/A, ...).
+        if sp > 1:
+            # sdm_tpu's put_batch_sp checks each array's height.
+            for k, v in b.items():
+                if isinstance(v, np.ndarray):
+                    validate_spatial_divisibility(v.shape, sp, name=k)
         return {k: torch.from_numpy(
                     v.reshape((grad_accum, v.shape[0] // grad_accum)
                               + v.shape[1:]) if grad_accum > 1 else v
@@ -752,7 +880,7 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
 
     timer = StepTimer()
     if bool(config_dict.get("device_dataset", False)):
-        if multihost or grad_accum > 1:
+        if multihost or sp > 1 or grad_accum > 1:
             raise ValueError(
                 '"device_dataset" fused training supports single-process '
                 "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")

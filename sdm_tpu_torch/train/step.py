@@ -50,6 +50,14 @@ batch from the shared seeded generator and keeps its own rows, as
 sdm_tpu draws one key over the global array and shards it: N ranks train
 on the one-device run's draws. Under grad_accum_steps only the last
 micro-batch's backward all-reduces the gradients (`no_sync`).
+
+Spatial partitioning (`space`, a parallel/sp.py SpaceShard): the batch
+holds whole images; the model input and the target are built at full
+height, then cut to this rank's H slab, and the forward and backward run
+inside sp.spatial(space). The loss is the slab's mean (min-SNR weights
+are per sample), which the gradient average over the data x space ranks
+turns into the one-device gradient (parallel/sp.py). Tensor parallelism
+changes nothing here: the model's layers carry their shards.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from sdm_tpu_torch.diffusion.guidance import dropout_labels
 from sdm_tpu_torch.diffusion.vpred import v_target
 from sdm_tpu_torch.enums import Objective
 from sdm_tpu_torch.ops.resize import area_resize
+from sdm_tpu_torch.parallel import sp
 
 Schedule = Callable[[int], float]
 ADAM_BETAS = (0.5, 0.999)
@@ -114,6 +123,9 @@ class TrainState:
     # EMA of the parameters ({name: fp32 tensor}, in parameter order), or
     # None when ema_decay is off.
     ema: Optional[Dict[str, torch.Tensor]] = None
+    # The global gradient norm of the parameters' gradients (for
+    # grad_clip_norm), where they are shards (parallel/tp.py); None: local.
+    grad_norm: Optional[Callable] = None
 
 
 def create_train_state(model, optimizer, schedule, step: int = 0,
@@ -138,14 +150,16 @@ def make_train_step(schedule, *, objective: Objective,
                     ema_decay: Optional[float] = None,
                     min_snr_gamma: Optional[float] = None,
                     grad_clip_norm: Optional[float] = None,
-                    shard: Tuple[int, int] = (0, 1)) -> Callable:
+                    shard: Tuple[int, int] = (0, 1),
+                    space: Optional[sp.SpaceShard] = None) -> Callable:
     """Build train_step(state, batch, generator) -> {"loss": fp32 scalar
     tensor, not synchronized}. `schedule` is the noise schedule (on the
     model's device). batch: {"image": (N, H, W, C) uint8 or float [,
     "cond_img": (N, H, W, C') uint8 or float] [, "labels": (N, D)] [, "t":
     (N,)] [, "eps": (N, H, W, C)]} on the device; with grad_accum_steps A
     > 1 each entry carries a leading (A,) axis. `shard` = (rank, world):
-    the batch is this rank's rows of a world-times larger global batch."""
+    the batch is this rank's rows of a world-times larger global batch
+    (world counts the data ranks). `space`: this rank's H slab."""
     if objective == Objective.RESIDUAL_X0 and (cond_t is None
                                                or lr_dim is None):
         raise ValueError("RESIDUAL_X0 objective needs cond_t and lr_dim")
@@ -208,6 +222,8 @@ def make_train_step(schedule, *, objective: Objective,
             else:
                 target = images
 
+        if space is not None:
+            x_in, target = sp.slab(x_in, space), sp.slab(target, space)
         pred = model(x_in, t, labels)
         sq = torch.square(pred.to(torch.float32) - target)
         if min_snr_gamma is None:
@@ -229,19 +245,20 @@ def make_train_step(schedule, *, objective: Objective,
                 + ("created with ema=True" if state.ema is None
                    else "without an EMA (create_train_state(ema=False))"))
         begin_step(state)
-        if grad_accum_steps == 1:
-            loss = loss_fn(state.model, batch, generator)
-            loss.backward()
-        else:
-            loss = 0.0
-            for a in range(grad_accum_steps):
-                with grad_sync(state.model, a == grad_accum_steps - 1):
-                    micro = loss_fn(state.model,
-                                    {k: v[a] for k, v in batch.items()},
-                                    generator)
-                    micro.backward()
-                loss = loss + micro.detach()
-            loss = loss / grad_accum_steps
+        with sp.spatial(space):
+            if grad_accum_steps == 1:
+                loss = loss_fn(state.model, batch, generator)
+                loss.backward()
+            else:
+                loss = 0.0
+                for a in range(grad_accum_steps):
+                    with grad_sync(state.model, a == grad_accum_steps - 1):
+                        micro = loss_fn(state.model,
+                                        {k: v[a] for k, v in batch.items()},
+                                        generator)
+                        micro.backward()
+                    loss = loss + micro.detach()
+                loss = loss / grad_accum_steps
         finish_step(state, grad_clip_norm, grad_accum_steps)
         if ema_decay is not None:
             # e + (1-d)(p-e), with 1-d in fp32 as sdm_tpu computes it.
@@ -288,8 +305,9 @@ def finish_step(state: TrainState, grad_clip_norm: Optional[float] = None,
         elif grad_accum_steps > 1:
             p.grad.div_(grad_accum_steps)
     if grad_clip_norm is not None:
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(p.grad) for p in params]))
+        gnorm = (state.grad_norm(params) if state.grad_norm is not None
+                 else torch.linalg.vector_norm(torch.stack(
+                     [torch.linalg.vector_norm(p.grad) for p in params])))
         scale = torch.clamp(float(grad_clip_norm)
                             / torch.clamp(gnorm, min=1e-12), max=1.0)
         for p in params:

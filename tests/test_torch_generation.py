@@ -288,26 +288,32 @@ def test_extension_validation_matches_sdm_tpu(bundles, images, tmp_path,
     assert got == _error(jax_generate, base + flags, **kw)
 
 
-@pytest.mark.parametrize("generator,flags,item", [
-    ("ddim_ddpm", ["--sp", "2"], "item 9"),
-    ("cold", ["--sp", "2"], "item 9"), ("sr", ["--sp", "2"], "item 9")])
-def test_unported_flags_name_their_roadmap_item(bundles, generator, flags,
-                                                item):
-    """--sp is the one parallel flag of the three generators not ported
-    (the data-parallel and pipeline paths are: tests/test_torch_parallel.py
-    runs them)."""
+@pytest.mark.parametrize("generator", ["ddim_ddpm", "cold", "sr"])
+def test_unported_flags_name_their_roadmap_item(bundles, generator):
+    """--sp is ported in all three generators (the data-parallel, pipeline
+    and spatial paths run in tests/test_torch_parallel.py and
+    tests/test_torch_model_parallel.py). Its checks raise sdm_tpu's error
+    before any rank starts: here the height (16) that does not divide by
+    --sp 3."""
+    from sdm_tpu.cli.generate_images_cold_diffusion import \
+        generate_images_cold_diffusion as jax_cold
+    from sdm_tpu.cli.generate_sr_images_diffusion import \
+        generate_sr_images_diffusion as jax_sr
     from sdm_tpu_torch.cli.generate_images_cold_diffusion import \
         generate_images_cold_diffusion
     from sdm_tpu_torch.cli.generate_sr_images_diffusion import \
         generate_sr_images_diffusion
     config, _ = bundles["one"]
-    fn = {"ddim_ddpm": generate_images_diffusion,
-          "cold": generate_images_cold_diffusion,
-          "sr": generate_sr_images_diffusion}[generator]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        fn(["-c", config, "--device", "cpu", "-l", *LABELS] + flags,
-           **QUIET)
+    fns = {"ddim_ddpm": (generate_images_diffusion, jax_generate),
+           "cold": (generate_images_cold_diffusion, jax_cold),
+           "sr": (generate_sr_images_diffusion, jax_sr)}[generator]
+    kw = ({"lr_img": np.zeros((IMG // 2, IMG // 2, 3), np.uint8)}
+          if generator == "sr" else {})
+    args = ["-c", config, "--device", "cpu", "-l", *LABELS, "--sp", "3"]
+    got = _error(fns[0], args, **kw)
+    assert got == (ValueError,
+                   f'"image" height {IMG} must be divisible by sp=3')
+    assert got == _error(fns[1], args, **kw)
 
 
 def test_device_defaults_to_cuda(bundles):

@@ -36,7 +36,9 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "cli.serve_diffusion", "train.distill",
                  "cli.distill_diffusion", "eval.fid", "eval.features",
                  "cli.evaluate_samples", "parallel", "parallel.multihost",
-                 "parallel.mesh", "parallel.fsdp", "parallel.pipeline"):
+                 "parallel.mesh", "parallel.fsdp", "parallel.pipeline",
+                 "parallel.tp", "parallel.sp", "parallel.analysis",
+                 "parallel._comm"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -377,13 +377,17 @@ def test_a_failing_preview_does_not_stop_training(images, tmp_path,
     assert not os.path.exists(tmp_path / "plots")
 
 
-@pytest.mark.parametrize("key,value", [
-    ("sp", 2), ("tp", 2), ("native_checkpoint", True),
-    ("profile_trace_dir", "trace")])
-def test_unported_config_keys_raise(images, tmp_path, key, value):
+@pytest.mark.parametrize("over", [
+    {"native_checkpoint": True}, {"profile_trace_dir": "trace"},
+    {"fsdp": True, "tp": 2}, {"fsdp": True, "sp": 2},
+    {"device_dataset": True, "tp": 2}],
+    ids=["native_checkpoint", "profile_trace_dir", "fsdp-tp", "fsdp-sp",
+         "device_dataset-tp"])
+def test_unported_config_keys_raise(images, tmp_path, over):
+    """Keys the port lacks, and model parallelism composed with FSDP or
+    the fused loop (item 9's third part), raise before any rank starts."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path,
-                                          **{key: value}))
+        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **over))
 
 
 @pytest.mark.parametrize("key,value", [

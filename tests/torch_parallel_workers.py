@@ -1,9 +1,10 @@
-"""Rank bodies for tests/test_torch_parallel.py and
-tests/test_torch_parallel_loop.py (no test here; torch only, so a spawned
-rank starts without JAX).
+"""Rank bodies for tests/test_torch_parallel.py,
+tests/test_torch_parallel_loop.py and tests/test_torch_model_parallel.py
+(no test here; torch only, so a spawned rank starts without JAX).
 
-Each rank runs its part inside a two-rank gloo group and writes what the
-parent compares to `<tmp>/<name>_rank<r>.pt`.
+Each rank runs its part inside a gloo group (two ranks, four for the model
+-parallel body) and writes what the parent compares to
+`<tmp>/<name>_rank<r>.pt`.
 """
 
 import os
@@ -24,6 +25,14 @@ FSDP_UNET = dict(num_resnet_blocks=1, in_channel=3, out_channel=3,
                  num_heads=1, dim_per_head=None, groups=32, min_channel=128,
                  max_channel=256, image_recon=False)
 LR, LR_STEPS = 1e-3, 100_000
+# tests/test_tp.py's U-Net is FSDP_UNET; tests/test_sp.py's, and its
+# attention-heavy config (test_sp_attention_work_not_replicated).
+SP_UNET = dict(FSDP_UNET, min_channel=32, max_channel=64)
+SP_ATTN_UNET = dict(SP_UNET, attn_layers=(0, 1), groups=8, min_channel=16,
+                    max_channel=32)
+# The four-rank layouts: (tp, sp) (dp = 4 / (tp * sp)).
+MP_LAYOUTS = {"dp2_tp2": (2, 1), "dp2_sp2": (1, 2), "tp2_sp2": (2, 2)}
+TP_MIN_WIDTH = 32
 
 
 def _save(tmp, name, value):
@@ -140,3 +149,147 @@ def sdm_env_entry(local_rank, address, tmp):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _mp_model(cfg, state_dict, tp_n, sp_n, mesh):
+    """The U-Net of `cfg` with `state_dict`, its wide weights sharded over
+    the model group, under DDP over the data x space ranks (kernels off
+    under SP, as the trainers build it)."""
+    from sdm_tpu_torch.parallel import _comm, tp
+    net = UNet(**cfg, use_kernels=sp_n == 1)
+    net.load_state_dict(state_dict, strict=True)
+    names = (tp.shard_model(net, mesh.model_group, TP_MIN_WIDTH)
+             if tp_n > 1 else {})
+    return net, names, _comm.data_parallel(net, torch.device("cpu"),
+                                           mesh.reduce_group,
+                                           count_bytes=True)
+
+
+def _mp_step_fn(mesh, sp_n):
+    from sdm_tpu_torch.parallel.sp import SpaceShard
+    noise = make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
+                          max_noise_step=1000)
+    return port_step.make_train_step(
+        noise, objective=Objective.EPS, min_noise_step=1,
+        max_actual_noise_step=1000, shard=(mesh.data, mesh.dp),
+        space=(SpaceShard(mesh.space_group, mesh.space, sp_n) if sp_n > 1
+               else None))
+
+
+def _work(model, step, batch, space=None):
+    """(flops by op, total flops, bytes saved for the backward) of one
+    forward and backward of the training loss."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from sdm_tpu_torch.parallel import sp
+    saved = {}
+
+    def pack(t):
+        saved[(t.data_ptr(), tuple(t.shape))] = t.numel() * t.element_size()
+        return t
+    counter = FlopCounterMode(display=False)
+    with sp.spatial(space), counter:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = step.loss_fn(model, batch, None)
+        loss.backward()
+    by_op = {str(k): v for k, v in counter.get_flop_counts()["Global"]
+             .items()}
+    return by_op, counter.get_total_flops(), sum(saved.values())
+
+
+def _conv_flops(by_op):
+    return sum(v for k, v in by_op.items() if "convolution" in k)
+
+
+def model_parallel_worker(tmp):
+    """On a four-rank group: one train step of each MP_LAYOUTS layout
+    (their global loss, gathered parameters and collective bytes); TP's
+    state bytes and conv work per rank and SP's work and saved bytes per
+    rank, each beside the same rows on one device; a pure-DP step's
+    collective bytes; then the trainer runs of `mp_inputs.pt`."""
+    from sdm_tpu_torch.parallel import _comm, analysis, tp
+    from sdm_tpu_torch.parallel.mesh import make_model_mesh, shard_rows
+    from sdm_tpu_torch.parallel.sp import SpaceShard
+    from sdm_tpu_torch.train import loop
+    inputs = torch.load(os.path.join(tmp, "mp_inputs.pt"))
+    out = {}
+    for name, (tp_n, sp_n) in MP_LAYOUTS.items():
+        case = inputs["steps"][name]
+        mesh = make_model_mesh("cpu", tp_n, sp_n)
+        net, names, ddp = _mp_model(case["unet"], case["params"], tp_n, sp_n,
+                                    mesh)
+        rows = shard_rows(case["batch"]["image"].shape[0], mesh.data,
+                          mesh.dp)
+        batch = {k: v[rows] for k, v in case["batch"].items()}
+        optimizer, schedule = port_step.make_optimizer(net.parameters(), LR,
+                                                       LR_STEPS)
+        state = port_step.create_train_state(net, optimizer, schedule)
+        state.model = ddp
+        step = _mp_step_fn(mesh, sp_n)
+        metrics = {}
+        comm = analysis.step_collective_bytes(
+            lambda: metrics.update(step(state, batch)))
+        params = {k: (_comm.all_gather(v.detach(), mesh.model_group,
+                                       names[k]) if k in names
+                      else v.detach()).clone()
+                  for k, v in net.state_dict().items()}
+        out[name] = dict(loss=_global_mean(metrics["loss"]), params=params,
+                         comm=comm, sharded=sorted(names))
+        if names:
+            # The global gradient norm (grad_clip_norm) from the shards,
+            # against the norm of the gathered gradients.
+            grads = [p for p in net.parameters() if p.grad is not None]
+            whole = [(_comm.all_gather(p.grad, mesh.model_group, names[n])
+                      if n in names else p.grad)
+                     for n, p in net.named_parameters() if p.grad is not None]
+            out[name]["grad_norm"] = (
+                float(tp.grad_norm_fn(net, names, mesh.model_group)(grads)),
+                float(torch.sqrt(sum(g.float().square().sum()
+                                     for g in whole))))
+        if name == "dp2_tp2":
+            full = _unet(case["params"])
+            out["tp_work"] = dict(
+                state=fsdp.state_bytes_per_device(net, optimizer),
+                full_state=3 * sum(p.numel() * p.element_size()
+                                   for p in full.parameters()),
+                conv=_conv_flops(_work(ddp, step, batch)[0]),
+                full_conv=_conv_flops(_work(
+                    full, _mp_step_fn(mesh, 1), batch)[0]))
+        if name == "dp2_sp2":
+            work = inputs["sp_work"]
+            rows = shard_rows(work["batch"]["image"].shape[0], mesh.data,
+                              mesh.dp)
+            wbatch = {k: v[rows] for k, v in work["batch"].items()}
+            net, _, ddp = _mp_model(work["unet"], work["params"], 1, sp_n,
+                                    mesh)
+            one = UNet(**work["unet"], use_kernels=False)
+            one.load_state_dict(work["params"], strict=True)
+            _, flops, saved = _work(
+                ddp, step, wbatch,
+                SpaceShard(mesh.space_group, mesh.space, sp_n))
+            _, full_flops, full_saved = _work(one, _mp_step_fn(mesh, 1),
+                                              wbatch)
+            out["sp_work"] = dict(flops=flops, full_flops=full_flops,
+                                  saved=saved, full_saved=full_saved)
+
+    # Pure DP over the four ranks.
+    case = inputs["steps"]["dp2_tp2"]
+    mesh = make_model_mesh("cpu", 1, 1)
+    net, _, ddp = _mp_model(case["unet"], case["params"], 1, 1, mesh)
+    rows = shard_rows(case["batch"]["image"].shape[0], mesh.data, mesh.dp)
+    optimizer, schedule = port_step.make_optimizer(net.parameters(), LR,
+                                                   LR_STEPS)
+    state = port_step.create_train_state(net, optimizer, schedule)
+    state.model = ddp
+    out["dp4_comm"] = analysis.step_collective_bytes(
+        _mp_step_fn(mesh, 1), state,
+        {k: v[rows] for k, v in case["batch"].items()})
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in net.parameters())
+
+    for name, (spec, cfg) in inputs["runs"].items():
+        summary = loop.run_training(getattr(loop, spec), cfg, device="cpu",
+                                    max_steps=inputs["max_steps"].get(name,
+                                                                      2))
+        out[name] = dict(loss=summary["last_loss"],
+                         steps=summary["global_steps"])
+    _save(tmp, "mp", out)
