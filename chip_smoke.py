@@ -7,8 +7,8 @@
 Phases, each raising on failure (the script exits non-zero on any). With
 no arguments every phase runs; `--phases` runs only the named ones of
 build, kernels, streaming, model, serving, generation, training,
-extensions, remat, loop, distill, eval, parallel, model_parallel (the
-build always),
+extensions, remat, loop, distill, eval, parallel, model_parallel,
+tooling (the build always),
 logs which it skipped, prints no `kernels` line and ends with
 {"ok": true, "partial": true, ...}. It needs one card; on a machine with
 more, the trainers and the distiller stay on card 0 (num_devices=1),
@@ -147,25 +147,39 @@ as a user's run would.
      num_devices=2 against one card; with one card a line says they were
      skipped.
  13. Model parallelism ("model_parallel"): (a) in a one-rank NCCL group,
-     the flagship's base train step (batch 16, bf16, kernels on) with
-     every conv and linear column-parallel (parallel/tp.py, tp_min_width
-     1) against the unwrapped U-Net: the loss within MODEL_TOL, the whole
-     gradient within GRAD_TOL, the same AdaGN, attention, block and
-     `linear` launches (the phase's launches), the step's ms beside the
-     unwrapped one's; (b) one SR train step (256x256, batch 16, bf16,
-     kernels off) inside the SP context (parallel/sp.py) at one rank
-     against the plain U-Net: gradients within GRAD_TOL, no launch, peak
-     memory of both; (c) with two or more cards, run_training(BASE_SPEC)
-     with "tp": 2 and with "sp": 2 (four cards: also tp2 x sp2 and dp2 x
-     tp2) for TRAIN_STEPS steps, each logged loss within MODEL_TOL of the
-     one-card run's; on two cards, the whole gradients of one SR step at
-     sp=2 and of one flagship step at tp=2 against the same seeded batch
-     on one card (GRAD_TOL), and the U-Net's output on a seeded probe,
-     row by row (MODEL_TOL); the sp=2 step's peak per card beside (b)'s;
-     the collective bytes (parallel/analysis.py) and ms of a two-card DP
-     and TP flagship step; the SR generator with --sp 2 on one image
-     against one card (its residual, image minus upsampled, normwise
-     within MODEL_TOL). With one card a line says (c) was skipped.
+     the flagship's base train step and the SR model's train step (256x256:
+     the streaming stats, apply, dV, dK and dQ kernels), batch 16, bf16,
+     kernels on, with every conv and linear column-parallel
+     (parallel/tp.py, tp_min_width 1) against the unwrapped U-Net: the loss
+     within MODEL_TOL, the whole gradient within GRAD_TOL, the same
+     launches as unwrapped (the phase's launches), the step's ms and peak
+     memory beside the unwrapped one's; (b) one SR train step (256x256,
+     batch 16, bf16, kernels off) inside the SP context (parallel/sp.py)
+     at one rank against the plain U-Net: gradients within GRAD_TOL, no
+     launch, peak memory of both; (c) with two or more cards,
+     run_training(BASE_SPEC) with "tp": 2 and with "sp": 2 (four cards:
+     also tp2 x sp2 and dp2 x tp2) for TRAIN_STEPS steps, each logged loss
+     within MODEL_TOL of the one-card run's; on two cards, the whole
+     gradients of one SR step at sp=2 and of one flagship step at tp=2
+     against the same seeded batch on one card (GRAD_TOL), and the
+     U-Net's output on a seeded probe, row by row (MODEL_TOL); the sp=2
+     step's peak per card beside (b)'s; the collective bytes
+     (parallel/analysis.py) and ms of a two-card DP and TP flagship step;
+     the SR trainer and the fused base trainer ("device_dataset") at tp=2,
+     their losses against one card's, the SR run's streaming launches per
+     rank held; the SR generator with --sp 2 on one image against one card
+     (its residual, image minus upsampled, normwise within MODEL_TOL). On
+     four cards also the base trainer with "fsdp" at dp2 x tp2, dp2 x sp2
+     and tp2 x sp2 against one card, and the tp2 x sp2 + fsdp run resumed
+     from its gathered checkpoint against the one-card resume. With one
+     card a line says (c) was skipped.
+ 14. Tooling ("tooling"): the base trainer with "profile_trace_dir" (its
+     trace names the port's kernels: adagn_*, attn_stats_mma,
+     stream_apply_mma, linear_mma; launches held); a run with
+     "native_checkpoint" resumed from its native directory, bit for bit
+     equal to the .pt + config resume; the loader's decode path, native
+     batches bit for bit equal to the per-image cv2 ones (or one line
+     saying what this machine lacks).
 
 Prints a `kernels` JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1618,6 +1632,20 @@ def expected_launches(cfg, calls, streaming):
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
             "streaming_dv_mma": 0, "streaming_dk_mma": 0,
             "streaming_dq_mma": 0}
+
+
+def kernel_counters():
+    """The kernels' wrappers, each carrying its launch counts."""
+    from sdm_tpu_torch.kernels.adagn import fused_adagn
+    from sdm_tpu_torch.kernels.attention import fused_attention
+    from sdm_tpu_torch.kernels.attention_block import (fused_attention_block,
+                                                       linear)
+    from sdm_tpu_torch.kernels.streaming_attention import (
+        streaming_apply, streaming_dk, streaming_dq, streaming_dv,
+        streaming_stats)
+    return [fused_adagn, fused_attention, fused_attention_block, linear,
+            streaming_stats, streaming_apply, streaming_dv, streaming_dk,
+            streaming_dq]
 
 
 def zero_counts(counters):
@@ -3217,18 +3245,18 @@ def two_card_checks(torch, tmp, data, config):
 
 def model_parallel_phase(torch, counters):
     """Tensor parallelism and spatial partitioning (the module docstring,
-    phase 13): (a) the flagship's base train step with every eligible
-    layer tensor-parallel in a one-rank NCCL group against the unwrapped
-    U-Net, kernels on; (b) one SR train step inside the SP context at one
-    rank against the plain U-Net; (c) with two or more cards, the trainer
-    with "tp": 2 and "sp": 2 against one card, an SR step's peak at sp=2,
-    the SR generator with --sp 2, and the collective bytes of a two-card
-    DP and TP step (`mp_cards_worker`). Returns (a)'s launches and a
-    report."""
+    phase 13): (a) the flagship's and the SR model's train step with every
+    eligible layer tensor-parallel in a one-rank NCCL group against the
+    unwrapped U-Net, kernels on (`tp_one_rank_case`); (b) one SR train
+    step inside the SP context at one rank against the plain U-Net; (c)
+    with two or more cards, the trainers against one card, an SR step's
+    peak at sp=2, the SR generator with --sp 2, and the collective bytes
+    of a two-card DP and TP step (`model_parallel_cards`). Returns (a)'s
+    launches and a report."""
     from sdm_tpu_torch.enums import Objective
     from sdm_tpu_torch.models import UNet
     from sdm_tpu_torch.ops.schedules import make_schedule
-    from sdm_tpu_torch.parallel import multihost as mh, sp, tp
+    from sdm_tpu_torch.parallel import multihost as mh, sp
     from sdm_tpu_torch.parallel.mesh import make_model_mesh
     from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
                                           make_train_step)
@@ -3240,62 +3268,18 @@ def model_parallel_phase(torch, counters):
         mh.init_group(dev, init_method="file://" + os.path.join(
             tmp, "rendezvous"), world_size=1, global_rank=0)
         mesh = make_model_mesh(dev.type, 1, 1)
-        # (a) The base step, every conv and linear column-parallel over a
-        # model group of one (tp_min_width 1), against the unwrapped U-Net.
-        batch = _seeded_batch(torch, IMG, 21, dev)
-        step = make_train_step(schedule, objective=Objective.EPS)
-        sides = {}
-        for name in ("unwrapped", "tp"):
-            torch.manual_seed(0)
-            net = UNet(**FLAGSHIP, dtype=torch.bfloat16).to(
-                dev, memory_format=torch.channels_last)
-            names = (tp.shard_model(net, mesh.model_group, min_width=1)
-                     if name == "tp" else {})
-            optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
-                                                    100_000)
-            state = create_train_state(net, optimizer, lr_schedule)
-            net.zero_grad(set_to_none=True)
-            zero_counts(counters)
-            loss = step.loss_fn(net, batch, None)
-            loss.backward()
-            torch.cuda.synchronize()
-            launches = read_counts(counters)
-            sides[name] = dict(loss=loss.item(), grads=_grads(net),
-                               launches=launches, sharded=len(names),
-                               ms=time_ms(lambda: step(state, batch), 3))
-            del net, optimizer, state
-            torch.cuda.empty_cache()
-        un, tpr = sides["unwrapped"], sides["tp"]
-        whole = _grad_rel(tpr["grads"], un["grads"])
-        loss_rel = abs(tpr["loss"] - un["loss"]) / abs(un["loss"])
-        log(f"model_parallel (a): base step (batch {BATCH}, bf16, kernels "
-            f"on), {tpr['sharded']} layers column-parallel in a one-rank "
-            f"NCCL group vs unwrapped: loss {tpr['loss']:.6f} vs "
-            f"{un['loss']:.6f} (rel {loss_rel:.3e}, tol "
-            f"{MODEL_TOL['bfloat16']}); gradients whole normwise rel "
-            f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); step "
-            f"{tpr['ms']:.2f} ms vs {un['ms']:.2f} ms")
-        if not (loss_rel <= MODEL_TOL["bfloat16"]
-                and whole <= GRAD_TOL["bfloat16"]):
-            raise AssertionError(f"model_parallel (a): TP step {loss_rel} "
-                                 f"{whole}")
-        for kernel in ("fused_adagn", "fused_attention",
-                       "fused_attention_block", "linear"):
-            if tpr["launches"][kernel] != un["launches"][kernel] or \
-                    un["launches"][kernel] == 0:
-                raise AssertionError(
-                    f"model_parallel (a): {kernel} launched "
-                    f"{tpr['launches'][kernel]} times under TP, "
-                    f"{un['launches'][kernel]} unwrapped")
-        check_launches("model_parallel (a): TP base forward and backward",
-                       tpr["launches"], expected_grad_launches(FLAGSHIP, 1,
-                                                               0))
-        report["tp_one_rank"] = dict(
-            loss=tpr["loss"], plain_loss=un["loss"], loss_rel=loss_rel,
-            grad_whole_rel=whole, step_ms=tpr["ms"], plain_step_ms=un["ms"],
-            layers_sharded=tpr["sharded"])
-        launches = tpr["launches"]
-        del sides, un, tpr, batch
+        # (a) The base step, and one SR step (the streaming kernels,
+        # forward and backward), every conv and linear column-parallel over
+        # a model group of one (tp_min_width 1), against the unwrapped
+        # U-Net.
+        launches = {}
+        for model, cfg, img, objective, streaming, seed in (
+                ("flagship", FLAGSHIP, IMG, Objective.EPS, 0, 21),
+                ("sr", SR, SR_IMG, Objective.RESIDUAL_X0, 1, 27)):
+            report[f"tp_one_rank{'_sr' if streaming else ''}"], got = \
+                tp_one_rank_case(torch, counters, mesh, schedule, model, cfg,
+                                 img, objective, streaming, seed)
+            _add_counts(launches, got)
 
         # (b) One SR step inside the SP context (a space group of one)
         # against the plain U-Net: gradients, no kernel, peak memory.
@@ -3363,12 +3347,89 @@ def model_parallel_phase(torch, counters):
     return launches, report
 
 
+def tp_one_rank_case(torch, counters, mesh, schedule, model, cfg, img,
+                     objective, streaming, seed):
+    """Phase 13 (a): one train step of `cfg` (batch 16, bf16, kernels on)
+    with every conv and linear column-parallel in `mesh`'s one-rank model
+    group against the unwrapped U-Net: the loss within MODEL_TOL, the whole
+    gradient within GRAD_TOL, the launches of the forward and backward the
+    same as unwrapped (`expected_grad_launches`: on SR the streaming stats,
+    apply, dV, dK and dQ among them), the step's ms and peak memory beside
+    the unwrapped one's. Returns (a report, the TP side's launches)."""
+    from sdm_tpu_torch.models import UNet
+    from sdm_tpu_torch.parallel import tp
+    from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
+                                          make_train_step)
+    dev = torch.device("cuda", 0)
+    batch = _seeded_batch(torch, img, seed, dev)
+    step = (make_train_step(schedule, objective=objective) if not streaming
+            else make_train_step(schedule, objective=objective,
+                                 cond_t=SR_COND_T, lr_dim=img // 2))
+    sides = {}
+    for name in ("unwrapped", "tp"):
+        torch.manual_seed(0)
+        net = UNet(**cfg, dtype=torch.bfloat16).to(
+            dev, memory_format=torch.channels_last)
+        names = (tp.shard_model(net, mesh.model_group, min_width=1)
+                 if name == "tp" else {})
+        optimizer, lr_schedule = make_optimizer(net.parameters(), 2e-5,
+                                                100_000)
+        state = create_train_state(net, optimizer, lr_schedule)
+        net.zero_grad(set_to_none=True)
+        zero_counts(counters)
+        loss = step.loss_fn(net, batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        grads = _grads(net)
+        net.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(state, batch), 3)
+        sides[name] = dict(loss=loss.item(), grads=grads, launches=launches,
+                           sharded=len(names), ms=ms,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30)
+        del net, optimizer, state, grads
+        torch.cuda.empty_cache()
+    un, tpr = sides["unwrapped"], sides["tp"]
+    whole = _grad_rel(tpr["grads"], un["grads"])
+    loss_rel = abs(tpr["loss"] - un["loss"]) / abs(un["loss"])
+    log(f"model_parallel (a): {model} step (batch {BATCH}, {img}x{img}, "
+        f"bf16, kernels on), {tpr['sharded']} layers column-parallel in a "
+        f"one-rank NCCL group vs unwrapped: loss {tpr['loss']:.6f} vs "
+        f"{un['loss']:.6f} (rel {loss_rel:.3e}, tol "
+        f"{MODEL_TOL['bfloat16']}); gradients whole normwise rel "
+        f"{whole:.3e} (tol {GRAD_TOL['bfloat16']}); step {tpr['ms']:.2f} ms "
+        f"vs {un['ms']:.2f} ms; peak {tpr['peak_gib']:.3f} GiB vs "
+        f"{un['peak_gib']:.3f} GiB; {card_line()}")
+    if not (loss_rel <= MODEL_TOL["bfloat16"]
+            and whole <= GRAD_TOL["bfloat16"]):
+        raise AssertionError(f"model_parallel (a): {model} TP step "
+                             f"{loss_rel} {whole}")
+    expect = expected_grad_launches(cfg, 1, streaming)
+    for kernel in expect:
+        if tpr["launches"][kernel] != un["launches"][kernel]:
+            raise AssertionError(
+                f"model_parallel (a): {model} {kernel} launched "
+                f"{tpr['launches'][kernel]} times under TP, "
+                f"{un['launches'][kernel]} unwrapped")
+    check_launches(f"model_parallel (a): {model} TP forward and backward",
+                   tpr["launches"], expect)
+    return dict(loss=tpr["loss"], plain_loss=un["loss"], loss_rel=loss_rel,
+                grad_whole_rel=whole, step_ms=tpr["ms"],
+                plain_step_ms=un["ms"], peak_gib=tpr["peak_gib"],
+                plain_peak_gib=un["peak_gib"],
+                layers_sharded=tpr["sharded"]), tpr["launches"]
+
+
 def model_parallel_cards(torch, tmp, cards, report):
     """Phase 13 (c): the base trainer with "tp": 2 and "sp": 2 (and with
     four cards tp2 x sp2 and dp2 x tp2) against one card, loss by loss;
     `mp_cards_worker` on two cards (tp=2 and sp=2 gradients against one
-    card's); the SR generator with --sp 2 on one image against one card,
-    its sampled residual held."""
+    card's; the SR and the fused trainers at tp=2 against one card's runs
+    here); with four cards "fsdp" composed with each layout
+    (`model_parallel_fsdp`); the SR generator with --sp 2 on one image
+    against one card, its sampled residual held."""
     import numpy as np
     from sdm_tpu_torch.cli.generate_sr_images_diffusion import \
         generate_sr_images_diffusion
@@ -3404,7 +3465,41 @@ def model_parallel_cards(torch, tmp, cards, report):
             raise AssertionError(f"model_parallel (c): {name} losses {rel}")
         out[name] = dict(losses=losses[name], worst_rel=rel, seconds=wall)
 
-    worker = mh.spawn(mp_cards_worker, 2, "cuda")
+    # One-card references of the trainer runs the two- and four-card
+    # workers make: the SR trainer, the fused base trainer.
+    os.makedirs(os.path.join(tmp, "sr_data"))
+    sr_data = write_dataset(os.path.join(tmp, "sr_data"), SR_IMG)
+    one = {}
+    for name, spec, cfg, img, data_path, extra in (
+            ("sr", loop.SR_SPEC, SR, SR_IMG, sr_data["path"], {}),
+            ("fused", loop.BASE_SPEC, FLAGSHIP, IMG, data["path"],
+             dict(device_dataset=True, steps_per_call=TRAIN_STEPS))):
+        out_dir = os.path.join(tmp, f"mp_{name}_one")
+        with decoders(data["cv2"]):
+            loop.run_training(spec, dict(train_config(out_dir, data_path,
+                                                      cfg, img),
+                                         max_epoch=10, **extra),
+                              device="cuda", num_devices=1,
+                              max_steps=TRAIN_STEPS)
+        one[name] = trainer_losses(out_dir)
+    worker = mh.spawn(mp_cards_worker, 2, "cuda", tmp, data["path"],
+                      sr_data["path"], data["cv2"] is not None)
+    for name, what, ref in (("sr_tp2", "SR trainer (256x256) at tp=2",
+                             "sr"),
+                            ("fused_tp2", 'base trainer "device_dataset" '
+                             "at tp=2", "fused")):
+        got = trainer_losses(os.path.join(tmp, f"mp_{name}"))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, one[ref]))
+        log(f"model_parallel (c): {what} on two cards, {TRAIN_STEPS} steps "
+            f"in {worker[name]['seconds']:.2f} s: losses {got} vs one card "
+            f"{one[ref]} (worst rel {rel:.3e}, tol {MODEL_TOL['bfloat16']})"
+            + (f"; streaming launches per rank {worker[name]['streaming']}"
+               if "streaming" in worker[name] else "")
+            + f"; rank 0's launches {worker[name]['launches']}")
+        if len(got) != TRAIN_STEPS or not rel <= MODEL_TOL["bfloat16"]:
+            raise AssertionError(f"model_parallel (c): {name} losses {rel}")
+        out[name] = dict(losses=got, one_card=one[ref], worst_rel=rel,
+                         **worker[name])
     for name, what in (("sp2_grads", "SR step (kernels off) at sp=2"),
                        ("tp2", "flagship step (kernels on) at tp=2")):
         w = worker[name]
@@ -3425,6 +3520,8 @@ def model_parallel_cards(torch, tmp, cards, report):
             f"{name} on two cards: {w['ms']:.2f} ms; collective bytes per "
             f"card {w['bytes']} (parameters {w['param_bytes']} bytes fp32)")
     out["worker"] = worker
+    if cards >= 4:
+        out["fsdp"] = model_parallel_fsdp(torch, tmp, data, losses)
 
     lr = np.random.default_rng(5).integers(0, 256, (SR_IMG // 2,
                                                     SR_IMG // 2, 3),
@@ -3469,7 +3566,107 @@ def model_parallel_cards(torch, tmp, cards, report):
     return out
 
 
-def mp_cards_worker():
+def trainer_losses(out_dir):
+    """The step losses of a trainer's log (rank 0 writes it)."""
+    (name,) = [f for f in os.listdir(out_dir) if f.endswith(".log")]
+    with open(os.path.join(out_dir, name)) as f:
+        return step_losses(f.read().splitlines())
+
+
+# Phase 13 (c) on four cards: "fsdp" composed with each model-parallel
+# layout, then a resume of the last from its gathered checkpoint.
+FSDP_LAYOUTS = (("fsdp_dp2_tp2", {"tp": 2}), ("fsdp_dp2_sp2", {"sp": 2}),
+                ("fsdp_tp2_sp2", {"tp": 2, "sp": 2}))
+RESUME_STEPS = 2
+
+
+def model_parallel_fsdp(torch, tmp, data, losses):
+    """The base trainer with "fsdp" at dp2 x tp2, dp2 x sp2 and tp2 x sp2
+    on four cards (one group, `mp_fsdp_worker`), each step's loss against
+    the one-card run's (`losses["one"]`); then the tp2 x sp2 + fsdp run's
+    gathered checkpoint resumed on the same layout for RESUME_STEPS steps,
+    against the one-card run's checkpoint resumed on one card."""
+    from sdm_tpu_torch.parallel import multihost as mh
+    from sdm_tpu_torch.train import loop
+    out = {}
+    worker = mh.spawn(mp_fsdp_worker, 4, "cuda", tmp, data["path"],
+                      data["cv2"] is not None)
+    seconds = worker["seconds"]
+    for name, extra in FSDP_LAYOUTS:
+        got = trainer_losses(os.path.join(tmp, f"mp_{name}"))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses["one"]))
+        log(f"model_parallel (c): base trainer {name} on 4 cards, "
+            f"{TRAIN_STEPS} steps in {seconds[name]:.2f} s: losses {got} "
+            f"(worst rel to one card {rel:.3e}, tol "
+            f"{MODEL_TOL['bfloat16']}); rank 0's launches "
+            f"{worker['launches'][name]}")
+        if len(got) != TRAIN_STEPS or not rel <= MODEL_TOL["bfloat16"]:
+            raise AssertionError(f"model_parallel (c): {name} losses {rel}")
+        out[name] = dict(losses=got, worst_rel=rel, seconds=seconds[name],
+                         launches=worker["launches"][name])
+    one_dir = os.path.join(tmp, "mp_resume_one")
+    with decoders(data["cv2"]):
+        loop.run_training(loop.BASE_SPEC, resume_config(
+            one_dir, data["path"], os.path.join(tmp, "mp_one")),
+            device="cuda", num_devices=1,
+            max_steps=TRAIN_STEPS + RESUME_STEPS)
+    got = trainer_losses(os.path.join(tmp, "mp_fsdp_resume"))
+    want = trainer_losses(one_dir)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"model_parallel (c): tp2 x sp2 + fsdp resumed from its gathered "
+        f"step-{TRAIN_STEPS} checkpoint on 4 cards, {RESUME_STEPS} steps in "
+        f"{seconds['fsdp_resume']:.2f} s: losses {got} vs the one-card "
+        f"resume {want} (worst rel {rel:.3e}, tol {MODEL_TOL['bfloat16']})")
+    if len(got) != RESUME_STEPS or not rel <= MODEL_TOL["bfloat16"]:
+        raise AssertionError(f"model_parallel (c): fsdp resume {rel}")
+    out["resume"] = dict(losses=got, one_card=want, worst_rel=rel,
+                         seconds=seconds["fsdp_resume"])
+    return out
+
+
+def resume_config(out_dir, data_path, src_dir):
+    """The flagship base config resuming (Adam included) from `src_dir`'s
+    step-TRAIN_STEPS checkpoint."""
+    ckpt = os.path.join(src_dir, "checkpoint")
+    return dict(train_config(out_dir, data_path, FLAGSHIP, IMG),
+                max_epoch=10, load_diffusion_optim=True,
+                model_checkpoint=os.path.join(
+                    ckpt, f"diffusion_{TRAIN_STEPS}.pt"),
+                config_checkpoint=os.path.join(
+                    ckpt, f"config_{TRAIN_STEPS}.pt"))
+
+
+def mp_fsdp_worker(tmp, data_path, has_cv2):
+    """A rank of phase 13 (c)'s four-card group: the base trainer with
+    "fsdp" in each FSDP_LAYOUTS layout, then the tp2 x sp2 + fsdp run
+    resumed from its checkpoint, every run in this one group. Returns
+    each run's seconds and this rank's launches."""
+    import torch
+    from sdm_tpu_torch.train import loop
+    cv2 = __import__("cv2") if has_cv2 else None
+    counters = kernel_counters()
+    seconds, launches = {}, {}
+    runs = [(name, dict(train_config(os.path.join(tmp, f"mp_{name}"),
+                                     data_path, FLAGSHIP, IMG),
+                        max_epoch=10, fsdp=True, **extra), TRAIN_STEPS)
+            for name, extra in FSDP_LAYOUTS]
+    runs.append(("fsdp_resume", dict(resume_config(
+        os.path.join(tmp, "mp_fsdp_resume"), data_path,
+        os.path.join(tmp, "mp_fsdp_tp2_sp2")), fsdp=True, tp=2, sp=2),
+        TRAIN_STEPS + RESUME_STEPS))
+    for name, cfg, steps in runs:
+        t0 = time.monotonic()
+        zero_counts(counters)
+        with decoders(cv2):
+            loop.run_training(loop.BASE_SPEC, cfg, device="cuda",
+                              max_steps=steps)
+        torch.cuda.synchronize()
+        seconds[name] = time.monotonic() - t0
+        launches[name] = read_counts(counters)
+    return dict(seconds=seconds, launches=launches)
+
+
+def mp_cards_worker(tmp, data_path, sr_data_path, has_cv2):
     """A rank of phase 13 (c)'s two-card group. One SR step's gradients at
     sp=2 (kernels off) and one flagship step's at tp=2 (tp_min_width 256,
     kernels on), each on the whole seeded batch, held at GRAD_TOL to the
@@ -3477,8 +3674,12 @@ def mp_cards_worker():
     kernels), and the U-Net's output on a seeded probe held row by row at
     MODEL_TOL; the sp=2 step's peak memory and time; then one flagship step
     under DP and under TP, each's collective bytes on this card
-    (parallel/analysis.py) and time. Rank 0's result is returned; a rank
-    whose gradients disagree raises."""
+    (parallel/analysis.py) and time; then, in this group, the SR trainer
+    and the fused base trainer ("device_dataset") at tp=2 for TRAIN_STEPS
+    steps each, writing their logs for the parent to hold to one card's,
+    and each rank's streaming launches in the SR run (rank 0 also runs the
+    preview). Rank 0's result is returned; a rank whose gradients or
+    streaming launches disagree raises."""
     import torch
     from sdm_tpu_torch.enums import Objective
     from sdm_tpu_torch.models import UNet
@@ -3612,7 +3813,173 @@ def mp_cards_worker():
                          ms=time_ms(lambda: step(state, local), 3))
         del state
         torch.cuda.empty_cache()
+
+    from sdm_tpu_torch.train import loop
+    counters = kernel_counters()
+    rank = torch.distributed.get_rank()
+    for name, spec, cfg, img, path, extra in (
+            ("sr_tp2", loop.SR_SPEC, SR, SR_IMG, sr_data_path, {}),
+            ("fused_tp2", loop.BASE_SPEC, FLAGSHIP, IMG, data_path,
+             dict(device_dataset=True, steps_per_call=TRAIN_STEPS))):
+        config = dict(train_config(os.path.join(tmp, f"mp_{name}"), path,
+                                   cfg, img), max_epoch=10, tp=2, **extra)
+        t0 = time.monotonic()
+        zero_counts(counters)
+        with decoders(__import__("cv2") if has_cv2 else None):
+            loop.run_training(spec, config, device="cuda",
+                              max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.monotonic() - t0,
+                         launches=read_counts(counters))
+        if name == "sr_tp2":
+            got = read_counts(counters)
+            expect = (expected_train_launches if rank == 0
+                      else expected_grad_launches)(SR, TRAIN_STEPS, 1)
+            check_launches(f"model_parallel (c): SR trainer at tp=2, rank "
+                           f"{rank}", got, expect)
+            per_rank = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(
+                per_rank, {k: got[k] for k in got
+                           if k.startswith("streaming_")})
+            out[name]["streaming"] = per_rank
+        torch.cuda.empty_cache()
     return out
+
+
+TOOL_STEPS = 2
+
+
+def tooling_phase(torch, counters):
+    """Phase 14: (a) the base trainer on the flagship with
+    "profile_trace_dir" for TOOL_STEPS steps (launches held): the trace
+    file exists, parses, and names the port's kernels; (b) a run with
+    "native_checkpoint" (and an EMA), then its state resumed for two more
+    steps from the native directory and from the .pt + config pair: the
+    two resumed states (parameters, EMA, Adam) bit for bit equal; (c) the
+    loader's decode path: with cv2 and the native decoder, its batches
+    against the per-image path's, bit for bit; else one line says what is
+    missing. Returns (a)'s launches and a report."""
+    import glob
+    import numpy as np
+    from sdm_tpu_torch.data import DataLoader, ImageDataset, native
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(tmp, IMG)
+        # (a) The profiler trace.
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.monotonic()
+        summary, launches, _ = run_trainer(
+            torch, counters, os.path.join(tmp, "traced"), data,
+            {"profile_trace_dir": trace_dir}, TOOL_STEPS)
+        wall = time.monotonic() - t0
+        check_launches("tooling (a): traced base run", launches,
+                       expected_train_launches(FLAGSHIP, TOOL_STEPS, 0))
+        files = os.listdir(trace_dir)
+        path = os.path.join(trace_dir, "trace_rank0.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"}
+        found = {want: sum(want in k for k in kernels)
+                 for want in ("adagn_", "attn_stats_mma", "stream_apply_mma",
+                              "linear_mma")}
+        log(f"tooling (a): base run with profile_trace_dir, {TOOL_STEPS} "
+            f"steps and the step-0 preview in {wall:.2f} s: trace files "
+            f"{files}, {os.path.getsize(path)} bytes, {len(events)} events, "
+            f"{len(kernels)} distinct kernels; the port's kernels by name: "
+            f"{found}")
+        if files != ["trace_rank0.json"] or not all(found.values()):
+            raise AssertionError(f"tooling (a): trace {files} {found}")
+        report["trace"] = dict(seconds=wall, bytes=os.path.getsize(path),
+                               events=len(events), port_kernels=found)
+        del events, kernels
+
+        # (b) A native checkpoint, resumed against the .pt + config resume.
+        first = os.path.join(tmp, "native")
+        run_trainer(torch, counters, first, data,
+                    dict(native_checkpoint=True, ema_decay=0.999),
+                    TOOL_STEPS)
+        ckpt = os.path.join(first, "checkpoint")
+        states, losses = {}, {}
+        for name, extra in (
+                ("pt", dict(model_checkpoint=os.path.join(
+                    ckpt, f"diffusion_{TOOL_STEPS}.pt"),
+                    config_checkpoint=os.path.join(
+                        ckpt, f"config_{TOOL_STEPS}.pt"),
+                    load_diffusion_optim=True)),
+                ("native", dict(model_checkpoint=os.path.join(
+                    ckpt, f"native_{TOOL_STEPS}")))):
+            got, _, lines = run_trainer(
+                torch, counters, os.path.join(tmp, f"resume_{name}"), data,
+                dict(ema_decay=0.999, **extra), TOOL_STEPS + 2)
+            st = got["state"]
+            states[name] = dict(
+                model=st.model.state_dict(), ema=st.ema,
+                adam=[v for s_ in st.optimizer.state_dict()["state"].values()
+                      for v in s_.values()])
+            losses[name] = step_losses(lines)
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for key in ("model", "ema", "adam")
+                    for a, b in zip(
+                        (states["pt"][key].values() if key != "adam"
+                         else states["pt"][key]),
+                        (states["native"][key].values() if key != "adam"
+                         else states["native"][key])))
+        native_files = sorted(os.listdir(os.path.join(
+            ckpt, f"native_{TOOL_STEPS}")))
+        log(f"tooling (b): native checkpoint {native_files} resumed for 2 "
+            f"steps vs the .pt + config resume: losses {losses['native']} "
+            f"vs {losses['pt']}; parameters, EMA and Adam state max abs "
+            f"difference {worst:.3e} (must be 0)")
+        if worst != 0.0 or losses["native"] != losses["pt"]:
+            raise AssertionError(f"tooling (b): native resume {worst}")
+        report["native"] = dict(files=native_files, losses=losses,
+                                max_abs_diff=worst)
+        del states
+
+        # (c) The loader's decode path.
+        if data["cv2"] is None:
+            log("tooling (c): no cv2 on this machine: the datasets read "
+                ".npy files per image; the native decoder was not checked")
+            report["decode"] = dict(path="per-image (.npy, no cv2)")
+        elif not native.available():
+            import shutil
+            include = ("/usr/include", "/usr/local/include",
+                       "/usr/include/x86_64-linux-gnu")
+            missing = ([] if shutil.which("g++") else ["g++"]) + [
+                h for h in ("jpeglib.h", "png.h")
+                if not any(os.path.exists(os.path.join(d, h))
+                           for d in include)]
+            log(f"tooling (c): the native decoder is off on this machine "
+                f"({'missing: ' + ', '.join(missing) if missing else 'its build or canary failed'}): "
+                "the loader decodes per image with cv2")
+            report["decode"] = dict(path="per-image (no native decoder)",
+                                    missing=missing)
+        else:
+            dataset = ImageDataset(sorted(glob.glob(data["path"])),
+                                   normalized=False)
+            batches, seconds = {}, {}
+            for nat in (True, False):
+                t0 = time.monotonic()
+                loader = DataLoader(dataset, batch_size=BATCH, shuffle=True,
+                                    seed=0, native_decode=nat)
+                batches[nat] = [b["image"] for b in loader]
+                seconds[nat] = time.monotonic() - t0
+                if loader._native != nat:
+                    raise AssertionError("tooling (c): the native decoder "
+                                         "turned itself off")
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(batches[True], batches[False]))
+            log(f"tooling (c): the loader decodes natively "
+                f"(sdm_tpu_torch/csrc/sdm_decode.cc): {len(batches[True])} "
+                f"batches of {BATCH} PNGs bit-identical to the per-image "
+                f"cv2 path: {same}; {seconds[True]:.3f} s vs "
+                f"{seconds[False]:.3f} s (host clock, one pass)")
+            if not same or len(batches[True]) != len(batches[False]):
+                raise AssertionError("tooling (c): native batches differ")
+            report["decode"] = dict(path="native", seconds=seconds[True],
+                                    per_image_seconds=seconds[False])
+    return launches, report
 
 
 def summarize(results, launches):
@@ -3718,7 +4085,7 @@ def summarize(results, launches):
 
 PHASES = ("build", "kernels", "streaming", "model", "serving", "generation",
           "training", "extensions", "remat", "loop", "distill", "eval",
-          "parallel", "model_parallel")
+          "parallel", "model_parallel", "tooling")
 
 
 def parse_phases(argv):
@@ -3891,9 +4258,7 @@ def main(argv) -> int:
             "flagship": grad_phase(torch, "flagship", FLAGSHIP, IMG, 0),
             "sr": grad_phase(torch, "sr", SR, SR_IMG, 1)}
         log(f"model phase: {time.monotonic() - t0:.1f} s")
-    counters = [fused_adagn, fused_attention, fused_attention_block, linear,
-                streaming_stats, streaming_apply, streaming_dv, streaming_dk,
-                streaming_dq]
+    counters = kernel_counters()
     launches = {}
     if "serving" in phases:
         t0 = time.monotonic()
@@ -3931,7 +4296,8 @@ def main(argv) -> int:
                            ("eval", "eval", eval_phase),
                            ("parallel", "parallel", parallel_phase),
                            ("model_parallel", "model_parallel",
-                            model_parallel_phase)):
+                            model_parallel_phase),
+                           ("tooling", "tooling", tooling_phase)):
         if name in phases:
             t0 = time.monotonic()
             launches[path], out[name] = fn(torch, counters)

@@ -45,6 +45,11 @@ class _DecodeCache:
         self.normalized = normalized
         self._cache = {}
 
+    def norm_batch(self, arr: np.ndarray) -> np.ndarray:
+        """A whole uint8 batch (the native decoder's output) under this
+        cache's normalization, the same arithmetic as `read`."""
+        return _norm(arr) if self.normalized else arr
+
     def read(self, path: str) -> np.ndarray:
         img = self._cache.get(path) if self.enabled else None
         if img is None:
@@ -73,6 +78,17 @@ class ImageDataset:
         if self.return_filepaths:
             return {"image": img, "path": path}
         return {"image": img}
+
+    def batch_paths(self, indices):
+        """The loader's plan for a natively decoded batch (data/native.py):
+        ({field: [image paths]}, {field: [plain values]}), or None when
+        the batch must go through __getitem__ (the RAM cache is on: its
+        decode-once semantics would be bypassed)."""
+        if self._cache.enabled:
+            return None
+        paths = [self.img_paths[i] for i in indices]
+        extras = {"path": paths} if self.return_filepaths else {}
+        return {"image": paths}, extras
 
 
 class ConditionalImgDataset:
@@ -108,6 +124,15 @@ class ConditionalImgDataset:
         return {"image": self._cache.read(path),
                 "labels": np.asarray(labels, dtype=np.float32)}
 
+    def batch_paths(self, indices):
+        """See ImageDataset.batch_paths."""
+        if self._cache.enabled:
+            return None
+        rows = [self.dataset[i] for i in indices]
+        return ({"image": [p for p, _ in rows]},
+                {"labels": [np.asarray(lb, dtype=np.float32)
+                            for _, lb in rows]})
+
 
 class DoodleImgDataset:
     """TinyDB-backed image/conditioning-image pairs: each `Data` row maps
@@ -142,3 +167,11 @@ class DoodleImgDataset:
         img_path, cond_path = self.dataset[index]
         return {"image": self._cache.read(img_path),
                 "cond_img": self._cache.read(cond_path)}
+
+    def batch_paths(self, indices):
+        """See ImageDataset.batch_paths."""
+        if self._cache.enabled:
+            return None
+        rows = [self.dataset[i] for i in indices]
+        return ({"image": [p for p, _ in rows],
+                 "cond_img": [c for _, c in rows]}, {})

@@ -1,18 +1,19 @@
-"""Host-side batched loader with threaded decode and batch prefetch (the
-port's own copy of sdm_tpu/data/loader.py's per-image path).
+"""Host-side batched loader with batched decode and batch prefetch (port
+of sdm_tpu/data/loader.py).
 
-Images of a batch are decoded on a thread pool (cv2 releases the GIL) and
-stacked into one NHWC array; a small queue keeps `prefetch` batches ready.
-Batch shapes are static (`drop_last` defaults to True for training). The
-shuffle is a `random.Random(seed)` permutation per epoch, as in sdm_tpu, so
-a seed gives the same batch order in both packages.
+A whole batch is decoded by the native C++ decoder (csrc/sdm_decode.cc
+through data/native.py) straight into one contiguous NHWC array, engaged
+only where its canary decode is bit-identical to cv2 (`native_decode`,
+default True); otherwise, and for datasets whose RAM cache is on, the
+images are decoded on a thread pool (cv2 releases the GIL) and stacked. A
+small queue keeps `prefetch` batches ready. Batch shapes are static
+(`drop_last` defaults to True for training). The shuffle is a
+`random.Random(seed)` permutation per epoch, as in sdm_tpu, so a seed
+gives the same batch order in both packages.
 
 On a data-parallel run a loader may keep only some positions of each batch
 (`rows`, this rank's share; the order stays the whole batch's), and a
 multi-host rank reads its `DatasetShard`.
-
-sdm_tpu's native batched decoder (csrc/sdm_decode.cc) is not ported: a
-loader asked for it says so in the log and takes the per-image path.
 """
 
 from __future__ import annotations
@@ -53,6 +54,14 @@ class DatasetShard:
     def __getitem__(self, i):
         return self._dataset[self._indices[i]]
 
+    def batch_paths(self, indices):
+        # Translates shard-local indices first: the __getattr__ fallback
+        # would hand the base dataset the wrong rows.
+        bp = getattr(self._dataset, "batch_paths", None)
+        if bp is None:
+            return None
+        return bp([self._indices[i] for i in indices])
+
     def __getattr__(self, name):
         return getattr(self._dataset, name)
 
@@ -61,7 +70,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, drop_last: bool = True,
                  prefetch: int = 2, seed: Optional[int] = None,
-                 native_decode: bool = False,
+                 native_decode: bool = True,
                  rows: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = (min(batch_size, len(dataset)) if len(dataset)
@@ -73,9 +82,44 @@ class DataLoader:
         self._rng = random.Random(seed)
         # The positions of each batch this loader decodes and yields.
         self.rows = None if rows is None else list(rows)
-        if native_decode:
-            logging.info("native decode is not ported to sdm_tpu_torch; "
-                         "using the per-image cv2 loader")
+        # Native batched decode: engaged while native.available() holds;
+        # a batch it fails on turns it off for this loader (logged once).
+        self._native = bool(native_decode)
+        self._native_dims: dict = {}
+
+    def _native_batch(self, indices) -> Optional[dict]:
+        """One batch decoded natively, or None for the per-image path."""
+        if not self._native:
+            return None
+        bp = getattr(self.dataset, "batch_paths", None)
+        if bp is None:
+            return None
+        try:
+            from sdm_tpu_torch.data import native
+            if not native.available():
+                self._native = False
+                return None
+            plan = bp(indices)
+            if plan is None:
+                return None
+            img_fields, extras = plan
+            out = {}
+            for key, paths in img_fields.items():
+                if key not in self._native_dims:
+                    self._native_dims[key] = native.probe(paths[0])
+                h, w = self._native_dims[key]
+                arr = native.decode_batch(paths, h, w,
+                                          num_threads=self.num_workers)
+                # The per-image path's normalization (uint8 or [-1, 1]).
+                out[key] = self.dataset._cache.norm_batch(arr)
+            for key, vals in extras.items():
+                out[key] = (np.stack(vals)
+                            if isinstance(vals[0], np.ndarray) else vals)
+            return out
+        except Exception as e:
+            logging.info(f"native decode failed ({e}); using Python loader")
+            self._native = False
+            return None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -122,8 +166,10 @@ class DataLoader:
                     for b in batches:
                         if stop.is_set():
                             return
-                        batch = _collate(list(pool.map(
-                            self.dataset.__getitem__, b)))
+                        batch = self._native_batch(b)
+                        if batch is None:
+                            batch = _collate(list(pool.map(
+                                self.dataset.__getitem__, b)))
                         if not _put(batch):
                             return
             except Exception as e:  # surface decode errors to the consumer

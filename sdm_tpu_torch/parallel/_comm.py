@@ -29,6 +29,7 @@ gloo only standard-contiguous ones.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional
 
 import torch
@@ -98,6 +99,35 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     record("all-gather", nbytes(t) * n)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def gather_chunks(chunks, dims, sizes, group):
+    """Whole tensors from this rank's `chunks`, with one all-gather: chunk
+    i is this rank's torch.chunk piece along dims[i] of a tensor of
+    sizes[i] there (FSDP2's and DTensor's split, which may leave the last
+    ranks short or empty; parallel/tp.py's even shards)."""
+    n = size(group)
+    if n == 1 or not chunks:
+        return list(chunks)
+    parts, plans = [], []
+    for t, dim, full in zip(chunks, dims, sizes):
+        per = -(-full // n)
+        t = t.movedim(dim, 0)
+        pad = t.new_zeros((per - t.shape[0],) + t.shape[1:])
+        parts.append(torch.cat([t, pad]).reshape(-1))
+        plans.append((dim, full, per, t.shape[1:]))
+    flat = torch.cat(parts)
+    bufs = [torch.empty_like(flat) for _ in range(n)]
+    record("all-gather", nbytes(flat) * n)
+    dist.all_gather(bufs, flat, group=group)
+    out, off = [], 0
+    for dim, full, per, rest in plans:
+        count = per * math.prod(rest)
+        pieces = [b[off:off + count].view((per,) + rest)[
+            :max(0, min(per, full - i * per))] for i, b in enumerate(bufs)]
+        out.append(torch.cat(pieces).movedim(0, dim).contiguous())
+        off += count
+    return out
 
 
 def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -18,9 +18,17 @@ granularity of the gathers here). A unit is a whole block, never a single
 layer: an attention block hands its projections' weights to the `linear`
 kernel from its own forward, which must see them gathered.
 
-Checkpoints gather the whole state (`checkpoint_dict`, a collective every
-rank runs) and rank 0 writes it in the unsharded run's format; resume
-loads a whole state into the sharded model (`load_optimizer`).
+With model parallelism (sdm_tpu fsdp.py:15-18, 76-95) FSDP2 shards over
+the data ranks only (parallel/mesh.py::fsdp_mesh): under "sp" the space
+ranks hold replicas and average their gradients (FSDP2's hybrid mode over
+("space", "data")), and under "tp" it shards each rank's tensor-parallel
+shard (parallel/tp.py), on the largest dim that TP left whole and the data
+ranks divide (sdm_tpu's `extend_spec`; dim 0 where none does).
+
+Checkpoints gather the whole state (parallel/tp.py::checkpoint_dict, a
+collective every rank runs) and rank 0 writes it in the unsharded run's
+format; resume loads a whole state into the sharded model
+(`load_optimizer`).
 """
 
 from __future__ import annotations
@@ -29,8 +37,6 @@ from typing import Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
-
-from sdm_tpu_torch.io.checkpoint import optimizer_entry
 
 
 def units(net: nn.Module, min_size: int) -> List[nn.Module]:
@@ -45,15 +51,32 @@ def units(net: nn.Module, min_size: int) -> List[nn.Module]:
             if sum(p.numel() for p in b.parameters()) >= min_size]
 
 
-def shard_model(net: nn.Module, mesh, *, min_size: int = 2 ** 15
-                ) -> nn.Module:
-    """`net` sharded in place over `mesh`: fully_shard on each unit, then
-    on the root. Build the optimizer and the EMA after this, over the
-    sharded parameters."""
+def extend_dim(shape, taken: int, n: int) -> int:
+    """sdm_tpu's extend_spec for a tensor-parallel shard: the largest dim
+    other than `taken` that n divides, else 0 (FSDP2 pads dim 0 only)."""
+    dims = [i for i, d in enumerate(shape) if i != taken and d % n == 0]
+    return max(dims, key=lambda i: shape[i]) if dims else 0
+
+
+def shard_model(net: nn.Module, mesh, *, min_size: int = 2 ** 15,
+                tp_dims: Optional[Dict[str, int]] = None) -> nn.Module:
+    """`net` sharded in place over `mesh` (1-D, or ("space", "data")):
+    fully_shard on each unit, then on the root. `tp_dims` ({name: dim} of
+    the tensor-parallel shards) moves those shards' FSDP2 dim off TP's.
+    Build the optimizer and the EMA after this, over the sharded
+    parameters."""
     from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    n = mesh.size(mesh.ndim - 1)
+    taken = {id(p): (tp_dims or {}).get(name)
+             for name, p in net.named_parameters()}
+
+    def placement(p):
+        dim = taken.get(id(p))
+        return Shard(0 if dim is None else extend_dim(p.shape, dim, n))
     for block in units(net, min_size):
-        fully_shard(block, mesh=mesh)
-    fully_shard(net, mesh=mesh)
+        fully_shard(block, mesh=mesh, shard_placement_fn=placement)
+    fully_shard(net, mesh=mesh, shard_placement_fn=placement)
     return net
 
 
@@ -86,43 +109,6 @@ def state_bytes_per_device(*trees) -> int:
                 local = t.to_local() if hasattr(t, "to_local") else t
                 total += local.numel() * local.element_size()
     return total
-
-
-def _full_options():
-    from torch.distributed.checkpoint.state_dict import StateDictOptions
-    return StateDictOptions(full_state_dict=True, cpu_offload=True)
-
-
-def checkpoint_dict(net: nn.Module, optimizer, lr: float,
-                    ema: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> Optional[dict]:
-    """io/checkpoint.py's diffusion_checkpoint_dict of a sharded run: the
-    whole model, Adam state and EMA gathered to the CPU of rank 0, in the
-    unsharded run's format and keys. A collective: every rank calls it;
-    ranks other than 0 get None."""
-    import torch.distributed as dist
-    from torch.distributed.checkpoint.state_dict import (
-        get_model_state_dict, get_optimizer_state_dict)
-    from sdm_tpu_torch.parallel.multihost import localize
-    model_sd = get_model_state_dict(net, options=_full_options())
-    optim_sd = get_optimizer_state_dict(net, optimizer,
-                                        options=_full_options())
-    ema_full = localize(ema) if ema is not None else None
-    if dist.get_rank() != 0:
-        return None
-    names = [n for n, _ in net.named_parameters()]
-    index = {n: i for i, n in enumerate(names)}
-    out = {"model": {k: v.to(torch.float32, copy=True)
-                     for k, v in model_sd.items()}}
-    if ema_full is not None:
-        out["ema"] = {k: v.to(torch.float32, copy=True)
-                      for k, v in ema_full.items()}
-    groups = [dict(g, params=[index[n] for n in g["params"]])
-              for g in optim_sd["param_groups"]]
-    state = {index[n]: st for n, st in optim_sd["state"].items()}
-    out["optimizer"] = optimizer_entry(
-        state, groups, [model_sd[n] for n in names], lr, "cpu")
-    return out
 
 
 def load_optimizer(ckpt: dict, net: nn.Module, optimizer) -> int:

@@ -10,7 +10,9 @@ as P("data") places them. Sampling (the engine and the generators) stays
 in one process: `Replicas` holds one copy of a U-Net per device and
 splits each call's rows over them. Under tensor parallelism or spatial
 partitioning the ranks form sdm_tpu's [dp, tp, sp] mesh, with a group for
-each axis (`make_model_mesh`).
+each axis (`make_model_mesh`); FSDP2 composed with them shards over
+`fsdp_mesh`, and a native checkpoint places their shards on
+`state_mesh`.
 """
 
 from __future__ import annotations
@@ -112,6 +114,38 @@ def make_model_mesh(device_type: str, tp: int, sp: int) -> ModelMesh:
                      model_group=mesh["model"].get_group(),
                      space_group=mesh["space"].get_group(),
                      reduce_group=reduce_group)
+
+
+def fsdp_mesh(mesh: ModelMesh):
+    """FSDP2's mesh within `mesh`: this rank's data ranks ("data"), or
+    under sp its ("space", "data") ranks (those of its model index):
+    FSDP2's hybrid mode, replicas over space, shards over data, so the
+    space ranks average their gradients as DDP's reduce group does. A
+    collective: every rank builds every model index's mesh, in one order
+    (each its own root mesh: older torch refuses this slice of the
+    [dp, tp, sp] mesh)."""
+    if mesh.sp == 1:
+        return mesh.mesh["data"]
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.arange(mesh.dp * mesh.tp * mesh.sp).reshape(
+        mesh.dp, mesh.tp, mesh.sp)
+    meshes = [DeviceMesh(mesh.mesh.device_type, ranks[:, m, :].T.contiguous(),
+                         mesh_dim_names=("space", "data"))
+              for m in range(mesh.tp)]
+    return meshes[mesh.model]
+
+
+def state_mesh(mesh: ModelMesh):
+    """The ranks of `mesh` as a ("model", "space", "data") DeviceMesh, on
+    which a tensor-parallel shard, and FSDP2's shard of it, is a DTensor of
+    its whole tensor for a native checkpoint (parallel/tp.py::as_global):
+    in this order DTensor nests the data shard inside the model shard, as
+    FSDP2 cuts it. A collective: every rank calls it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.arange(mesh.dp * mesh.tp * mesh.sp).reshape(
+        mesh.dp, mesh.tp, mesh.sp).permute(1, 2, 0)
+    return DeviceMesh(mesh.mesh.device_type, ranks,
+                      mesh_dim_names=("model", "space", "data"))
 
 
 def shard_rows(n: int, rank: int, world: int) -> slice:

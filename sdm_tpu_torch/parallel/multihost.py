@@ -122,19 +122,6 @@ def replicate(tensors) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def localize(tree):
-    """A host copy of a state tree (dicts and lists of tensors), sharded
-    tensors gathered whole. A collective: every rank runs it."""
-    if isinstance(tree, dict):
-        return {k: localize(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [localize(v) for v in tree]
-    if not torch.is_tensor(tree):
-        return tree
-    full = tree.full_tensor() if hasattr(tree, "full_tensor") else tree
-    return full.detach().cpu()
-
-
 def barrier(tag: str = "sdm") -> None:
     """Block until every process reaches this point."""
     if world() > 1:

@@ -22,7 +22,10 @@ declare as `tp_out_dim`. Biases and norms stay whole on every rank; Adam
 moments and the EMA follow their parameters. Checkpoints gather the whole
 state to rank 0 in the unsharded format (`checkpoint_dict`, a
 collective), and a resume cuts a whole state into this rank's shards
-(`shard_tree`).
+(`shard_tree`). "fsdp" shards these local shards again over the data
+ranks (parallel/fsdp.py), whose DTensors the gathers and the norm take
+too; a native checkpoint (io/native_ckpt.py) sees each shard as the
+DTensor of its whole tensor (`as_global`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,15 @@ class ColumnShard:
     rank: int
     size: int
     dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class StateShards:
+    """Where a tensor-parallel run's state lies: the sharded parameters
+    ({name: dim}, `sharded_names`) and the ("model", "space", "data") mesh
+    of the ranks (parallel/mesh.py::state_mesh), for `as_global`."""
+    names: Dict[str, int]
+    mesh: object
 
 
 def sharded_names(net: nn.Module, tp: int, min_width: int = 256
@@ -127,35 +139,55 @@ def shard_optimizer_entry(entry: dict, param_names, names: Dict[str, int],
     return dict(entry, state=state)
 
 
-def _gather(v: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
-    if dim is None:
-        return v.detach()
-    return _comm.all_gather(v.detach(), group, dim)
+def gather_whole(tree: Dict[str, torch.Tensor], names: Dict[str, int],
+                 group) -> Dict[str, torch.Tensor]:
+    """`tree` ({name: tensor}) with every entry whole: FSDP2's DTensors
+    gathered over their data ranks, then the tensor-parallel shards
+    (`names`) over the model `group`, one all-gather each. A collective:
+    every rank calls it with the same names."""
+    out = {k: v.detach() for k, v in tree.items()}
+    fsdp = [k for k, v in out.items() if hasattr(v, "full_tensor")]
+    if fsdp:
+        mesh = out[fsdp[0]].device_mesh
+        whole = _comm.gather_chunks(
+            [out[k].to_local() for k in fsdp],
+            [out[k].placements[-1].dim for k in fsdp],
+            [out[k].shape[out[k].placements[-1].dim] for k in fsdp],
+            mesh.get_group(mesh.ndim - 1))
+        out.update(zip(fsdp, whole))
+    sharded = [k for k in out if names.get(k) is not None
+               and out[k].ndim > names[k]]
+    if sharded and group is not None:
+        n = _comm.size(group)
+        whole = _comm.gather_chunks(
+            [out[k] for k in sharded], [names[k] for k in sharded],
+            [out[k].shape[names[k]] * n for k in sharded], group)
+        out.update(zip(sharded, whole))
+    return out
 
 
 def checkpoint_dict(net: nn.Module, optimizer, lr: float,
                     ema: Optional[Dict[str, torch.Tensor]],
                     names: Dict[str, int], group) -> Optional[dict]:
     """io/checkpoint.py's diffusion_checkpoint_dict of a tensor-parallel
-    run: parameters, Adam moments (in the reference's order) and the EMA
-    gathered whole, on the CPU of global rank 0. A collective: every rank
-    calls it; the others get None."""
+    or FSDP2 run (`names` {} and `group` None without TP): parameters,
+    Adam moments (in the reference's order) and the EMA gathered whole, on
+    the CPU of global rank 0. A collective: every rank calls it; the
+    others get None."""
     import torch.distributed as dist
     from sdm_tpu_torch.io.checkpoint import optimizer_entry
     main = dist.get_rank() == 0
-    model = {k: _gather(v, names.get(k), group)
-             for k, v in net.state_dict().items()}
+    model = gather_whole(net.state_dict(), names, group)
     param_names = [n for n, _ in net.named_parameters()]
     sd = optimizer.state_dict()
-    state = {}
-    for idx, name in enumerate(param_names):
-        st = sd["state"].get(idx)
-        if st is not None:
-            state[idx] = {k: (_gather(v, names.get(name), group)
-                              if torch.is_tensor(v) and v.ndim > 0 else v)
-                          for k, v in st.items()}
-    ema_full = (None if ema is None else
-                {k: _gather(v, names.get(k), group) for k, v in ema.items()})
+    state = {idx: sd["state"][idx] for idx in range(len(param_names))
+             if idx in sd["state"]}
+    for key in ("exp_avg", "exp_avg_sq"):
+        whole = gather_whole({param_names[i]: st[key]
+                              for i, st in state.items()}, names, group)
+        for i in state:
+            state[i] = dict(state[i], **{key: whole[param_names[i]]})
+    ema_full = None if ema is None else gather_whole(ema, names, group)
     if not main:
         return None
     cpu = {k: v.to("cpu", torch.float32, copy=True) for k, v in model.items()}
@@ -168,19 +200,43 @@ def checkpoint_dict(net: nn.Module, optimizer, lr: float,
     return out
 
 
-def grad_norm_fn(net: nn.Module, names: Dict[str, int], group):
+def grad_norm_fn(net: nn.Module, names: Dict[str, int], group,
+                 data_group=None):
     """The global gradient norm of a tensor-parallel model: the sharded
     parameters' squares summed over the model group, the replicated ones'
-    counted once (for "grad_clip_norm")."""
+    counted once (for "grad_clip_norm"). Under FSDP2 (`data_group`, the
+    group its shards split over) each gradient's local squares are summed
+    over that group first."""
     sharded = {id(p) for n, p in net.named_parameters() if n in names}
 
     def norm(params) -> torch.Tensor:
-        own = [p.grad.float().square().sum() for p in params
-               if id(p) in sharded]
-        rest = [p.grad.float().square().sum() for p in params
-                if id(p) not in sharded]
-        total = torch.stack(rest).sum() if rest else 0.0
-        if own:
-            total = total + _comm.all_reduce(torch.stack(own).sum(), group)
-        return torch.sqrt(total)
+        sums = torch.zeros(2, device=params[0].device)
+        for p in params:
+            g = p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
+            sums[int(id(p) not in sharded)] += g.float().square().sum()
+        if data_group is not None:
+            sums = _comm.all_reduce(sums, data_group)
+        return torch.sqrt(_comm.all_reduce(sums[:1], group)[0] + sums[1])
     return norm
+
+
+def as_global(t: torch.Tensor, dim: Optional[int], states) -> torch.Tensor:
+    """A state entry as the tensor it is a piece of: `t` itself where it
+    is whole (dim None), or FSDP2's DTensor of the whole local shard;
+    else a DTensor of the whole tensor on `states` (parallel/mesh.py::
+    state_mesh) holding this rank's `t` (for a native checkpoint)."""
+    if dim is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(t, DTensor):      # FSDP2's shard of this rank's shard
+        local, data = t.to_local(), t.placements[-1]
+    else:
+        local, data = t, Replicate()
+    shape = list(t.shape)
+    shape[dim] *= states.size(0)                # the "model" dim
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local, states, [Shard(dim), Replicate(), data],
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))

@@ -29,6 +29,12 @@ trainers (previews sample the v tag natively). Also as in sdm_tpu:
   "device_dataset"    the fused loop (`_run_fused_loop`): the decoded
       dataset lives on the device, "steps_per_call" K steps gather their
       rows there, and a chunk's K losses are read with one sync.
+  "profile_trace_dir" a torch.profiler trace of the training loop, one
+      file per rank (utils/profiling.py::trace).
+  "native_checkpoint" each checkpoint also writes the whole train state
+      to checkpoint/native_<step>/ (io/native_ckpt.py); a model_checkpoint
+      that is such a directory restores the whole state onto this run's
+      layout, the step from the state (sdm_tpu loop.py:333-339, 500-520).
 
 Data parallelism (sdm_tpu loop.py:415-500): one process per device, the
 U-Net wrapped in DistributedDataParallel whenever the loop runs inside a
@@ -60,13 +66,14 @@ tp * sp ranks (--num-devices, default all visible cards, or tp * sp CPU
 processes). Under sp > 1 the kernels are off, as sdm_tpu turns its
 kernels off. A TP checkpoint gathers the whole state to rank 0 in the
 unsharded format, and previews sample on a plain copy from it. "fsdp"
-with tp or sp > 1 and "device_dataset" with tp > 1 are not ported
-(`refuse_unported`).
+composes with both (sdm_tpu loop.py:484-503): FSDP2 shards over the data
+ranks (parallel/fsdp.py), each rank's TP shard under "tp", with the space
+ranks as replicas under "sp"; "device_dataset" composes with "tp", each
+model group gathering its data rank's rows.
 
 Previews draw their noise from a generator of their own (seeded from
 "seed"), so the training draws do not depend on whether or where a
-preview runs. Config keys of sdm_tpu that this port does not carry yet
-raise NotImplementedError naming their ROADMAP Queue 1 item (`UNPORTED`).
+preview runs.
 
 The doodle trainer reads image/doodle pairs from a TinyDB file
 (DoodleImgDataset), writes the startup grid of its preview's conditioning
@@ -106,22 +113,23 @@ from sdm_tpu_torch.io.checkpoint import (diffusion_checkpoint_dict,
                                          load_optimizer_from_checkpoint,
                                          load_params_from_checkpoint,
                                          save_model, to_cpu)
+from sdm_tpu_torch.io.native_ckpt import load_native, save_native
 from sdm_tpu_torch.io.plotting import plot_sampled_images
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.resize import area_resize
-from sdm_tpu_torch.parallel import (PARALLEL_ITEM, fsdp, multihost as mh,
-                                    tp as tp_mod)
+from sdm_tpu_torch.parallel import fsdp, multihost as mh, tp as tp_mod
 from sdm_tpu_torch.parallel._comm import data_parallel
 from sdm_tpu_torch.parallel.mesh import (batch_positions, device_count,
-                                         make_mesh, make_model_mesh,
-                                         shard_rows)
+                                         fsdp_mesh, make_mesh,
+                                         make_model_mesh, shard_rows,
+                                         state_mesh)
 from sdm_tpu_torch.parallel.sp import (SpaceShard, check_levels,
                                        validate_spatial_divisibility)
 from sdm_tpu_torch.ops.schedules import make_schedule
 from sdm_tpu_torch.train.step import (create_train_state, make_optimizer,
                                       make_train_step)
 from sdm_tpu_torch.utils import setup_logging
-from sdm_tpu_torch.utils.profiling import StepTimer
+from sdm_tpu_torch.utils.profiling import StepTimer, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,13 +153,6 @@ SR_SPEC = TrainerSpec("SR-Cold-Diffusion", Objective.RESIDUAL_X0, "sr",
                       "cond_or_glob", uses_diffusion_alg=False, has_flip=True,
                       is_sr=True)
 
-# sdm_tpu config keys not ported yet: (key, is it set?, ROADMAP item).
-UNPORTED = (
-    ("native_checkpoint", bool, "Queue 1 item 10 (tooling)"),
-    ("profile_trace_dir", bool, "Queue 1 item 10 (tooling)"),
-)
-
-
 def model_parallel_sizes(config_dict: dict):
     """(tp, sp, tp_min_width) with sdm_tpu's checks (loop.py:426-431)."""
     sp = int(config_dict.get("sp", 1))
@@ -163,29 +164,16 @@ def model_parallel_sizes(config_dict: dict):
     return tp, sp, int(config_dict.get("tp_min_width", 256))
 
 
-def refuse_unported(config_dict: dict) -> None:
-    """Raise NotImplementedError for a set config key the port lacks, or a
-    combination of model parallelism it lacks; sdm_tpu's ValueError for
-    "device_dataset" with sp (loop.py:811)."""
-    for key, is_set, item in UNPORTED:
-        value = config_dict.get(key)
-        if value is not None and is_set(value):
-            raise NotImplementedError(
-                f'config "{key}" is not ported to sdm_tpu_torch yet '
-                f"(ROADMAP {item})")
-    tp, sp, _ = model_parallel_sizes(config_dict)
-    fused = bool(config_dict.get("device_dataset", False))
-    for key, on in (("fsdp", bool(config_dict.get("fsdp", False))
-                     and tp * sp > 1),
-                    ("device_dataset", fused and tp > 1)):
-        if on:
-            raise NotImplementedError(
-                f'config "{key}" with "tp" or "sp" > 1 is not ported to '
-                f"sdm_tpu_torch yet ({PARALLEL_ITEM})")
-    if fused and sp > 1:
-        raise ValueError(
-            '"device_dataset" fused training supports single-process '
-            "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
+FUSED_ERROR = ('"device_dataset" fused training supports single-process '
+               "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
+
+
+def check_fused(config_dict: dict) -> None:
+    """sdm_tpu's ValueError for "device_dataset" with sp (loop.py:811),
+    raised before any rank starts."""
+    _, sp, _ = model_parallel_sizes(config_dict)
+    if bool(config_dict.get("device_dataset", False)) and sp > 1:
+        raise ValueError(FUSED_ERROR)
 
 
 def parse_args(spec: TrainerSpec, raw_args=None) -> dict:
@@ -320,7 +308,7 @@ def run_training(spec: TrainerSpec, config_dict: dict, *,
     without "state"."""
     project_name = spec.project_name
     dev = train_device(device)
-    refuse_unported(config_dict)
+    check_fused(config_dict)
     n_spawn = ranks_to_spawn(config_dict, dev, num_devices)
     if n_spawn > 1:
         return mh.spawn(_spawned_training, n_spawn, dev.type, spec,
@@ -562,13 +550,13 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         dev, memory_format=torch.channels_last)
 
     load_diffusion_optim = config_dict["load_diffusion_optim"]
-    pending_optimizer = pending_ema = None
+    pending_optimizer = pending_ema = pending_native = None
     if diffusion_checkpoint is not None and os.path.isdir(
             diffusion_checkpoint):
-        raise NotImplementedError(
-            "native (orbax) checkpoint directories are not ported to "
-            "sdm_tpu_torch (ROADMAP Queue 1 item 10); resume from a "
-            "diffusion_<step>.pt")
+        # A native checkpoint directory: the whole state (parameters, Adam,
+        # EMA, step) restores below, onto this run's layout;
+        # load_diffusion_optim does not apply.
+        pending_native, diffusion_checkpoint = diffusion_checkpoint, None
     if diffusion_checkpoint is not None:
         ok, ckpt = load_checkpoint(diffusion_checkpoint, log=logging.info)
         if not ok:
@@ -598,25 +586,32 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             resume_lr = float(pgs[0]["lr"])
             logging.info(f"Resuming at checkpointed LR {resume_lr:.9f} "
                          f"(halving every {lr_steps:,} steps).")
-    if fsdp_on:
+    if fsdp_on or tp_on:
         # Every rank starts from rank 0's weights (DDP broadcasts them
-        # itself).
+        # itself), then cuts its TP shard, then FSDP2 shards that over
+        # the data ranks; the optimizer, the EMA and a resumed state then
+        # follow the shards.
         mh.replicate([*net.parameters(), *net.buffers()])
-        fsdp.shard_model(net, make_mesh(dev.type), min_size=int(
-            config_dict.get("fsdp_min_size", 2 ** 15)))
-    tp_names = {}
+    native = bool(config_dict.get("native_checkpoint", False))
+    tp_names, shards = {}, None
     if tp_on:
-        # Every rank cuts its shard from rank 0's weights; the optimizer,
-        # the EMA and a resumed state then follow the shards.
-        mh.replicate([*net.parameters(), *net.buffers()])
         param_names = [n for n, _ in net.named_parameters()]
         tp_names = tp_mod.shard_model(net, mesh.model_group, tp_min_width)
+        if native or pending_native is not None:
+            # Where a native checkpoint places the TP shards.
+            shards = tp_mod.StateShards(tp_names, state_mesh(mesh))
         if pending_optimizer is not None:
             pending_optimizer = tp_mod.shard_optimizer_entry(
                 pending_optimizer, param_names, tp_names, mesh.model, tp)
         if pending_ema is not None:
             pending_ema = {"ema": tp_mod.shard_tree(
                 pending_ema["ema"], tp_names, mesh.model, tp)}
+    data_mesh = None
+    if fsdp_on:
+        data_mesh = (fsdp_mesh(mesh) if mesh is not None
+                     else make_mesh(dev.type))
+        fsdp.shard_model(net, data_mesh, min_size=int(
+            config_dict.get("fsdp_min_size", 2 ** 15)), tp_dims=tp_names)
     optimizer, lr_schedule = make_optimizer(
         net.parameters(), diffusion_lr, lr_steps, resume_lr=resume_lr,
         resume_step=global_steps)
@@ -635,8 +630,21 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
             lambda ckpt, _, opt: load_optimizer_from_checkpoint(ckpt, opt))
         state.count = load({"optimizer": pending_optimizer}, net, optimizer)
     if tp_on:
-        state.grad_norm = tp_mod.grad_norm_fn(net, tp_names,
-                                              mesh.model_group)
+        state.grad_norm = tp_mod.grad_norm_fn(
+            net, tp_names, mesh.model_group,
+            data_mesh.get_group(data_mesh.ndim - 1) if fsdp_on else None)
+    if pending_native is not None:
+        # sdm_tpu loop.py:500-520: the whole state; the step comes from it
+        # (config_checkpoint still sets the epoch and the betas).
+        try:
+            global_steps = load_native(pending_native, state, shards=shards)
+        except Exception as e:
+            raise Exception(
+                f"Failed to restore native checkpoint {pending_native!r} "
+                f'(the run\'s "ema_decay" on/off setting and model config '
+                f"must match the checkpointed run's): {e}") from e
+        logging.info(f"Restored native checkpoint {pending_native} "
+                     f"(full state, step {global_steps}).")
     if torch.distributed.is_initialized() and not fsdp_on:
         # The real reducer at any group size, over the data x space ranks
         # of this model index (all ranks without tp/sp).
@@ -804,16 +812,19 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
                    if async_ckpt and not (fsdp_on or tp_on) else plain_net)
 
     def submit_checkpoint(steps, with_preview=True):
-        if fsdp_on or tp_on:
-            # A collective on every rank: the whole state on rank 0's CPU.
+        if native:
+            # Every rank writes its pieces of the live state, before the
+            # next step's update (a collective in a group).
             worker.finish()
-            if fsdp_on:
-                snap = fsdp.checkpoint_dict(net, optimizer, lr_of(steps),
-                                            state.ema)
-            else:
-                snap = tp_mod.checkpoint_dict(net, optimizer, lr_of(steps),
-                                              state.ema, tp_names,
-                                              mesh.model_group)
+            save_native(state, out_dir, int(steps), shards=shards)
+        if fsdp_on or tp_on:
+            # A collective on every rank: the whole state on rank 0's CPU
+            # (under both, gathered over the data ranks, then the model
+            # ranks).
+            worker.finish()
+            snap = tp_mod.checkpoint_dict(
+                net, optimizer, lr_of(steps), state.ema, tp_names,
+                mesh.model_group if tp_on else None)
             if snap is None:
                 return
             if async_ckpt:
@@ -879,24 +890,41 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         return preempt["flag"] if world == 1 else preempt["agreed"]
 
     timer = StepTimer()
-    if bool(config_dict.get("device_dataset", False)):
-        if multihost or sp > 1 or grad_accum > 1:
-            raise ValueError(
-                '"device_dataset" fused training supports single-process '
-                "runs without sp/grad_accum_steps (dp/tp/fsdp compose)")
-        summary = _run_fused_loop(
-            config_dict=config_dict, dataset=dataset, dev=dev,
-            batch_size=batch_size, seed=seed, state=state, step_fn=step_fn,
-            generator=generator, timer=timer, preempt=preempt,
-            max_steps=max_steps, max_epoch=max_epoch,
-            checkpoint_steps=checkpoint_steps,
-            starting_epoch=starting_epoch, global_steps=global_steps,
-            lr_of=lr_of, submit_checkpoint=submit_checkpoint, agree=agree,
-            read=read, stopping=stopping, rank=rank, world=world)
-        worker.finish()
-        return summary
+    # Config "profile_trace_dir" (sdm_tpu loop.py:787-792): a profiler
+    # trace of the loop, one file per rank.
+    with trace(config_dict.get("profile_trace_dir"), dev.type):
+        if bool(config_dict.get("device_dataset", False)):
+            if multihost or sp > 1 or grad_accum > 1:
+                raise ValueError(FUSED_ERROR)
+            summary = _run_fused_loop(
+                config_dict=config_dict, dataset=dataset, dev=dev,
+                batch_size=batch_size, seed=seed, state=state,
+                step_fn=step_fn, generator=generator, timer=timer,
+                preempt=preempt, max_steps=max_steps, max_epoch=max_epoch,
+                checkpoint_steps=checkpoint_steps,
+                starting_epoch=starting_epoch, global_steps=global_steps,
+                lr_of=lr_of, submit_checkpoint=submit_checkpoint,
+                agree=agree, read=read, stopping=stopping,
+                rows=(data_rank, data_world))
+        else:
+            summary = _run_epochs(
+                config_dict=config_dict, dataloader=dataloader,
+                to_device=to_device, state=state, step_fn=step_fn,
+                generator=generator, timer=timer, max_steps=max_steps,
+                max_epoch=max_epoch, checkpoint_steps=checkpoint_steps,
+                starting_epoch=starting_epoch, global_steps=global_steps,
+                batch_size=batch_size, lr_of=lr_of,
+                submit_checkpoint=submit_checkpoint, agree=agree,
+                read=read, stopping=stopping)
+    worker.finish()
+    return summary
 
-    # ---- Epoch loop (sdm_tpu loop.py:827-1011) ----
+
+def _run_epochs(*, config_dict, dataloader, to_device, state, step_fn,
+                generator, timer, max_steps, max_epoch, checkpoint_steps,
+                starting_epoch, global_steps, batch_size, lr_of,
+                submit_checkpoint, agree, read, stopping):
+    """The per-step epoch loop (sdm_tpu loop.py:827-1011)."""
     last_loss = float("nan")
     stop = False
     # Overlapped loss fetch (config "overlapped_loss_fetch", default true):
@@ -1006,7 +1034,6 @@ def _train(spec, config_dict, dev, max_steps, max_epoch_override, preempt,
         if stop:
             break
 
-    worker.finish()
     return {"global_steps": global_steps, "last_loss": last_loss,
             "preempted": stopping(), "state": state,
             "steps_per_sec": timer.steps_per_sec(),
@@ -1051,8 +1078,7 @@ def load_resident(dataset, dev, native_decode: bool) -> dict:
 def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
                     step_fn, generator, timer, preempt, max_steps, max_epoch,
                     checkpoint_steps, starting_epoch, global_steps, lr_of,
-                    submit_checkpoint, agree, read, stopping, rank=0,
-                    world=1):
+                    submit_checkpoint, agree, read, stopping, rows=(0, 1)):
     """The device-resident fused loop (config "device_dataset"; sdm_tpu
     loop.py:1014-1158).
 
@@ -1067,14 +1093,17 @@ def _run_fused_loop(*, config_dict, dataset, dev, batch_size, seed, state,
     first chunk boundary at or after their step. On the card the chunk is
     K steps of launches with no host sync between them, not one graph.
     With several ranks each holds the whole dataset (sdm_tpu replicates
-    it too) and each step gathers the rank's rows of the global block; a
-    chunk's losses and preemption flag go through one all-reduce."""
+    it too) and each step gathers its data rank's rows of the global block
+    (`rows`: (data rank, data ranks); the tp ranks of a model group gather
+    the same rows); a chunk's losses and preemption flag go through one
+    all-reduce, whose mean over every rank is the mean over the data
+    ranks."""
     data = load_resident(dataset, dev,
                          bool(config_dict.get("native_decode", True)))
     n_rows = data["image"].shape[0]
     nbytes = sum(v.numel() * v.element_size() for v in data.values())
     b_sz = min(batch_size, n_rows)
-    own = shard_rows(b_sz, rank, world)
+    own = shard_rows(b_sz, *rows)
     steps_per_epoch = max(n_rows // b_sz, 1)
     k_steps = int(config_dict.get("steps_per_call", 0)) or min(
         steps_per_epoch, 64)

@@ -1,16 +1,42 @@
-"""Step-rate timing for the training loop (the port's own copy of
-sdm_tpu/utils/profiling.py::StepTimer).
+"""Profiling for the training loop (port of sdm_tpu/utils/profiling.py):
 
-Rates come from the wall time between host-synced losses, so they are right
-under asynchronous launches. sdm_tpu's `trace(logdir)` (config
-"profile_trace_dir", a jax.profiler capture) has no counterpart yet: a
-torch.profiler port is ROADMAP Queue 1 item 10, and the trainers refuse the
-key until then.
+  - `trace(logdir)`: a torch.profiler capture of what runs inside (config
+    "profile_trace_dir"; sdm_tpu's is a jax.profiler capture), one Chrome
+    trace file per rank, viewable in Perfetto or chrome://tracing;
+  - `StepTimer`: steps/sec from the wall time between host-synced losses,
+    so rates are right under asynchronous launches.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from typing import Optional
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str], device_type: str = "cpu"):
+    """Profile what runs inside into `logdir`/trace_rank<r>.json (r: this
+    process's rank): CPU activity, and CUDA kernels when `device_type` is
+    "cuda". A no-op when logdir is empty or None."""
+    if not logdir:
+        yield
+        return
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    activities = [ProfilerActivity.CPU]
+    if device_type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(logdir,
+                                              f"trace_rank{rank}.json"))
 
 
 class StepTimer:

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_sdm_tpu():
                  "cli.evaluate_samples", "parallel", "parallel.multihost",
                  "parallel.mesh", "parallel.fsdp", "parallel.pipeline",
                  "parallel.tp", "parallel.sp", "parallel.analysis",
-                 "parallel._comm"):
+                 "parallel._comm", "io.native_ckpt", "data.native",
+                 "utils.progress"):
         assert f"sdm_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -17,6 +17,12 @@ trainer with "tp" and "sp" (and the doodle trainer with "sp"), held to
 the one-device runs made here meanwhile, and with "sp" and
 "async_checkpoint", held to the synchronous "sp" run. The DDPM and SR generators then
 run --sp 2 on one image (a spawn each) against one device.
+
+The same spawn holds "fsdp" composed with dp2 x tp2, dp2 x sp2 and tp2 x
+sp2 (one step against sdm_tpu's, and the trainer against one device), the
+fused loop at dp2 x tp2, a resume from the composed run's gathered
+checkpoint, and native checkpoints across layouts: the one-device run's
+resumed onto dp2 x tp2 + fsdp, the composed run's resumed on one device.
 """
 
 import os
@@ -274,11 +280,8 @@ def _loop_config(img_glob, out_dir, **over):
     ({"sp": 2, "batch_size": 2}, 8, ValueError, "divisible by the data"),
     ({"sp": 2, "device_dataset": True}, None, ValueError,
      '"device_dataset" fused training supports single-process runs '
-     "without sp"),
-    ({"tp": 2, "fsdp": True}, None, NotImplementedError,
-     r"ROADMAP Queue 1 item 9 \(parallel, third part\)")],
-    ids=["tp0", "sp0", "tp3", "sp3", "data_axis", "device_dataset_sp",
-         "fsdp_tp"])
+     "without sp")],
+    ids=["tp0", "sp0", "tp3", "sp3", "data_axis", "device_dataset_sp"])
 def test_trainer_checks_match_sdm_tpu(tmp_path, over, num_devices, error,
                                       message):
     """sdm_tpu's checks of "tp" and "sp" (tests/test_tp.py:175-185,
@@ -407,6 +410,20 @@ def four_ranks(tmp_path_factory):
     cfgs = {"one": _loop_config(img_glob, tmp / "one"),
             "doodle_one": _loop_config(img_glob, tmp / "doodle_one",
                                        **doodle)}
+    fused = dict(device_dataset=True, steps_per_call=2)
+    cfgs["fused_one"] = dict(cfgs["one"], out_dir=str(tmp / "fused_one"),
+                             **fused)
+    cfgs["fused_tp"] = dict(cfgs["fused_one"], out_dir=str(tmp / "fused_tp"),
+                            tp=2, **base)
+    for name, over in (("fsdp_dp2_tp2", dict(tp=2)),
+                       ("fsdp_dp2_sp2", dict(sp=2)),
+                       ("fsdp_tp2_sp2", dict(tp=2, sp=2,
+                                             native_checkpoint=True))):
+        cfgs[name] = dict(cfgs["one"], out_dir=str(tmp / name), fsdp=True,
+                          fsdp_min_size=2 ** 12, **base, **over)
+    native_one = str(tmp / "native_one" / "checkpoint" / "native_2")
+    cfgs["native_one"] = dict(cfgs["one"], out_dir=str(tmp / "native_one"),
+                              native_checkpoint=True)
     cfgs["tp"] = dict(cfgs["one"], out_dir=str(tmp / "tp"), tp=2, **base)
     cfgs["sp"] = dict(cfgs["one"], out_dir=str(tmp / "sp"), sp=2)
     # Two steps an epoch, a step-0 preview of T steps; the async run trains
@@ -428,6 +445,19 @@ def four_ranks(tmp_path_factory):
                              **resume)
     cfgs["resume_one"] = dict(cfgs["one"], out_dir=str(tmp / "resume_one"),
                               **resume)
+    composed = str(tmp / "fsdp_tp2_sp2" / "checkpoint")
+    cfgs["composed_resume"] = dict(
+        cfgs["fsdp_tp2_sp2"], out_dir=str(tmp / "composed_resume"),
+        native_checkpoint=False, load_diffusion_optim=True,
+        model_checkpoint=os.path.join(composed, "diffusion_2.pt"),
+        config_checkpoint=os.path.join(composed, "config_2.pt"))
+    cfgs["native_fsdp_tp"] = dict(cfgs["fsdp_dp2_tp2"], out_dir=str(
+        tmp / "native_fsdp_tp"), model_checkpoint=native_one)
+    cfgs["native_resume_one"] = dict(cfgs["one"], out_dir=str(
+        tmp / "native_resume_one"), model_checkpoint=native_one)
+    cfgs["composed_native_one"] = dict(cfgs["one"], out_dir=str(
+        tmp / "composed_native_one"), model_checkpoint=os.path.join(
+            composed, "native_2"))
     torch.manual_seed(2)
     sp_work = dict(unet=workers.SP_ATTN_UNET,
                    params=UNet(**workers.SP_ATTN_UNET).state_dict(),
@@ -435,22 +465,32 @@ def four_ranks(tmp_path_factory):
     runs = {name: ("DOODLE_SPEC" if "doodle" in name else "BASE_SPEC",
                    cfgs[name]) for name in ("tp", "tp_resume", "sp",
                                             "sp_sync", "sp_async",
-                                            "doodle_sp")}
+                                            "doodle_sp", "fsdp_dp2_tp2",
+                                            "fsdp_dp2_sp2", "fsdp_tp2_sp2",
+                                            "fused_tp", "composed_resume",
+                                            "native_fsdp_tp")}
     torch.save({"steps": steps, "sp_work": sp_work, "runs": runs,
-                "max_steps": {"tp_resume": 3}}, tmp / "mp_inputs.pt")
-    summaries = {}
+                "max_steps": {"tp_resume": 3, "composed_resume": 3,
+                              "native_fsdp_tp": 3}}, tmp / "mp_inputs.pt")
+    # The native checkpoint the spawn resumes, first.
+    summaries = {"native_one": loop.run_training(
+        loop.BASE_SPEC, cfgs["native_one"], device="cpu", max_steps=2)}
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(mh.spawn, workers.model_parallel_worker, 4,
                               "cpu", str(tmp))
         ref = {"tp": _sdm_tpu_step(workers.FSDP_UNET, tp_sd, tp_batch),
                "sp": _sdm_tpu_step(workers.SP_UNET, sp_sd, sp_batch)}
-        for name in ("one", "doodle_one"):
+        for name in ("one", "doodle_one", "fused_one"):
             spec = loop.DOODLE_SPEC if "doodle" in name else loop.BASE_SPEC
             summaries[name] = loop.run_training(spec, cfgs[name],
                                                 device="cpu", max_steps=2)
+        summaries["native_resume_one"] = loop.run_training(
+            loop.BASE_SPEC, cfgs["native_resume_one"], device="cpu",
+            max_steps=3)
         spawned.result()
-    summaries["resume_one"] = loop.run_training(
-        loop.BASE_SPEC, cfgs["resume_one"], device="cpu", max_steps=3)
+    for name in ("resume_one", "composed_native_one"):
+        summaries[name] = loop.run_training(
+            loop.BASE_SPEC, cfgs[name], device="cpu", max_steps=3)
     ranks = [torch.load(tmp / f"mp_rank{r}.pt") for r in range(4)]
     return dict(ranks=ranks, ref=ref, cfgs=cfgs, summaries=summaries,
                 tp_sd=tp_sd)
@@ -596,6 +636,94 @@ def test_tp_checkpoint_resumes_both_ways(four_ranks):
     _close({k: v["exp_avg"] for k, v in got["optimizer"]["state"].items()},
            {k: v["exp_avg"] for k, v in want["optimizer"]["state"].items()},
            RUN_PARAM_TOL)
+
+
+@pytest.mark.parametrize("layout", list(workers.MP_LAYOUTS))
+def test_fsdp_layout_steps_match_sdm_tpu(four_ranks, layout):
+    """FSDP2 over the data ranks composed with each layout (each rank's TP
+    shard sharded again; the space ranks replicas): one step against
+    sdm_tpu's on one device, the parameters gathered over data, then
+    model; the gradient norm from FSDP2's shards of the TP shards against
+    the whole gradient's."""
+    loss, params = four_ranks["ref"]["sp" if layout == "dp2_sp2" else "tp"]
+    first = four_ranks["ranks"][0][f"fsdp_step_{layout}"]["params"]
+    _close(first, params, PARAM_TOL)
+    for r in four_ranks["ranks"]:
+        got = r[f"fsdp_step_{layout}"]
+        np.testing.assert_allclose(got["loss"], loss, rtol=LOSS_RTOL)
+        for k, v in first.items():
+            assert torch.equal(got["params"][k], v), (layout, k)
+        if "grad_norm" in got:
+            np.testing.assert_allclose(got["grad_norm"],
+                                       r[layout]["grad_norm"][1], rtol=1e-5)
+    assert ("grad_norm" in four_ranks["ranks"][0][f"fsdp_step_{layout}"]) == (
+        workers.MP_LAYOUTS[layout][0] > 1)
+
+
+@pytest.mark.parametrize("run,one", [
+    ("fsdp_dp2_tp2", "one"), ("fsdp_dp2_sp2", "one"),
+    ("fsdp_tp2_sp2", "one"), ("fused_tp", "fused_one")])
+def test_composed_trainer_runs_match_one_device(four_ranks, run, one):
+    """run_training with "fsdp" and "tp" and/or "sp" (dp = 4 / (tp * sp)),
+    and the fused loop ("device_dataset") at dp2 x tp2, each model group
+    gathering its data rank's rows: 2 steps against the one-device run,
+    its loss and its final checkpoint (gathered over data, then model, and
+    written once by rank 0 in the unsharded format)."""
+    r0 = four_ranks["ranks"][0][run]
+    assert r0["steps"] == 2
+    np.testing.assert_allclose(
+        r0["loss"], four_ranks["summaries"][one]["last_loss"],
+        rtol=RUN_LOSS_RTOL)
+    cfgs = four_ranks["cfgs"]
+    got, want = _ckpt(cfgs[run]["out_dir"], 2), _ckpt(cfgs[one]["out_dir"], 2)
+    _close(got["model"], want["model"], RUN_PARAM_TOL)
+    names = _files(cfgs[run]["out_dir"])
+    want_names = _files(cfgs[one]["out_dir"])
+    if cfgs[run].get("native_checkpoint"):
+        names = [n for n in names if "native_" not in n]
+    assert [n for n in names if not n.endswith(".log")] == [
+        n for n in want_names if not n.endswith(".log")]
+
+
+def test_composed_checkpoint_resumes(four_ranks):
+    """The tp2 x sp2 + fsdp run's gathered checkpoint loads strictly into
+    an unsharded U-Net with an Adam entry of every parameter's whole
+    shape; resumed (with its moments) by the same layout, one more step
+    equals the one-device resume of the TP run's checkpoint."""
+    cfgs = four_ranks["cfgs"]
+    ckpt = _ckpt(cfgs["fsdp_tp2_sp2"]["out_dir"], 2)
+    net = UNet.from_config(cfgs["one"])
+    net.load_state_dict(ckpt["model"], strict=True)
+    assert [tuple(ckpt["optimizer"]["state"][i]["exp_avg"].shape)
+            for i in range(len(list(net.parameters())))] == [
+        tuple(p.shape) for p in net.parameters()]
+    assert four_ranks["ranks"][0]["composed_resume"]["steps"] == 3
+    got = _ckpt(cfgs["composed_resume"]["out_dir"], 3)
+    want = _ckpt(cfgs["resume_one"]["out_dir"], 3)
+    _close(got["model"], want["model"], RUN_PARAM_TOL)
+    _close({k: v["exp_avg"] for k, v in got["optimizer"]["state"].items()},
+           {k: v["exp_avg"] for k, v in want["optimizer"]["state"].items()},
+           RUN_PARAM_TOL)
+
+
+@pytest.mark.parametrize("run", ["native_fsdp_tp", "composed_native_one"])
+def test_native_checkpoints_resume_across_layouts(four_ranks, run):
+    """A native checkpoint directory restores the whole state (Adam and the
+    step from it, no config checkpoint) onto another layout: the
+    one-device run's onto dp2 x tp2 + fsdp, and the tp2 x sp2 + fsdp
+    run's (TP shards saved as DTensors of their whole tensors) onto one
+    device; one more step equals the one-device native resume."""
+    cfgs, summaries = four_ranks["cfgs"], four_ranks["summaries"]
+    steps = (four_ranks["ranks"][0][run]["steps"] if run in
+             four_ranks["ranks"][0] else summaries[run]["global_steps"])
+    assert steps == 3
+    got = _ckpt(cfgs[run]["out_dir"], 3)
+    want = _ckpt(cfgs["native_resume_one"]["out_dir"], 3)
+    _close(got["model"], want["model"], RUN_PARAM_TOL)
+    _close({k: v["exp_avg"] for k, v in got["optimizer"]["state"].items()},
+           {k: v["exp_avg"] for k, v in want["optimizer"]["state"].items()},
+           RUN_PARAM_TOL)
+    assert float(got["optimizer"]["state"][0]["step"]) == 3.0
 
 
 @pytest.mark.parametrize("generator", ["ddpm", "sr"])

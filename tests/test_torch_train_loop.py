@@ -9,13 +9,17 @@ loss values masked), the checkpoint and preview file names, and the
 checkpoints' contents. A checkpoint of either package resumes in the other,
 strictly, with its Adam moments and step count. Both packages draw the
 doodle preview batch unseeded, so its preview and label_plot grids are held
-by name and shape, as every trainer's are, never by pixels. The port's own semantics
-are checked beside: resume LR, determinism given "seed", the NaN guard,
-preemption, "epoch_checkpoint_every", previews that fail, and the config
-keys it refuses. The fused device-resident loop ("device_dataset") is held
-to sdm_tpu's by its index blocks, log lines and files, and to the port's
-own per-step train step; "async_checkpoint" and "remat" write the same
-files as a run without them.
+by name and shape, as every trainer's are, never by pixels. Both packages
+decode natively (their loaders' default). The port's own semantics are
+checked beside: resume LR, determinism given "seed", the NaN guard,
+preemption, "epoch_checkpoint_every" and previews that fail. The fused
+device-resident loop ("device_dataset") is held to sdm_tpu's by its index
+blocks, log lines and files, and to the port's own per-step train step;
+"async_checkpoint" and "remat" write the same files as a run without them.
+The base trainers of both packages write native checkpoints
+("native_checkpoint"), under the same names; a native resume continues
+bit for bit like the .pt + config resume; "profile_trace_dir" writes a
+trace per run, per-step or fused.
 """
 
 import json
@@ -111,7 +115,8 @@ def runs(images, tmp_path_factory):
         for pkg, run, spec in (("jax", _run_jax, spec_j),
                                ("port", _run_port, spec_t)):
             d = tmp_path_factory.mktemp(f"{pkg}_{name}")
-            summary = run(spec, _config(images, d, name))
+            summary = run(spec, _config(images, d, name,
+                                        native_checkpoint=name == "base"))
             assert summary["global_steps"] == STEPS
             assert np.isfinite(summary["last_loss"])
             out[(pkg, name)] = str(d)
@@ -126,10 +131,13 @@ def _log(out_dir):
 
 def _masked(lines, out_dir):
     """Log lines without the timestamp, the output path, loss values,
-    rates and the compute dtype's framework name."""
+    rates and the compute dtype's framework name, and without asyncio's
+    "Using selector" lines (sdm_tpu's orbax saves log them)."""
     out = []
     for line in lines:
         line = re.sub(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d+ ", "", line)
+        if line.startswith("Using selector: "):
+            continue
         line = line.replace(out_dir, "<out>")
         line = re.sub(r"Diffusion: [0-9.]+", "Diffusion: <loss>", line)
         line = re.sub(r"^Rate: .*", "Rate: <rate>", line)
@@ -139,19 +147,13 @@ def _masked(lines, out_dir):
     return out
 
 
-NATIVE_NOTE = ("native decode is not ported to sdm_tpu_torch; using the "
-               "per-image cv2 loader")
-
-
 @pytest.mark.parametrize("trainer", ["base", "sr", "cold", "doodle"])
 def test_log_lines_match_sdm_tpu(runs, trainer):
-    """Banner, step, rate and epoch lines in the same order and format; the
-    port adds one note that the native decoder is not ported, and names the
-    compute dtype in torch's terms (torch.float32)."""
+    """Banner, step, rate and epoch lines in the same order and format, both
+    packages decoding natively; the port names the compute dtype in
+    torch's terms (torch.float32)."""
     jax_dir, port_dir = runs[("jax", trainer)], runs[("port", trainer)]
     port = _log(port_dir)
-    assert sum(NATIVE_NOTE in line for line in port) <= 1
-    port = [line for line in port if NATIVE_NOTE not in line]
     assert any(line.endswith("Compute dtype: torch.float32") for line in port)
     assert _masked(port, port_dir) == _masked(_log(jax_dir), jax_dir)
     steps = [line for line in port if "Cum. Steps:" in line]
@@ -377,19 +379,6 @@ def test_a_failing_preview_does_not_stop_training(images, tmp_path,
     assert not os.path.exists(tmp_path / "plots")
 
 
-@pytest.mark.parametrize("over", [
-    {"native_checkpoint": True}, {"profile_trace_dir": "trace"},
-    {"fsdp": True, "tp": 2}, {"fsdp": True, "sp": 2},
-    {"device_dataset": True, "tp": 2}],
-    ids=["native_checkpoint", "profile_trace_dir", "fsdp-tp", "fsdp-sp",
-         "device_dataset-tp"])
-def test_unported_config_keys_raise(images, tmp_path, over):
-    """Keys the port lacks, and model parallelism composed with FSDP or
-    the fused loop (item 9's third part), raise before any rank starts."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **over))
-
-
 @pytest.mark.parametrize("key,value", [
     ("grad_accum_steps", 2), ("cfg_drop_prob", 0.1), ("ema_decay", 0.999),
     ("min_snr_gamma", 5.0), ("objective", "V")])
@@ -407,7 +396,7 @@ def test_extension_config_keys_match_sdm_tpu(images, tmp_path, key, value):
                       steps=3)
         assert summary["global_steps"] == 3
         assert np.isfinite(summary["last_loss"])
-    port = [line for line in _log(dirs["port"]) if NATIVE_NOTE not in line]
+    port = _log(dirs["port"])
     assert _masked(port, dirs["port"]) == _masked(_log(dirs["jax"]),
                                                   dirs["jax"])
     for sub in ("checkpoint", "plots"):
@@ -436,12 +425,6 @@ def test_extension_config_keys_match_sdm_tpu(images, tmp_path, key, value):
         key="ema"))
     for name, value in ck_t["ema"].items():
         np.testing.assert_array_equal(loaded[name].numpy(), value.numpy())
-
-
-def test_native_checkpoint_directory_is_refused(images, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path / "out",
-                                          model_checkpoint=str(tmp_path)))
 
 
 def test_cli_runs_on_the_cpu_and_defaults_to_cuda(images, tmp_path):
@@ -536,7 +519,7 @@ def test_fused_log_lines_and_files_match_sdm_tpu(fused_runs):
     checkpoint and preview files: chunk-boundary checkpoints at 2, 4 and 6
     with previews, epoch ends at 3 and 6."""
     jax_dir, port_dir = fused_runs["jax"], fused_runs["port"]
-    port = [line for line in _log(port_dir) if NATIVE_NOTE not in line]
+    port = _log(port_dir)
     assert _masked(port, port_dir) == _masked(_log(jax_dir), jax_dir)
     assert any(line.endswith("Device-resident dataset: 6 rows (0.0 MiB) "
                              "in device memory; 2 steps fused per call.")
@@ -696,3 +679,78 @@ def test_async_snapshot_survives_a_later_in_place_step(images):
                            snap["model"]["out_layers.1.conv_layer.0.bias"])
     assert not torch.equal(moved["optimizer"]["state"][0]["exp_avg"],
                            snap["optimizer"]["state"][0]["exp_avg"])
+
+
+# ---- "native_checkpoint" and "profile_trace_dir" ----
+
+def test_native_checkpoint_dirs_match_sdm_tpu(runs):
+    """Both base trainers with "native_checkpoint" write native_<step>
+    beside each .pt pair, under the same names (sdm_tpu's an orbax
+    directory, the port's a torch.distributed.checkpoint one)."""
+    names = {pkg: sorted(os.listdir(os.path.join(runs[(pkg, "base")],
+                                                 "checkpoint")))
+             for pkg in ("jax", "port")}
+    assert names["port"] == names["jax"]
+    native = [n for n in names["port"] if n.startswith("native_")]
+    assert native == [f"native_{s}" for s in (0, 2, 3, 4, 5)]
+    for n in native:
+        files = os.listdir(os.path.join(runs[("port", "base")],
+                                        "checkpoint", n))
+        assert ".metadata" in files and any(f.endswith(".distcp")
+                                            for f in files), files
+
+
+def test_native_resume_equals_the_pt_resume(images, tmp_path):
+    """A model_checkpoint that is a native directory restores the whole
+    state (parameters, Adam, EMA, the step; no config checkpoint, no
+    load_diffusion_optim) and continues bit for bit like the .pt + config
+    resume (sdm_tpu's tests/test_train_loop.py:296)."""
+    out = tmp_path / "out"
+    _run_port(loop.BASE_SPEC, _config(images, out, native_checkpoint=True,
+                                      ema_decay=0.999), steps=2)
+    ckpt = out / "checkpoint"
+    runs = {}
+    for name, over in (
+            ("pt", dict(model_checkpoint=str(ckpt / "diffusion_2.pt"),
+                        config_checkpoint=str(ckpt / "config_2.pt"),
+                        load_diffusion_optim=True)),
+            ("native", dict(model_checkpoint=str(ckpt / "native_2")))):
+        runs[name] = _run_port(loop.BASE_SPEC, _config(
+            images, tmp_path / name, ema_decay=0.999, **over), steps=4)
+        assert runs[name]["global_steps"] == 4
+    a, b = runs["pt"]["state"], runs["native"]["state"]
+    _assert_same_tree(a.model.state_dict(), b.model.state_dict())
+    _assert_same_tree(a.ema, b.ema)
+    _assert_same_tree(a.optimizer.state_dict()["state"],
+                      b.optimizer.state_dict()["state"])
+    assert any("Restored native checkpoint" in line and "step 2" in line
+               for line in _log(str(tmp_path / "native")))
+
+
+def test_native_resume_mismatch_names_ema_and_model_config(images,
+                                                           tmp_path):
+    _run_port(loop.BASE_SPEC, _config(images, tmp_path / "out",
+                                      native_checkpoint=True), steps=1)
+    with pytest.raises(Exception, match='"ema_decay" on/off setting and '
+                                        "model config must match"):
+        _run_port(loop.BASE_SPEC, _config(
+            images, tmp_path / "resume", ema_decay=0.999,
+            model_checkpoint=str(tmp_path / "out" / "checkpoint"
+                                 / "native_0")), steps=2)
+
+
+@pytest.mark.parametrize("extra", [{}, FUSED], ids=["per_step", "fused"])
+def test_profile_trace_dir_writes_a_trace(images, tmp_path, extra):
+    """"profile_trace_dir": a two-step run (per-step, or fused with K = 2)
+    writes one Chrome trace of the loop for its rank, naming the
+    U-Net's ops; the run trains as without it."""
+    trace = tmp_path / "trace"
+    summary = _run_port(loop.BASE_SPEC, _config(
+        images, tmp_path / "out", profile_trace_dir=str(trace), **extra),
+        steps=2)
+    assert summary["global_steps"] == 2
+    assert os.listdir(trace) == ["trace_rank0.json"]
+    with open(trace / "trace_rank0.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::convolution" in names, sorted(names)[:20]

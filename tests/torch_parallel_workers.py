@@ -15,7 +15,7 @@ import torch.distributed as dist
 from sdm_tpu_torch.enums import Objective
 from sdm_tpu_torch.models import UNet
 from sdm_tpu_torch.ops.schedules import make_schedule
-from sdm_tpu_torch.parallel import fsdp
+from sdm_tpu_torch.parallel import fsdp, tp
 from sdm_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from sdm_tpu_torch.train import step as port_step
 
@@ -88,7 +88,8 @@ def step_worker(tmp):
     out["fsdp_loss"] = _global_mean(loss)
     out["fsdp_bytes"] = fsdp.state_bytes_per_device(net, optimizer)
     out["full_bytes"] = full_bytes
-    out["fsdp_checkpoint"] = fsdp.checkpoint_dict(net, optimizer, LR)
+    out["fsdp_checkpoint"] = tp.checkpoint_dict(net, optimizer, LR, None,
+                                                 {}, None)
     _save(tmp, "step", out)
 
 
@@ -155,7 +156,7 @@ def _mp_model(cfg, state_dict, tp_n, sp_n, mesh):
     """The U-Net of `cfg` with `state_dict`, its wide weights sharded over
     the model group, under DDP over the data x space ranks (kernels off
     under SP, as the trainers build it)."""
-    from sdm_tpu_torch.parallel import _comm, tp
+    from sdm_tpu_torch.parallel import _comm
     net = UNet(**cfg, use_kernels=sp_n == 1)
     net.load_state_dict(state_dict, strict=True)
     names = (tp.shard_model(net, mesh.model_group, TP_MIN_WIDTH)
@@ -163,6 +164,21 @@ def _mp_model(cfg, state_dict, tp_n, sp_n, mesh):
     return net, names, _comm.data_parallel(net, torch.device("cpu"),
                                            mesh.reduce_group,
                                            count_bytes=True)
+
+
+def _fsdp_mp_model(cfg, state_dict, tp_n, sp_n, mesh):
+    """The U-Net of `cfg` with `state_dict`, its wide weights sharded over
+    the model group, then FSDP2 over the data ranks (the space ranks as
+    replicas), as the trainers compose them with "fsdp"; with the group
+    FSDP2 shards over."""
+    from sdm_tpu_torch.parallel.mesh import fsdp_mesh
+    net = UNet(**cfg, use_kernels=sp_n == 1)
+    net.load_state_dict(state_dict, strict=True)
+    names = (tp.shard_model(net, mesh.model_group, TP_MIN_WIDTH)
+             if tp_n > 1 else {})
+    data = fsdp_mesh(mesh)
+    fsdp.shard_model(net, data, min_size=2 ** 12, tp_dims=names)
+    return net, names, data.get_group(data.ndim - 1)
 
 
 def _mp_step_fn(mesh, sp_n):
@@ -205,8 +221,9 @@ def model_parallel_worker(tmp):
     (their global loss, gathered parameters and collective bytes); TP's
     state bytes and conv work per rank and SP's work and saved bytes per
     rank, each beside the same rows on one device; a pure-DP step's
-    collective bytes; then the trainer runs of `mp_inputs.pt`."""
-    from sdm_tpu_torch.parallel import _comm, analysis, tp
+    collective bytes, and the same step under FSDP2 composed with the
+    layout; then the trainer runs of `mp_inputs.pt`."""
+    from sdm_tpu_torch.parallel import _comm, analysis
     from sdm_tpu_torch.parallel.mesh import make_model_mesh, shard_rows
     from sdm_tpu_torch.parallel.sp import SpaceShard
     from sdm_tpu_torch.train import loop
@@ -234,6 +251,21 @@ def model_parallel_worker(tmp):
                   for k, v in net.state_dict().items()}
         out[name] = dict(loss=_global_mean(metrics["loss"]), params=params,
                          comm=comm, sharded=sorted(names))
+        # The same step with FSDP2 over the data ranks in place of DDP.
+        fnet, fnames, data_group = _fsdp_mp_model(
+            case["unet"], case["params"], tp_n, sp_n, mesh)
+        fopt, schedule = port_step.make_optimizer(fnet.parameters(), LR,
+                                                  LR_STEPS)
+        fstate = port_step.create_train_state(fnet, fopt, schedule)
+        loss = step(fstate, batch)["loss"]
+        out[f"fsdp_step_{name}"] = dict(
+            loss=_global_mean(loss), params=tp.gather_whole(
+                fnet.state_dict(), fnames, mesh.model_group))
+        if fnames:
+            # The norm from FSDP2's shards of the TP shards.
+            out[f"fsdp_step_{name}"]["grad_norm"] = float(tp.grad_norm_fn(
+                fnet, fnames, mesh.model_group, data_group)(
+                    list(fnet.parameters())))
         if names:
             # The global gradient norm (grad_clip_norm) from the shards,
             # against the norm of the gathered gradients.
