@@ -19,9 +19,10 @@ as a user's run would.
      (nvidia-smi), TF32 off for the fp32 comparisons, and every kernel
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
-     instantiation of the mma.sync kernels (attn_stats_mma,
-     stream_apply_mma, stream_da_mma, attn_apply_mma_wide, linear_mma)
-     held to 0 spill bytes.
+     instantiation of the tensor-core kernels (the mma.sync
+     attn_stats_mma, stream_apply_mma, stream_da_mma,
+     attn_apply_mma_wide; the TMA + wgmma linear_wgmma) held to 0 spill
+     bytes.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -33,8 +34,10 @@ as a user's run would.
      (EXTRA_SHAPES), and the attention at four heads on strided views.
      `linear` is held against its plain version at each block's two
      projections (with and without the residual epilogue), at a ragged
-     M x N and at shapes its tensor-core admission refuses, and timed
-     against F.linear (cuBLAS); AdaGN also at an input mean of 50. The
+     M x N, an odd N, a K tail and a row stride its tensor-core admission
+     refuses, each launch on the wgmma kernel exactly when the admission
+     says so, and timed (with its TFLOP/s) against F.linear (cuBLAS);
+     AdaGN also at an input mean of 50. The
      streaming kernels, forward (stats, apply) and
      backward (dV, dK, dQ), run at the SR model's S = 4096, at S = 1024,
      where the whole-S kernel is a second reference, and at a ragged
@@ -60,8 +63,9 @@ as a user's run would.
      images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
      just after, and held to the counts its U-Net calls imply, every bf16
-     whole-S attention, streaming stats, streaming apply and `linear` on
-     the mma.sync kernels (`mma_launches`). Then one more batch of each is
+     whole-S attention, streaming stats and streaming apply on the
+     mma.sync kernels and every `linear` on the wgmma one
+     (`mma_launches`). Then one more batch of each is
      traced with the profiler for the device's busy share.
   5. Generation ("generation"): the DDIM/DDPM generator
      (generate_images_diffusion) on an exported flagship bundle, DDIM step
@@ -80,8 +84,9 @@ as a user's run would.
      preview, and the doodle trainer's label_plot grid) at step 0 only and
      once more when it stops. The launch counters are zeroed just before
      each run and read just after, and held to the counts its steps and
-     its preview imply (every whole-S attention, `linear`, streaming
-     stats, apply, dV, dK and dQ on the mma.sync kernels); the losses must
+     its preview imply (every whole-S attention, streaming stats, apply,
+     dV, dK and dQ on the mma.sync kernels, every `linear` on the wgmma
+     one); the losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
@@ -101,7 +106,7 @@ as a user's run would.
      cfg_drop_prob and grad_accum_steps 2 (EXT_TRAIN), as phase 6 checks
      a trainer, plus the "ema" weights of both checkpoints reloaded
      strictly. Every run's launches are held to its U-Net calls, every
-     attention and `linear` on mma.sync.
+     attention on mma.sync and every `linear` on wgmma.
   8. Remat ("remat"): the SR U-Net (bf16, batch 16, kernels on) with
      config "remat" against without, one forward and backward each: the
      loss equal, the whole gradient within GRAD_TOL, the launches of each
@@ -175,7 +180,7 @@ as a user's run would.
      card a line says (c) was skipped.
  14. Tooling ("tooling"): the base trainer with "profile_trace_dir" (its
      trace names the port's kernels: adagn_*, attn_stats_mma,
-     stream_apply_mma, linear_mma; launches held); a run with
+     stream_apply_mma, linear_wgmma; launches held); a run with
      "native_checkpoint" resumed from its native directory, bit for bit
      equal to the .pt + config resume; the loader's decode path, native
      batches bit for bit equal to the per-image cv2 ones (or one line
@@ -340,6 +345,26 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_queued_ms(fn, reps: int) -> float:
+    """Mean device ms of fn over `reps` launches queued behind a sleep
+    kernel: the host enqueues every launch before the first runs, so its
+    own time per call (a wrapper's checks, allocation and launch) drops
+    out, which `time_ms` reads where it exceeds the kernel's."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # tens of ms of device time
     start.record()
     for _ in range(reps):
         fn()
@@ -867,11 +892,13 @@ def linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
                 w_out, b_out):
     """The block's two projections, `linear` (csrc/linear.cu) against its
     plain version `linear_reference` on the same inputs, with and without
-    the residual epilogue, each bf16 launch on the mma.sync kernel
+    the residual epilogue, each bf16 launch on the wgmma kernel
     (`linear.mma_launches`): qkv = tok W_qkv^T + b and out = r W_out^T + b
     (+ tok). Timed without the residual beside F.linear (cuBLAS) on the
     same inputs, a yardstick only: nothing on the port's path calls
-    F.linear."""
+    F.linear. Both also queued (`time_queued_ms`, the device time alone:
+    at the small projections the wrapper's host time exceeds the kernel's);
+    TFLOP/s: 2 M N K over the queued time."""
     import torch.nn.functional as F
     from sdm_tpu_torch.kernels.attention_block import (linear,
                                                        linear_reference)
@@ -890,59 +917,66 @@ def linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
         ms = time_ms(lambda: linear(x, w, bias), 10)
         plain = time_ms(lambda: linear_reference(x, w, bias), 10)
         lib = time_ms(lambda: F.linear(x, w, bias), 10)
-        b, by = bound_ms((m * kk + n * kk + m * n) * isz + n * isz,
-                         2.0 * m * n * kk, dn)
+        queued = time_queued_ms(lambda: linear(x, w, bias), 10)
+        lib_queued = time_queued_ms(lambda: F.linear(x, w, bias), 10)
+        flop = 2.0 * m * n * kk
+        b, by = bound_ms((m * kk + n * kk + m * n) * isz + n * isz, flop, dn)
         err = max(errs)
         results.append(dict(kernel="linear", model=model, dtype=dn,
                             projection=what, shape=[m, n, kk],
                             max_abs_err=err[0], max_rel_err=err[1],
                             tol=ATTN_TOL[dn], ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=b, bound_by=by))
+                            library_ms=lib, bound_ms=b, bound_by=by,
+                            queued_ms=queued, library_queued_ms=lib_queued,
+                            tflops=flop / queued / 1e9,
+                            library_tflops=flop / lib_queued / 1e9))
         log(f"{name}: {err_text(err, ATTN_TOL[dn])}"
             f"{' (also with the residual)' if res is not None else ''}  "
-            f"kernel {ms:.4f} ms  plain {plain:.4f}  F.linear {lib:.4f}  "
-            f"bound {b:.4f} ({by})")
+            f"kernel {ms:.4f} ms, queued {queued:.4f} "
+            f"({flop / queued / 1e9:.0f} TFLOP/s)  plain {plain:.4f}  "
+            f"F.linear {lib:.4f}, queued {lib_queued:.4f} "
+            f"({flop / lib_queued / 1e9:.0f})  bound {b:.4f} ({by})")
 
 
 def linear_check(torch, name, x, w, bias, res):
     """One `linear` launch against `linear_reference` under ATTN_TOL; the
-    launch takes the mma.sync kernel exactly when `linear_takes_mma` says
+    launch takes the wgmma kernel exactly when `linear_takes_wgmma` says
     so, and every bf16 U-Net projection does."""
     from sdm_tpu_torch.kernels.attention_block import (
-        linear, linear_reference, linear_takes_mma)
+        linear, linear_reference, linear_takes_wgmma)
     dn = str(x.dtype).split(".")[-1]
     mma0 = linear.mma_launches
     got = linear(x, w, bias, residual=res)
     mma = linear.mma_launches - mma0
-    if mma != linear_takes_mma(x, w, res):
-        raise AssertionError(f"{name}: {mma} mma launches, the admission "
-                             f"says {linear_takes_mma(x, w, res)}")
+    if mma != linear_takes_wgmma(x, w, res):
+        raise AssertionError(f"{name}: {mma} wgmma launches, the admission "
+                             f"says {linear_takes_wgmma(x, w, res)}")
     return compare(name, got, linear_reference(x, w, bias, residual=res),
                    ATTN_TOL[dn])
 
 
 def linear_off_grid(torch, randn, results):
     """`linear` off the U-Net's shapes, each against its plain version: a
-    ragged bf16 M = 300, N = 200 (rows past M and N zero-filled by the
-    ring, stores masked) and an odd N = 197 (single-element stores), both
-    on the mma.sync kernel; K = 520 (off the ring's 32-deep stages) and a
-    row stride off 8 elements, which the admission refuses to the CUDA
-    cores. Then the Python mirrors `linear_admits_mma` and
-    `linear_mma_tile` against the C functions."""
-    import ctypes
+    ragged bf16 M = 300, N = 200 (boxes past M and N zero-filled by TMA,
+    the 16-byte stores masked), an odd N = 197 (the pairs' single-element
+    stores) and K = 520 (an 8-column tail that TMA zero-fills past K in the
+    last 64-deep stage), all on the wgmma kernel; a row stride off 8
+    elements, which the admission refuses to the CUDA cores (no 16-byte
+    TMA stride). Then the Python mirrors `linear_admits_wgmma` and
+    `linear_wgmma_tile` against the C functions."""
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import attention_block as ab
     bf = torch.bfloat16
     for m, n, kk, ldx, mma in ((300, 200, 512, 512, True),
                                (300, 197, 512, 512, True),
-                               (300, 200, 520, 520, False),
+                               (300, 200, 520, 520, True),
                                (300, 200, 512, 516, False)):
         bnd = 1.0 / math.sqrt(kk)
         x = randn((m, ldx), bf, std=QK_STD)[:, :kk]
         w = randn((n, kk), bf, std=bnd)
         bias = randn((n,), torch.float32, std=bnd)
         res = randn((m, n), bf, std=QK_STD)
-        if ab.linear_takes_mma(x, w, res) != mma:
+        if ab.linear_takes_wgmma(x, w, res) != mma:
             raise AssertionError(f"linear M={m} N={n} K={kk} ldx={ldx}: "
                                  f"admission {not mma}, expected {mma}")
         for r in (None, res):
@@ -951,35 +985,35 @@ def linear_off_grid(torch, randn, results):
             err = linear_check(torch, name, x, w, bias, r)
             results.append(dict(kernel="linear_check", check=name, mma=mma,
                                 max_abs_err=err[0], max_rel_err=err[1]))
-            log(f"{name} ({'mma.sync' if mma else 'CUDA-core, refused'})  "
+            log(f"{name} ({'wgmma' if mma else 'CUDA-core, refused'})  "
                 f"{err_text(err, ATTN_TOL['bfloat16'])}")
     lib = _build.library("linear", ab._SIGNATURES)
     checked = 0
     for dt, dtype in ((0, torch.float32), (1, bf)):
-        for kk in (32, 64, 500, 512, 520, 1024):
+        for kk in (0, 8, 32, 64, 500, 512, 516, 520, 1024):
             for ldx_off in (0, 4, 8):
                 for x_off, w_off, r_off in ((0, 0, 0), (8, 0, 0), (0, 8, 0),
                                             (0, 0, 8), (0, 0, None)):
                     ptrs = [0x10000 + x_off, 0x20000 + w_off,
                             None if r_off is None else 0x30000 + r_off]
-                    got = lib.sdm_linear_takes_mma(ptrs[0], kk + ldx_off,
-                                                   ptrs[1], ptrs[2], kk, dt)
-                    if bool(got) != ab.linear_admits_mma(dtype, kk,
-                                                         kk + ldx_off, ptrs):
+                    got = lib.sdm_linear_takes_wgmma(ptrs[0], kk + ldx_off,
+                                                     ptrs[1], ptrs[2], kk, dt)
+                    if bool(got) != ab.linear_admits_wgmma(dtype, kk,
+                                                           kk + ldx_off, ptrs):
                         raise AssertionError(
-                            f"linear_admits_mma disagrees with C at {dtype} "
+                            f"linear_admits_wgmma disagrees with C at {dtype} "
                             f"K={kk} ldx={kk + ldx_off} pointers {ptrs}")
                     checked += 1
     for m in (1, 64, 300, 1024, 2048, 4096, 16384, 65536):
         for n in (8, 200, 512, 1024, 1536, 3072):
-            if lib.sdm_linear_mma_tile(m, n) != ab.linear_mma_tile(m, n):
-                raise AssertionError(f"linear_mma_tile disagrees with C at "
+            if lib.sdm_linear_wgmma_tile(m, n) != ab.linear_wgmma_tile(m, n):
+                raise AssertionError(f"linear_wgmma_tile disagrees with C at "
                                      f"M={m} N={n}")
             checked += 1
     log(f"linear admissions: the Python mirrors agree with the C functions "
         f"in {checked} cases (both dtypes, K and row strides on and off the "
         "grid, each pointer off 16 bytes, with and without a residual; the "
-        "tile plan over M x N)")
+        "tile rule over M x N)")
 
 
 def streaming_case(torch, randn, results, dtype, s_len, d, axis):
@@ -1614,9 +1648,10 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every whole-S attention, streaming stats, streaming apply and
-    `linear` on the mma.sync kernels (`_mma`). Calls without a gradient
-    launch no backward kernel."""
+    passes, every whole-S attention, streaming stats and streaming apply on
+    the mma.sync kernels and every `linear` on the wgmma one (`_mma`, the
+    tensor-core counts). Calls without a gradient launch no backward
+    kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -1659,9 +1694,10 @@ def zero_counts(counters):
 
 
 def read_counts(counters):
-    """{wrapper name: launches}, with `<name>_mma` for the launches of
-    fused_attention, linear, streaming_stats, streaming_apply and
-    streaming_dv that ran the mma.sync kernels."""
+    """{wrapper name: launches}, with `<name>_mma` for the launches that
+    ran the tensor-core kernels: the mma.sync ones of fused_attention,
+    streaming_stats, streaming_apply, streaming_dv, dk and dq, and
+    linear's wgmma kernel."""
     out = {fn.__name__: fn.launches for fn in counters}
     out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
                 if hasattr(fn, "mma_launches")})
@@ -3882,7 +3918,7 @@ def tooling_phase(torch, counters):
                    if e.get("cat") == "kernel"}
         found = {want: sum(want in k for k in kernels)
                  for want in ("adagn_", "attn_stats_mma", "stream_apply_mma",
-                              "linear_mma")}
+                              "linear_wgmma")}
         log(f"tooling (a): base run with profile_trace_dir, {TOOL_STEPS} "
             f"steps and the step-0 preview in {wall:.2f} s: trace files "
             f"{files}, {os.path.getsize(path)} bytes, {len(events)} events, "
@@ -3988,14 +4024,16 @@ def summarize(results, launches):
     slice 1, the SR model's for the streaming kernels (forward: one SR
     U-Net call; backward: one SR train step). `launches` sums the served,
     generated and trained paths; `launches_by_path` keeps them apart, and
-    `mma_launches` counts those that ran the mma.sync kernels. No library
+    `mma_launches` counts those that ran the tensor-core kernels (mma.sync;
+    `linear`'s wgmma). No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
     `k_axis_library_ms`: the whole-S attention per flagship call, the
     streaming forward, stats + apply, per SR call). `linear` sums both
     projections of every block per flagship call, its library time
-    F.linear's (cuBLAS); it and AdaGN add the same per SR call
-    (`sr_*`)."""
+    F.linear's (cuBLAS), and adds both queued behind a sleep kernel
+    (`queued_ms`, `library_queued_ms`: device time without the host's);
+    it and AdaGN add the same per SR call (`sr_*`)."""
     meta = {
         "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
@@ -4009,7 +4047,7 @@ def summarize(results, launches):
                                   "sdm_tpu/kernels/attention_block.py:88",
                                   1),
         "linear": ("linear", "flagship", "sdm_tpu_torch/csrc/linear.cu "
-                   "(+ mma_tiles.cuh)",
+                   "(+ wgmma_tiles.cuh)",
                    "sdm_tpu/kernels/attention_block.py:66", 1),
         "streaming_stats": ("streaming_stats", "sr",
                             "sdm_tpu_torch/csrc/attention_tiles.cuh",
@@ -4041,13 +4079,16 @@ def summarize(results, launches):
                     k_axis_library_ms=sum(r["library_ms"] for r in rows)
                     * per_call)
 
-    def sr_call(kernel, in_sr, per_call):
+    queued = ("queued_ms", "library_queued_ms")
+
+    def sr_call(kernel, in_sr, per_call, keys=()):
         """Times and bounds per SR call: the rows of the SR model's shapes,
         whichever model's checks measured them."""
         rows = [r for r in results if r["kernel"] == kernel
                 and r["dtype"] == "bfloat16" and in_sr(r["shape"])]
         return {f"sr_{key}": sum(r[key] for r in rows) * per_call
-                for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
+                for key in ("ms", "library_ms", "bound_ms", "plain_ms",
+                            *keys)}
 
     extra = {
         "fused_attention": k_axis("attention", "flagship", 1),
@@ -4055,8 +4096,11 @@ def summarize(results, launches):
         "streaming_apply": k_axis("streaming_attention", "sr", 1),
         "fused_adagn": sr_call("adagn", lambda sh: tuple(sh[1:])
                                in SR_ADAGN_SHAPES, ADAGN_PER_CALL),
-        "linear": sr_call("linear", lambda sh: (sh[0] // BATCH, sh[2])
-                          in SR_BLOCK_SHAPES, 1)}
+        "linear": {**sr_call("linear", lambda sh: (sh[0] // BATCH, sh[2])
+                             in SR_BLOCK_SHAPES, 1, queued),
+                   **{key: sum(r[key] for r in main_rows("linear",
+                                                         "flagship", "q"))
+                      for key in queued}}}
     out = []
     for name, (kernel, model, source, replaces, per_call) in meta.items():
         rows = main_rows(kernel, model, "q")
@@ -4140,24 +4184,25 @@ def demangle(names):
     return list(names)
 
 
-# The mma.sync kernels of each library, with the instantiations ptxas must
-# report: the stats kernel (one caller tag each, 128- and 64-column ring
-# chunks), the tensor-core apply
+# The tensor-core kernels of each library, with the instantiations ptxas
+# must report: the mma.sync stats kernel (one caller tag each, 128- and
+# 64-column ring chunks), the mma.sync apply
 # (the streaming library: bf16 and fp32 output x two axes for the apply,
 # fp32 x two axes for dV; the whole-S library: bf16 x two axes), the
 # streaming backward's dA kernel (dK and dQ x two stat layouts), the wide
-# whole-S apply (two axes) and the GEMM (128 and 64 tiles).
+# whole-S apply (two axes) and the TMA + wgmma GEMM (the 128 x 128 and
+# 128 x 64 tiles).
 MMA_KERNELS = {"attention": {"attn_stats_mma": 2, "stream_apply_mma": 2,
                              "attn_apply_mma_wide": 2},
                "streaming_attention": {"attn_stats_mma": 2,
                                        "stream_apply_mma": 6,
                                        "stream_da_mma": 4},
-               "linear": {"linear_mma": 2}}
+               "linear": {"linear_wgmma": 2}}
 
 
 def build_phase(torch):
     """Build every library, log each kernel's registers and spills, and
-    hold every instantiation of the mma.sync kernels (MMA_KERNELS) to 0
+    hold every instantiation of the tensor-core kernels (MMA_KERNELS) to 0
     spill bytes. Returns their ptxas report and dynamic shared memory."""
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import attention as attn_mod
@@ -4177,8 +4222,10 @@ def build_phase(torch):
                               f"D = {sa.DA_MAX_D}"),
             "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024),
                                     "D = 1024"),
-            "linear_mma": (ab.linear_mma_smem_bytes(ab.LINEAR_TILE),
-                           f"a {ab.LINEAR_TILE} tile")}
+            "linear_wgmma": (max(map(ab.linear_wgmma_smem_bytes,
+                                     ab.LINEAR_TILES)),
+                             "the larger of its tiles "
+                             f"{ab.LINEAR_TILES}")}
     out = {}
     for lib, kernels in MMA_KERNELS.items():
         report = ptxas_report(_build.build_log(lib))

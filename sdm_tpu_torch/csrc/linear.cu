@@ -16,12 +16,12 @@
 //
 // x is (M, K) with row stride ldx and a unit column stride; w is the
 // nn.Linear weight (N, K), contiguous. Two paths:
-//   - bf16 with K % 32 == 0, ldx % 8 == 0 and 16-byte aligned x, w and
-//     residual (linear_mma_ok; every U-Net projection): linear_mma, tensor
-//     cores through mma.sync, below;
+//   - bf16 with K % 8 == 0, ldx % 8 == 0 and 16-byte aligned x, w and
+//     residual (linear_wgmma_ok; every U-Net projection): linear_wgmma,
+//     TMA + wgmma on the tensor cores, below;
 //   - otherwise linear_nt: fp32 FMA on the CUDA cores, 64 x 64 tiles with a
 //     4 x 4 register tile per thread.
-#include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 #define TM 64
 #define TN 64
@@ -80,206 +80,240 @@ linear_nt(const T* __restrict__ x, long long ldx, const T* __restrict__ w,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// Tensor-core path: linear_mma, bf16 in and out, fp32 accumulation.
+// Tensor-core path: linear_wgmma, bf16 in and out, fp32 accumulation.
 //
 // Bound: operations, 2 M N K against (M K + N K + M N) * 2 bytes: at the
 // flagship's qkv projection (M = 16384, N = 1536, K = 512) about 390
 // operations per byte, above the H100's ~295 for bf16.
 //
-// Block: BM x BN outputs, WM x WN warps. Both operands are K-contiguous (x
-// rows, W rows), so plain ldmatrix.x4 gives the A fragments (x) and the B
-// fragments (W stored [n][k], B's column-major layout), as for Q and K in
-// attn_stats_mma. Per 16-deep step a warp loads its A and B fragments with
-// ldmatrix.x4 (one per 16 rows or 16 columns) and issues two m16n8k16
-// mma.sync per (A, B) pair; the next step's fragments are loaded into a
-// second register set while this step's mma.sync run.
+// Block: BM x BN output tiles, BM = 64 WG, run by WG consumer warpgroups
+// (warps 0 .. 4 WG - 1, each owning 64 rows) and one producer warp (the
+// last). The grid is persistent: LBLOCKS blocks an SM (at most one a tile)
+// walk the tiles blockIdx.x, + gridDim.x, ... (N fastest). Shared memory
+// is a ring of STAGES stages, each a tile's x rows (BM x 64) and W rows
+// (BN x 64) for 64 columns of K, bf16, as TMA writes them with the
+// 128-byte swizzle (wgmma_tiles.cuh), every tile 1024-byte aligned. Each
+// stage has a "full" mbarrier (the producer's arrival plus the stage's TMA
+// bytes) and an "empty" one (lane 0 of every consumer warp). One thread of
+// the producer warp walks the block's tiles and their K steps: it waits for
+// the stage to be empty, announces its bytes and issues the two TMA loads,
+// running up to STAGES steps ahead, into the next tile while the consumers
+// store the last. Each consumer warpgroup waits for the stage to be full
+// and issues four wgmma m64nBNk16 on it (its 64 x rows against all BN W
+// rows, the descriptor start advanced 32 bytes per 16-deep step), commits
+// them as one group and waits until only that group is in flight: the
+// previous stage's products have then retired, and the warpgroup releases
+// that stage. The fp32 accumulators (BN / 2 a thread) stay in registers to
+// the tile's end. The producer is one warp, not a warpgroup, so ptxas has
+// 112 registers a thread at two 288-thread blocks an SM without setmaxnreg.
 //
-// Shared memory: a ring of STAGES stages, each the block's x rows and W
-// rows for BK columns of K, [rows][BK + 8] bf16 (the 8-element pad puts the
-// eight 16-byte rows of every ldmatrix on distinct banks). Stage i +
-// STAGES - 1 is loaded by cp.async.cg while stage i is multiplied; one
-// cp.async.wait_group and one __syncthreads per stage. Rows past M or N are
-// zero-filled by the copy (src-size 0) and their outputs masked at the
-// store, so ragged M and N need no other path; K is a multiple of BK.
+// TMA zero-fills rows past M or N and columns past K in every box, so
+// ragged M and N and a K that is not a multiple of 64 need no other path:
+// the zero columns add exact zeros. The admission needs only what TMA
+// needs: 16-byte aligned x and W and row strides of x and W that are
+// multiples of 16 bytes (ldx % 8 == 0, K % 8 == 0).
 //
-// Two instantiations (linear_mma_tile): 128 x 128 blocks of 8 warps (2 x 4)
-// of 64 x 32, and, where that grid would leave half the 132 SMs idle, 64 x
-// 64 blocks of 4 warps of 32 x 32 (M = N = 1024: 64 tiles of 128 x 128, 256
-// of 64 x 64). Both with BK = 32 and 4 stages: 81,920 bytes of ring at the
-// 128 tile, two blocks an SM. Chosen from a sweep on an H100 SXM (700 W,
-// tools/torch_linear_tiles.py) over 128 x 256, 256 x 128, 64 x 128 blocks,
-// 4 to 16 warps, BK 32 or 64 and 3 to 6 stages: within 10 % of each other
-// at M >= 4096, none within 2x of cuBLAS. The same kernels with every
-// global load zero-filled (no memory traffic at all) ran at 320-385
-// TFLOP/s: the mma.sync + ldmatrix pipeline itself stays far below the
-// 989 TFLOP/s bf16 peak, which only wgmma reaches.
+// The epilogue works on the accumulator fragments (warp w of the
+// warpgroup, lane 4 g + t: rows 16 w + g and 16 w + g + 8, columns 8 j +
+// 2 t and 8 j + 2 t + 1): bias added in fp32 and the pair rounded to
+// bf16x2; where N % 8 == 0 the quad then transposes four 8-column blocks
+// so that each lane holds eight consecutive columns, adds the residual's
+// eight in fp32, rounds again and stores 16 bytes (a warp writes 64
+// contiguous bytes a row); otherwise pairs (singles where N is odd) as
+// linear_mma did. Rows past M and columns past N are masked.
 //
-// The epilogue works on the accumulator fragments (lane L holds rows L/4 and
-// L/4 + 8, columns 2 (L%4) and +1 of each 16 x 8 tile): bias added in fp32,
-// rounded to bf16, the residual pair added in fp32, and the pair rounded
-// again and stored as one bf16x2 (single elements where N is odd).
+// What this design does about linear_mma's ceiling: that kernel fed
+// mma.sync m16n8k16 from registers, every operand fragment loaded by
+// ldmatrix and every copy issued by all threads through cp.async, and with
+// no memory traffic at all it ran at 216-385 TFLOP/s. Here no thread loads
+// an operand: TMA writes the tiles, wgmma reads them from shared memory in
+// 64-row products, and the consumer warps only wait, issue and store.
 //
-// What this design does about the WMMA kernel it replaced: that kernel
-// copied each 32-deep K slice with synchronous 16-byte loads between two
-// barriers (nothing in flight during the products; here three stages are),
-// and staged every 16 x 16 output tile through a 1 KB fp32 shared tile per
-// warp, one element per lane at a time, with a bias load per element.
+// Tiles, from the sweep (tools/torch_linear_tiles.py, H100 SXM 700 W): 128
+// x 128 with 3 stages, two blocks an SM, persistent, wherever that grid has
+// at least LSMS tiles; 128 x 64 with 4 stages, two blocks an SM, below
+// (M = 1024, N = 1024: 64 tiles of 128 x 128 for 132 SMs). Against one
+// block a tile, 128 x 256 or 64 x 128 blocks, 3 to 5 stages and one block
+// an SM, it had the least time summed over each U-Net's projections; the
+// 16-byte epilogue took about 30 % off that sum (against storing each
+// pair's 4 bytes), persistence about 3 % more.
 // ---------------------------------------------------------------------------
 
-#define LBK 32                // K depth of one ring stage
-#define LSTAGES 4             // ring depth
-#define LTILE 128             // block tile where the grid fills the card
-#define LTILE_SMALL 64        // block tile where it would not
-#define LSMS 132              // SMs of the H100
+#define LBK 64               // K depth of a ring stage: one swizzled row
+#define LWG 2                // consumer warpgroups of the large tile
+#define LBN 128              // its width
+#define LSTAGES 3            // its ring depth
+#define LWG_SMALL 2          // the tile where the large one's grid is short
+#define LBN_SMALL 64
+#define LSTAGES_SMALL 4
+#define LBLOCKS 2            // blocks an SM, of either tile
+#define LSMS 132             // SMs of the H100
 
-// linear_mma's admission. res may be null.
-static bool linear_mma_ok(const void* x, long long ldx, const void* w,
-                          const void* res, int K, int dt) {
-  return dt == SDM_BF16 && K % LBK == 0 && ldx % 8 == 0 && aligned16(x) &&
-         aligned16(w) && (res == nullptr || aligned16(res));
+// linear_wgmma's admission. res may be null.
+static bool linear_wgmma_ok(const void* x, long long ldx, const void* w,
+                            const void* res, int K, int dt) {
+  return dt == SDM_BF16 && K > 0 && K % 8 == 0 && ldx % 8 == 0 &&
+         aligned16(x) && aligned16(w) && (res == nullptr || aligned16(res));
 }
 
-// The block tile: LTILE where its grid covers at least half the SMs, else
-// LTILE_SMALL.
-static int linear_mma_tile(int M, int N) {
-  const long long tiles =
-      (long long)((M + LTILE - 1) / LTILE) * ((N + LTILE - 1) / LTILE);
-  return 2 * tiles >= LSMS ? LTILE : LTILE_SMALL;
+// 0 for the large tile, 1 for the small one.
+static int linear_wgmma_tile(int M, int N) {
+  const long long tiles = (long long)((M + 64 * LWG - 1) / (64 * LWG)) *
+                          ((N + LBN - 1) / LBN);
+  return tiles >= LSMS ? 0 : 1;
 }
 
-template <int BM, int BN, int WM, int WN, int BK, int STAGES, int MINB>
-__global__ void __launch_bounds__(32 * WM * WN, MINB)
-linear_mma(const bf16* __restrict__ x, long long ldx,
-           const bf16* __restrict__ w, const void* __restrict__ bias,
-           int bias_dt, const bf16* __restrict__ res, bf16* __restrict__ y,
-           int M, int N, int K) {
-  constexpr int THREADS = 32 * WM * WN;
-  constexpr int WTM = BM / WM, WTN = BN / WN;   // warp tile
-  constexpr int MI = WTM / 16;        // 16-row A fragments per warp
-  constexpr int NB = WTN / 16;        // 16-column B ldmatrix.x4 per warp
-  constexpr int LD = BK + 8;          // bf16 pitch of a staged row
-  constexpr int STAGE = (BM + BN) * LD;   // bf16 per ring stage
-  constexpr int CPR = BK / 8;         // 16-byte chunks a staged row
-  static_assert(BM * CPR % THREADS == 0 && BN * CPR % THREADS == 0,
-                "every thread copies whole rows' chunks");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+// Dynamic shared memory of a tile: alignment slack, the ring, the barriers.
+static size_t linear_wgmma_smem(int BM, int BN, int STAGES) {
+  return 1024 + (size_t)STAGES * (BM + BN) * LBK * sizeof(bf16) +
+         2 * STAGES * sizeof(uint64_t);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane >> 2, tg = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ksteps = K / BK;
+template <int BN, int WG, int STAGES, int MINB, bool VEC>
+__global__ void __launch_bounds__(128 * WG + 32, MINB)
+linear_wgmma(const __grid_constant__ CUtensorMap tmx,
+             const __grid_constant__ CUtensorMap tmw,
+             const void* __restrict__ bias, int bias_dt,
+             const bf16* __restrict__ res, bf16* __restrict__ y, int M,
+             int N, int K, int tiles, int tiles_n) {
+  constexpr int BM = 64 * WG;
+  constexpr int X_BYTES = BM * LBK * 2, W_BYTES = BN * LBK * 2;
+  constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  static_assert(X_BYTES % 1024 == 0 && W_BYTES % 1024 == 0,
+                "every tile 1024-byte aligned");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
 
-  // Ring stage `st` <- K columns [ks * BK, +BK) of the block's x rows and
-  // W rows; rows past M or N zero-filled.
-  auto load_chunk = [&](bf16* dst, const bf16* src, long long ss, int r0,
-                        int rows, int c, int k0) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    const bool valid = r0 + r < rows;
-    cp_async16_zfill(smem_u32(dst + r * LD + cc),
-                     src + (long long)(valid ? r0 + r : 0) * ss + k0 + cc,
-                     valid);
-  };
-  auto load_stage = [&](int st, int ks) {
-    bf16* xs = ring + st * STAGE;
-#pragma unroll
-    for (int j = 0; j < BM * CPR / THREADS; ++j)
-      load_chunk(xs, x, ldx, m0, M, tid + j * THREADS, ks * BK);
-#pragma unroll
-    for (int j = 0; j < BN * CPR / THREADS; ++j)
-      load_chunk(xs + BM * LD, w, K, n0, N, tid + j * THREADS, ks * BK);
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ksteps) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // ldmatrix lane offsets (elements within a stage). A (x rows): lanes 0-15
-  // rows 0-15 at k 0, lanes 16-31 rows 0-15 at k 8. B (W rows): lanes 0-7
-  // rows 0-7 / k 0, 8-15 rows 0-7 / k 8, 16-23 rows 8-15 / k 0, 24-31 rows
-  // 8-15 / k 8, so registers 0-1 are n-block 0's fragment and 2-3 n-block 1's.
-  const int a_off = (wm * WTM + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int b_off = BM * LD +
-                    (wn * WTN + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                    ((lane >> 3) & 1) * 8;
-
-  // Fragments of one 16-deep step, double-buffered: step s + 1's are loaded
-  // from shared memory while step s's mma.sync run.
-  constexpr int KK = BK / 16;        // 16-deep steps a stage
-  static_assert(KK % 2 == 0, "a stage's steps alternate the two buffers");
-  unsigned a[2][MI][4], b[2][NB][4];
-  auto load_frags = [&](int buf, int st, int kk) {
-    const unsigned pa = smem_u32(ring + st * STAGE + a_off) + kk * 32;
-    const unsigned pb = smem_u32(ring + st * STAGE + b_off) + kk * 32;
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) ldsm_x4(a[buf][mi], pa + mi * 16 * LD * 2);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) ldsm_x4(b[buf][nb], pb + nb * 16 * LD * 2);
-  };
-
-  float acc[MI][2 * NB][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 2 * NB; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();   // stage 0 visible to every warp
-  if (ksteps > 0) load_frags(0, 0, 0);
-  for (int i = 0; i < ksteps; ++i) {
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      if (kk == 0) {
-        // Stage i - 1's slot is free: every warp loaded its last fragments
-        // before the barrier that made stage i visible.
-        if (i + STAGES - 1 < ksteps)
-          load_stage((i + STAGES - 1) % STAGES, i + STAGES - 1);
-        cp_async_commit();
-      }
-      if (kk < KK - 1) {
-        load_frags((kk + 1) & 1, i % STAGES, kk + 1);
-      } else if (i + 1 < ksteps) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();   // stage i + 1 visible; stage i's reads done
-        load_frags(0, (i + 1) % STAGES, 0);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          mma_bf16(acc[mi][2 * nb], a[kk & 1][mi], b[kk & 1][nb][0],
-                   b[kk & 1][nb][1]);
-          mma_bf16(acc[mi][2 * nb + 1], a[kk & 1][mi], b[kk & 1][nb][2],
-                   b[kk & 1][nb][3]);
-        }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ksteps = (K + LBK - 1) / LBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WG);
     }
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // Epilogue straight from the fragments.
-  const bool pairs = (N & 1) == 0;
+  // The block walks output tiles blockIdx.x, + gridDim.x, ... (N fastest);
+  // `it` counts ring steps over all of them: step it uses stage it %
+  // STAGES, whose barriers then complete for the (it / STAGES)-th time.
+  if (warp == 4 * WG) {
+    // The producer: stage it % STAGES <- K columns [64 ks, +64) of the
+    // tile's x and W rows, once the consumers released its previous use
+    // (step it - STAGES).
+    if (lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+          unsigned char* xs = ring + st * STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+          tma_load_2d(xs, &tmx, &full[st], ks * LBK, m0);
+          tma_load_2d(xs + X_BYTES, &tmw, &full[st], ks * LBK, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows [64 wg, +64) of each tile.
+  const int wg = warp >> 2;
+  const int g = lane >> 2, tg = lane & 3;
+  float acc[BN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
 #pragma unroll
-  for (int nj = 0; nj < 2 * NB; ++nj) {
-    const int col = n0 + wn * WTN + nj * 8 + 2 * tg;
-    if (col >= N) continue;
-    const bool two = col + 1 < N;
-    const float b0 = sdm_load(bias, col, bias_dt);
-    const float b1 = two ? sdm_load(bias, col + 1, bias_dt) : 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      const unsigned char* xs = ring + st * STAGE_BYTES;
+      const uint64_t da = wgmma_desc(xs + wg * 64 * LBK * 2);
+      const uint64_t db = wgmma_desc(xs + X_BYTES);
+      wgmma_fence_operands(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int kk = 0; kk < LBK / 16; ++kk)
+        wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      wgmma_fence_operands(acc);
+      // Step it - 1's group has retired: its stage is free.
+      wgmma_wait<1>();
+      wgmma_fence_operands(acc);
+      if (ks > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+    // Epilogue straight from the fragments, while the producer fills the
+    // ring for the next tile.
+    const int row0 = m0 + wg * 64 + (warp & 3) * 16 + g;
+    if (VEC && N % 8 == 0) {
+      // Per four 8-column blocks: each lane rounds its pairs (with the
+      // bias) to bf16x2, the quad transposes them so that lane t holds
+      // block 4 q + t's eight columns, and each lane adds the residual's
+      // eight and stores 16 bytes: a warp writes 64 contiguous bytes a row.
+#pragma unroll
+      for (int q = 0; q < BN / 32; ++q) {
+        unsigned pk[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj, col = n0 + 8 * j + 2 * tg;
+          const bool in = col < N;   // N % 8 == 0: then col + 1 < N too
+          const float b0 = in ? sdm_load(bias, col, bias_dt) : 0.f;
+          const float b1 = in ? sdm_load(bias, col + 1, bias_dt) : 0.f;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            pk[hh][jj] = pack_bf16x2(acc[4 * j + 2 * hh] + b0,
+                                     acc[4 * j + 2 * hh + 1] + b1);
+        }
+        const int col8 = n0 + 32 * q + 8 * tg;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          quad_transpose4(pk[hh], tg);
+          const int row = row0 + 8 * hh;
+          if (row >= M || col8 >= N) continue;
+          const long long o = (long long)row * N + col8;
+          if (res != nullptr) {
+            float v[8], r[8];
+            unpack_bf16x8(pk[hh], v);
+            sdm_load8(res + o, r);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] += r[e];
+            sdm_store8(y + o, v);
+          } else {
+            *reinterpret_cast<uint4*>(y + o) =
+                make_uint4(pk[hh][0], pk[hh][1], pk[hh][2], pk[hh][3]);
+          }
+        }
+      }
+      continue;
+    }
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * tg;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float b0 = sdm_load(bias, col, bias_dt);
+      const float b1 = two ? sdm_load(bias, col + 1, bias_dt) : 0.f;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + wm * WTM + mi * 16 + g + 8 * hh;
+        const int row = row0 + 8 * hh;
         if (row >= M) continue;
         const long long o = (long long)row * N + col;
-        float v0 = sdm_round<bf16>(acc[mi][nj][2 * hh] + b0);
-        float v1 = sdm_round<bf16>(acc[mi][nj][2 * hh + 1] + b1);
+        float v0 = sdm_round<bf16>(acc[4 * j + 2 * hh] + b0);
+        float v1 = sdm_round<bf16>(acc[4 * j + 2 * hh + 1] + b1);
         if (res != nullptr) {
           if (pairs) {
             const float2 r = __bfloat1622float2(
@@ -298,54 +332,72 @@ linear_mma(const bf16* __restrict__ x, long long ldx,
           if (two) y[o + 1] = __float2bfloat16_rn(v1);
         }
       }
+    }
   }
 }
 
-template <int BM, int BN, int WM, int WN, int BK, int STAGES, int MINB>
-static cudaError_t launch_linear_mma(const bf16* x, long long ldx,
-                                     const bf16* w, const void* bias,
-                                     int bias_dt, const bf16* res, bf16* y,
-                                     int M, int N, int K,
-                                     cudaStream_t stream) {
-  auto kernel = &linear_mma<BM, BN, WM, WN, BK, STAGES, MINB>;
-  const size_t smem = (size_t)STAGES * (BM + BN) * (BK + 8) * sizeof(bf16);
+// One launch of linear_wgmma<BN, WG, STAGES, MINB, VEC> on an (M, N)
+// output, its tiles covering grid_m x grid_n: M x N, except in the tile
+// sweep (tools/torch_linear_tiles.cu), which times the full grid on a 1 x 1
+// output (every box zero-filled, no memory traffic). At most max_blocks
+// blocks walk the tiles (0: one block a tile). The TMA maps are encoded
+// here, per launch (x's pointer changes every call), and travel as
+// __grid_constant__ parameters.
+template <int BN, int WG, int STAGES, int MINB, bool VEC>
+static int launch_linear_wgmma(const bf16* x, long long ldx, const bf16* w,
+                               const void* bias, int bias_dt, const bf16* res,
+                               bf16* y, int M, int N, int K,
+                               cudaStream_t stream, int grid_m, int grid_n,
+                               int max_blocks) {
+  constexpr int BM = 64 * WG;
+  CUtensorMap tmx, tmw;
+  int rc = sdm_tma_map_bf16(&tmx, x, M, K, ldx, BM);
+  if (rc == 0) rc = sdm_tma_map_bf16(&tmw, w, N, K, K, BN);
+  if (rc != 0) return rc;
+  auto kernel = &linear_wgmma<BN, WG, STAGES, MINB, VEC>;
+  const size_t smem = linear_wgmma_smem(BM, BN, STAGES);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, 32 * WM * WN, smem, stream>>>(x, ldx, w, bias, bias_dt, res,
-                                               y, M, N, K);
-  return cudaGetLastError();
+  const int tiles_n = (grid_n + BN - 1) / BN;
+  const int tiles = (grid_m + BM - 1) / BM * tiles_n;
+  const int blocks =
+      max_blocks > 0 && max_blocks < tiles ? max_blocks : tiles;
+  kernel<<<blocks, 128 * WG + 32, smem, stream>>>(
+      tmx, tmw, bias, bias_dt, res, y, M, N, K, tiles, tiles_n);
+  return (int)cudaGetLastError();
 }
 
 // Whether sdm_linear_forward takes the tensor-core path for these operands
 // (res may be null).
-SDM_EXPORT int sdm_linear_takes_mma(const void* x, long long ldx,
-                                    const void* w, const void* res, int K,
-                                    int dt) {
-  return linear_mma_ok(x, ldx, w, res, K, dt);
+SDM_EXPORT int sdm_linear_takes_wgmma(const void* x, long long ldx,
+                                      const void* w, const void* res, int K,
+                                      int dt) {
+  return linear_wgmma_ok(x, ldx, w, res, K, dt);
 }
 
-// linear_mma's block tile (LTILE or LTILE_SMALL) for an M x N output.
-SDM_EXPORT int sdm_linear_mma_tile(int M, int N) {
-  return linear_mma_tile(M, N);
+// linear_wgmma's block tile for an M x N output: 0 the large, 1 the small.
+SDM_EXPORT int sdm_linear_wgmma_tile(int M, int N) {
+  return linear_wgmma_tile(M, N);
 }
-// res may be null. Returns cudaGetLastError() after the launch.
+
+// res may be null. Returns cudaGetLastError() after the launch, or the
+// error of encoding the TMA maps.
 SDM_EXPORT int sdm_linear_forward(const void* x, long long ldx, const void* w,
                                   const void* bias, int bias_dt,
                                   const void* res, void* y, int M, int N,
                                   int K, int dt, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (M == 0 || N == 0) return 0;
-  if (linear_mma_ok(x, ldx, w, res, K, dt)) {
+  if (linear_wgmma_ok(x, ldx, w, res, K, dt)) {
     auto launch =
-        linear_mma_tile(M, N) == LTILE
-            ? &launch_linear_mma<LTILE, LTILE, 2, 4, LBK, LSTAGES, 2>
-            : &launch_linear_mma<LTILE_SMALL, LTILE_SMALL, 2, 2, LBK, LSTAGES,
-                                 4>;
-    return (int)launch(static_cast<const bf16*>(x), ldx,
-                       static_cast<const bf16*>(w), bias, bias_dt,
-                       static_cast<const bf16*>(res), static_cast<bf16*>(y),
-                       M, N, K, stream);
+        linear_wgmma_tile(M, N) == 0
+            ? &launch_linear_wgmma<LBN, LWG, LSTAGES, LBLOCKS, true>
+            : &launch_linear_wgmma<LBN_SMALL, LWG_SMALL, LSTAGES_SMALL,
+                                   LBLOCKS, true>;
+    return launch(static_cast<const bf16*>(x), ldx,
+                  static_cast<const bf16*>(w), bias, bias_dt,
+                  static_cast<const bf16*>(res), static_cast<bf16*>(y), M, N,
+                  K, stream, M, N, LBLOCKS * LSMS);
   }
   const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
   if (dt == SDM_F32)

@@ -10,8 +10,9 @@ kernel `_block_kernel`, sdm_tpu/kernels/attention_block.py:62-77, launched at
 :88), which computes all of it in one VMEM-resident body. On the H100 the
 block's weights do not fit one SM beside the token tile, so it runs as three
 hand-written kernels: `linear` (csrc/linear.cu, a tiled GEMM with a bias
-epilogue; in bf16 at the U-Net's shapes `linear_mma` on the tensor cores
-through mma.sync, `linear_takes_mma`) for the qkv projection,
+epilogue; in bf16 at the U-Net's shapes `linear_wgmma` on the tensor cores,
+fed by TMA through an mbarrier ring into wgmma, `linear_takes_wgmma`) for
+the qkv projection,
 `fused_attention` (csrc/attention.cu) on
 views of the qkv buffer, and `linear` again with a bias + residual epilogue.
 Grids whose apply block does not fit in shared memory (`whole_s_ok`; the
@@ -57,50 +58,58 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
-    "sdm_linear_takes_mma": (ctypes.c_int, [
+    "sdm_linear_takes_wgmma": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int]),
-    "sdm_linear_mma_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    "sdm_linear_wgmma_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
 }
 
-# csrc/linear.cu's tensor-core tiles: the K depth of a ring stage (LBK) and
-# the ring's depth (LSTAGES), the block tile (LTILE), the one for grids
-# that would leave half the SMs idle (LTILE_SMALL), and the SMs (LSMS).
-LINEAR_BK = 32
-LINEAR_STAGES = 4
-LINEAR_TILE = 128
-LINEAR_TILE_SMALL = 64
+# csrc/linear.cu's tensor-core tiles: the K depth of a ring stage (LBK, one
+# 128-byte swizzled row of bf16); per tile its consumer warpgroups, width
+# and ring depth: the large (LWG, LBN, LSTAGES) and the small one for grids
+# that would leave SMs idle (LWG_SMALL, LBN_SMALL, LSTAGES_SMALL); the
+# persistent blocks an SM (LBLOCKS) and the SMs (LSMS).
+LINEAR_BK = 64
+LINEAR_TILES = ((2, 128, 3), (2, 64, 4))
+LINEAR_BLOCKS = 2
 LINEAR_SMS = 132
 
 
-def linear_mma_smem_bytes(tile: int) -> int:
-    """linear_mma's dynamic shared memory at a square tile
-    (launch_linear_mma): the ring, each stage the tile's x rows and W rows
-    of LINEAR_BK bf16, rows padded by 8."""
-    return LINEAR_STAGES * 2 * tile * (LINEAR_BK + 8) * 2
+def linear_wgmma_smem_bytes(tile) -> int:
+    """linear_wgmma's dynamic shared memory for a tile (warpgroups, BN,
+    stages) of LINEAR_TILES (csrc/linear.cu's linear_wgmma_smem): 1024 bytes
+    of alignment slack, the ring (each stage the tile's 64 x warpgroups x
+    rows and BN W rows of LINEAR_BK bf16), and a full and an empty mbarrier
+    (8 bytes each) per stage."""
+    wg, bn, stages = tile
+    return 1024 + stages * (64 * wg + bn) * LINEAR_BK * 2 + 2 * stages * 8
 
 
-def linear_admits_mma(dtype, k: int, ldx: int, ptrs) -> bool:
-    """csrc/linear.cu's linear_mma_ok: bf16, K % LBK == 0, ldx % 8 == 0 and
+def linear_admits_wgmma(dtype, k: int, ldx: int, ptrs) -> bool:
+    """csrc/linear.cu's linear_wgmma_ok, what TMA needs: bf16, K > 0 and
+    K % 8 == 0 and ldx % 8 == 0 (16-byte row strides of W and x), and
     16-byte aligned pointers (`ptrs`: x, w and the residual, or None where
-    there is none)."""
-    return (dtype == torch.bfloat16 and k % LINEAR_BK == 0 and ldx % 8 == 0
+    there is none). K need not be a multiple of LINEAR_BK: TMA zero-fills
+    the last box's columns past K."""
+    return (dtype == torch.bfloat16 and k > 0 and k % 8 == 0
+            and ldx % 8 == 0
             and all(p is None or p % 16 == 0 for p in ptrs))
 
 
-def linear_takes_mma(x, weight, residual=None) -> bool:
+def linear_takes_wgmma(x, weight, residual=None) -> bool:
     """Whether `linear` runs these operands on the tensor-core path."""
     ptrs = [x.data_ptr(), weight.data_ptr(),
             None if residual is None else residual.data_ptr()]
-    return linear_admits_mma(x.dtype, x.shape[1], x.stride(0), ptrs)
+    return linear_admits_wgmma(x.dtype, x.shape[1], x.stride(0), ptrs)
 
 
-def linear_mma_tile(m: int, n: int) -> int:
-    """csrc/linear.cu's linear_mma_tile: LINEAR_TILE where its grid of an
-    m x n output covers at least half of the LINEAR_SMS SMs, else
-    LINEAR_TILE_SMALL."""
-    tiles = -(-m // LINEAR_TILE) * -(-n // LINEAR_TILE)
-    return LINEAR_TILE if 2 * tiles >= LINEAR_SMS else LINEAR_TILE_SMALL
+def linear_wgmma_tile(m: int, n: int) -> int:
+    """csrc/linear.cu's linear_wgmma_tile: the index into LINEAR_TILES of an
+    m x n output's tile, 0 (the large) where it cuts the output into at
+    least LINEAR_SMS tiles, else 1."""
+    wg, bn, _ = LINEAR_TILES[0]
+    tiles = -(-m // (64 * wg)) * -(-n // bn)
+    return 0 if tiles >= LINEAR_SMS else 1
 
 
 def linear_reference(x, weight, bias, residual=None):
@@ -118,8 +127,9 @@ def linear(x, weight, bias, residual=None):
     Returns (M, N) in x's dtype.
 
     CPU tensors run `linear_reference`; CUDA tensors launch csrc/linear.cu
-    or raise; launches on the tensor-core path (`linear_takes_mma`) also
-    count in `linear.mma_launches`. Differentiable (`Linear`)."""
+    or raise; launches on the tensor-core path (`linear_takes_wgmma`, the
+    wgmma kernel) also count in `linear.mma_launches`. Differentiable
+    (`Linear`)."""
     if wants_grad(x, weight, bias, residual):
         return Linear.apply(x, weight, bias, residual)
     return _linear_forward(x, weight, bias, residual)
@@ -188,7 +198,7 @@ def _linear_forward(x, weight, bias, residual):
             out.data_ptr(), m, n, k, code, _build.stream_handle(x.device))
     _build.check(lib, rc, what)
     linear.launches += 1
-    linear.mma_launches += linear_takes_mma(x, weight, residual)
+    linear.mma_launches += linear_takes_wgmma(x, weight, residual)
     return out
 
 

@@ -280,70 +280,6 @@ def test_linear_plain_matches_xla_rounding_bf16(bias_dtype):
     assert (np.abs(_np(out) - out_ref) <= ulp).all()
 
 
-# (S, C) of the attention blocks of the flagship 128x128 and the SR 256x256
-# U-Net (chip_smoke.py BLOCK_SHAPES and SR_BLOCK_SHAPES), batch 16: each
-# runs `linear` at (M, N, K) = (16 S, 3 C, C) and, with the residual,
-# (16 S, C, C). The tile csrc/linear.cu's plan gives each: 128 x 128
-# wherever that grid covers at least half of the 132 SMs.
-LINEAR_TILES = {(1024, 512): (128, 128), (256, 512): (128, 128),
-                (64, 1024): (128, 64), (256, 1024): (128, 128),
-                (4096, 512): (128, 128), (1024, 1024): (128, 128)}
-
-
-@pytest.mark.parametrize("shape", sorted(LINEAR_TILES))
-def test_linear_mma_admits_the_unet_projections(shape):
-    """Every bf16 projection of both U-Nets runs on linear_mma, and the
-    small tile is taken only where 128 x 128 tiles would leave half the
-    SMs idle."""
-    s, c = shape
-    tok = _meta((16 * s, c))
-    r = _meta((16 * s, c))
-    w_qkv, w_out = _meta((3 * c, c)), _meta((c, c))
-    assert port_block.linear_takes_mma(tok, w_qkv)
-    assert port_block.linear_takes_mma(r, w_out, tok)
-    tiles = (port_block.linear_mma_tile(16 * s, 3 * c),
-             port_block.linear_mma_tile(16 * s, c))
-    assert tiles == LINEAR_TILES[shape]
-    for (n, tile) in zip((3 * c, c), tiles):
-        grid = -(-16 * s // 128) * -(-n // 128)
-        assert (tile == 128) == (2 * grid >= port_block.LINEAR_SMS)
-
-
-@pytest.mark.parametrize("case", ["fp32", "k520", "ldx", "x", "w",
-                                  "residual"])
-def test_linear_mma_refuses_other_operands(case):
-    """fp32, K off the ring's 32-deep stages, a row stride off 8 elements,
-    and an x, weight or residual pointer off 16 bytes take the CUDA-core
-    GEMM; ragged M and N do not matter."""
-    dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    k = 520 if case == "k520" else 512
-    x = torch.zeros((300, k), dtype=dtype)
-    w = torch.zeros((200, k), dtype=dtype)
-    res = torch.zeros((300, 200), dtype=dtype)
-    assert port_block.linear_takes_mma(
-        x.to(torch.bfloat16), w.to(torch.bfloat16),
-        res.to(torch.bfloat16)) == (k == 512)
-    off = lambda *shape: torch.zeros(
-        math.prod(shape) + 4, dtype=dtype)[4:].view(*shape)
-    if case == "ldx":
-        x = torch.zeros((300, 516), dtype=dtype)[:, :512]
-    if case == "x":
-        x = off(300, 512)
-    if case == "w":
-        w = off(200, 512)
-    if case == "residual":
-        res = off(300, 200)
-        assert port_block.linear_takes_mma(x, w)
-    assert not port_block.linear_takes_mma(x, w, res)
-
-
-def test_linear_mma_smem():
-    """linear_mma's ring (4 stages of [128][40] x and W rows, bf16) lets
-    two blocks share an SM's 228 KB."""
-    assert port_block.linear_mma_smem_bytes(128) == 4 * 2 * 128 * 40 * 2
-    assert 2 * (port_block.linear_mma_smem_bytes(128) + 1024) <= 233472
-
-
 @pytest.mark.parametrize("n,hw,groups,want", [
     (16, 128 * 128, 32, 17), (16, 8 * 8, 32, 17), (1, 256 * 256, 32, 128),
     (1, 8 * 8, 32, 64), (2, 3, 32, 3), (16, 64, 4096, 1), (16, 64, 8192, 1),
@@ -511,9 +447,14 @@ def test_mirror_constants_match_the_sources():
             "SRED": sa.STATS_RED, "SCHUNK": sa.STATS_CHUNK,
             "SSTAGES": sa.STATS_STAGES, "XKC": port_attention.WIDE_K_CHUNK,
             "WHOLE_S_MAX_MMA": port_attention.MAX_S_MMA,
-            "LBK": port_block.LINEAR_BK, "LSTAGES": port_block.LINEAR_STAGES,
-            "LTILE": port_block.LINEAR_TILE,
-            "LTILE_SMALL": port_block.LINEAR_TILE_SMALL,
+            "LBK": port_block.LINEAR_BK,
+            "LWG": port_block.LINEAR_TILES[0][0],
+            "LBN": port_block.LINEAR_TILES[0][1],
+            "LSTAGES": port_block.LINEAR_TILES[0][2],
+            "LWG_SMALL": port_block.LINEAR_TILES[1][0],
+            "LBN_SMALL": port_block.LINEAR_TILES[1][1],
+            "LSTAGES_SMALL": port_block.LINEAR_TILES[1][2],
+            "LBLOCKS": port_block.LINEAR_BLOCKS,
             "LSMS": port_block.LINEAR_SMS}
     assert {k: int(defines[k]) for k in want} == want
 
@@ -522,8 +463,9 @@ def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
     are exported for their Python mirrors, the WMMA attention kernels, the
-    WMMA dK/dQ kernel and the WMMA GEMM are gone, the mma.sync primitives
-    live in one header, and the build targets sm_90a."""
+    WMMA dK/dQ kernel and the WMMA and mma.sync GEMMs are gone, the
+    mma.sync primitives live in one header and the TMA, mbarrier and wgmma
+    ones in another, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
     assert {"sdm_attention_takes_mma", "sdm_attention_mma_plan",
@@ -542,20 +484,34 @@ def test_kernel_sources_export_the_wrapped_symbols():
         src = f.read()
     assert "wmma" not in src.lower() and "<mma.h>" not in src
     assert "stream_da_mma" in src
-    assert {"sdm_linear_takes_mma", "sdm_linear_mma_tile"} <= set(
+    assert {"sdm_linear_takes_wgmma", "sdm_linear_wgmma_tile"} <= set(
         attention_block._SIGNATURES)
+    # The GEMM is the TMA + wgmma kernel alone: no mma.sync GEMM is left.
     with open(os.path.join(_build.CSRC, "linear.cu")) as f:
         src = f.read()
     assert "linear_wmma" not in src and "wmma" not in src
-    assert '#include "mma_tiles.cuh"' in src
+    assert '#include "wgmma_tiles.cuh"' in src and "linear_wgmma<" in src
+    for gone in ("launch_linear_mma", "mma_bf16(", "ldsm_x4", "cp_async16"):
+        assert gone not in src, gone
     for name in os.listdir(_build.CSRC):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(_build.CSRC, name)) as f:
                 src = f.read()
-            # One copy of each primitive, in mma_tiles.cuh.
+            # One copy of each primitive: the mma.sync ones in
+            # mma_tiles.cuh, the TMA, mbarrier and wgmma ones in
+            # wgmma_tiles.cuh.
             for primitive in ('"mma.sync.aligned', '"ldmatrix.sync',
                               '"cp.async.cg.shared', "void cp_async_rows("):
                 assert (primitive in src) == (name == "mma_tiles.cuh"), (
+                    name, primitive)
+            for primitive in ('"wgmma.mma_async', '"wgmma.fence',
+                              '"wgmma.commit_group', '"wgmma.wait_group',
+                              '"cp.async.bulk.tensor', '"mbarrier.init',
+                              '"mbarrier.arrive', '"mbarrier.try_wait',
+                              '"fence.mbarrier_init', "cuTensorMapEncodeTiled",
+                              "uint64_t wgmma_desc(",
+                              "void quad_transpose4("):
+                assert (primitive in src) == (name == "wgmma_tiles.cuh"), (
                     name, primitive)
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),

@@ -1,35 +1,33 @@
-// Tile variants of the port's linear_mma (sdm_tpu_torch/csrc/linear.cu),
+// Tile variants of the port's linear_wgmma (sdm_tpu_torch/csrc/linear.cu),
 // for tools/torch_linear_tiles.py. Each variant is one instantiation of
-// launch_linear_mma<BM, BN, WM, WN, BK, STAGES, MIN_BLOCKS_PER_SM>.
+// launch_linear_wgmma<BN, consumer warpgroups, STAGES, MIN_BLOCKS_PER_SM,
+// VEC> (the block tile is 64 x warpgroups by BN; VEC the 16-byte epilogue),
+// one block a tile or persistent.
 #include "../sdm_tpu_torch/csrc/linear.cu"
 
-#define LINEAR_VARIANTS(X)          \
-  X(0, 128, 128, 2, 4, 32, 4, 2)    \
-  X(1, 64, 64, 2, 2, 32, 4, 4)      \
-  X(2, 128, 128, 2, 2, 32, 4, 2)    \
-  X(3, 128, 128, 2, 4, 32, 5, 2)    \
-  X(4, 128, 256, 2, 4, 64, 3, 1)    \
-  X(5, 256, 128, 4, 2, 64, 4, 1)    \
-  X(6, 128, 256, 4, 4, 32, 4, 1)    \
-  X(7, 64, 128, 2, 2, 32, 4, 3)
+// X(id, BN, warpgroups, stages, blocks/SM, 16-byte epilogue, persistent)
+#define LINEAR_VARIANTS(X)         \
+  X(0, 128, 2, 3, 2, false, false) \
+  X(1, 128, 2, 3, 2, true, false)  \
+  X(2, 128, 2, 3, 2, true, true)   \
+  X(3, 128, 2, 3, 2, false, true)  \
+  X(4, 256, 2, 4, 1, true, true)   \
+  X(5, 256, 2, 3, 1, true, true)   \
+  X(6, 64, 2, 4, 2, true, false)   \
+  X(7, 64, 2, 4, 2, true, true)    \
+  X(8, 128, 1, 4, 2, true, true)   \
+  X(9, 128, 2, 4, 1, true, true)   \
+  X(10, 256, 1, 4, 1, true, true)
 
-// The variant's launch; `no_memory` passes M = N = 1 on the full grid, so
-// every block but one zero-fills its ring (no global reads) and stores
-// nothing: the shared-memory pipeline and the mma.sync alone.
-#define LINEAR_CASE(id, BM, BN, WM, WN, BK, ST, MB)                          \
+// The variant's launch; `no_memory` runs the M x N tiles on a 1 x 1
+// output, so every TMA box but one is zero-filled (no global reads) and one
+// element is stored: the TMA ring and the wgmma alone. A persistent
+// variant launches blocks/SM x LSMS blocks that walk the tiles.
+#define LINEAR_CASE(id, BN, WG, ST, MB, VEC, PERSIST)                        \
   case id:                                                                   \
-    if (no_memory) {                                                         \
-      auto kernel = &linear_mma<BM, BN, WM, WN, BK, ST, MB>;                 \
-      const size_t smem = (size_t)ST * (BM + BN) * (BK + 8) * sizeof(bf16); \
-      cudaFuncSetAttribute(                                                  \
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);  \
-      kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), 32 * WM * WN,    \
-               smem, stream>>>(xp, K, wp, bias, bias_dt, nullptr, yp, 1, 1, \
-                               K);                                           \
-      return (int)cudaGetLastError();                                        \
-    }                                                                        \
-    return (int)launch_linear_mma<BM, BN, WM, WN, BK, ST, MB>(               \
-        xp, K, wp, bias, bias_dt, rp, yp, M, N, K, stream);
+    return launch_linear_wgmma<BN, WG, ST, MB, VEC>(                         \
+        xp, K, wp, bias, bias_dt, rp, yp, no_memory ? 1 : M,                 \
+        no_memory ? 1 : N, K, stream, M, N, PERSIST ? MB * LSMS : 0);
 
 SDM_EXPORT int tiles_linear(int variant, int no_memory, const void* x,
                             const void* w, const void* bias, int bias_dt,
@@ -38,16 +36,17 @@ SDM_EXPORT int tiles_linear(int variant, int no_memory, const void* x,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wp = static_cast<const bf16*>(w);
-  const bf16* rp = static_cast<const bf16*>(res);
+  const bf16* rp = no_memory ? nullptr : static_cast<const bf16*>(res);
   bf16* yp = static_cast<bf16*>(y);
   switch (variant) { LINEAR_VARIANTS(LINEAR_CASE) }
   return -1;
 }
 
-#define LINEAR_NAME(id, BM, BN, WM, WN, BK, ST, MB)                          \
+#define LINEAR_NAME(id, BN, WG, ST, MB, VEC, PERSIST)                       \
   case id:                                                                   \
-    return #BM "x" #BN " blocks, " #WM "x" #WN " warps, BK " #BK ", " #ST    \
-           " stages, " #MB " blocks/SM";
+    return "64 x " #WG " by " #BN " blocks (" #WG " consumer warpgroups), " \
+        #ST " stages, " #MB " blocks/SM, 16-byte epilogue " #VEC             \
+        ", persistent " #PERSIST;
 
 SDM_EXPORT const char* tiles_linear_name(int variant) {
   switch (variant) { LINEAR_VARIANTS(LINEAR_NAME) }
