@@ -20,9 +20,9 @@ as a user's run would.
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
      instantiation of the tensor-core kernels (the mma.sync
-     attn_stats_mma, stream_apply_mma, stream_da_mma,
-     attn_apply_mma_wide; the TMA + wgmma linear_wgmma) held to 0 spill
-     bytes.
+     attn_stats_mma, stream_apply_mma, stream_da_mma of the streaming
+     attention; the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the
+     whole-S attention and linear_wgmma) held to 0 spill bytes.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -63,8 +63,8 @@ as a user's run would.
      images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
      just after, and held to the counts its U-Net calls imply, every bf16
-     whole-S attention, streaming stats and streaming apply on the
-     mma.sync kernels and every `linear` on the wgmma one
+     whole-S attention and every `linear` on the wgmma kernels, every
+     streaming stats and streaming apply on the mma.sync ones
      (`mma_launches`). Then one more batch of each is
      traced with the profiler for the device's busy share.
   5. Generation ("generation"): the DDIM/DDPM generator
@@ -84,9 +84,9 @@ as a user's run would.
      preview, and the doodle trainer's label_plot grid) at step 0 only and
      once more when it stops. The launch counters are zeroed just before
      each run and read just after, and held to the counts its steps and
-     its preview imply (every whole-S attention, streaming stats, apply,
-     dV, dK and dQ on the mma.sync kernels, every `linear` on the wgmma
-     one); the losses must
+     its preview imply (every whole-S attention and every `linear` on the
+     wgmma kernels, every streaming stats, apply, dV, dK and dQ on the
+     mma.sync ones); the losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
@@ -106,7 +106,7 @@ as a user's run would.
      cfg_drop_prob and grad_accum_steps 2 (EXT_TRAIN), as phase 6 checks
      a trainer, plus the "ema" weights of both checkpoints reloaded
      strictly. Every run's launches are held to its U-Net calls, every
-     attention on mma.sync and every `linear` on wgmma.
+     whole-S attention and every `linear` on wgmma.
   8. Remat ("remat"): the SR U-Net (bf16, batch 16, kernels on) with
      config "remat" against without, one forward and backward each: the
      loss equal, the whole gradient within GRAD_TOL, the launches of each
@@ -179,8 +179,8 @@ as a user's run would.
      from its gathered checkpoint against the one-card resume. With one
      card a line says (c) was skipped.
  14. Tooling ("tooling"): the base trainer with "profile_trace_dir" (its
-     trace names the port's kernels: adagn_*, attn_stats_mma,
-     stream_apply_mma, linear_wgmma; launches held); a run with
+     trace names the port's kernels: adagn_*, attn_stats_wgmma,
+     attn_apply_wgmma, linear_wgmma; launches held); a run with
      "native_checkpoint" resumed from its native directory, bit for bit
      equal to the .pt + config resume; the loader's decode path, native
      batches bit for bit equal to the per-image cv2 ones (or one line
@@ -554,7 +554,12 @@ def kernel_phase(torch, results):
         qkv = randn((BATCH, 256, 4, 3 * 128), dtype, std=QK_STD)
         q, k, v = qkv.split(128, dim=-1)
         for axis in ("q", "k"):
+            mma0 = fused_attention.mma_launches
             got = fused_attention(q, k, v, 128 ** -0.5, axis)
+            if fused_attention.mma_launches - mma0 != (dtype == torch.bfloat16):
+                raise AssertionError(f"attention {dn} heads=4 {axis}: the "
+                                     "bf16 strided views must take the "
+                                     "TMA + wgmma kernels")
             want = attention_reference(q, k, v, 128 ** -0.5, axis)
             err = compare(f"attention {dn} heads=4 {axis}", got, want,
                           ATTN_TOL[dn])
@@ -579,12 +584,12 @@ def kernel_phase(torch, results):
 
 def check_attention_predicates(torch):
     """The whole-S path's Python mirrors against csrc/attention.cu: `fits`
-    against sdm_attention_fits (S = 64..8192, both paths), `admits_mma`
-    against sdm_attention_takes_mma and `mma_plan` against
-    sdm_attention_mma_plan over a grid of S, D, dtype, batch*heads and
+    against sdm_attention_fits (S = 64..8192, both paths), `admits_wgmma`
+    against sdm_attention_takes_wgmma and `wgmma_plan` against
+    sdm_attention_wgmma_plan over a grid of S, D, dtype, batch*heads and
     layouts (aligned, a pointer off by 8 bytes, a row stride off by 4
-    elements, a head stride off by 2), and `wide_smem_bytes` against
-    sdm_attention_wide_smem_bytes."""
+    elements, a head stride off by 2), and `wgmma_smem_bytes` and
+    `wgmma_stages` against sdm_attention_wgmma_smem."""
     import ctypes
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import attention as attn_mod
@@ -596,10 +601,15 @@ def check_attention_predicates(torch):
                 raise AssertionError(f"whole_s_ok's mirror disagrees with "
                                      f"sdm_attention_fits at S={s_len}")
     checked = 0
-    plan = (ctypes.c_int * 3)()
+    plan = (ctypes.c_int * 2)()
+    smem = (ctypes.c_int * 4)()
     for d in range(8, 2561, 8):
-        if lib.sdm_attention_wide_smem_bytes(d) != attn_mod.wide_smem_bytes(d):
-            raise AssertionError(f"wide_smem_bytes({d}) disagrees with C")
+        if d % 64 == 0 and d <= 1152:
+            lib.sdm_attention_wgmma_smem(d, smem)
+            mirror = (*attn_mod.wgmma_smem_bytes(d), *attn_mod.wgmma_stages(d))
+            if tuple(smem) != mirror:
+                raise AssertionError(f"wgmma_smem({d}) disagrees with C: "
+                                     f"{list(smem)} vs {mirror}")
         for s_len in (64, 96, 256, 1024, 3200):
             for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
                 for ptr_off, ss_off, sh_off in ((0, 0, 0), (8, 0, 0),
@@ -610,28 +620,29 @@ def check_attention_predicates(torch):
                     cptrs = (ctypes.c_void_p * 4)(*ptrs)
                     cstr = (ctypes.c_longlong * 12)(*[x for st in strides
                                                       for x in st])
-                    got = lib.sdm_attention_takes_mma(cptrs, cstr, s_len, d,
-                                                      dt)
-                    if bool(got) != attn_mod.admits_mma(dtype, s_len, d, ptrs,
-                                                        strides):
+                    got = lib.sdm_attention_takes_wgmma(cptrs, cstr, s_len,
+                                                        d, dt)
+                    if bool(got) != attn_mod.admits_wgmma(dtype, s_len, d,
+                                                          ptrs, strides):
                         raise AssertionError(
-                            f"admits_mma disagrees with C at S={s_len} D={d} "
-                            f"{dtype} pointer +{ptr_off} stride +{ss_off} "
-                            f"head stride +{sh_off}")
+                            f"admits_wgmma disagrees with C at S={s_len} "
+                            f"D={d} {dtype} pointer +{ptr_off} stride "
+                            f"+{ss_off} head stride +{sh_off}")
                     checked += 1
-            if d % 128 == 0 and d <= 1024:
+            if d % 64 == 0 and d <= 1024 and s_len % 64 == 0:
                 for bh in (1, 4, 16, 64):
-                    lib.sdm_attention_mma_plan(bh, s_len, d, plan)
-                    mirror = attn_mod.mma_plan(bh, s_len, d)
-                    if (bool(plan[0]), plan[1], plan[2]) != mirror:
+                    lib.sdm_attention_wgmma_plan(bh, s_len, d, plan)
+                    mirror = attn_mod.wgmma_plan(bh, s_len, d)
+                    if tuple(plan) != mirror:
                         raise AssertionError(
-                            f"mma_plan disagrees with C at bh={bh} S={s_len} "
-                            f"D={d}: {list(plan)} vs {mirror}")
+                            f"wgmma_plan disagrees with C at bh={bh} "
+                            f"S={s_len} D={d}: {list(plan)} vs {mirror}")
                     checked += 1
     log(f"whole-S admissions: the Python mirrors agree with the C functions "
-        f"for S = 64..8192 (fits) and in {checked} admission and plan cases "
-        "(D = 8..2560, S in 64, 96, 256, 1024, 3200, both dtypes, four "
-        "layouts, batch*heads 1, 4, 16, 64)")
+        f"for S = 64..8192 (fits), D = 64..1152 (shared memory and ring "
+        f"stages) and in {checked} admission and plan cases (D = 8..2560, "
+        "S in 64, 96, 256, 1024, 3200, both dtypes, four layouts, "
+        "batch*heads 1, 4, 16, 64)")
 
 
 def streaming_phase(torch, results):
@@ -826,24 +837,38 @@ def attention_case(torch, randn, results, model, dtype, s_len, d, axis):
               ATTN_TOL[dn])
     reps = _reps(s_len, dn)
     ms = time_ms(lambda: fused_attention(q, k, v, scale, axis), reps)
+    # The device time alone: at the small shapes the wrapper's host time
+    # (checks, four TMA maps, two launches) can exceed the kernels'.
+    queued = time_queued_ms(lambda: fused_attention(q, k, v, scale, axis),
+                            reps)
     plain = time_ms(lambda: attention_reference(q, k, v, scale, axis), reps)
-    lib = None
+    lib = lib_queued = None
     if axis == "k":
         qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, scale=scale), reps)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      scale=scale)
+        lib = time_ms(sdpa, reps)
+        lib_queued = time_queued_ms(sdpa, reps)
     nbytes = 4 * BATCH * s_len * d * isz
+    # The function's work is Q K^T and P V, 4 S^2 D a row of the batch (the
+    # bound); the kernels do 6 S^2 D (the stats pass computes Q K^T too):
+    # their TFLOP/s count that.
     ops = 4.0 * BATCH * s_len * s_len * d
     b, by = bound_ms(nbytes, ops, dn)
     results.append(dict(kernel="attention", model=model, dtype=dn, axis=axis,
                         shape=[BATCH, s_len, 1, d],
                         max_abs_err=err[0], max_rel_err=err[1],
                         tol=ATTN_TOL[dn], ms=ms, plain_ms=plain,
-                        library_ms=lib, bound_ms=b, bound_by=by))
+                        library_ms=lib, bound_ms=b, bound_by=by,
+                        queued_ms=queued, library_queued_ms=lib_queued,
+                        tflops=6.0 * BATCH * s_len * s_len * d / queued / 1e9))
     log(f"attention {dn:8s} S={s_len:4d} D={d:4d} {axis}  "
         f"{err_text(err, ATTN_TOL[dn])}  wrong axis fails  "
-        f"kernel {ms:.4f} ms  plain {plain:.4f}  "
-        f"sdpa {lib if lib is None else round(lib, 4)}  "
+        f"kernel {ms:.4f} ms, queued {queued:.4f} "
+        f"({6.0 * BATCH * s_len * s_len * d / queued / 1e9:.0f} TFLOP/s)  "
+        f"plain {plain:.4f}  "
+        f"sdpa {lib if lib is None else round(lib, 4)}, queued "
+        f"{lib_queued if lib_queued is None else round(lib_queued, 4)}  "
         f"bound {b:.4f} ({by})")
 
 
@@ -1546,17 +1571,15 @@ def grad_case(torch, name, cfg, dtype, x, target, t, labels=None,
 
 # Kernel-name fragments -> family for the device-time breakdown; the first
 # match wins, so the streaming backward passes (tagged dv_pass, dk_pass,
-# dq_pass) come before the whole-S attention's shared kernels (tagged
-# whole_s, among them stream_apply_mma<..., whole_s>), those before the
-# other streaming kernels (stream_apply*, and the shared stats kernels
-# tagged <streaming>), those before the rest of the whole-S attention
-# (attn_*), and the port's kernels and cuDNN's convolutions before cuBLAS's
-# GEMMs.
+# dq_pass) come before the other streaming kernels (stream_apply*, and the
+# shared stats kernels tagged <streaming>), those before the whole-S
+# attention (attn_*: attn_stats_wgmma, attn_apply_wgmma, and the CUDA-core
+# attn_stats<..., whole_s> and attn_apply), and the port's kernels and
+# cuDNN's convolutions before cuBLAS's GEMMs.
 FAMILIES = (("adagn_", "adagn (port)"),
             ("dv_pass", "streaming dV (port)"),
             ("dk_pass", "streaming dK (port)"),
             ("dq_pass", "streaming dQ (port)"),
-            ("whole_s", "attention (port)"),
             ("stream", "streaming attention (port)"),
             ("attn_", "attention (port)"),
             ("linear_", "linear (port)"), ("fprop", "conv (cuDNN)"),
@@ -1648,10 +1671,10 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every whole-S attention, streaming stats and streaming apply on
-    the mma.sync kernels and every `linear` on the wgmma one (`_mma`, the
-    tensor-core counts). Calls without a gradient launch no backward
-    kernel."""
+    passes, every whole-S attention and every `linear` on the wgmma kernels
+    and every streaming stats and streaming apply on the mma.sync ones
+    (`_mma`, the tensor-core counts). Calls without a gradient launch no
+    backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -1695,9 +1718,9 @@ def zero_counts(counters):
 
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches that
-    ran the tensor-core kernels: the mma.sync ones of fused_attention,
-    streaming_stats, streaming_apply, streaming_dv, dk and dq, and
-    linear's wgmma kernel."""
+    ran the tensor-core kernels: the wgmma ones of fused_attention and
+    linear, the mma.sync ones of streaming_stats, streaming_apply,
+    streaming_dv, dk and dq."""
     out = {fn.__name__: fn.launches for fn in counters}
     out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
                 if hasattr(fn, "mma_launches")})
@@ -3917,8 +3940,8 @@ def tooling_phase(torch, counters):
         kernels = {e.get("name", "") for e in events
                    if e.get("cat") == "kernel"}
         found = {want: sum(want in k for k in kernels)
-                 for want in ("adagn_", "attn_stats_mma", "stream_apply_mma",
-                              "linear_wgmma")}
+                 for want in ("adagn_", "attn_stats_wgmma",
+                              "attn_apply_wgmma", "linear_wgmma")}
         log(f"tooling (a): base run with profile_trace_dir, {TOOL_STEPS} "
             f"steps and the step-0 preview in {wall:.2f} s: trace files "
             f"{files}, {os.path.getsize(path)} bytes, {len(events)} events, "
@@ -4024,8 +4047,9 @@ def summarize(results, launches):
     slice 1, the SR model's for the streaming kernels (forward: one SR
     U-Net call; backward: one SR train step). `launches` sums the served,
     generated and trained paths; `launches_by_path` keeps them apart, and
-    `mma_launches` counts those that ran the tensor-core kernels (mma.sync;
-    `linear`'s wgmma). No library
+    `mma_launches` counts those that ran the tensor-core kernels (wgmma for
+    the whole-S attention and `linear`, mma.sync for the streaming
+    kernels). No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
     `k_axis_library_ms`: the whole-S attention per flagship call, the
@@ -4033,13 +4057,16 @@ def summarize(results, launches):
     projections of every block per flagship call, its library time
     F.linear's (cuBLAS), and adds both queued behind a sleep kernel
     (`queued_ms`, `library_queued_ms`: device time without the host's);
-    it and AdaGN add the same per SR call (`sr_*`)."""
+    it and AdaGN add the same per SR call (`sr_*`). The whole-S attention
+    adds its queued times on both axes (`queued_ms`, `k_axis_queued_ms`,
+    SDPA's `k_axis_library_queued_ms`) and the same per SR call, its three
+    whole-S blocks (`sr_*`, `sr_k_axis_*`)."""
     meta = {
         "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
         "fused_attention": ("attention", "flagship",
                             "sdm_tpu_torch/csrc/attention.cu "
-                            "(+ attention_tiles.cuh)",
+                            "(+ wgmma_tiles.cuh)",
                             "sdm_tpu/kernels/attention.py:86", 1),
         "fused_attention_block": ("attention_block", "flagship",
                                   "sdm_tpu_torch/csrc/linear.cu + "
@@ -4081,6 +4108,27 @@ def summarize(results, launches):
 
     queued = ("queued_ms", "library_queued_ms")
 
+    def attention_calls():
+        """The whole-S attention per flagship call (its four shapes) and
+        per SR call (the SR model's three whole-S shapes), both axes."""
+        out = {}
+        for axis, tag in (("q", ""), ("k", "k_axis_")):
+            for model, pre in (("flagship", ""), ("sr", "sr_")):
+                rows = [r for r in results if r["kernel"] == "attention"
+                        and r["dtype"] == "bfloat16" and r["axis"] == axis
+                        and (r["model"] == "flagship" if model == "flagship"
+                             else (r["shape"][1], r["shape"][3])
+                             in SR_BLOCK_SHAPES)]
+                keys = ["ms", "queued_ms", "bound_ms", "plain_ms"]
+                if axis == "k":
+                    keys += ["library_ms", "library_queued_ms"]
+                for key in keys:
+                    if (pre, tag) == ("", "") and key in ("ms", "bound_ms",
+                                                          "plain_ms"):
+                        continue   # the entry's own keys
+                    out[f"{pre}{tag}{key}"] = sum(r[key] for r in rows)
+        return out
+
     def sr_call(kernel, in_sr, per_call, keys=()):
         """Times and bounds per SR call: the rows of the SR model's shapes,
         whichever model's checks measured them."""
@@ -4091,7 +4139,7 @@ def summarize(results, launches):
                             *keys)}
 
     extra = {
-        "fused_attention": k_axis("attention", "flagship", 1),
+        "fused_attention": attention_calls(),
         "streaming_stats": k_axis("streaming_attention", "sr", 1),
         "streaming_apply": k_axis("streaming_attention", "sr", 1),
         "fused_adagn": sr_call("adagn", lambda sh: tuple(sh[1:])
@@ -4185,15 +4233,13 @@ def demangle(names):
 
 
 # The tensor-core kernels of each library, with the instantiations ptxas
-# must report: the mma.sync stats kernel (one caller tag each, 128- and
-# 64-column ring chunks), the mma.sync apply
-# (the streaming library: bf16 and fp32 output x two axes for the apply,
-# fp32 x two axes for dV; the whole-S library: bf16 x two axes), the
-# streaming backward's dA kernel (dK and dQ x two stat layouts), the wide
-# whole-S apply (two axes) and the TMA + wgmma GEMM (the 128 x 128 and
-# 128 x 64 tiles).
-MMA_KERNELS = {"attention": {"attn_stats_mma": 2, "stream_apply_mma": 2,
-                             "attn_apply_mma_wide": 2},
+# must report: the whole-S library's TMA + wgmma stats (one) and apply (two
+# axes x one to four output chunks a warpgroup), the streaming library's mma.sync stats kernel (128- and 64-column
+# ring chunks), its mma.sync apply (bf16 and fp32 output x two axes for the
+# apply, fp32 x two axes for dV) and its backward's dA kernel (dK and dQ x
+# two stat layouts), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
+# tiles).
+MMA_KERNELS = {"attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
                "streaming_attention": {"attn_stats_mma": 2,
                                        "stream_apply_mma": 6,
                                        "stream_da_mma": 4},
@@ -4220,8 +4266,10 @@ def build_phase(torch):
                                  f"D = {sa.MMA_MAX_D}"),
             "stream_da_mma": (sa.da_smem_bytes_mma(sa.DA_MAX_D),
                               f"D = {sa.DA_MAX_D}"),
-            "attn_apply_mma_wide": (attn_mod.wide_smem_bytes(1024),
-                                    "D = 1024"),
+            "attn_stats_wgmma": (attn_mod.wgmma_smem_bytes(1024)[0],
+                                 "D = 1024"),
+            "attn_apply_wgmma": (attn_mod.wgmma_smem_bytes(1024)[1],
+                                 "D = 1024"),
             "linear_wgmma": (max(map(ab.linear_wgmma_smem_bytes,
                                      ab.LINEAR_TILES)),
                              "the larger of its tiles "

@@ -1,7 +1,9 @@
-// Tile helpers and the kernels shared by the whole-S attention (attention.cu)
-// and the streaming attention (streaming_attention.cu): the softmax
-// statistics (attn_stats, attn_stats_mma) and the tensor-core apply pass
-// (stream_apply_mma).
+// Tile helpers and the kernels of the streaming attention
+// (streaming_attention.cu), some shared with the whole-S attention
+// (attention.cu): the softmax statistics (attn_stats, the CUDA-core kernel
+// of both; attn_stats_mma) and the tensor-core apply pass
+// (stream_apply_mma). The whole-S attention's tensor-core kernels are its
+// own (attention.cu, on wgmma_tiles.cuh).
 //
 // The stats kernels compute, per kept row a, m_a = max_r s_ar and l_a =
 // sum_r exp(s_ar - m_a) over ALL S reduced rows, with s_ar = scale *
@@ -13,8 +15,8 @@
 //
 // The kernels take a caller tag (whole_s or streaming, or a pass tag of the
 // streaming kernel) as a template argument, so a profiler trace names them
-// apart: attn_stats_mma<streaming> is the streaming kernel's stats pass,
-// stream_apply_mma<bf16, true, whole_s> the whole-S attention's apply pass.
+// apart: attn_stats<float, whole_s> is the whole-S attention's fp32 stats
+// pass, attn_stats_mma<streaming> the streaming kernel's.
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -154,9 +156,7 @@ static cudaError_t launch_stats(const T* qp, View qv, const T* kp, View kv,
 //
 // Replaces the TPU's stats pass of the streaming kernel
 // (sdm_tpu/kernels/streaming_attention.py:97 _stats_kernel, pallas_call at
-// :223) and the softmax statistics of the whole-S kernel
-// (sdm_tpu/kernels/attention.py:43 _attn_kernel, pallas_call at :86, which
-// takes them from its whole S x S tile). Bound: operations, 2*S*S*D per
+// :223). Bound: operations, 2*S*S*D per
 // batch*head (the scores), against 2*S*D*2 bytes in and 8*S out: at S =
 // 4096, D = 512 about 2,000 operations per byte, far above the H100's ~295.
 //
@@ -410,9 +410,7 @@ static cudaError_t launch_stats_mma(const bf16* qp, View qv, const bf16* kp,
 //
 // Replaces the TPU's _apply_kernel (sdm_tpu/kernels/streaming_attention.py
 // :120, pallas_call at :234) and, launched with the roles swapped, its
-// _dv_kernel (:133, pallas_call at :298); for bf16 at D <= 512 also the
-// apply half of the whole-S kernel (sdm_tpu/kernels/attention.py:43
-// _attn_kernel, pallas_call at :86; Pass = whole_s). Bound: operations,
+// _dv_kernel (:133, pallas_call at :298). Bound: operations,
 // 4*S*S*D per batch*head (the score tile's q k^T and P V, each 2*S*S*D),
 // against bytes of 4*S*D*2 + 8*S: at S = 4096, D = 512 about 1000 operations
 // per byte, far above the H100's ~295 for bf16.
@@ -487,8 +485,8 @@ static bool stream_mma_ok(int dt, const void* const* ptrs, const View* views,
          rows_aligned16(ptrs, views, 4);
 }
 
-// The parts shared with the wide whole-S apply (attention.cu). Warp (wr,
-// wh) of the apply, lane (g = lane / 4, tg = lane % 4).
+// The apply's parts (pv_tile is also the streaming backward's dA B). Warp
+// (wr, wh) of the apply, lane (g = lane / 4, tg = lane % 4).
 //
 // P = exp(s * scale - m) / l on the warp's 16 x 16 score fragment (rows
 // 16 wr.., keys 16 wh..; s[0] + s[1] are the even and odd 16-deep steps),

@@ -1,13 +1,17 @@
 // Hopper (sm_90a) tensor-core building blocks: TMA tile loads into shared
 // memory, the mbarriers that report them, and warpgroup MMAs (wgmma) that
 // read both operands from shared memory through matrix descriptors. Used by
-// the GEMM (linear.cu); one copy of each primitive lives here.
+// the GEMM (linear.cu) and the whole-S attention (attention.cu); one copy of
+// each primitive lives here.
 //
-// The tiles are K-major bf16, 64 elements (128 bytes) a row, as TMA writes
-// them with CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile at byte r * 128, its
-// 16-byte chunk c at chunk c ^ (r % 8). Each tile starts 1024-byte aligned,
-// so that pattern repeats every eight rows and a descriptor's base offset is
-// 0. tests/test_torch_linear_wgmma.py emulates this layout, the descriptor's
+// The tiles are bf16, 64 elements (128 bytes) a row, as TMA writes them with
+// CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile at byte r * 128, its 16-byte
+// chunk c at chunk c ^ (r % 8). Each tile starts 1024-byte aligned, so that
+// pattern repeats every eight rows and a descriptor's base offset is 0. A
+// wgmma operand reads such a tile K-major (its rows are the operand's M or N
+// rows, 64 deep along K: x and W, Q and K) or MN-major (its rows are K, 64
+// wide along N: V in P V). tests/test_torch_linear_wgmma.py and
+// tests/test_torch_attention_wgmma.py emulate this layout, the descriptors'
 // addressing and the accumulator fragments on the CPU.
 #pragma once
 
@@ -57,6 +61,40 @@ static int sdm_tma_map_bf16(CUtensorMap* map, const void* base, int rows,
   const cuuint32_t elem[2] = {1, 1};
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The TMA map of an (N, S, H, D) bf16 tensor with element strides sn, ss
+// and sh and a unit D stride (a strided view of a qkv buffer is fine; base
+// 16-byte aligned, every stride % 8 == 0), read in boxes of `box_rows` rows
+// of S by `chunks` 64-column chunks of D at one (n, h): a rank-5 map over
+// (64 columns, S, D / 64 chunks, H, N), so that a box lands in shared
+// memory as `chunks` consecutive 128B-swizzled tiles of box_rows x 64, each
+// as a K-major (or MN-major) wgmma operand reads it. Boxes past S or D are
+// zero-filled, never read from the next row of the batch. One load of
+// several chunks: the TMA unit's cost is mostly per load (on the H100,
+// tools/torch_attention_tiles.py: 8 KB loads streamed at 3.3 TB/s over the
+// card, 16 KB at 6.6, 32 KB at 7.6). Returns a cudaError_t.
+static int sdm_tma_map_chunks(CUtensorMap* map, const void* base, int n,
+                              int s, int h, int d, long long sn, long long ss,
+                              long long sh, int box_rows, int chunks) {
+  const sdm_encode_tiled_fn encode = sdm_encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {64, (cuuint64_t)s, (cuuint64_t)(d / 64),
+                              (cuuint64_t)h, (cuuint64_t)n};
+  // A head axis of one is never stepped; give it the row stride.
+  const cuuint64_t strides[4] = {(cuuint64_t)ss * sizeof(bf16),
+                                 64 * sizeof(bf16),
+                                 (cuuint64_t)(h > 1 ? sh : ss) * sizeof(bf16),
+                                 (cuuint64_t)sn * sizeof(bf16)};
+  const cuuint32_t box[5] = {64, (cuuint32_t)box_rows, (cuuint32_t)chunks, 1,
+                             1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -132,6 +170,35 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a rank-5 map (sdm_tma_map_chunks) whose first row is `s`
+// and first chunk `chunk`, at (n, h).
+__device__ __forceinline__ void tma_load_chunks(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int s,
+                                                int chunk, int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(s), "r"(chunk), "r"(h), "r"(n)
+      : "memory");
+}
+
+// ------------------------------------------------------- threads and proxies
+
+// Makes this thread's shared-memory stores (st.shared, the generic proxy)
+// visible to the async proxy that wgmma reads its operands through; then a
+// barrier before the wgmma that read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: the consumer warpgroups meet without the producer warp.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 
 // The shared-memory matrix descriptor of a K-major bf16 tile in the
@@ -143,6 +210,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // 32 k bytes to the start: 2 k in the low field.
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// The descriptor of an MN-major bf16 operand in the same layout: B (N x K)
+// stored K rows of 64 N-columns, as TMA writes a box of V (keys x columns).
+// In PTX's canonical MN-major 128B-swizzle layout, ((8, 8, m), (8, k)) :
+// ((1, 8, LBO), (64, SBO)) in elements, element (n, k) lies at byte 2 (n %
+// 64) + 128 (k % 8) + LBO (n / 64) + SBO (k / 8) before the swizzle: SBO is
+// the stride of eight K rows (1024 bytes) and LBO that of the next 64
+// columns. The wrappers below read one 64-column atom an instruction (N =
+// 64), so LBO is never stepped; it is set to 1024 too, which makes the
+// encoding right whichever of the two fields the hardware takes for the K
+// stride. The k-th 16-deep step adds 16 rows, 2048 bytes: 128 k in the low
+// field.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (64ull << 16) |
          (64ull << 32) | (1ull << 62);
 }
 
@@ -171,13 +254,50 @@ __device__ __forceinline__ void wgmma_fence_operands(float (&d)[R]) {
 }
 
 // d += A B^T for one m64nNk16 step: A (64 x 16) and B (N x 16), both K-major
-// bf16 in shared memory, named by their descriptors (scale-d 1: accumulate;
-// no transposes). d is this thread's N / 2 fp32 accumulators: in warp w of
+// bf16 in shared memory, named by their descriptors (scale-d 1: accumulate,
+// or d = A B^T where a wrapper's `accumulate` is 0, so that no other
+// instruction need write the accumulators; no transposes). d is this thread's N / 2 fp32 accumulators: in warp w of
 // the warpgroup, lane l = 4 g + t holds rows 16 w + g (d[4 j], d[4 j + 1])
 // and 16 w + g + 8 (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t and
 // 8 j + 2 t + 1.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B^T with B MN-major (wgmma_desc_mn; the transpose-B bit set): A
+// (64 x 16) K-major as above, B (64 x 16) read from 16 K rows of 64
+// columns. Same fragments as wgmma_m64n64k16.
+__device__ __forceinline__ void wgmma_m64n64k16_mn(float (&d)[32], uint64_t da,
+                                                   uint64_t db,
+                                                   int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -190,7 +310,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,

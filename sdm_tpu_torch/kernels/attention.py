@@ -7,11 +7,11 @@ query-axis softmax has no library kernel: SDPA and flash attention
 normalise over keys. The CUDA kernel (csrc/attention.cu) runs two passes on
 both axes: softmax statistics over the whole reduced axis (column stats for
 "q", row stats for "k"), then an apply pass that writes P V. bf16 at the
-U-Net's shapes (`takes_mma`: S % 64 == 0, D % 128 == 0, D <= 1024, 16-byte
-aligned rows) runs on the tensor cores through mma.sync: the stats on
-`attn_stats_mma`, the apply on `stream_apply_mma` (D <= 512) or
-`attn_apply_mma_wide`, split over output columns as `mma_plan` says; each
-such call also counts in `fused_attention.mma_launches`. fp32, and bf16 at
+U-Net's shapes (`takes_wgmma`: S % 64 == 0, D % 64 == 0, D <= 1024, 16-byte
+aligned bases and strides) runs on the tensor cores through TMA and wgmma:
+the stats on `attn_stats_wgmma`, the apply on `attn_apply_wgmma`, split
+over output columns as `wgmma_plan` says; each such call also counts in
+`fused_attention.mma_launches` (the tensor-core count). fp32, and bf16 at
 other shapes, run on fp32 CUDA cores. It is bound by its 6*S*S*D operations
 per head (scores twice, P V once).
 
@@ -37,8 +37,7 @@ import torch
 from sdm_tpu_torch.kernels import _build
 from sdm_tpu_torch.kernels._autograd import recompute_backward, wants_grad
 from sdm_tpu_torch.kernels.streaming_attention import (
-    MAX_SMEM, MMA_KEYS, MMA_MAX_D, MMA_QUERIES, apply_smem_bytes_mma,
-    rows_aligned16, streaming_attention)
+    MAX_SMEM, rows_aligned16, streaming_attention)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,9 +45,9 @@ _SIGNATURES = {
     "sdm_attention_forward": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    ctypes.c_float, _I, _I, _P]),
     "sdm_attention_fits": (_I, [_I, _I]),
-    "sdm_attention_takes_mma": (_I, [_P, _P, _I, _I, _I]),
-    "sdm_attention_mma_plan": (_I, [_I, _I, _I, _P]),
-    "sdm_attention_wide_smem_bytes": (_I, [_I]),
+    "sdm_attention_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_attention_wgmma_plan": (_I, [_I, _I, _I, _P]),
+    "sdm_attention_wgmma_smem": (_I, [_I, _P]),
 }
 
 # sdm_attention_forward's return when S is past the longest it takes (it
@@ -62,10 +61,18 @@ _ERR_TOKENS = -1
 # kernels. 3200 is where the former WMMA apply's 32 x S P block stopped
 # fitting in shared memory.
 MAX_S_MMA = 3200
-# attn_apply_mma_wide's K chunk and V stage pitch (XKC, XVLD).
-WIDE_K_CHUNK = 128
-# SMs of the H100, which mma_plan fills with about one wave of blocks.
+# csrc/attention.cu's tensor-core constants: kept rows (stats) and queries
+# (apply) a block (WROWS), columns of D a chunk (WBOX), chunks a TMA load
+# (WCHUNKS), the widest D (WMAX_D), the widest output-column slice of an
+# apply block (WCOLS), reduced rows a stats load (WRED), the most ring
+# stages of each kernel (WSTATS_STAGES, WAPPLY_STAGES) and the H100's SMs
+# (WSMS).
+WGMMA_ROWS, WGMMA_BOX, WGMMA_CHUNKS, WGMMA_MAX_D = 64, 64, 2, 1024
+WGMMA_COLS, WGMMA_RED, WGMMA_STATS_STAGES, WGMMA_APPLY_STAGES = 512, 128, 8, 16
 SMS = 132
+_CHUNK_BYTES = WGMMA_ROWS * WGMMA_BOX * 2
+_LOAD_BYTES = WGMMA_CHUNKS * _CHUNK_BYTES
+_FIXED_BYTES = 1024 + 512     # alignment slack, barriers
 
 
 def apply_smem_bytes(s: int) -> int:
@@ -74,32 +81,61 @@ def apply_smem_bytes(s: int) -> int:
     return (32 * (s + 1) + 4096) * 4
 
 
-def wide_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of attn_apply_mma_wide at D = d
-    (wide_smem_bytes): Q [64][d+8] bf16 resident, a K ring of three
-    [32][136] bf16 chunks, a V ring of two [32][520] bf16 stages, the P tile
-    [64][40] bf16 and two stages of 32 m and l floats."""
-    return (MMA_QUERIES * (d + 8) * 2 + 3 * MMA_KEYS * (WIDE_K_CHUNK + 8) * 2
-            + 2 * MMA_KEYS * (MMA_MAX_D + 8) * 2
-            + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
+def _chunks(d: int) -> int:
+    """Chunks of D rounded up to whole loads (wgmma_chunks)."""
+    return -(-(d // WGMMA_BOX) // WGMMA_CHUNKS) * WGMMA_CHUNKS
 
 
-def admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
-    """csrc/attention.cu's mma_ok: bf16, S % 64 == 0, D % 128 == 0, the
-    apply's shared memory within MAX_SMEM (stream_apply_mma to D = 512,
-    attn_apply_mma_wide to D = 1024), 16-byte aligned rows. `ptrs` and
-    `strides` ((sn, sh, ss) in elements) of q, k, v and out."""
-    smem = apply_smem_bytes_mma(d) if d <= MMA_MAX_D else wide_smem_bytes(d)
-    return (dtype == torch.bfloat16 and s % MMA_QUERIES == 0 and d % 128 == 0
-            and smem <= MAX_SMEM and rows_aligned16(ptrs, strides))
+def wgmma_stages(d: int):
+    """(stats, apply) ring stages at D = d (csrc/attention.cu
+    wgmma_stats_stages, wgmma_apply_stages): as many as the shared memory
+    leaves room for beside the resident 64-row tile (and the stats' 64
+    (m, l) pairs of each warpgroup, the apply's two P tiles), at most 8
+    stats stages of 128 rows x 2 chunks and 16 apply stages of 64 rows x 2
+    chunks."""
+    stats = (MAX_SMEM - _FIXED_BYTES - 2 * 2 * WGMMA_ROWS * 4
+             - _chunks(d) * _CHUNK_BYTES) // (2 * _LOAD_BYTES)
+    apply = (MAX_SMEM - _FIXED_BYTES
+             - (_chunks(d) + 2) * _CHUNK_BYTES) // _LOAD_BYTES
+    return min(stats, WGMMA_STATS_STAGES), min(apply, WGMMA_APPLY_STAGES)
 
 
-def takes_mma(q, k, v) -> bool:
+def wgmma_smem_bytes(d: int):
+    """(stats, apply) dynamic shared memory at D = d
+    (wgmma_stats_smem_bytes, wgmma_apply_smem_bytes): alignment slack and
+    barriers, the resident tile of D/64 chunks (rounded up to whole loads)
+    of 64 x 64 bf16, and the ring; the stats also 1 KB of (m, l), the apply
+    two P tiles."""
+    stats, apply = wgmma_stages(d)
+    return (_FIXED_BYTES + 2 * 2 * WGMMA_ROWS * 4 + _chunks(d) * _CHUNK_BYTES
+            + stats * 2 * _LOAD_BYTES,
+            _FIXED_BYTES + (_chunks(d) + 2) * _CHUNK_BYTES
+            + apply * _LOAD_BYTES)
+
+
+def admits_wgmma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """csrc/attention.cu's wgmma_ok: bf16, S % 64 == 0, D % 64 == 0 with
+    D <= 1024 and both kernels' shared memory within MAX_SMEM (two stats
+    stages, and apply stages for the four V loads of a 512-column slice),
+    16-byte aligned bases and N, H, S strides that are multiples of 8
+    elements (TMA's strides, the 16-byte stores). `ptrs` and `strides`
+    ((sn, sh, ss) in elements) of q, k, v and out."""
+    if not (dtype == torch.bfloat16 and s > 0 and s % WGMMA_ROWS == 0
+            and 0 < d <= WGMMA_MAX_D and d % WGMMA_BOX == 0):
+        return False
+    stats, apply = wgmma_stages(d)
+    return (stats >= 2
+            and apply >= WGMMA_COLS // WGMMA_BOX // WGMMA_CHUNKS
+            and max(wgmma_smem_bytes(d)) <= MAX_SMEM
+            and rows_aligned16(ptrs, strides))
+
+
+def takes_wgmma(q, k, v) -> bool:
     """Whether these (N, S, H, D) inputs run on the tensor-core path. The
     output is a fresh contiguous (N, S, H, D) tensor: an aligned pointer and
     strides (S*H*D, D, H*D)."""
     n, s, h, d = q.shape
-    return admits_mma(
+    return admits_wgmma(
         q.dtype, s, d, [t.data_ptr() for t in (q, k, v)] + [0],
         [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v)]
         + [(s * h * d, d, h * d)])
@@ -115,19 +151,26 @@ def whole_s_ok(q, k, v) -> bool:
     """Whether `fused_attention` takes these inputs: the mirror of
     sdm_attention_forward's admission (sdm_attention_fits in the C source).
     The dispatchers send everything else to the streaming kernel."""
-    return fits(q.shape[1], takes_mma(q, k, v))
+    return fits(q.shape[1], takes_wgmma(q, k, v))
 
 
-def mma_plan(bh: int, s: int, d: int):
-    """csrc/attention.cu's mma_plan: (wide, split, d_per_block) of the
-    tensor-core apply for bh = batch*heads rows of (S, D). About one wave
-    of blocks (S/64 per row) on the 132 SMs, each split a multiple of 128
-    columns and at most 512; wide: attn_apply_mma_wide (D > 512)."""
-    chunks = d // 128
-    blocks = bh * (s // MMA_QUERIES)
-    split = max(-(-d // MMA_MAX_D), min(-(-SMS // blocks), chunks))
-    d_per_block = -(-chunks // split) * 128
-    return d > MMA_MAX_D, -(-d // d_per_block), d_per_block
+def wgmma_plan(bh: int, s: int, d: int):
+    """csrc/attention.cu's wgmma_plan: (split, cols) of the tensor-core
+    apply for bh = batch*heads rows of (S, D): `split` blocks per 64 queries,
+    each `cols` output columns (whole 64-column chunks, at most 512). Each
+    split recomputes Q K^T over all of D, so a block costs D + cols; the
+    plan takes the least cost over waves of one block an SM on the 132 SMs
+    (ties to the smaller split)."""
+    boxes, blocks = d // WGMMA_BOX, bh * (s // WGMMA_ROWS)
+    best = None
+    for split in range(-(-d // WGMMA_COLS), boxes + 1):
+        per = -(-boxes // split)
+        if -(-boxes // per) != split:   # a smaller split's slices
+            continue
+        cost = -(-blocks * split // SMS) * (boxes + per)
+        if best is None or cost < best[0]:
+            best = (cost, split, per * WGMMA_BOX)
+    return best[1], best[2]
 
 
 def attention_reference(q, k, v, scale: float, softmax_axis: str = "q"):
@@ -209,7 +252,7 @@ def _forward(q, k, v, scale, softmax_axis):
             "takes; longer grids take streaming_attention (see whole_s_ok)")
     _build.check(lib, rc, what)
     fused_attention.launches += 1
-    fused_attention.mma_launches += takes_mma(q, k, v)
+    fused_attention.mma_launches += takes_wgmma(q, k, v)
     return out
 
 

@@ -352,12 +352,13 @@ def test_attention_dispatcher(monkeypatch):
 
 
 # The whole-S attention blocks of the flagship 128x128 and the SR 256x256
-# U-Net at batch 16, with csrc/attention.cu's mma_plan for each: (wide,
-# split, columns per split). About one wave of blocks on 132 SMs, every
-# split a multiple of 128 columns and at most 512.
-WHOLE_S_PLANS = {(1024, 512): (False, 1, 512), (256, 512): (False, 2, 256),
-                 (64, 1024): (True, 8, 128), (256, 1024): (True, 3, 384),
-                 (1024, 1024): (True, 2, 512), (1024, 768): (True, 2, 384)}
+# U-Net at batch 16, and D = 768, with csrc/attention.cu's wgmma_plan for
+# each: (split, columns per split). Whole 64-column chunks, at most 512
+# columns a block, the split of least cost over waves of one block an SM
+# on 132 SMs (each split recomputes Q K^T).
+WHOLE_S_PLANS = {(1024, 512): (1, 512), (256, 512): (2, 256),
+                 (64, 1024): (8, 128), (256, 1024): (2, 512),
+                 (1024, 1024): (2, 512), (1024, 768): (2, 384)}
 
 
 def _meta(shape, dtype=torch.bfloat16):
@@ -367,7 +368,7 @@ def _meta(shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("shape", sorted(WHOLE_S_PLANS))
 @pytest.mark.parametrize("views", [False, True])
 def test_whole_s_mma_admits_the_unet_shapes(shape, views):
-    """Every whole-S U-Net block runs on the tensor-core path in bf16:
+    """Every whole-S U-Net block runs on the TMA + wgmma path in bf16:
     contiguous, and as the attention block passes them, q, k, v as strided
     views of one (16, S, 1, 3 * D) qkv buffer."""
     s, d = shape
@@ -375,29 +376,30 @@ def test_whole_s_mma_admits_the_unet_shapes(shape, views):
         q, k, v = _meta((16, s, 1, 3 * d)).split(d, dim=-1)
     else:
         q, k, v = (_meta((16, s, 1, d)) for _ in range(3))
-    assert port_attention.takes_mma(q, k, v)
+    assert port_attention.takes_wgmma(q, k, v)
     assert port_attention.whole_s_ok(q, k, v)
 
 
 @pytest.mark.parametrize("shape", sorted(WHOLE_S_PLANS))
 def test_whole_s_mma_plan(shape):
-    """The split and the variant the C code chooses: stream_apply_mma to
-    D = 512, attn_apply_mma_wide past it with at least two splits; each
-    warp's accumulator at most 256 columns (half a split)."""
+    """The split the C code chooses for attn_apply_wgmma: whole chunks, at
+    least two splits past D = 512, each warpgroup's accumulator at most 256
+    columns (half a split)."""
     s, d = shape
-    wide, split, per = port_attention.mma_plan(16, s, d)
-    assert (wide, split, per) == WHOLE_S_PLANS[shape]
-    assert per % 128 == 0 and per <= port_attention.MMA_MAX_D
+    split, per = port_attention.wgmma_plan(16, s, d)
+    assert (split, per) == WHOLE_S_PLANS[shape]
+    assert per % 64 == 0 and per <= port_attention.WGMMA_COLS
     assert (split - 1) * per < d <= split * per
-    assert wide == (d > 512)
+    assert (split > 1) >= (d > 512)
 
 
 @pytest.mark.parametrize("case", ["fp32", "s100", "d72", "d576", "d1152",
                                   "stride", "pointer", "heads"])
 def test_whole_s_mma_refuses_other_shapes(case):
-    """fp32, S % 64 != 0, D off the 128 grid or past the wide apply's 1024,
-    a row stride or a head stride that is not a multiple of 8 elements, and
-    a pointer off 16 bytes all take the CUDA-core kernels."""
+    """fp32, S % 64 != 0, D off the 64 grid or past 1024, a row stride or
+    a head stride that is not a multiple of 8 elements, and a pointer off
+    16 bytes all take the CUDA-core kernels; D = 576, off the former
+    mma.sync path's 128 grid, is on the 64 grid of the wgmma one."""
     shape = {"s100": (2, 100, 1, 512), "d72": (2, 256, 1, 72),
              "d576": (2, 256, 1, 576), "d1152": (2, 256, 1, 1152),
              "heads": (2, 256, 2, 512)}.get(case, (2, 256, 1, 512))
@@ -413,25 +415,26 @@ def test_whole_s_mma_refuses_other_shapes(case):
         q = torch.zeros((2, 256, 2 * 516), dtype=dtype)[:, :, :1028].view(
             2, 256, 2, 514)[..., :512]
         assert q.stride(2) % 8 == 2
-    assert not port_attention.takes_mma(q, k, v)
+    assert port_attention.takes_wgmma(q, k, v) == (case == "d576")
     aligned = torch.zeros((2, 256, 1, 512), dtype=torch.bfloat16)
-    assert port_attention.takes_mma(aligned, aligned, aligned)
+    assert port_attention.takes_wgmma(aligned, aligned, aligned)
 
 
 def test_whole_s_mma_smem_formulas():
-    """The tensor-core apply's shared memory is within the opt-in limit at
-    D = 512 (stream_apply_mma) and 1024 (attn_apply_mma_wide: Q [64][1032],
-    a K ring 3 x [32][136], a V ring 2 x [32][520], P [64][40] in bf16, 512
-    bytes of stats), and the wide one is past it from D = 1152 on."""
-    from sdm_tpu_torch.kernels import streaming_attention
+    """The TMA + wgmma kernels' shared memory is within the opt-in limit
+    at D = 512 and 1024: at 1024 the stats keep the 64 kept rows (16
+    chunks of 64 x 64 bf16), three ring stages of 128 rows x 2 chunks and
+    1 KB of (m, l), the apply Q, two P tiles and five stages of 64 rows x 2
+    chunks, each with 1024 bytes of alignment slack and 512 for the
+    barriers."""
     limit = port_attention.MAX_SMEM
-    assert streaming_attention.apply_smem_bytes_mma(512) <= limit
-    assert port_attention.wide_smem_bytes(1024) == (
-        64 * 1032 * 2 + 3 * 32 * 136 * 2 + 2 * 32 * 520 * 2 + 64 * 40 * 2
-        + 512) == 230400
-    assert port_attention.wide_smem_bytes(1024) <= limit
-    assert port_attention.wide_smem_bytes(1152) > limit
-    assert streaming_attention.stats_smem_bytes_mma(1024) <= limit
+    stats, apply = port_attention.wgmma_smem_bytes(1024)
+    assert stats == 1536 + 1024 + 16 * 8192 + 3 * 32768 == 231936
+    assert apply == 1536 + (16 + 2) * 8192 + 5 * 16384 == 230912
+    assert port_attention.wgmma_stages(1024) == (3, 5)
+    assert port_attention.wgmma_stages(512) == (5, 9)
+    assert max(port_attention.wgmma_smem_bytes(512)) <= limit
+    assert max(stats, apply) <= limit
 
 
 def test_mirror_constants_match_the_sources():
@@ -445,7 +448,16 @@ def test_mirror_constants_match_the_sources():
     want = {"MAX_SMEM": sa.MAX_SMEM, "MQ": sa.MMA_QUERIES, "MK": sa.MMA_KEYS,
             "MMAXD": sa.MMA_MAX_D, "SKEPT": sa.STATS_KEPT,
             "SRED": sa.STATS_RED, "SCHUNK": sa.STATS_CHUNK,
-            "SSTAGES": sa.STATS_STAGES, "XKC": port_attention.WIDE_K_CHUNK,
+            "SSTAGES": sa.STATS_STAGES,
+            "WROWS": port_attention.WGMMA_ROWS,
+            "WBOX": port_attention.WGMMA_BOX,
+            "WCHUNKS": port_attention.WGMMA_CHUNKS,
+            "WMAX_D": port_attention.WGMMA_MAX_D,
+            "WCOLS": port_attention.WGMMA_COLS,
+            "WRED": port_attention.WGMMA_RED,
+            "WSTATS_STAGES": port_attention.WGMMA_STATS_STAGES,
+            "WAPPLY_STAGES": port_attention.WGMMA_APPLY_STAGES,
+            "WSMS": port_attention.SMS,
             "WHOLE_S_MAX_MMA": port_attention.MAX_S_MMA,
             "LBK": port_block.LINEAR_BK,
             "LWG": port_block.LINEAR_TILES[0][0],
@@ -463,13 +475,14 @@ def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
     are exported for their Python mirrors, the WMMA attention kernels, the
-    WMMA dK/dQ kernel and the WMMA and mma.sync GEMMs are gone, the
+    WMMA dK/dQ kernel, the whole-S attention's mma.sync kernels and the WMMA
+    and mma.sync GEMMs are gone, the
     mma.sync primitives live in one header and the TMA, mbarrier and wgmma
     ones in another, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
-    assert {"sdm_attention_takes_mma", "sdm_attention_mma_plan",
-            "sdm_attention_wide_smem_bytes"} <= set(port_attention._SIGNATURES)
+    assert {"sdm_attention_takes_wgmma", "sdm_attention_wgmma_plan",
+            "sdm_attention_wgmma_smem"} <= set(port_attention._SIGNATURES)
     assert {"sdm_streaming_stats_takes_mma", "sdm_stats_mma_smem_bytes",
             "sdm_streaming_apply_takes_mma", "sdm_streaming_da_takes_mma",
             "sdm_streaming_da_smem_bytes"} <= set(
@@ -479,6 +492,15 @@ def test_kernel_sources_export_the_wrapped_symbols():
         with open(os.path.join(_build.CSRC, name)) as f:
             src = f.read()
         assert "attn_stats_wmma" not in src and "attn_apply_wmma" not in src
+    # The whole-S library launches its TMA + wgmma kernels alone: no
+    # mma.sync stats or apply of the streaming library, no wide apply (its
+    # comments still name them, as what the new kernels replaced).
+    with open(os.path.join(_build.CSRC, "attention.cu")) as f:
+        src = re.sub(r"//[^\n]*", "", f.read())
+    for gone in ("launch_stats_mma", "launch_apply_mma", "stream_apply_mma",
+                 "attn_apply_mma_wide", "mma_plan", "launch_mma"):
+        assert not re.search(r"\b" + gone + r"\b", src), gone
+    assert "attn_stats_wgmma<<<" in src and "&attn_apply_wgmma<true, 4>" in src
     # The streaming library's dK/dQ kernel is mma.sync too: no WMMA left.
     with open(os.path.join(_build.CSRC, "streaming_attention.cu")) as f:
         src = f.read()
@@ -547,7 +569,7 @@ def test_cuda_kernels_match_plain(cuda, dtype):
         assert wrapper.launches == before + 1
         if wrapper is fused_attention:
             assert fused_attention.mma_launches == mma_before + (
-                port_attention.takes_mma(*args[:3]))
+                port_attention.takes_wgmma(*args[:3]))
         want = plain(*args).float()
         tol = (dict(atol=1e-4, rtol=1e-3) if dtype == torch.float32
                else attn_bf16_tol(_np(want)) if wrapper is fused_attention
