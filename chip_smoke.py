@@ -20,9 +20,11 @@ as a user's run would.
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
      instantiation of the tensor-core kernels (the mma.sync
-     attn_stats_mma, stream_apply_mma, stream_da_mma of the streaming
-     attention; the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the
-     whole-S attention and linear_wgmma) held to 0 spill bytes.
+     stream_apply_mma (dV) and stream_da_mma (dK, dQ) and the TMA + wgmma
+     stream_stats_wgmma, stream_apply_wgmma of the streaming attention;
+     the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the whole-S
+     attention and linear_wgmma) held to 0 spill bytes, and the streaming
+     library's wgmma instantiations to no ptxas line on serialized wgmma.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -43,6 +45,11 @@ as a user's run would.
      where the whole-S kernel is a second reference, and at a ragged
      S = 300; the bf16 query-axis dK and dQ are also held to a float64
      truth (BWD_TRUTH), and the fp32-output apply to its plain version.
+     Each stats and apply launch must take the TMA + wgmma kernels
+     (stream_stats_wgmma, stream_apply_wgmma) exactly when their admission
+     says so (the `wgmma_launches` counters), dV, dK and dQ the mma.sync
+     ones; the admissions, plans and shared memory of the wgmma kernels
+     are held to the C exports.
      Small shapes off the main path (S = 300, D = 128, 384, 1024) run the
      whole streaming function and each backward pass and check which kernel
      each launch took (the `mma_launches` counters), and the Python mirrors
@@ -63,9 +70,9 @@ as a user's run would.
      images sent as raw floats (lr_image_b64 + lr_shape). Around each path's
      requests the kernels' launch counters are zeroed just before and read
      just after, and held to the counts its U-Net calls imply, every bf16
-     whole-S attention and every `linear` on the wgmma kernels, every
-     streaming stats and streaming apply on the mma.sync ones
-     (`mma_launches`). Then one more batch of each is
+     whole-S attention, every `linear` and every streaming stats and
+     streaming apply on the wgmma kernels (`mma_launches`, and the
+     streaming passes' `wgmma_launches`). Then one more batch of each is
      traced with the profiler for the device's busy share.
   5. Generation ("generation"): the DDIM/DDPM generator
      (generate_images_diffusion) on an exported flagship bundle, DDIM step
@@ -84,9 +91,9 @@ as a user's run would.
      preview, and the doodle trainer's label_plot grid) at step 0 only and
      once more when it stops. The launch counters are zeroed just before
      each run and read just after, and held to the counts its steps and
-     its preview imply (every whole-S attention and every `linear` on the
-     wgmma kernels, every streaming stats, apply, dV, dK and dQ on the
-     mma.sync ones); the losses must
+     its preview imply (every whole-S attention, every `linear` and every
+     streaming stats and apply on the wgmma kernels, every streaming dV,
+     dK and dQ on the mma.sync ones); the losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
@@ -672,8 +679,8 @@ def streaming_phase(torch, results):
     # Off the main path: a ragged S (CUDA-core kernels in bf16 too, ragged
     # tiles masked); D = 128 leaves each P V warp 64 columns (and each dA B
     # warp 32); D = 384 walks rows of 48 16-byte chunks in the tile loader;
-    # D = 1024 is past the tensor-core apply, dK and dQ and takes the CUDA
-    # cores in bf16 (its stats stay on attn_stats_mma).
+    # D = 1024 is past the mma.sync dV, dK and dQ and takes the CUDA cores
+    # there in bf16 (its forward stays on the wgmma kernels).
     for dtype in (torch.float32, torch.bfloat16):
         for axis in ("q", "k"):
             off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
@@ -695,7 +702,9 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
                   for std in (QK_STD, QK_STD, 1.0, 1.0))
     scale = d ** -0.5
     tag = f"{dn} S={s_len} D={d} {axis}"
-    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_stats.mma_launches)
+    mma0 = (sa.streaming_apply.mma_launches, sa.streaming_stats.mma_launches,
+            sa.streaming_apply.wgmma_launches,
+            sa.streaming_stats.wgmma_launches)
     bwd0 = bwd_mma_counts(sa)
     err = compare(f"streaming {tag}", sa.streaming_attention(q, k, v, scale,
                                                              axis),
@@ -731,43 +740,57 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
         e = compare_bwd(f"streaming_{name} {tag}", got[name], plain[name],
                         tol)
         bwd.append(f"{name} err abs {e[0]:.2e} rel {e[1]:.2e}{extra}")
-    mma = sa.apply_takes_mma(q, k, v, out32)
-    stats_mma = sa.stats_takes_mma(q, k)
+    dv_mma = sa.apply_takes_mma(q, k, g, got["dv"])
+    wg_apply = sa.apply_takes_wgmma(q, k, v, out32)
+    wg_stats = sa.stats_takes_wgmma(q, k)
     da_mma = sa.da_takes_mma(q, k, v, g, got["dk"])
     moved = (sa.streaming_apply.mma_launches - mma0[0],
-             sa.streaming_stats.mma_launches - mma0[1])
-    if moved != (2 * mma, 2 * stats_mma):
-        raise AssertionError(f"streaming {tag}: mma launches (apply, stats) "
-                             f"{moved}, the admissions say apply {mma}, "
-                             f"stats {stats_mma}")
+             sa.streaming_stats.mma_launches - mma0[1],
+             sa.streaming_apply.wgmma_launches - mma0[2],
+             sa.streaming_stats.wgmma_launches - mma0[3])
+    if moved != (2 * wg_apply, 2 * wg_stats, 2 * wg_apply, 2 * wg_stats):
+        raise AssertionError(f"streaming {tag}: launches (apply, stats "
+                             f"tensor-core; apply, stats wgmma) {moved}, the "
+                             f"admissions say apply {wg_apply}, stats "
+                             f"{wg_stats}")
     kind = {True: "mma.sync", False: "CUDA-core"}
-    log(f"streaming {tag} ({kind[stats_mma]} stats, {kind[mma]} apply and "
-        f"dV, {kind[da_mma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
+    fwd = {True: "wgmma", False: "CUDA-core"}
+    log(f"streaming {tag} ({fwd[wg_stats]} stats, "
+        f"{fwd[wg_apply]} apply, {kind[dv_mma]} dV, "
+        f"{kind[da_mma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
         f"fp32-output apply {err_text(err32, ATTN_TOL[dn])}; "
         + "; ".join(bwd))
 
 
 def check_stream_predicates(torch):
     """The Python mirrors of the streaming admissions (apply_admits_mma,
-    stats_admits_mma, da_admits_mma, apply_smem_bytes_mma,
-    stats_smem_bytes_mma, da_smem_bytes_mma) against the C predicates, over
+    da_admits_mma, admits_wgmma (for both wgmma kernels),
+    apply_smem_bytes_mma, da_smem_bytes_mma, wgmma_smem_bytes, wgmma_stages,
+    wgmma_plan) against the C functions, over
     D = 8..2560, several S, both dtypes and three layouts: aligned, a
     pointer off by 8 bytes, a row stride off by 4 elements."""
     import ctypes
     from sdm_tpu_torch.kernels import _build
     from sdm_tpu_torch.kernels import streaming_attention as sa
     lib = _build.library("streaming_attention", sa._SIGNATURES)
+    four = (ctypes.c_int * 4)()
     checked = 0
     for d in range(8, 2561, 8):
         if lib.sdm_streaming_mma_smem_bytes(d) != sa.apply_smem_bytes_mma(d):
             raise AssertionError(f"apply_smem_bytes_mma({d}) disagrees with "
                                  "stream_mma_smem_bytes")
-        if lib.sdm_stats_mma_smem_bytes(d) != sa.stats_smem_bytes_mma(d):
-            raise AssertionError(f"stats_smem_bytes_mma({d}) disagrees with "
-                                 "stats_mma_smem_bytes")
         if lib.sdm_streaming_da_smem_bytes(d) != sa.da_smem_bytes_mma(d):
             raise AssertionError(f"da_smem_bytes_mma({d}) disagrees with "
                                  "da_mma_smem_bytes")
+        if d % 64 == 0 and d <= 1024:
+            lib.sdm_streaming_wgmma_smem(d, four)
+            if tuple(four) != (*sa.wgmma_smem_bytes(d), *sa.wgmma_stages(d)):
+                raise AssertionError(f"wgmma_smem_bytes/wgmma_stages({d}) "
+                                     f"disagree with C: {tuple(four)}")
+            lib.sdm_streaming_wgmma_plan(d, four)
+            if tuple(four) != sa.wgmma_plan(d):
+                raise AssertionError(f"wgmma_plan({d}) disagrees with C: "
+                                     f"{tuple(four)}")
         for s_len in (64, 96, 300, 1024, 4096):
             for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
                 for ptr_off, ss_off in ((0, 0), (8, 0), (0, 4)):
@@ -787,10 +810,13 @@ def check_stream_predicates(torch):
                         ("apply", lib.sdm_streaming_apply_takes_mma(
                             cptrs, cstr, s_len, d, dt),
                          sa.apply_admits_mma(dtype, s_len, d, ptrs, strides)),
-                        ("stats", lib.sdm_streaming_stats_takes_mma(
+                        ("wgmma apply", lib.sdm_streaming_apply_takes_wgmma(
                             cptrs, cstr, s_len, d, dt),
-                         sa.stats_admits_mma(dtype, s_len, d, ptrs[:2],
-                                             strides[:2])),
+                         sa.admits_wgmma(dtype, s_len, d, ptrs, strides)),
+                        ("wgmma stats", lib.sdm_streaming_stats_takes_wgmma(
+                            cptrs, cstr, s_len, d, dt),
+                         sa.admits_wgmma(dtype, s_len, d, ptrs[:2],
+                                         strides[:2])),
                         ("dA", lib.sdm_streaming_da_takes_mma(
                             cdptrs, cdstr, s_len, d, dt),
                          sa.da_admits_mma(dtype, s_len, d, dptrs, dstr)))
@@ -803,7 +829,8 @@ def check_stream_predicates(torch):
                         checked += 1
     log(f"streaming admissions: the Python mirrors agree with the C "
         f"predicates in {checked} cases (D = 8..2560, S in 64, 96, 300, "
-        f"1024, 4096, both dtypes, three layouts)")
+        f"1024, 4096, both dtypes, three layouts), and with the wgmma "
+        f"forward's shared memory, stages and plan (D = 64..1024)")
 
 
 def _reps(s_len, dtype_name):
@@ -1059,7 +1086,14 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
 
     err_m, err_l = stats_check(torch, q, k, scale, axis, tag)
     m, l = sa.streaming_stats(q, k, scale, axis)
+    before = sa.streaming_apply.wgmma_launches
     out = sa.streaming_apply(q, k, v, m, l, scale, axis)
+    wgmma = sa.apply_takes_wgmma(q, k, v, out)
+    if sa.streaming_apply.wgmma_launches - before != wgmma or (
+            dtype == torch.bfloat16 and not wgmma):
+        raise AssertionError(f"streaming_apply {tag}: wgmma launches "
+                             f"{sa.streaming_apply.wgmma_launches - before}, "
+                             f"the admission says {wgmma}")
     err_a = compare(f"streaming_apply {tag}", out,
                     sa.streaming_apply_reference(q, k, v, m, l, scale, axis),
                     ATTN_TOL[dn])
@@ -1125,16 +1159,20 @@ def streaming_case(torch, randn, results, dtype, s_len, d, axis):
 def stats_check(torch, q, k, scale, axis, tag):
     """streaming_stats against its plain version on (q, k), and against
     the plain version of the other axis, which must fail for m and for l;
-    the launch must take attn_stats_mma exactly when the mirror says so.
-    Returns the m and l errors."""
+    the launch must take stream_stats_wgmma (and count as a tensor-core
+    launch) exactly when its mirror says so. Returns the m and l errors."""
     from sdm_tpu_torch.kernels import streaming_attention as sa
     other = "k" if axis == "q" else "q"
-    mma0 = sa.streaming_stats.mma_launches
+    before = (sa.streaming_stats.mma_launches,
+              sa.streaming_stats.wgmma_launches)
     m, l = sa.streaming_stats(q, k, scale, axis)
-    moved = sa.streaming_stats.mma_launches - mma0
-    if moved != sa.stats_takes_mma(q, k):
-        raise AssertionError(f"streaming_stats {tag}: {moved} mma launches, "
-                             f"the admission says {sa.stats_takes_mma(q, k)}")
+    moved = (sa.streaming_stats.mma_launches - before[0],
+             sa.streaming_stats.wgmma_launches - before[1])
+    wgmma = sa.stats_takes_wgmma(q, k)
+    if moved != (int(wgmma), int(wgmma)):
+        raise AssertionError(f"streaming_stats {tag}: (tensor-core, wgmma) "
+                             f"launches {moved}, the admission says wgmma "
+                             f"{wgmma}")
     m_ref, l_ref = sa.streaming_stats_reference(q, k, scale, axis)
     err_m = compare(f"streaming_stats m {tag}", m, m_ref, STATS_TOL["m"])
     err_l = compare(f"streaming_stats l {tag}", l, l_ref, STATS_TOL["l"])
@@ -1158,7 +1196,7 @@ def stats_case(torch, randn, results, model, dtype, s_len, d, axis,
             d, dim=-1)
     else:
         q, k = (randn((BATCH, s_len, d), dtype, std=QK_STD) for _ in range(2))
-    if dtype == torch.bfloat16 and not sa.stats_takes_mma(q, k):
+    if dtype == torch.bfloat16 and not sa.stats_takes_wgmma(q, k):
         raise AssertionError(f"streaming_stats {dn} S={s_len} D={d}: a bf16 "
                              "U-Net shape off the tensor cores")
     scale = d ** -0.5
@@ -1671,10 +1709,10 @@ def expected_launches(cfg, calls, streaming):
     ResidualBlock and one attention block per ResidualBlock of an
     attention layer, down and up; each block runs `linear` twice and one
     attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every whole-S attention and every `linear` on the wgmma kernels
-    and every streaming stats and streaming apply on the mma.sync ones
-    (`_mma`, the tensor-core counts). Calls without a gradient launch no
-    backward kernel."""
+    passes, every whole-S attention, every `linear` and every streaming
+    stats and streaming apply on the wgmma kernels (`_mma`, the
+    tensor-core counts; `_wgmma`, the streaming passes' wgmma counts).
+    Calls without a gradient launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
@@ -1685,8 +1723,10 @@ def expected_launches(cfg, calls, streaming):
             "linear_mma": 2 * blocks * calls,
             "streaming_stats": streaming * calls,
             "streaming_stats_mma": streaming * calls,
+            "streaming_stats_wgmma": streaming * calls,
             "streaming_apply": streaming * calls,
             "streaming_apply_mma": streaming * calls,
+            "streaming_apply_wgmma": streaming * calls,
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
             "streaming_dv_mma": 0, "streaming_dk_mma": 0,
             "streaming_dq_mma": 0}
@@ -1709,21 +1749,26 @@ def kernel_counters():
 def zero_counts(counters):
     """Every launch count to 0, the tensor-core counts (`mma_launches`) of
     the whole-S attention, `linear` and the streaming stats, apply, dV, dK
-    and dQ passes too."""
+    and dQ passes and the wgmma counts (`wgmma_launches`) of the streaming
+    stats and apply too."""
     for fn in counters:
         fn.launches = 0
-        if hasattr(fn, "mma_launches"):
-            fn.mma_launches = 0
+        for name in ("mma_launches", "wgmma_launches"):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
 
 
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches that
-    ran the tensor-core kernels: the wgmma ones of fused_attention and
-    linear, the mma.sync ones of streaming_stats, streaming_apply,
-    streaming_dv, dk and dq."""
+    ran the tensor-core kernels (the wgmma ones of fused_attention,
+    linear, streaming_stats and streaming_apply; the mma.sync ones of
+    streaming_dv, dk and dq) and `<name>_wgmma` for those
+    of streaming_stats and streaming_apply that ran their wgmma kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
     out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
                 if hasattr(fn, "mma_launches")})
+    out.update({f"{fn.__name__}_wgmma": fn.wgmma_launches for fn in counters
+                if hasattr(fn, "wgmma_launches")})
     return out
 
 
@@ -2248,8 +2293,9 @@ def train_config(out_dir, data_glob, cfg, img):
 
 def expected_grad_launches(cfg, calls, streaming):
     """Launches of `calls` forward+backward U-Net calls: the forward's
-    (`expected_launches`), and dV, dK and dQ once per streaming block per
-    call backward, every dV on stream_apply_mma, every dK and dQ on
+    (`expected_launches`, the streaming stats and apply on their wgmma
+    kernels), and dV, dK and dQ once per streaming block per call
+    backward, every dV on stream_apply_mma, every dK and dQ on
     stream_da_mma. AdaGN, the whole-S attention and the blocks recompute
     their backward through the plain version, and `linear`'s backward is
     plain matmuls: no launches."""
@@ -4048,8 +4094,8 @@ def summarize(results, launches):
     U-Net call; backward: one SR train step). `launches` sums the served,
     generated and trained paths; `launches_by_path` keeps them apart, and
     `mma_launches` counts those that ran the tensor-core kernels (wgmma for
-    the whole-S attention and `linear`, mma.sync for the streaming
-    kernels). No library
+    the whole-S attention, `linear` and the streaming stats and apply,
+    whose `wgmma_launches` say so; mma.sync for dV, dK and dQ). No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
     `k_axis_library_ms`: the whole-S attention per flagship call, the
@@ -4077,10 +4123,12 @@ def summarize(results, launches):
                    "(+ wgmma_tiles.cuh)",
                    "sdm_tpu/kernels/attention_block.py:66", 1),
         "streaming_stats": ("streaming_stats", "sr",
-                            "sdm_tpu_torch/csrc/attention_tiles.cuh",
+                            "sdm_tpu_torch/csrc/streaming_attention.cu "
+                            "(stream_stats_wgmma; + wgmma_tiles.cuh)",
                             "sdm_tpu/kernels/streaming_attention.py:223", 1),
         "streaming_apply": ("streaming_apply", "sr",
-                            "sdm_tpu_torch/csrc/attention_tiles.cuh",
+                            "sdm_tpu_torch/csrc/streaming_attention.cu "
+                            "(stream_apply_wgmma; + wgmma_tiles.cuh)",
                             "sdm_tpu/kernels/streaming_attention.py:234", 1),
         "streaming_dv": ("streaming_dv", "sr",
                          "sdm_tpu_torch/csrc/attention_tiles.cuh",
@@ -4164,9 +4212,10 @@ def summarize(results, launches):
             library_ms=(None if any(v is None for v in lib)
                         else sum(lib) * per_call),
             launches_by_path={path: n[name] for path, n in launches.items()},
-            **({"mma_launches": sum(path[name + "_mma"]
-                                    for path in launches.values())}
-               if name + "_mma" in next(iter(launches.values())) else {}),
+            **{f"{kind}_launches": sum(path[f"{name}_{kind}"]
+                                       for path in launches.values())
+               for kind in ("mma", "wgmma")
+               if f"{name}_{kind}" in next(iter(launches.values()))},
             **extra.get(name, {}),
             per=(f"one {model} "
                  + ("train step" if name.startswith("streaming_d")
@@ -4234,15 +4283,18 @@ def demangle(names):
 
 # The tensor-core kernels of each library, with the instantiations ptxas
 # must report: the whole-S library's TMA + wgmma stats (one) and apply (two
-# axes x one to four output chunks a warpgroup), the streaming library's mma.sync stats kernel (128- and 64-column
-# ring chunks), its mma.sync apply (bf16 and fp32 output x two axes for the
-# apply, fp32 x two axes for dV) and its backward's dA kernel (dK and dQ x
-# two stat layouts), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
+# axes x one to four output chunks a warpgroup), the streaming library's
+# mma.sync apply (dV: fp32 x two axes) and its backward's dA kernel (dK and
+# dQ x two stat layouts), its TMA + wgmma forward (the stats at 64 and 128 kept
+# rows a block; the apply at two axes x bf16 and fp32 output x one to four
+# output chunks a warpgroup in loads of four chunks, and three or four in
+# loads of eight), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
 # tiles).
 MMA_KERNELS = {"attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
-               "streaming_attention": {"attn_stats_mma": 2,
-                                       "stream_apply_mma": 6,
-                                       "stream_da_mma": 4},
+               "streaming_attention": {"stream_apply_mma": 2,
+                                       "stream_da_mma": 4,
+                                       "stream_stats_wgmma": 2,
+                                       "stream_apply_wgmma": 24},
                "linear": {"linear_wgmma": 2}}
 
 
@@ -4261,8 +4313,7 @@ def build_phase(torch):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    smem = {"attn_stats_mma": (sa.stats_smem_bytes_mma(1024), "D = 1024"),
-            "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
+    smem = {"stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
                                  f"D = {sa.MMA_MAX_D}"),
             "stream_da_mma": (sa.da_smem_bytes_mma(sa.DA_MAX_D),
                               f"D = {sa.DA_MAX_D}"),
@@ -4270,6 +4321,8 @@ def build_phase(torch):
                                  "D = 1024"),
             "attn_apply_wgmma": (attn_mod.wgmma_smem_bytes(1024)[1],
                                  "D = 1024"),
+            "stream_stats_wgmma": (sa.wgmma_smem_bytes(512)[0], "D = 512"),
+            "stream_apply_wgmma": (sa.wgmma_smem_bytes(512)[1], "D = 512"),
             "linear_wgmma": (max(map(ab.linear_wgmma_smem_bytes,
                                      ab.LINEAR_TILES)),
                              "the larger of its tiles "
@@ -4294,6 +4347,15 @@ def build_phase(torch):
                     raise AssertionError(f"{pretty} spills "
                                          f"{info.get('spill_bytes')} bytes")
             out.setdefault(kernel, []).extend(found.values())
+    # ptxas says where it serializes a kernel's wgmma (the C7510-C7520
+    # "wgmma ... serialized" info lines): none for the streaming forward.
+    serialized = [line.strip() for line in
+                  _build.build_log("streaming_attention").splitlines()
+                  if "serializ" in line and "wgmma" in line]
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
+    log("  streaming_attention: no serialized wgmma in stream_stats_wgmma "
+        "or stream_apply_wgmma")
     out["smem_bytes"] = {k: v[0] for k, v in smem.items()}
     return out
 

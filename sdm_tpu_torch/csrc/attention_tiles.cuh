@@ -1,9 +1,10 @@
 // Tile helpers and the kernels of the streaming attention
 // (streaming_attention.cu), some shared with the whole-S attention
 // (attention.cu): the softmax statistics (attn_stats, the CUDA-core kernel
-// of both; attn_stats_mma) and the tensor-core apply pass
-// (stream_apply_mma). The whole-S attention's tensor-core kernels are its
-// own (attention.cu, on wgmma_tiles.cuh).
+// of both) and the mma.sync apply kernel (stream_apply_mma), which the
+// streaming backward's dV pass runs. The tensor-core forward kernels are
+// on wgmma_tiles.cuh: the whole-S attention's in attention.cu, the
+// streaming attention's in streaming_attention.cu.
 //
 // The stats kernels compute, per kept row a, m_a = max_r s_ar and l_a =
 // sum_r exp(s_ar - m_a) over ALL S reduced rows, with s_ar = scale *
@@ -16,7 +17,7 @@
 // The kernels take a caller tag (whole_s or streaming, or a pass tag of the
 // streaming kernel) as a template argument, so a profiler trace names them
 // apart: attn_stats<float, whole_s> is the whole-S attention's fp32 stats
-// pass, attn_stats_mma<streaming> the streaming kernel's.
+// pass, stream_apply_mma<float, true, dv_pass> the query-axis dV pass.
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -152,265 +153,13 @@ static cudaError_t launch_stats(const T* qp, View qv, const T* kp, View kv,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core stats: attn_stats_mma<Caller>, bf16 in, fp32 (m, l) out.
-//
-// Replaces the TPU's stats pass of the streaming kernel
-// (sdm_tpu/kernels/streaming_attention.py:97 _stats_kernel, pallas_call at
-// :223). Bound: operations, 2*S*S*D per
-// batch*head (the scores), against 2*S*D*2 bytes in and 8*S out: at S =
-// 4096, D = 512 about 2,000 operations per byte, far above the H100's ~295.
-//
-// Block: 64 kept rows, 512 threads (16 warps), one block per SM, grid
-// (S/64, B*H). Shared memory: the kept tile [64][D+8] bf16, loaded once by
-// cp.async and resident; a ring of SSTAGES = 2 (reduced tile, D chunk)
-// stages [256][CHUNK+8] bf16, 256 reduced rows x CHUNK columns each, the
-// next one in flight (cp.async.cg, 16 bytes a copy) while the tensor cores
-// work on this one. CHUNK is 128 where the kept tile leaves room (D <= 640)
-// and 64 past it, so the ring's bytes do not grow with D: 205,824 bytes at
-// D = 512 and at D = 1024, and D <= 1152 fits. The kernel needs none of the
-// apply's V or P. Warps per SM set its pace more than bytes in flight: on an
-// H100 SXM (700 W, chip_smoke.py) 8 warps with a 4-stage ring of 128 x 64
-// stages took 2.05 ms at 16 x 4096 x 512, 16 warps with 2 stages of
-// 256 x 64 took 1.74; the wider chunk halves the barriers per tile.
-//
-// Warp w owns kept rows 32 (w / 8) .. +32 and reduced columns 32 (w % 8) ..
-// +32 of each 256-row tile: per 16-deep step two ldmatrix.x4 of kept rows
-// (A) and two of reduced rows (B, stored [row][d], B's column-major layout:
-// plain ldmatrix) feed eight m16n8k16 mma.sync, two mma per ldmatrix.x4. The
-// 32 x 32 fp32 scores stay in registers across the D chunks of a tile.
-//
-// (m, l) stay in registers on the accumulator fragments: lane L holds rows
-// L/4 and L/4 + 8 of each 16-row fragment, so four kept rows, each with 8 of
-// the tile's scores. At the tile's last chunk: scale, the lane's maximum,
-// __shfl_xor_sync over 1 and 2 within the quad (the row's 32 columns), then
-// the online merge l <- l exp(m - m') + sum exp(s - m'). The eight warps
-// that share kept rows merge once at the end through 4 KB of shared memory
-// (m = max m_w, l = sum l_w exp(m_w - m)). Where S % 256 != 0 the last tile
-// is short, and the warps whose columns lie past S skip it.
-//
-// What this design does about the WMMA kernel it replaced: that kernel
-// staged both the kept and the reduced tile with synchronous copies between
-// two barriers for every 64-deep chunk of every reduced tile (the kept rows
-// read from L2 again S/64 times, nothing in flight during the products);
-// here the kept rows load once and the reduced rows stream through the ring.
-// It stored every 64 x 64 score tile to an fp32 shared tile, then 64 of 256
-// threads walked 64 fmaxf and 64 expf each in series while six warps waited;
-// here every lane does its 8 exponentials per row on the fragments and no
-// score touches shared memory. Its warp tile was 16 x 32 (one WMMA A load
-// per two products); here 32 x 32, with twice the warps per SM.
-// ---------------------------------------------------------------------------
-
-#define SKEPT 64            // kept rows per block (resident)
-#define SCW 8               // warps across the reduced tile (32 rows each)
-#define SRED 256            // reduced rows per streamed tile (32 * SCW)
-#define SCHUNK 128          // D columns per ring stage (half past D = 640)
-#define SSTAGES 2           // ring depth
-#define STHREADS 512        // 2 x SCW warps
-
-static size_t stats_ring_bytes(int chunk) {
-  return (size_t)SSTAGES * SRED * (chunk + 8) * sizeof(bf16);
-}
-
-// The ring's chunk width at D: SCHUNK where the kept tile leaves room for
-// it, else SCHUNK / 2.
-static int stats_mma_chunk(int D) {
-  const size_t kept = (size_t)SKEPT * (D + 8) * sizeof(bf16);
-  return kept + stats_ring_bytes(SCHUNK) <= MAX_SMEM ? SCHUNK : SCHUNK / 2;
-}
-
-static size_t stats_mma_smem_bytes(int D) {
-  return (size_t)SKEPT * (D + 8) * sizeof(bf16)             // kept tile
-         + stats_ring_bytes(stats_mma_chunk(D));            // ring
-}
-
-// attn_stats_mma's admission: bf16, S % 64 == 0, D % 128 == 0, the shared
-// memory within MAX_SMEM (D <= 1152) and 16-byte aligned rows of q and k.
-static bool stats_mma_ok(int dt, const void* const* ptrs, const View* views,
-                         int S, int D) {
-  return dt == SDM_BF16 && S % SKEPT == 0 && D % 128 == 0 &&
-         stats_mma_smem_bytes(D) <= MAX_SMEM && rows_aligned16(ptrs, views, 2);
-}
-
-template <typename Caller, int CHUNK>
-__global__ void __launch_bounds__(STHREADS, 1)
-attn_stats_mma(const bf16* __restrict__ kept, View kv,
-               const bf16* __restrict__ red, View rv, int heads, int S, int D,
-               float scale, float* __restrict__ m_out,
-               float* __restrict__ l_out) {
-  constexpr int LDR = CHUNK + 8;   // bf16 pitch of a ring stage
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = D + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [SKEPT][ld]
-  bf16* Ring = Ks + SKEPT * ld;                  // [SSTAGES][SRED][LDR]
-
-  const int b = blockIdx.y;
-  const bf16* kp = slice_ptr(kept, kv, heads, b);
-  const bf16* rp = slice_ptr(red, rv, heads, b);
-  const int a0 = blockIdx.x * SKEPT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp / SCW, wc = warp % SCW;
-  const int g = lane >> 2, tg = lane & 3;
-  const int nchunks = D / CHUNK;
-  const int nsteps = ((S + SRED - 1) / SRED) * nchunks;
-
-  // The kept tile joins the first cp.async group, with ring step 0.
-  cp_async_rows(Ks, ld, kp + (long long)a0 * kv.ss, kv.ss, SKEPT, D / 8, tid,
-                STHREADS);
-  // Ring step i: reduced tile i / nchunks, D chunk i % nchunks.
-  auto load_step = [&](int i) {
-    const int t = i / nchunks, c = i - t * nchunks;
-    const int r0 = t * SRED;
-    cp_async_rows(Ring + (i % SSTAGES) * SRED * LDR, LDR,
-                  rp + (long long)r0 * rv.ss + c * CHUNK, rv.ss,
-                  min(SRED, S - r0), CHUNK / 8, tid, STHREADS);
-  };
-#pragma unroll
-  for (int i = 0; i < SSTAGES - 1; ++i) {
-    if (i < nsteps) load_step(i);
-    cp_async_commit();
-  }
-
-  // ldmatrix lane addresses. A (kept rows): lanes 0-15 rows 0-15 at column
-  // 0, lanes 16-31 rows 0-15 at column 8. B (reduced rows): lanes 0-7 rows
-  // 0-7 / d 0, 8-15 rows 0-7 / d 8, 16-23 rows 8-15 / d 0, 24-31 rows 8-15 /
-  // d 8, so registers 0-1 are row block 0's fragment and 2-3 row block 1's.
-  const unsigned ka = smem_u32(Ks + (wr * 32 + (lane & 15)) * ld +
-                               (lane >> 4) * 8);
-  const int rb_off = (wc * 32 + (lane & 7) + ((lane >> 4) << 3)) * LDR +
-                     ((lane >> 3) & 1) * 8;
-
-  // Rows wr*32 + 16 mi + g + 8 hh at index 2 mi + hh.
-  float m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-  float acc[2][4][4];
-
-  for (int i = 0; i < nsteps; ++i) {
-    const int t = i / nchunks, c = i - t * nchunks;
-    cp_async_wait<SSTAGES - 2>();
-    // Step i (and the kept tile) visible to every warp; every warp is done
-    // with step i - 1, so its stage may be overwritten.
-    __syncthreads();
-    if (i + SSTAGES - 1 < nsteps) load_step(i + SSTAGES - 1);
-    cp_async_commit();
-
-    if (c == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
-    }
-    if (t * SRED + wc * 32 >= S) continue;   // columns past S (warp-uniform)
-
-    const unsigned rb = smem_u32(Ring + (i % SSTAGES) * SRED * LDR + rb_off);
-    const unsigned kc = ka + c * CHUNK * 2;
-#pragma unroll
-    for (int kk = 0; kk < CHUNK; kk += 16) {
-      unsigned a[2][4], br[2][4];
-      ldsm_x4(a[0], kc + kk * 2);
-      ldsm_x4(a[1], kc + (16 * ld + kk) * 2);
-      ldsm_x4(br[0], rb + kk * 2);
-      ldsm_x4(br[1], rb + (16 * LDR + kk) * 2);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          mma_bf16(acc[mi][2 * nj], a[mi], br[nj][0], br[nj][1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], br[nj][2], br[nj][3]);
-        }
-    }
-
-    if (c == nchunks - 1) {   // the tile's scores are complete
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float tmax = -INFINITY;
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              acc[mi][n][2 * hh + e] *= scale;
-              tmax = fmaxf(tmax, acc[mi][n][2 * hh + e]);
-            }
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-          const int r = 2 * mi + hh;
-          const float mn = fmaxf(m[r], tmax);
-          float sum = 0.f;
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) sum += expf(acc[mi][n][2 * hh + e] - mn);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          l[r] = l[r] * expf(m[r] - mn) + sum;
-          m[r] = mn;
-        }
-    }
-  }
-
-  // Merge the column warps of each kept row through shared memory (the
-  // ring is free once every warp has passed this barrier).
-  cp_async_wait<0>();
-  __syncthreads();
-  float* Mw = reinterpret_cast<float*>(Ring);   // [SCW column warps][SKEPT]
-  float* Lw = Mw + SCW * SKEPT;
-  if (tg == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = wr * 32 + 16 * (r >> 1) + g + 8 * (r & 1);
-      Mw[wc * SKEPT + row] = m[r];
-      Lw[wc * SKEPT + row] = l[r];
-    }
-  }
-  __syncthreads();
-  if (tid < SKEPT) {
-    float mm = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < SCW; ++w) mm = fmaxf(mm, Mw[w * SKEPT + tid]);
-    float ll = 0.f;
-#pragma unroll
-    for (int w = 0; w < SCW; ++w)
-      ll += Lw[w * SKEPT + tid] * expf(Mw[w * SKEPT + tid] - mm);
-    m_out[(long long)b * S + a0 + tid] = mm;
-    l_out[(long long)b * S + a0 + tid] = ll;
-  }
-}
-
-template <typename Caller>
-static cudaError_t launch_stats_mma(const bf16* qp, View qv, const bf16* kp,
-                                    View kv, int bh, int heads, int S, int D,
-                                    float scale, int axis_q, float* m,
-                                    float* l, cudaStream_t stream) {
-  const size_t smem = stats_mma_smem_bytes(D);
-  auto kernel = stats_mma_chunk(D) == SCHUNK
-                    ? &attn_stats_mma<Caller, SCHUNK>
-                    : &attn_stats_mma<Caller, SCHUNK / 2>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid(S / SKEPT, bh);
-  if (axis_q)
-    kernel<<<grid, STHREADS, smem, stream>>>(kp, kv, qp, qv, heads, S, D,
-                                             scale, m, l);
-  else
-    kernel<<<grid, STHREADS, smem, stream>>>(qp, qv, kp, kv, heads, S, D,
-                                             scale, m, l);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // Tensor-core apply: stream_apply_mma<OutT, QAXIS, Pass>, out[i] = sum_j
-// round_bf16(exp(s_ij - m) / l) v_j with the final stats of the pass above.
+// round_bf16(exp(s_ij - m) / l) v_j with the final stats of the stats pass.
 //
-// Replaces the TPU's _apply_kernel (sdm_tpu/kernels/streaming_attention.py
-// :120, pallas_call at :234) and, launched with the roles swapped, its
-// _dv_kernel (:133, pallas_call at :298). Bound: operations,
+// Launched with the roles swapped, it replaces the TPU's _dv_kernel
+// (sdm_tpu/kernels/streaming_attention.py:133, pallas_call at :298); the
+// forward's apply pass runs on stream_apply_wgmma (streaming_attention.cu).
+// Bound: operations,
 // 4*S*S*D per batch*head (the score tile's q k^T and P V, each 2*S*S*D),
 // against bytes of 4*S*D*2 + 8*S: at S = 4096, D = 512 about 1000 operations
 // per byte, far above the H100's ~295 for bf16.

@@ -23,22 +23,26 @@
 //      accumulates P V_j for its output columns in fp32 registers. One
 //      rounding to the output type at the end.
 //
-// bf16 at S % 64 == 0, D % 128 == 0 with 16-byte aligned rows runs on the
-// tensor cores through mma.sync with ldmatrix fragments and cp.async rings
-// (attention_tiles.cuh, shared with the whole-S kernel): the stats pass on
-// attn_stats_mma (D <= 1152), the apply pass (and the dV pass, which is the
-// apply pass with the roles swapped) on stream_apply_mma (D <= 512; every
-// U-Net shape that streams), and the backward's dK and dQ passes on
-// stream_da_mma (S % DA_ROWS == 0, D <= 512; below). fp32, and bf16 at
-// other shapes, take CUDA-core kernels (fp32 FMA) that mask ragged tiles:
-// keys past S give P = 0, and the stats count them as -inf. The apply pass is bound by operations: 4*S*S*D
-// per (batch, head) (scores and P V), 2*S*S*D for the stats.
+// The forward in bf16 at S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte
+// aligned rows runs on TMA + wgmma: stream_stats_wgmma and
+// stream_apply_wgmma (below). The dV pass, which is the apply pass with the
+// roles swapped, runs on the tensor cores through mma.sync with ldmatrix
+// fragments and cp.async rings (stream_apply_mma, attention_tiles.cuh; bf16
+// at S % 64 == 0, D % 128 == 0, D <= 512 with aligned rows), and the
+// backward's dK and dQ passes on stream_da_mma (S % DA_ROWS == 0, D <= 512;
+// below). fp32, and bf16 at other shapes, take CUDA-core kernels (fp32 FMA)
+// that mask ragged tiles: keys past S give P = 0, and the stats count them
+// as -inf. The apply pass is bound by operations: 4*S*S*D per (batch, head)
+// (scores and P V), 2*S*S*D for the stats.
 //
 // q, k, v and out are (B, S, D) with arbitrary B and S strides and a unit D
 // stride, so the attention block can pass views of its qkv buffer; m and l
 // are (B, S) fp32. The apply pass writes out in the input dtype, or in fp32
 // (the key-axis backward keeps the fp32 output as a residual).
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 // Pass tags, so a profiler trace names the apply kernel's callers apart
 // (stream_apply_mma<float, false, dv_pass> is the dV pass) and dK from dQ.
@@ -154,6 +158,794 @@ static void read_views(const long long* strides, View* views, int n) {
     views[i] = View{strides[2 * i], 0, strides[2 * i + 1]};
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on Hopper's instruments: stream_stats_wgmma<KEPT>, then
+// stream_apply_wgmma<QAXIS, OutT, NB, AC>, on TMA + wgmma (wgmma_tiles.cuh).
+//
+// They replace the TPU's _stats_kernel (sdm_tpu/kernels/streaming_attention
+// .py:97, pallas_call at :223) and _apply_kernel (:120, pallas_call at
+// :234) for bf16 at S % 64 == 0, D % 64 == 0, 64 <= D <= 1024 with 16-byte
+// aligned rows and strides (sw_ok): the SR model's (4096, 512) block and
+// every shape the whole-S path also takes. They compute what the two
+// Pallas kernels compute, not their tiles. Both are bound by operations
+// (2 S^2 D per batch row for the stats, 4 S^2 D for the apply, against
+// 2 or 4 S D bf16 bytes in: at (4096, 512) about 2,000 operations a byte,
+// far above the H100's ~295 for bf16), but every block streams the whole
+// other operand through its SM's TMA unit, whose cost is mostly per load
+// (tools/torch_attention_tiles.py: 8 KB loads at 3.3 TB/s over the card,
+// 16 KB at 6.6, 32 KB at 7.6), and multicasting a load to a cluster of
+// blocks does not lower what each SM receives (clusters of 2 and 4 blocks
+// with TMA multicast of the streamed rows were slower at every shape the
+// sweep took). So the design moves fewer and larger loads per product:
+//   stats  128 kept rows a block where its ring keeps two stages (D <= 640;
+//          else 64): warpgroup w owns kept rows 64 w .. and multiplies
+//          them against all 128 reduced rows of each 32 KB load
+//          (m64n128k16), twice the products a streamed byte of the
+//          64-row block, in which both warpgroups share the kept rows and
+//          split each load's reduced rows (m64n64k16) and merge their
+//          (m, l) at the end. A producer warp keeps the ring full.
+//   apply  64 queries a block (wgmma's M; 128 would need 256 fp32
+//          accumulators a thread at D = 512), loads of eight chunks (a key
+//          tile's whole K or V at D = 512, 64 KB) at 256 < D <= 512, else
+//          four. Two warpgroups split the scores by keys and the output by
+//          64-column chunks around one P tile, and refill the ring
+//          themselves: no producer warp, so a thread may hold the output's
+//          128 fp32 registers.
+// Measured on the H100 at (4096, 512), batch 16, query axis
+// (tools/torch_streaming_tiles.py): the stats 0.56 ms at 128 kept rows,
+// 0.74 at 64; the apply 2.03 ms in loads of four chunks, 1.68 in eight;
+// the ring's depth moved neither.
+//
+// The pipelines are the whole-S kernels' (attention.cu: attn_stats_wgmma,
+// attn_apply_wgmma, whose comments give their reasons). What else differs:
+//   m         the natural scale, as the reference's and as the backward
+//             reads it (expf(s scale - m) / l): the stats keep max(s
+//             scale), s scale rounded before the subtraction, and sum
+//             2^((s scale - m) log2(e)); the apply forms P the same way;
+//   output    bf16 (the main path) or fp32 (the key-axis training
+//             residual), stored from the accumulator fragments.
+// ---------------------------------------------------------------------------
+
+#define SW_ROWS 64          // kept rows (stats) and queries (apply) a block
+#define SW_BOX 64           // columns of D a chunk: one 128-byte row
+#define SW_CHUNKS 2         // chunks a stats TMA load
+#define SW_APPLY_CHUNKS 8   // chunks an apply TMA load at 256 < D <= 512
+#define SW_APPLY_CHUNKS_S 4  // ... at other D
+#define SW_MAX_D 1024       // widest D of the path
+#define SW_COLS 512         // widest output-column slice of an apply block
+#define SW_RED 128          // reduced rows a stats load: 64 a warpgroup
+#define SW_STATS_STAGES 8   // most stats ring stages (128 rows x 2 chunks)
+#define SW_APPLY_STAGES 16  // most apply ring stages
+#define SW_STATS_THREADS 288  // two consumer warpgroups and a producer warp
+#define SW_APPLY_THREADS 256  // two warpgroups that refill their ring
+#define SW_STATS_KEPT 128   // kept rows a stats block, where they fit
+
+static constexpr int kSwChunk = SW_ROWS * SW_BOX * 2;   // a 64 x 64 tile
+static constexpr int kSwLoad = SW_CHUNKS * kSwChunk;
+// Alignment slack (1024) and room for the barriers and counters (512).
+static constexpr int kSwFixed = 1024 + 512;
+static constexpr float kSwLog2e = 1.4426950408889634f;
+
+// Chunks of D rounded up to whole loads of `per` chunks: the resident
+// tile's size.
+__host__ __device__ static inline int sw_chunks(int D, int per = SW_CHUNKS) {
+  return (D / SW_BOX + per - 1) / per * per;
+}
+
+// The stats' shared memory besides the ring: the kept tile (`kept` = 64
+// or 128 rows), and with 64 kept rows the two warpgroups' 64 (m, l) pairs.
+static long long sw_stats_fixed(int D, int kept) {
+  return kSwFixed + (kept == SW_ROWS ? 2 * 2 * SW_ROWS * 4 : 0) +
+         (long long)sw_chunks(D) * kSwChunk * (kept / SW_ROWS);
+}
+
+// Ring stages where the shared memory leaves room: the stats' beside their
+// kept tile (and (m, l) pairs), the apply's beside Q and two P tiles.
+static int sw_stats_stages(int D, int kept) {
+  const long long n = (MAX_SMEM - sw_stats_fixed(D, kept)) / (2 * kSwLoad);
+  return (int)(n < SW_STATS_STAGES ? n : SW_STATS_STAGES);
+}
+
+// The apply's chunks a TMA load at D: SW_APPLY_CHUNKS (one load a key
+// tile's K at 256 < D <= 512), else SW_APPLY_CHUNKS_S. The TMA unit costs
+// about as much per load as per byte below 64 KB
+// (tools/torch_streaming_tiles.py: at (4096, 512) the apply took 2.03 ms
+// in loads of four chunks, 1.68 in eight).
+static int sw_apply_chunks(int D) {
+  return D > 4 * SW_BOX && D <= SW_COLS ? SW_APPLY_CHUNKS : SW_APPLY_CHUNKS_S;
+}
+
+static int sw_apply_stages(int D, int ac) {
+  const long long room = MAX_SMEM - kSwFixed -
+                         (long long)(sw_chunks(D, ac) + 2) * kSwChunk;
+  const long long n = room / (ac * kSwChunk);
+  return (int)(n < SW_APPLY_STAGES ? n : SW_APPLY_STAGES);
+}
+
+// The least apply ring: two stages (a K load retires while the next is
+// read) and the V loads of a 512-column slice.
+static int sw_apply_min_stages(int ac) {
+  const int v = SW_COLS / SW_BOX / ac;
+  return v > 2 ? v : 2;
+}
+
+static size_t sw_stats_smem_bytes(int D, int stages, int kept) {
+  return (size_t)sw_stats_fixed(D, kept) + (size_t)stages * 2 * kSwLoad;
+}
+
+// The stats block's kept rows: SW_STATS_KEPT where its ring keeps two
+// stages at D, else 64.
+static int sw_stats_kept(int D) {
+  return sw_stats_stages(D, SW_STATS_KEPT) >= 2 ? SW_STATS_KEPT : SW_ROWS;
+}
+
+static size_t sw_apply_smem_bytes(int D, int stages, int ac) {
+  return kSwFixed + (size_t)(sw_chunks(D, ac) + 2) * kSwChunk +
+         (size_t)stages * ac * kSwChunk;
+}
+
+// The admission of both kernels: bf16, S % 64 == 0, D % 64 == 0 with
+// 64 <= D <= 1024, the stats' ring at least two stages and the apply's at
+// least the four V loads of a 512-column slice, both within MAX_SMEM, and
+// what TMA (and the epilogue's 16-byte stores) need of the n tensors:
+// 16-byte aligned bases, B and S strides that are multiples of 8 elements.
+static bool sw_ok(int dt, const void* const* ptrs, const View* views, int n,
+                  int S, int D) {
+  return dt == SDM_BF16 && S > 0 && S % SW_ROWS == 0 && D >= SW_BOX &&
+         D % SW_BOX == 0 && D <= SW_MAX_D &&
+         sw_stats_stages(D, SW_ROWS) >= 2 &&
+         sw_apply_stages(D, sw_apply_chunks(D)) >=
+             sw_apply_min_stages(sw_apply_chunks(D)) &&
+         rows_aligned16(ptrs, views, n);
+}
+
+// The apply's column slices: `split` slices of `cols` columns (whole
+// chunks, at most SW_COLS; at D <= 512 one slice).
+static void sw_split(int D, int* split, int* cols) {
+  const int boxes = D / SW_BOX;
+  *split = (D + SW_COLS - 1) / SW_COLS;
+  *cols = (boxes + *split - 1) / *split * SW_BOX;
+}
+
+// Phase clocks for tools/torch_streaming_tiles.py, which builds this file
+// a second time with -DSW_PHASE_CLOCKS: every thread reads clock64() at
+// the kernels' phase boundaries (no branch, so the wgmma pipeline is
+// compiled as without) and thread 0 of each block adds its cycles per
+// phase to sw_phase_clocks[kernel][phase] at the end. Nothing otherwise.
+#ifdef SW_PHASE_CLOCKS
+__device__ unsigned long long sw_phase_clocks[2][8];
+#define SW_CLOCKS_START    \
+  long long sw_ph[8] = {}; \
+  long long sw_t0 = clock64();
+#define SW_CLOCK(i)                 \
+  {                                 \
+    const long long t_ = clock64(); \
+    sw_ph[i] += t_ - sw_t0;         \
+    sw_t0 = t_;                     \
+  }
+#define SW_CLOCKS_END(k)                                      \
+  if (threadIdx.x == 0)                                       \
+    for (int i_ = 0; i_ < 8; ++i_)                            \
+      atomicAdd(&sw_phase_clocks[k][i_], (unsigned long long)sw_ph[i_]);
+#else
+#define SW_CLOCKS_START
+#define SW_CLOCK(i)
+#define SW_CLOCKS_END(k)
+#endif
+
+__device__ __forceinline__ unsigned char* sw_align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Wait until at most n (0..3) of this warpgroup's groups are in flight.
+__device__ __forceinline__ void sw_wait_upto(int n) {
+  if (n >= 3)
+    wgmma_wait<3>();
+  else if (n == 2)
+    wgmma_wait<2>();
+  else if (n == 1)
+    wgmma_wait<1>();
+  else
+    wgmma_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// stream_stats_wgmma<KEPT>: per kept row a, m_a = max_r s_ar scale and
+// l_a = sum_r exp(s_ar scale - m_a) over all S reduced rows (keys kept on
+// the query axis, queries kept on the key axis; the launch swaps the
+// maps), grid (S/KEPT, B).
+//
+// The kept rows are wgmma's M (A, resident, K-major, each block loads its
+// own), the reduced rows B, streamed as loads of 128 rows x 2 chunks (32
+// KB a stage). KEPT = 128: warpgroup w owns kept rows 64 w .. and takes
+// all 128 reduced rows of every load, four m64n128k16 a chunk into its
+// 64 x 128 fp32 scores; KEPT = 64 (attn_stats_wgmma's block): both own the
+// 64 kept rows, warpgroup w takes reduced rows 64 w .. of every load, four
+// m64n64k16 a chunk. One commit a load; a load is released once the next
+// one's group is in flight. After a tile's last load each warpgroup merges
+// its scores into its rows' (m, l) on the fragments (lane 4 g + t: rows g
+// and g + 8 of its warp's 16; a max and a sum over the quad). Where S % 128
+// == 64 the last load's second half lies past S (zero-filled): it is
+// multiplied all the same, and a select drops those scores (KEPT = 128:
+// the columns at or past S; 64: warpgroup 1's whole half), as it drops
+// the kept rows past S of the last 128-row block. KEPT = 64 merges the two
+// warpgroups' (m, l) through shared memory at the end. The producer
+// lane waits for its stage's "empty" barrier (the 8 consumer warps), arms
+// its "full" barrier with the stage's bytes and issues the load.
+// ---------------------------------------------------------------------------
+
+template <int KEPT>
+__global__ void __launch_bounds__(SW_STATS_THREADS, 1)
+stream_stats_wgmma(const __grid_constant__ CUtensorMap tm_kept,
+                   const __grid_constant__ CUtensorMap tm_red, int S, int D,
+                   int stages, float scale, float* __restrict__ m_out,
+                   float* __restrict__ l_out) {
+  // WIDE: each warpgroup its own 64 of the block's 128 kept rows against
+  // all 128 reduced rows of a load (m64n128k16); else both warpgroups the
+  // block's 64 kept rows, each against 64 of the reduced rows (m64n64k16).
+  constexpr bool WIDE = KEPT == 2 * SW_ROWS;
+  constexpr int N = WIDE ? SW_RED : SW_ROWS;     // reduced rows a warpgroup
+  constexpr int kKeptChunk = KEPT * SW_BOX * 2;  // a kept chunk tile
+  extern __shared__ unsigned char smem_raw[];
+  const int nl = sw_chunks(D) / SW_CHUNKS;       // loads of D
+  unsigned char* kept = sw_align1024(smem_raw);
+  unsigned char* ring = kept + nl * SW_CHUNKS * kKeptChunk;
+  float* merged = reinterpret_cast<float*>(ring + stages * 2 * kSwLoad);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(merged + (WIDE ? 0 : 2 * 2 * SW_ROWS));
+  uint64_t* empty = full + stages;
+  uint64_t* kept_bar = empty + stages;
+
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * KEPT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (S + SW_RED - 1) / SW_RED;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(kept_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // The producer: the kept tile, then load c of reduced tile t at ring
+    // step it = t nl + c, once the 8 consumer warps have released step
+    // it - stages ("empty").
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kept_bar, nl * SW_CHUNKS * kKeptChunk);
+      for (int c = 0; c < nl; ++c)
+        tma_load_chunks(kept + c * SW_CHUNKS * kKeptChunk, &tm_kept, kept_bar,
+                        a0, c * SW_CHUNKS, 0, b);
+      int it = 0;
+      for (int t = 0; t < tiles; ++t)
+        for (int c = 0; c < nl; ++c, ++it) {
+          const int st = it % stages;
+          if (it >= stages) mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], 2 * kSwLoad);
+          tma_load_chunks(ring + st * 2 * kSwLoad, &tm_red, &full[st],
+                          t * SW_RED, c * SW_CHUNKS, 0, b);
+        }
+    }
+    return;
+  }
+
+  // A consumer warp's release of stage st: one arrival on the "empty"
+  // barrier.
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, tg = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  float acc[N / 2];
+  mbar_wait(kept_bar, 0);
+  SW_CLOCKS_START
+  int it = 0;
+  for (int t = 0; t < tiles; ++t) {
+    // Every warpgroup multiplies every load, past S too (zero rows there),
+    // and drops those scores by a select: no wgmma, fence or wait may sit
+    // in a branch on the warpgroup, or ptxas serializes them all. WIDE:
+    // the reduced rows at or past `lim` of this tile; else warpgroup 1's
+    // whole half where it lies past S.
+    const bool live = WIDE || t * SW_RED + wg * SW_ROWS < S;
+    const int lim = S - t * SW_RED;
+    for (int c = 0; c < nl; ++c, ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      SW_CLOCK(0)
+      wgmma_fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < SW_CHUNKS; ++h) {
+        const uint64_t da =
+            wgmma_desc(kept + (c * SW_CHUNKS + h) * kKeptChunk +
+                       (WIDE ? wg * kSwChunk : 0));
+        const uint64_t db =
+            wgmma_desc(ring + st * 2 * kSwLoad + h * 2 * kSwChunk +
+                       (WIDE ? 0 : wg * kSwChunk));
+#pragma unroll
+        for (int kk = 0; kk < SW_BOX / 16; ++kk) {
+          if constexpr (WIDE)
+            wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, c + h + kk > 0);
+          else
+            wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, c + h + kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_fence_operands(acc);
+      // Load c - 1's group has retired: its stage is free.
+      wgmma_wait<1>();
+      wgmma_fence_operands(acc);
+      if (c > 0) release((it - 1) % stages);
+      SW_CLOCK(1)
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    release((it - 1) % stages);
+    SW_CLOCK(2)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float sc[N / 4];
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = __fmul_rn(acc[4 * j + 2 * hh + e], scale);
+          sc[2 * j + e] = !WIDE || 8 * j + 2 * tg + e < lim ? x : -INFINITY;
+          tmax = fmaxf(tmax, sc[2 * j + e]);
+        }
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float mn = live ? fmaxf(m[hh], tmax) : m[hh];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) sum += exp2f((sc[i] - mn) * kSwLog2e);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[hh] = live ? l[hh] * exp2f((m[hh] - mn) * kSwLog2e) + sum : l[hh];
+      m[hh] = mn;
+    }
+    SW_CLOCK(3)
+  }
+  SW_CLOCKS_END(0)
+
+  if constexpr (WIDE) {
+    // Each warpgroup's rows are its own: lane 4 g of each quad stores them
+    // (rows past S, zero-filled kept rows of the last block, are not).
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = a0 + SW_ROWS * wg + 16 * w + g + 8 * hh;
+        if (row < S) {
+          m_out[(long long)b * S + row] = m[hh];
+          l_out[(long long)b * S + row] = l[hh];
+        }
+      }
+    }
+  } else {
+    // Merge the two warpgroups' (m, l) of each kept row.
+    float* mine = merged + wg * 2 * SW_ROWS;   // [m, l][SW_ROWS]
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mine[16 * w + g + 8 * hh] = m[hh];
+        mine[SW_ROWS + 16 * w + g + 8 * hh] = l[hh];
+      }
+    }
+    named_barrier_sync(1, 256);
+    if (threadIdx.x < SW_ROWS) {
+      const int r = threadIdx.x;
+      const float m0 = merged[r], l0 = merged[SW_ROWS + r];
+      const float m1 = merged[2 * SW_ROWS + r], l1 = merged[3 * SW_ROWS + r];
+      const float mm = fmaxf(m0, m1);
+      m_out[(long long)b * S + a0 + r] = mm;
+      l_out[(long long)b * S + a0 + r] = l0 * exp2f((m0 - mm) * kSwLog2e) +
+                                         l1 * exp2f((m1 - mm) * kSwLog2e);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// stream_apply_wgmma<QAXIS, OutT, NB, AC>: out[i] = sum_j round_bf16(
+// exp(s_ij scale - m) / l) v_j with the final (natural-scale) stats, grid
+// (S/64, B, split).
+//
+// attn_apply_wgmma's block, in loads of AC chunks: 64 queries (wgmma's M,
+// Q resident) and `cols` output columns at c0 = z cols; a key tile is
+// D/(64 AC) K loads, then the block's nvl V loads (64 rows x AC chunks, a
+// stage); warpgroup w scores keys 32 w .. of each tile (four m64n32k16 a
+// chunk), forms P on the fragments, 2^((s scale - m) log2(e)) times 1/l,
+// with (m, 1/l) per query row (key axis, loaded once) or per key (query
+// axis, loaded a tile ahead), rounds it to bf16 (normalised, then rounded)
+// into one of two swizzled
+// 64 x 64 P tiles, and after a proxy fence and a named barrier of the 256
+// threads multiplies the whole P tile by its NB V chunks (slot b: chunk
+// min(2 b + w, nv - 1), read MN-major through the transpose-B bit) into
+// NB 64 x 64 fp32 accumulators. Every wgmma, fence and wait runs in both
+// warpgroups (NB is a template argument; short slots repeat chunk nv - 1
+// and store nothing). Two warpgroups alone, no producer warp (up to 255
+// registers: four accumulators are 128 a thread): thread 0 arms the "full"
+// barriers and issues Q and the first `stages` steps; after that lane 0 of
+// each warp counts its release of step x on the counter of stage st = x %
+// stages, and the release that completes the count arms that stage's
+// barrier and issues step x + stages. The counters never reset: the u-th
+// use of a stage is complete at 8 (u + 1) - 1.
+// The epilogue stores bf16 pairs transposed across the quad (16 bytes a
+// lane) or fp32 pairs.
+// ---------------------------------------------------------------------------
+
+template <bool QAXIS, typename OutT, int NB, int AC>
+__global__ void __launch_bounds__(SW_APPLY_THREADS, 1)
+stream_apply_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   OutT* __restrict__ o, View ov, int S, int D, int cols,
+                   int stages, float scale,
+                   const float* __restrict__ m_in,
+                   const float* __restrict__ l_in) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int kSwApplyLoad = AC * kSwChunk;    // AC chunks a load
+  const int nl = sw_chunks(D, AC) / AC;          // K loads a tile
+  unsigned char* qs = sw_align1024(smem_raw);    // [AC nl][64 x 64] Q
+  unsigned char* ps = qs + nl * kSwApplyLoad;    // [2][64 x 64] P
+  unsigned char* ring = ps + 2 * kSwChunk;       // [stages][AC][64 x 64]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + stages * kSwApplyLoad);
+  uint64_t* q_bar = full + stages;
+  // The warps' releases of each stage.
+  unsigned* released = reinterpret_cast<unsigned*>(q_bar + 1);   // [stages]
+
+  const int b = blockIdx.y;
+  const int i0 = blockIdx.x * SW_ROWS;
+  const int c0 = blockIdx.z * cols;
+  const int nv = min(cols, D - c0) / SW_BOX;   // the block's V chunks
+  const int nvl = (nv + AC - 1) / AC;
+  const int steps = nl + nvl;                  // ring steps a key tile
+  const int tiles = S / SW_ROWS, total = tiles * steps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // Ring step x: K load i = x % steps of key tile x / steps, or (i >= nl)
+  // the block's V load i - nl of it, into stage x % stages.
+  auto load = [&](int x) {
+    const int t = x / steps, i = x - t * steps, st = x % stages;
+    if (i < nl)
+      tma_load_chunks(ring + st * kSwApplyLoad, &tm_k, &full[st],
+                      t * SW_ROWS, i * AC, 0, b);
+    else
+      tma_load_chunks(ring + st * kSwApplyLoad, &tm_v, &full[st],
+                      t * SW_ROWS, c0 / SW_BOX + (i - nl) * AC, 0, b);
+  };
+  // No thread waits to refill the ring: the warp that releases step x last
+  // arms the stage's barrier and loads step x + stages.
+  auto release = [&](int x) {
+    if (lane != 0) return;
+    const int st = x % stages;
+    const unsigned use = (unsigned)(x / stages + 1);
+    if (atomicAdd(&released[st], 1u) != 8u * use - 1) return;
+    if (x + stages >= total) return;
+    mbar_arrive_expect_tx(&full[st], kSwApplyLoad);
+    load(x + stages);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(q_bar, nl * kSwApplyLoad);
+    for (int c = 0; c < nl; ++c)
+      tma_load_chunks(qs + c * kSwApplyLoad, &tm_q, q_bar, i0, c * AC, 0, b);
+    for (int x = 0; x < stages && x < total; ++x) {
+      mbar_arrive_expect_tx(&full[x], kSwApplyLoad);
+      load(x);
+    }
+  }
+
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, tg = lane & 3;
+  const float* mb = m_in + (long long)b * S;
+  const float* lb = l_in + (long long)b * S;
+  // Key axis: m and 1/l of this lane's rows 16 w + g and + 8, loaded once.
+  float mrow[2] = {0.f, 0.f}, rlrow[2] = {1.f, 1.f};
+  if (!QAXIS) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mrow[hh] = mb[i0 + 16 * w + g + 8 * hh];
+      rlrow[hh] = __frcp_rn(lb[i0 + 16 * w + g + 8 * hh]);
+    }
+  }
+  float acc[NB][32];
+#pragma unroll
+  for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[bi][i] = 0.f;
+  float s[16];
+
+  mbar_wait(q_bar, 0);
+  SW_CLOCKS_START
+  // Query axis: m and l of this lane's keys j0 + 32 wg + 8 j + 2 tg (+1)
+  // of key tile j0, loaded a tile ahead so that their latency hides behind
+  // a tile's products (the last tile loads its own again).
+  float2 mk[4], lk[4];
+  auto load_key_stats = [&](int j0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = j0 + 32 * wg + 8 * j + 2 * tg;
+      mk[j] = *reinterpret_cast<const float2*>(mb + key);
+      lk[j] = *reinterpret_cast<const float2*>(lb + key);
+    }
+  };
+  if (QAXIS) load_key_stats(0);
+  int it = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int j0 = t * SW_ROWS;
+    for (int c = 0; c < nl; ++c, ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      SW_CLOCK(0)
+      wgmma_fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < AC; ++h) {
+        const uint64_t da = wgmma_desc(qs + (c * AC + h) * kSwChunk);
+        const uint64_t db = wgmma_desc(ring + st * kSwApplyLoad + h * kSwChunk +
+                                       wg * (kSwChunk / 2));
+#pragma unroll
+        for (int kk = 0; kk < SW_BOX / 16; ++kk)
+          wgmma_m64n32k16(s, da + 2 * kk, db + 2 * kk, c + h + kk > 0);
+      }
+      wgmma_commit();
+      wgmma_fence_operands(s);
+      wgmma_wait<1>();
+      wgmma_fence_operands(s);
+      if (c > 0) release(it - 1);
+      SW_CLOCK(1)
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(s);
+    release(it - 1);
+    SW_CLOCK(2)
+
+    // P into P tile t % 2: row r at byte 128 r, its 16-byte chunk c at
+    // c ^ (r % 8); this lane's pair of keys 32 wg + 8 j + 2 tg sits in
+    // chunk 4 wg + j at byte 4 tg, and r % 8 == g.
+    unsigned char* pt = ps + (t & 1) * kSwChunk;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float rq0 = QAXIS ? __frcp_rn(lk[j].x) : 0.f;
+      const float rq1 = QAXIS ? __frcp_rn(lk[j].y) : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // The scores scaled and rounded before the subtraction, as the
+        // stats pass and the reference round them (no fused multiply-add).
+        const float p0 = exp2f((__fmul_rn(s[4 * j + 2 * hh], scale) -
+                                (QAXIS ? mk[j].x : mrow[hh])) *
+                               kSwLog2e) *
+                         (QAXIS ? rq0 : rlrow[hh]);
+        const float p1 = exp2f((__fmul_rn(s[4 * j + 2 * hh + 1], scale) -
+                                (QAXIS ? mk[j].y : mrow[hh])) *
+                               kSwLog2e) *
+                         (QAXIS ? rq1 : rlrow[hh]);
+        const int row = 16 * w + g + 8 * hh;
+        *reinterpret_cast<unsigned*>(pt + row * 128 +
+                                     (((4 * wg + j) ^ g) << 4) + 4 * tg) =
+            pack_bf16x2(p0, p1);
+      }
+    }
+    if (QAXIS) load_key_stats(min(j0 + SW_ROWS, S - SW_ROWS));
+    fence_proxy_async();
+    SW_CLOCK(3)
+    named_barrier_sync(1, 256);
+    SW_CLOCK(4)
+
+    const uint64_t dp = wgmma_desc(pt);
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      const int vc = min(2 * bi + wg, nv - 1), vl = vc / AC;
+      const int st = (it + vl) % stages;
+      // A fence after each wait: a wgmma issued after the wait's loop
+      // without one is serialized (ptxas puts its own fence in that path).
+      mbar_wait(&full[st], ((it + vl) / stages) & 1);
+      SW_CLOCK(5)
+      const uint64_t dv = wgmma_desc_mn(ring + st * kSwApplyLoad +
+                                        (vc % AC) * kSwChunk);
+      wgmma_fence_operands(acc[bi]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SW_ROWS / 16; ++kk)
+        wgmma_m64n64k16_mn(acc[bi], dp + 2 * kk, dv + 128 * kk);
+      wgmma_commit();
+      SW_CLOCK(6)
+    }
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) wgmma_fence_operands(acc[bi]);
+    // Retire the slots' groups in turn, releasing each V load after the
+    // last slot that reads it (every load holds chunks of both parities,
+    // so each warpgroup's slots read every load of the block).
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      sw_wait_upto(NB - 1 - bi);
+      const int vl = min(2 * bi + wg, nv - 1) / AC;
+      if (bi == NB - 1 || min(2 * bi + 2 + wg, nv - 1) / AC != vl)
+        release(it + vl);
+    }
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) wgmma_fence_operands(acc[bi]);
+    it += nvl;
+    SW_CLOCK(7)
+  }
+  SW_CLOCKS_END(1)
+
+  // The epilogue; a slot that repeats chunk nv - 1 stores nothing. bf16:
+  // per four 8-column blocks, pairs rounded to bf16x2, a quad transpose,
+  // and 16 bytes a lane (a warp writes 64 contiguous bytes a row). fp32:
+  // each lane's pairs as they lie in the fragment (32 bytes a quad).
+  OutT* op = o + (long long)b * ov.sn;
+  const int row0 = i0 + 16 * w + g;
+#pragma unroll
+  for (int bi = 0; bi < NB; ++bi) {
+    const bool store = 2 * bi + wg < nv;
+    const int cbox = c0 + min(2 * bi + wg, nv - 1) * SW_BOX;
+    if constexpr (std::is_same<OutT, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          if (store)
+            *reinterpret_cast<float2*>(op +
+                                       (long long)(row0 + 8 * hh) * ov.ss +
+                                       cbox + 8 * j + 2 * tg) =
+                make_float2(acc[bi][4 * j + 2 * hh],
+                            acc[bi][4 * j + 2 * hh + 1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        unsigned pk[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            pk[hh][jj] = pack_bf16x2(acc[bi][4 * j + 2 * hh],
+                                     acc[bi][4 * j + 2 * hh + 1]);
+        }
+        const int col8 = cbox + 32 * q + 8 * tg;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          quad_transpose4(pk[hh], tg);
+          if (store)
+            *reinterpret_cast<uint4*>(op +
+                                      (long long)(row0 + 8 * hh) * ov.ss +
+                                      col8) =
+                make_uint4(pk[hh][0], pk[hh][1], pk[hh][2], pk[hh][3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename OutT>
+using sw_apply_fn = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, OutT*,
+                             View, int, int, int, int, float, const float*,
+                             const float*);
+
+// The instantiation for `cols` output columns a block (NB = ceil(cols /
+// 128) slots a warpgroup) in loads of `ac` chunks: SW_APPLY_CHUNKS_S at
+// every NB, SW_APPLY_CHUNKS at the NB = 3, 4 of 256 < D <= 512 (null
+// elsewhere).
+template <typename OutT>
+static sw_apply_fn<OutT> sw_apply_kernel(int axis_q, int cols, int ac) {
+  constexpr int S_ = SW_APPLY_CHUNKS_S, W_ = SW_APPLY_CHUNKS;
+  static const sw_apply_fn<OutT> narrow[2][4] = {
+      {&stream_apply_wgmma<false, OutT, 1, S_>,
+       &stream_apply_wgmma<false, OutT, 2, S_>,
+       &stream_apply_wgmma<false, OutT, 3, S_>,
+       &stream_apply_wgmma<false, OutT, 4, S_>},
+      {&stream_apply_wgmma<true, OutT, 1, S_>,
+       &stream_apply_wgmma<true, OutT, 2, S_>,
+       &stream_apply_wgmma<true, OutT, 3, S_>,
+       &stream_apply_wgmma<true, OutT, 4, S_>}};
+  static const sw_apply_fn<OutT> wide[2][2] = {
+      {&stream_apply_wgmma<false, OutT, 3, W_>,
+       &stream_apply_wgmma<false, OutT, 4, W_>},
+      {&stream_apply_wgmma<true, OutT, 3, W_>,
+       &stream_apply_wgmma<true, OutT, 4, W_>}};
+  const int nb = (cols + 2 * SW_BOX - 1) / (2 * SW_BOX);
+  if (ac == S_) return narrow[axis_q != 0][nb - 1];
+  return ac == W_ && nb >= 3 ? wide[axis_q != 0][nb - 3] : nullptr;
+}
+
+// The TMA map of a (B, S, D) view in loads of `rows` rows x `chunks`
+// chunks: a rank-5 map with one head. `batch`, `S` and `D` are the
+// extent TMA reads; boxes past it are zero-filled.
+static int sw_map(CUtensorMap* map, const void* p, View v, int batch, int S,
+                  int D, int rows, int chunks = SW_CHUNKS) {
+  return sdm_tma_map_chunks(map, p, batch, S, 1, D, v.sn, v.ss, v.ss, rows,
+                            chunks);
+}
+
+// stream_stats_wgmma<kept> (64 or 128 kept rows) with a ring of `stages`
+// on the maps of the kept rows (rows of `kept`) and the reduced rows (rows
+// of SW_RED), grid (S/kept, batch).
+static int run_stats_wgmma(const CUtensorMap& tkept, const CUtensorMap& tred,
+                           int kept, int batch, int S, int D, int stages,
+                           float scale, float* m, float* l,
+                           cudaStream_t stream) {
+  auto kernel = kept == SW_ROWS ? &stream_stats_wgmma<SW_ROWS>
+                                : &stream_stats_wgmma<2 * SW_ROWS>;
+  const size_t smem = sw_stats_smem_bytes(D, stages, kept);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<dim3((S + kept - 1) / kept, batch), SW_STATS_THREADS, smem,
+           stream>>>(tkept, tred, S, D, stages, scale, m, l);
+  return (int)cudaGetLastError();
+}
+
+// stream_apply_wgmma in loads of `ac` chunks (sw_apply_kernel has an
+// instantiation for it at D) with a ring of `stages`, on the maps of q, k
+// and v (rows of 64, `ac` chunks), grid (S/64, batch, split).
+template <typename OutT>
+static int run_apply_wgmma(const CUtensorMap* maps, int axis_q, OutT* o,
+                           View ov, int batch, int S, int D, int stages,
+                           int ac, float scale, const float* m,
+                           const float* l, cudaStream_t stream) {
+  int split, cols;
+  sw_split(D, &split, &cols);
+  const auto kernel = sw_apply_kernel<OutT>(axis_q, cols, ac);
+  const size_t smem = sw_apply_smem_bytes(D, stages, ac);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<dim3(S / SW_ROWS, batch, split), SW_APPLY_THREADS, smem,
+           stream>>>(maps[0], maps[1], maps[2], o, ov, S, D, cols, stages,
+                     scale, m, l);
+  return (int)cudaGetLastError();
+}
+
+// The stats pass on stream_stats_wgmma: keys kept on the query axis,
+// queries on the key axis; sw_stats_kept's rows a block and the most
+// stages that fit.
+static int launch_stats_wgmma(const bf16* qp, View qv, const bf16* kp,
+                              View kv, int batch, int S, int D, float scale,
+                              int axis_q, float* m, float* l,
+                              cudaStream_t stream) {
+  const int kept = sw_stats_kept(D);
+  CUtensorMap tkept, tred;
+  int rc = sw_map(&tkept, axis_q ? kp : qp, axis_q ? kv : qv, batch, S, D,
+                  kept);
+  if (rc == 0)
+    rc = sw_map(&tred, axis_q ? qp : kp, axis_q ? qv : kv, batch, S, D,
+                SW_RED);
+  if (rc != 0) return rc;
+  return run_stats_wgmma(tkept, tred, kept, batch, S, D,
+                         sw_stats_stages(D, kept), scale, m, l, stream);
+}
+
+// The apply pass on stream_apply_wgmma, out in OutT (bf16 or fp32), in
+// sw_apply_chunks's loads with the most stages that fit.
+template <typename OutT>
+static int launch_apply_wgmma(const bf16* qp, const bf16* kp, const bf16* vp,
+                              OutT* o, const View* views, int batch, int S,
+                              int D, float scale, int axis_q, const float* m,
+                              const float* l, cudaStream_t stream) {
+  const int ac = sw_apply_chunks(D);
+  CUtensorMap maps[3];
+  const bf16* ptrs[3] = {qp, kp, vp};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = sw_map(&maps[i], ptrs[i], views[i], batch, S, D, SW_ROWS,
+                          ac);
+    if (rc != 0) return rc;
+  }
+  return run_apply_wgmma(maps, axis_q, o, views[3], batch, S, D,
+                         sw_apply_stages(D, ac), ac, scale, m, l, stream);
+}
+
 // strides: (sb, ss) of q and k in elements. m, l: (B, S) fp32 each.
 // Returns cudaGetLastError() after the launch (0 = success).
 SDM_EXPORT int sdm_streaming_stats(const void* q, const void* k, float* m,
@@ -164,10 +956,10 @@ SDM_EXPORT int sdm_streaming_stats(const void* q, const void* k, float* m,
   read_views(strides, views, 2);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const void* ptrs[2] = {q, k};
-  if (stats_mma_ok(dt, ptrs, views, S, D))
-    return (int)launch_stats_mma<streaming>(
-        static_cast<const bf16*>(q), views[0], static_cast<const bf16*>(k),
-        views[1], batch, 1, S, D, scale, axis_q, m, l, stream);
+  if (sw_ok(dt, ptrs, views, 2, S, D))
+    return launch_stats_wgmma(static_cast<const bf16*>(q), views[0],
+                              static_cast<const bf16*>(k), views[1], batch, S,
+                              D, scale, axis_q, m, l, stream);
   if (dt == SDM_F32)
     return (int)launch_stats<streaming, float>(
         static_cast<const float*>(q), views[0], static_cast<const float*>(k),
@@ -178,19 +970,29 @@ SDM_EXPORT int sdm_streaming_stats(const void* q, const void* k, float* m,
 }
 
 // The apply kernel for out[i] = sum_j round_v(P_ij) v_j with P from (q, k,
-// m, l) on `axis_q`, the output in OutT. The dV pass calls it with the roles
-// swapped (see sdm_streaming_dv).
+// m, l) on `axis_q`, the output in OutT: the forward's apply pass on
+// stream_apply_wgmma where sw_ok admits it, the dV pass (the roles swapped,
+// see sdm_streaming_dv) on stream_apply_mma where stream_mma_ok does, else
+// the CUDA-core kernel.
 template <typename Pass, typename OutT>
 static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
                         const View* views, int batch, int S, int D,
                         float scale, int axis_q, const float* m,
                         const float* l, int dt, cudaStream_t stream) {
   const void* ptrs[4] = {q, k, v, o};
-  if (stream_mma_ok(dt, ptrs, views, S, D))
-    return (int)launch_apply_mma<Pass>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), o, views, batch, 1, S, D, 1, D, scale,
-        axis_q, m, l, stream);
+  if constexpr (std::is_same<Pass, apply_pass>::value) {
+    if (sw_ok(dt, ptrs, views, 4, S, D))
+      return launch_apply_wgmma(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), o, views, batch, S, D, scale, axis_q,
+          m, l, stream);
+  } else {
+    if (stream_mma_ok(dt, ptrs, views, S, D))
+      return (int)launch_apply_mma<Pass>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), o, views, batch, 1, S, D, 1, D, scale,
+          axis_q, m, l, stream);
+  }
   const dim3 grid((S + TQ - 1) / TQ, batch, (D + TDC - 1) / TDC);
   if (dt == SDM_F32) {
     auto kernel = axis_q ? &stream_apply<float, OutT, true, Pass>
@@ -212,16 +1014,8 @@ static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
 
 // The admissions, for the Python mirrors in kernels/streaming_attention.py
 // (checked against these on the card). ptrs and strides as the entry points
-// take them: q, k (stats) or q, k, v, out (apply). stream_mma_smem_bytes and
-// stats_mma_smem_bytes are the kernels' dynamic shared memory.
-SDM_EXPORT int sdm_streaming_stats_takes_mma(const void* const* ptrs,
-                                             const long long* strides, int S,
-                                             int D, int dt) {
-  View views[2];
-  read_views(strides, views, 2);
-  return stats_mma_ok(dt, ptrs, views, S, D);
-}
-
+// take them: q, k, v, out (the dV pass: q, k, g, dv).
+// stream_mma_smem_bytes is stream_apply_mma's dynamic shared memory.
 SDM_EXPORT int sdm_streaming_apply_takes_mma(const void* const* ptrs,
                                              const long long* strides, int S,
                                              int D, int dt) {
@@ -234,8 +1028,43 @@ SDM_EXPORT int sdm_streaming_mma_smem_bytes(int D) {
   return (int)stream_mma_smem_bytes(D);
 }
 
-SDM_EXPORT int sdm_stats_mma_smem_bytes(int D) {
-  return (int)stats_mma_smem_bytes(D);
+// The admissions of stream_stats_wgmma (ptrs and strides of q, k) and
+// stream_apply_wgmma (q, k, v, out), for the Python mirrors.
+SDM_EXPORT int sdm_streaming_stats_takes_wgmma(const void* const* ptrs,
+                                               const long long* strides,
+                                               int S, int D, int dt) {
+  View views[2];
+  read_views(strides, views, 2);
+  return sw_ok(dt, ptrs, views, 2, S, D);
+}
+
+SDM_EXPORT int sdm_streaming_apply_takes_wgmma(const void* const* ptrs,
+                                               const long long* strides,
+                                               int S, int D, int dt) {
+  View views[4];
+  read_views(strides, views, 4);
+  return sw_ok(dt, ptrs, views, 4, S, D);
+}
+
+// smem: four ints, the stats (at sw_stats_kept's rows) and the apply
+// kernel's (in sw_apply_chunks's loads) dynamic shared memory at D with
+// the most stages that fit, and those stages.
+SDM_EXPORT int sdm_streaming_wgmma_smem(int D, int* smem) {
+  const int kept = sw_stats_kept(D), ac = sw_apply_chunks(D);
+  smem[0] = (int)sw_stats_smem_bytes(D, sw_stats_stages(D, kept), kept);
+  smem[1] = (int)sw_apply_smem_bytes(D, sw_apply_stages(D, ac), ac);
+  smem[2] = sw_stats_stages(D, kept);
+  smem[3] = sw_apply_stages(D, ac);
+  return 0;
+}
+
+// plan: four ints, sw_split's (split, cols), sw_stats_kept and
+// sw_apply_chunks at D.
+SDM_EXPORT int sdm_streaming_wgmma_plan(int D, int* plan) {
+  sw_split(D, plan, plan + 1);
+  plan[2] = sw_stats_kept(D);
+  plan[3] = sw_apply_chunks(D);
+  return 0;
 }
 
 // strides: (sb, ss) of q, k, v and out in elements. m, l: the stats pass's
@@ -291,10 +1120,10 @@ SDM_EXPORT int sdm_streaming_apply(const void* q, const void* k, const void* v,
 //
 // Each pass is bound by operations: per (batch, head) 4*S*S*D for dV (the
 // scores and P^T g) and 6*S*S*D for dK and for dQ (scores, g V^T, dA B).
-// dV takes stream_apply_mma where the apply pass does, dK and dQ take
+// dV takes stream_apply_mma where stream_mma_ok admits it, dK and dQ take
 // stream_da_mma (below) where da_mma_ok admits them; fp32, and bf16 at other
-// shapes, run stream_da on the CUDA cores with ragged tiles masked (dA = 0
-// outside S).
+// shapes, run stream_apply and stream_da on the CUDA cores with ragged
+// tiles masked (P = 0 and dA = 0 outside S).
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------

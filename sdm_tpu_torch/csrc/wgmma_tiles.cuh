@@ -1,8 +1,9 @@
 // Hopper (sm_90a) tensor-core building blocks: TMA tile loads into shared
 // memory, the mbarriers that report them, and warpgroup MMAs (wgmma) that
 // read both operands from shared memory through matrix descriptors. Used by
-// the GEMM (linear.cu) and the whole-S attention (attention.cu); one copy of
-// each primitive lives here.
+// the GEMM (linear.cu), the whole-S attention (attention.cu) and the
+// streaming attention's forward (streaming_attention.cu); one copy of each
+// primitive lives here.
 //
 // The tiles are bf16, 64 elements (128 bytes) a row, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile at byte r * 128, its 16-byte
@@ -314,7 +315,8 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
 }
 
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -334,7 +336,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,

@@ -8,19 +8,25 @@ custom VJP (`_vjp_fwd`/`_vjp_bwd`, :328-355). Forward: the stats pass
 (`_apply_kernel` :120-130, launched at :234). Backward: the dV pass
 (`_dv_kernel` :133, launched at :298), the dK pass (`_dk_kernel` :152, :260)
 and the dQ pass (`_dq_kernel` :167, :271). The CUDA kernels are
-csrc/streaming_attention.cu: the stats pass shares the whole-S kernel's
-online (m, l) kernels, the apply pass walks key tiles with the final stats,
-dV is the apply kernel with the roles of q and k swapped, and dK and dQ share
-one kernel that recomputes P and dA tile by tile. None holds more than one
-score tile, so shared memory does not depend on S. bf16 at D % 128 == 0
-with 16-byte aligned rows runs on the tensor cores through mma.sync with
-ldmatrix fragments and cp.async rings: the stats pass on `attn_stats_mma`
-(S % 64 == 0, D <= 1152; `stats_takes_mma`, a mirror of the C admission),
-the apply and dV passes on `stream_apply_mma` (S % 64 == 0, D <= 512;
-`apply_takes_mma`), and dK and dQ on `stream_da_mma` (S % DA_ROWS == 0,
-D <= 512; `da_takes_mma`). Each such launch also counts in the wrapper's
-`mma_launches`. The whole-S kernel (kernels/attention.py) takes bf16 grids
-up to S = 3200 and fp32 up to S = 1687; the dispatchers send longer ones,
+csrc/streaming_attention.cu: the stats pass merges online (m, l) over the
+reduced tiles, the apply pass walks key tiles with the final stats, dV is
+the mma.sync apply kernel with the roles of q and k swapped, and dK and dQ
+share one kernel that recomputes P and dA tile by tile. None holds more
+than one score tile, so shared memory does not depend on S. The bf16
+forward at S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte aligned rows
+runs on TMA + wgmma: the stats pass on `stream_stats_wgmma` (128 kept rows
+a block where they fit), the apply pass on `stream_apply_wgmma` (loads of
+eight chunks at 256 < D <= 512) (`stats_takes_wgmma`, `apply_takes_wgmma`,
+`admits_wgmma`, mirrors of the C admission; `wgmma_plan`, `wgmma_stages`
+and `wgmma_smem_bytes` mirror the launch plan and the shared memory). The
+backward runs on the tensor cores through mma.sync with ldmatrix fragments
+and cp.async rings in bf16 at D % 128 == 0, D <= 512 with aligned rows: dV
+on `stream_apply_mma` (S % 64 == 0; `apply_takes_mma`), dK and dQ on
+`stream_da_mma` (S % DA_ROWS == 0; `da_takes_mma`). fp32, and bf16 at
+other shapes, take CUDA-core kernels. Each tensor-core launch also counts
+in the wrapper's `mma_launches`, and each wgmma one in `wgmma_launches`.
+The whole-S kernel (kernels/attention.py) takes bf16 grids up to S = 3200
+and fp32 up to S = 1687; the dispatchers send longer ones,
 such as the 256x256 SR model's S = 4096, here. Every pass is bound by
 operations (per batch row 2*S*S*D for the stats, 4*S*S*D for the apply pass
 and dV, 6*S*S*D for dK and for dQ).
@@ -66,12 +72,14 @@ _SIGNATURES = {
                               ctypes.c_float, _I, _I, _P]),
     "sdm_streaming_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               ctypes.c_float, _I, _I, _P]),
-    "sdm_streaming_stats_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_mma_smem_bytes": (_I, [_I]),
-    "sdm_stats_mma_smem_bytes": (_I, [_I]),
     "sdm_streaming_da_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_da_smem_bytes": (_I, [_I]),
+    "sdm_streaming_stats_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_apply_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_wgmma_smem": (_I, [_I, _P]),
+    "sdm_streaming_wgmma_plan": (_I, [_I, _P]),
 }
 
 # Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
@@ -79,15 +87,110 @@ MAX_SMEM = 232448
 # stream_apply_mma's tiles (csrc/attention_tiles.cuh MQ, MK, MMAXD): own
 # queries per block, keys per streamed tile, widest D.
 MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
-# attn_stats_mma's tiles (csrc/attention_tiles.cuh SKEPT, SRED, SCHUNK,
-# SSTAGES): kept rows per block, reduced rows per streamed tile, D columns
-# per ring stage (halved where the kept tile leaves no room), ring stages.
-STATS_KEPT, STATS_RED, STATS_CHUNK, STATS_STAGES = 64, 256, 128, 2
 # stream_da_mma's tiling (csrc/streaming_attention.cu DA_BM, DA_BN,
 # DA_KSPLIT, DA_MAXD): own rows per block, streamed rows per ring stage, D
 # slices per score tile, widest D. S must be a multiple of DA_ROWS.
 DA_BM, DA_BN, DA_KSPLIT, DA_MAX_D = 64, 16, 2, 512
 DA_ROWS = max(DA_BM, DA_BN)
+# The wgmma forward (csrc/streaming_attention.cu SW_ROWS, SW_BOX,
+# SW_CHUNKS, SW_APPLY_CHUNKS, SW_APPLY_CHUNKS_S, SW_MAX_D, SW_COLS, SW_RED,
+# SW_STATS_STAGES, SW_APPLY_STAGES, SW_STATS_KEPT): queries an apply
+# block, columns a chunk, chunks a stats TMA load and an apply one (at
+# 256 < D <= 512, else the second), widest D, widest output slice of an
+# apply block, reduced rows a stats load, most ring stages of each kernel,
+# and kept rows a stats block (where they fit).
+WGMMA_ROWS, WGMMA_BOX, WGMMA_CHUNKS = 64, 64, 2
+WGMMA_APPLY_CHUNKS, WGMMA_APPLY_CHUNKS_S = 8, 4
+WGMMA_MAX_D, WGMMA_COLS, WGMMA_RED = 1024, 512, 128
+WGMMA_STATS_STAGES, WGMMA_APPLY_STAGES = 8, 16
+WGMMA_STATS_KEPT = 128
+# Alignment slack and the barriers' room (kSwFixed), a 64 x 64 bf16 chunk.
+_WGMMA_FIXED, _WGMMA_CHUNK = 1024 + 512, 64 * 64 * 2
+
+
+def _wgmma_chunks(d: int, per: int = WGMMA_CHUNKS) -> int:
+    """Chunks of D rounded up to whole loads of `per` chunks (sw_chunks)."""
+    return -(-(d // WGMMA_BOX) // per) * per
+
+
+def _stats_fixed(d: int, kept: int) -> int:
+    """sw_stats_fixed: the stats' shared memory besides the ring, the kept
+    tile of `kept` rows and, at 64 kept rows, the warpgroups' (m, l)."""
+    return (_WGMMA_FIXED + (2 * 2 * WGMMA_ROWS * 4 if kept == WGMMA_ROWS
+                            else 0)
+            + _wgmma_chunks(d) * _WGMMA_CHUNK * (kept // WGMMA_ROWS))
+
+
+def _stats_stages(d: int, kept: int) -> int:
+    load = WGMMA_CHUNKS * _WGMMA_CHUNK
+    return min((MAX_SMEM - _stats_fixed(d, kept)) // (2 * load),
+               WGMMA_STATS_STAGES)
+
+
+def wgmma_stats_kept(d: int) -> int:
+    """sw_stats_kept: a stats block's kept rows, WGMMA_STATS_KEPT where its
+    ring keeps two stages at D = d, else 64."""
+    return (WGMMA_STATS_KEPT if _stats_stages(d, WGMMA_STATS_KEPT) >= 2
+            else WGMMA_ROWS)
+
+
+def wgmma_apply_chunks(d: int) -> int:
+    """sw_apply_chunks: the apply's chunks a TMA load, eight (a key tile's
+    whole K in one 64 KB load) at 256 < D <= 512, else four."""
+    return (WGMMA_APPLY_CHUNKS if 4 * WGMMA_BOX < d <= WGMMA_COLS
+            else WGMMA_APPLY_CHUNKS_S)
+
+
+def wgmma_stages(d: int):
+    """(stats, apply) ring stages at D = d (sw_stats_stages,
+    sw_apply_stages): as many 32 KB stats stages (128 rows x 2 chunks)
+    beside the kept tile (and, at 64 kept rows, the two warpgroups' (m,
+    l)), and apply stages of 64 rows x `wgmma_apply_chunks` chunks beside
+    Q and two P tiles, as fit in MAX_SMEM, at most 8 and 16."""
+    ac = wgmma_apply_chunks(d)
+    apply = (MAX_SMEM - _WGMMA_FIXED - _wgmma_chunks(d, ac) * _WGMMA_CHUNK
+             - 2 * _WGMMA_CHUNK) // (ac * _WGMMA_CHUNK)
+    return (_stats_stages(d, wgmma_stats_kept(d)),
+            min(apply, WGMMA_APPLY_STAGES))
+
+
+def wgmma_smem_bytes(d: int):
+    """(stats, apply) dynamic shared memory at D = d with the kept rows of
+    `wgmma_stats_kept` and the stages of `wgmma_stages`
+    (sw_stats_smem_bytes, sw_apply_smem_bytes)."""
+    s_st, a_st = wgmma_stages(d)
+    ac = wgmma_apply_chunks(d)
+    return (_stats_fixed(d, wgmma_stats_kept(d))
+            + s_st * 2 * WGMMA_CHUNKS * _WGMMA_CHUNK,
+            _WGMMA_FIXED + (_wgmma_chunks(d, ac) + 2) * _WGMMA_CHUNK
+            + a_st * ac * _WGMMA_CHUNK)
+
+
+def wgmma_plan(d: int):
+    """sdm_streaming_wgmma_plan: (split, cols, stats kept rows, apply chunks
+    a load) at D = d: the apply's column slices (sw_split: ceil(D / 512)
+    slices of whole chunks), `wgmma_stats_kept` and
+    `wgmma_apply_chunks`."""
+    boxes = d // WGMMA_BOX
+    split = -(-d // WGMMA_COLS)
+    cols = -(-boxes // split) * WGMMA_BOX
+    return split, cols, wgmma_stats_kept(d), wgmma_apply_chunks(d)
+
+
+def admits_wgmma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """sw_ok, the admission of both wgmma kernels (`ptrs` and `strides`,
+    (sb, ss) in elements, of q and k for the stats; q, k, v and out for
+    the apply): bf16, S % 64 == 0, D % 64 == 0 with 64 <= D <= 1024, at least
+    two stats stages at 64 kept rows and, in the apply's ring, two stages
+    and the V loads of a 512-column slice (sw_apply_min_stages), and
+    16-byte aligned rows of every tensor."""
+    if not (dtype == torch.bfloat16 and s > 0 and s % WGMMA_ROWS == 0
+            and WGMMA_BOX <= d <= WGMMA_MAX_D and d % WGMMA_BOX == 0):
+        return False
+    min_stages = max(2, WGMMA_COLS // WGMMA_BOX // wgmma_apply_chunks(d))
+    return (_stats_stages(d, WGMMA_ROWS) >= 2
+            and wgmma_stages(d)[1] >= min_stages
+            and rows_aligned16(ptrs, strides))
 
 
 def apply_smem_bytes_mma(d: int) -> int:
@@ -97,22 +200,6 @@ def apply_smem_bytes_mma(d: int) -> int:
     and two stages of 32 m and l floats."""
     return (MMA_QUERIES * (d + 8) * 2 + 2 * 2 * MMA_KEYS * (d + 8) * 2
             + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
-
-
-def stats_chunk_mma(d: int) -> int:
-    """attn_stats_mma's ring chunk at D = d (stats_mma_chunk): 128 columns
-    where the kept tile leaves room for them (D <= 640), else 64."""
-    kept = STATS_KEPT * (d + 8) * 2
-    ring = STATS_STAGES * STATS_RED * (STATS_CHUNK + 8) * 2
-    return STATS_CHUNK if kept + ring <= MAX_SMEM else STATS_CHUNK // 2
-
-
-def stats_smem_bytes_mma(d: int) -> int:
-    """Dynamic shared memory of attn_stats_mma at D = d
-    (stats_mma_smem_bytes): the resident kept tile [64][d+8] bf16 and a
-    ring of two (reduced tile, D chunk) stages [256][chunk+8] bf16."""
-    return (STATS_KEPT * (d + 8) * 2
-            + STATS_STAGES * STATS_RED * (stats_chunk_mma(d) + 8) * 2)
 
 
 def da_smem_bytes_mma(d: int) -> int:
@@ -144,14 +231,6 @@ def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
             and rows_aligned16(ptrs, strides))
 
 
-def stats_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
-    """stats_mma_ok: bf16, S % 64 == 0, D % 128 == 0, the shared memory
-    within MAX_SMEM (D <= 1152), 16-byte aligned rows of q and k."""
-    return (dtype == torch.bfloat16 and s % STATS_KEPT == 0 and d % 128 == 0
-            and stats_smem_bytes_mma(d) <= MAX_SMEM
-            and rows_aligned16(ptrs, strides))
-
-
 def da_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
     """da_mma_ok: bf16, S % DA_ROWS == 0, D % 128 == 0, D <= 512, the shared
     memory within MAX_SMEM, and 16-byte aligned rows of every tensor.
@@ -167,15 +246,22 @@ def _layout(*tensors):
 
 
 def apply_takes_mma(q, k, v, out) -> bool:
-    """Whether the apply pass on q, k, v (B, S, D) into `out` runs on
-    stream_apply_mma (the dV pass passes q, k, g, dv)."""
+    """Whether the dV pass on q, k, g into `dv` (passed as q, k, v, out)
+    runs on stream_apply_mma; the forward's apply pass never does."""
     return apply_admits_mma(q.dtype, q.shape[1], q.shape[2],
                             *_layout(q, k, v, out))
 
 
-def stats_takes_mma(q, k) -> bool:
-    """Whether the stats pass on q, k runs on attn_stats_mma."""
-    return stats_admits_mma(q.dtype, q.shape[1], q.shape[2], *_layout(q, k))
+def stats_takes_wgmma(q, k) -> bool:
+    """Whether the stats pass on q, k runs on stream_stats_wgmma."""
+    return admits_wgmma(q.dtype, q.shape[1], q.shape[2], *_layout(q, k))
+
+
+def apply_takes_wgmma(q, k, v, out) -> bool:
+    """Whether the apply pass on q, k, v into `out` runs on
+    stream_apply_wgmma (the dV pass never does)."""
+    return admits_wgmma(q.dtype, q.shape[1], q.shape[2],
+                        *_layout(q, k, v, out))
 
 
 def da_takes_mma(q, k, v, g, out) -> bool:
@@ -359,18 +445,21 @@ def _strides(*tensors):
         st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _launch(symbol, what, device, args, ref, mma=False):
+def _launch(symbol, what, device, args, ref, mma=False, wgmma=False):
     """Launch `symbol` of the streaming library on `device`; raise on a
     CUDA error. `mma`: the launch runs a tensor-core kernel
-    (attn_stats_mma, stream_apply_mma or stream_da_mma; counted in
-    ref.mma_launches)."""
+    (stream_stats_wgmma, stream_apply_wgmma, stream_apply_mma or
+    stream_da_mma; counted in ref.mma_launches);
+    `wgmma`: one of the first two (also counted in ref.wgmma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     with _build.on_device(device):
         rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
     ref.launches += 1
-    if mma:
+    if mma or wgmma:
         ref.mma_launches += 1
+    if wgmma:
+        ref.wgmma_launches += 1
 
 
 def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
@@ -390,12 +479,13 @@ def streaming_stats(q, k, scale: float, softmax_axis: str = "q"):
         ctypes.cast(_strides(q, k), _P), b, s, d, float(scale),
         int(softmax_axis == "q"), _build.dtype_code(q, what),
         _build.stream_handle(q.device)), streaming_stats,
-        mma=stats_takes_mma(q, k))
+        wgmma=stats_takes_wgmma(q, k))
     return m, l
 
 
 streaming_stats.launches = 0
 streaming_stats.mma_launches = 0
+streaming_stats.wgmma_launches = 0
 
 
 def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",
@@ -422,12 +512,13 @@ def streaming_apply(q, k, v, m, l, scale: float, softmax_axis: str = "q",
         b, s, d, float(scale), int(softmax_axis == "q"),
         _build.dtype_code(q, what), _build.dtype_code(out, what),
         _build.stream_handle(q.device)), streaming_apply,
-        mma=apply_takes_mma(q, k, v, out))
+        wgmma=apply_takes_wgmma(q, k, v, out))
     return out
 
 
 streaming_apply.launches = 0
 streaming_apply.mma_launches = 0
+streaming_apply.wgmma_launches = 0
 
 
 def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):

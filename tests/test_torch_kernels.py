@@ -446,9 +446,7 @@ def test_mirror_constants_match_the_sources():
             src += f.read()
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
     want = {"MAX_SMEM": sa.MAX_SMEM, "MQ": sa.MMA_QUERIES, "MK": sa.MMA_KEYS,
-            "MMAXD": sa.MMA_MAX_D, "SKEPT": sa.STATS_KEPT,
-            "SRED": sa.STATS_RED, "SCHUNK": sa.STATS_CHUNK,
-            "SSTAGES": sa.STATS_STAGES,
+            "MMAXD": sa.MMA_MAX_D,
             "WROWS": port_attention.WGMMA_ROWS,
             "WBOX": port_attention.WGMMA_BOX,
             "WCHUNKS": port_attention.WGMMA_CHUNKS,
@@ -475,16 +473,19 @@ def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
     are exported for their Python mirrors, the WMMA attention kernels, the
-    WMMA dK/dQ kernel, the whole-S attention's mma.sync kernels and the WMMA
-    and mma.sync GEMMs are gone, the
+    WMMA dK/dQ kernel, the whole-S attention's mma.sync kernels, the
+    streaming forward's mma.sync stats kernel and the WMMA and mma.sync
+    GEMMs are gone, the
     mma.sync primitives live in one header and the TMA, mbarrier and wgmma
     ones in another, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
     assert {"sdm_attention_takes_wgmma", "sdm_attention_wgmma_plan",
             "sdm_attention_wgmma_smem"} <= set(port_attention._SIGNATURES)
-    assert {"sdm_streaming_stats_takes_mma", "sdm_stats_mma_smem_bytes",
-            "sdm_streaming_apply_takes_mma", "sdm_streaming_da_takes_mma",
+    assert {"sdm_streaming_stats_takes_wgmma",
+            "sdm_streaming_apply_takes_wgmma", "sdm_streaming_wgmma_plan",
+            "sdm_streaming_wgmma_smem", "sdm_streaming_apply_takes_mma",
+            "sdm_streaming_da_takes_mma",
             "sdm_streaming_da_smem_bytes"} <= set(
                 streaming_attention._SIGNATURES)
     for name in ("attention.cu", "streaming_attention.cu",
@@ -506,6 +507,14 @@ def test_kernel_sources_export_the_wrapped_symbols():
         src = f.read()
     assert "wmma" not in src.lower() and "<mma.h>" not in src
     assert "stream_da_mma" in src
+    # Its forward is the TMA + wgmma stats and apply, else the CUDA cores:
+    # no mma.sync stats kernel, no forward on stream_apply_mma.
+    for name in ("streaming_attention.cu", "attention_tiles.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            code = re.sub(r"//[^\n]*", "", f.read())
+        assert not re.search(r"\b(attn_stats_mma|launch_stats_mma|"
+                             r"stats_mma_ok)\b", code), name
+    assert "launch_apply_mma<apply_pass>" not in src
     assert {"sdm_linear_takes_wgmma", "sdm_linear_wgmma_tile"} <= set(
         attention_block._SIGNATURES)
     # The GEMM is the TMA + wgmma kernel alone: no mma.sync GEMM is left.

@@ -180,7 +180,7 @@ def _meta(shape, dtype=torch.bfloat16):
 
 
 def test_mma_smem_formula_fits_at_the_sr_width():
-    """stream_apply_mma's shared memory: Q [64][D+8] + 2 x (K, V) [32][D+8]
+    """stream_apply_mma's shared memory (the dV pass's kernel): Q [64][D+8] + 2 x (K, V) [32][D+8]
     + P [64][40] in bf16, 2 x 2 x 32 fp32 stats; 205,312 bytes at D = 512,
     within the opt-in limit."""
     assert port_streaming.apply_smem_bytes_mma(512) == (
@@ -192,10 +192,11 @@ def test_mma_smem_formula_fits_at_the_sr_width():
 
 @pytest.mark.parametrize("views", [False, True])
 def test_mma_admits_the_sr_shape(views):
-    """The SR model's streaming block, (16, 4096, 512) bf16, runs on
-    stream_apply_mma: contiguous, and as the attention block passes it,
-    strided views of one (16, 4096, 3 * 512) qkv buffer; so does its dV
-    pass (q, k, g and an fp32 dv)."""
+    """stream_apply_mma's admission takes the SR model's streaming block,
+    (16, 4096, 512) bf16: contiguous, and as the attention block passes
+    it, strided views of one (16, 4096, 3 * 512) qkv buffer, into a bf16 or
+    an fp32 output; so its dV pass (q, k, g and an fp32 dv) runs on the
+    kernel. (The forward's apply pass runs on stream_apply_wgmma.)"""
     b, s, d = 16, 4096, 512
     if views:
         q, k, v = _meta((b, s, 3 * d)).split(d, dim=-1)
@@ -213,8 +214,8 @@ def test_mma_admits_the_sr_shape(views):
                                   "stride", "pointer"])
 def test_mma_refuses_other_shapes(case):
     """fp32, S % 64 != 0, D past 512 or off the 128 grid, a row stride that
-    is not a multiple of 8 elements, and a pointer off 16 bytes all take the
-    CUDA-core apply."""
+    is not a multiple of 8 elements, and a pointer off 16 bytes: the dV
+    pass takes the CUDA-core kernel there."""
     shape = {"s300": (2, 300, 512), "d640": (2, 256, 640),
              "d72": (2, 256, 72), "d1024": (2, 256, 1024)}.get(
                  case, (2, 256, 512))
@@ -238,43 +239,29 @@ UNET_BLOCKS = [(1024, 512), (256, 512), (64, 1024), (256, 1024), (4096, 512),
                (1024, 1024)]
 
 
-def test_stats_mma_smem_formula():
-    """attn_stats_mma's shared memory: the kept tile [64][D+8] and two ring
-    stages [256][chunk+8], in bf16, with 128-column chunks to D = 640 and
-    64 past it; within the opt-in limit at D = 512 and 1024, past it from
-    D = 1280 on."""
-    smem = port_streaming.stats_smem_bytes_mma
-    chunk = port_streaming.stats_chunk_mma
-    assert [chunk(d) for d in (128, 512, 640, 768, 1024)] == [
-        128, 128, 128, 64, 64]
-    assert smem(512) == 64 * 520 * 2 + 2 * 256 * 136 * 2 == 205824
-    assert smem(1024) == 64 * 1032 * 2 + 2 * 256 * 72 * 2 == 205824
-    assert smem(1152) <= port_streaming.MAX_SMEM < smem(1280)
-
-
 @pytest.mark.parametrize("shape", UNET_BLOCKS)
 @pytest.mark.parametrize("views", [False, True])
 def test_stats_mma_admits_the_unet_shapes(shape, views):
-    """Every U-Net block's stats pass runs on attn_stats_mma in bf16:
-    contiguous, and as the attention block passes them, strided q and k
-    views of one (16, S, 3 * D) qkv buffer."""
+    """Every U-Net block's stats pass runs on the tensor cores in bf16, on
+    stream_stats_wgmma: contiguous, and as the attention block passes
+    them, strided q and k views of one (16, S, 3 * D) qkv buffer."""
     s, d = shape
     if views:
         q, k, _ = _meta((16, s, 3 * d)).split(d, dim=-1)
         assert q.stride() == (s * 3 * d, 3 * d, 1)
     else:
         q, k = _meta((16, s, d)), _meta((16, s, d))
-    assert port_streaming.stats_takes_mma(q, k)
+    assert port_streaming.stats_takes_wgmma(q, k)
 
 
-@pytest.mark.parametrize("case", ["fp32", "s300", "s96", "d72", "d576",
+@pytest.mark.parametrize("case", ["fp32", "s300", "s96", "d72", "d1152",
                                   "d1280", "stride", "pointer"])
 def test_stats_mma_refuses_other_shapes(case):
-    """fp32, S % 64 != 0, D off the 128 grid or past the shared memory's
-    1152, a row stride that is not a multiple of 8 elements, and a pointer
-    off 16 bytes all take the CUDA-core stats."""
+    """fp32, S % 64 != 0, D off the 64 grid or past 1024, a row stride that
+    is not a multiple of 8 elements, and a pointer off 16 bytes all take
+    the CUDA-core stats."""
     shape = {"s300": (2, 300, 512), "s96": (2, 96, 512), "d72": (2, 256, 72),
-             "d576": (2, 256, 576), "d1280": (2, 256, 1280)}.get(
+             "d1152": (2, 256, 1152), "d1280": (2, 256, 1280)}.get(
                  case, (2, 256, 512))
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
     q, k = (torch.zeros(shape, dtype=dtype) for _ in range(2))
@@ -284,9 +271,9 @@ def test_stats_mma_refuses_other_shapes(case):
     if case == "pointer":
         q = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 512)
         assert q.data_ptr() % 16 == 8
-    assert not port_streaming.stats_takes_mma(q, k)
+    assert not port_streaming.stats_takes_wgmma(q, k)
     aligned = torch.zeros((2, 256, 512), dtype=torch.bfloat16)
-    assert port_streaming.stats_takes_mma(aligned, aligned)
+    assert port_streaming.stats_takes_wgmma(aligned, aligned)
 
 
 def _record(monkeypatch, module, calls):
@@ -353,7 +340,7 @@ def test_block_dispatcher_streams_long_grids(monkeypatch):
 def test_cuda_streaming_matches_plain(cuda, dtype, axis):
     """Both kernels launch and agree with their plain versions, on a
     tensor-core shape and a ragged one; the bf16 tensor-core shape's stats
-    and apply each count as an mma.sync launch."""
+    and apply each count as a tensor-core (wgmma) launch."""
     for shape in ((2, 256, 128), (2, 100, 72)):
         q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                    for a in _qkv(6, shape))
@@ -362,8 +349,8 @@ def test_cuda_streaming_matches_plain(cuda, dtype, axis):
         m, l = streaming_stats(q, k, 0.1, axis)
         out = streaming_apply(q, k, v, m, l, 0.1, axis)
         torch.cuda.synchronize()
-        mma = port_streaming.apply_takes_mma(q, k, v, out)
-        assert mma == port_streaming.stats_takes_mma(q, k) == (
+        mma = port_streaming.apply_takes_wgmma(q, k, v, out)
+        assert mma == port_streaming.stats_takes_wgmma(q, k) == (
             dtype == torch.bfloat16 and shape[1] == 256)
         assert (streaming_stats.launches, streaming_apply.launches,
                 streaming_stats.mma_launches,
