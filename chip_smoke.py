@@ -23,8 +23,9 @@ as a user's run would.
      stream_apply_mma (dV) and stream_da_mma (dK, dQ) and the TMA + wgmma
      stream_stats_wgmma, stream_apply_wgmma of the streaming attention;
      the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the whole-S
-     attention and linear_wgmma) held to 0 spill bytes, and the streaming
-     library's wgmma instantiations to no ptxas line on serialized wgmma.
+     attention and linear_wgmma) and AdaGN's one-pass adagn_grid held to 0
+     spill bytes, and the streaming library's wgmma instantiations to no
+     ptxas line on serialized wgmma.
   2. Kernels vs plain ("kernels": AdaGN, attention, block; "streaming":
      the streaming kernels): each hand-written kernel held against its plain
      PyTorch version at every shape the flagship 128x128 U-Net and the
@@ -38,8 +39,15 @@ as a user's run would.
      projections (with and without the residual epilogue), at a ragged
      M x N, an odd N, a K tail and a row stride its tensor-core admission
      refuses, each launch on the wgmma kernel exactly when the admission
-     says so, and timed (with its TFLOP/s) against F.linear (cuBLAS);
-     AdaGN also at an input mean of 50. The
+     says so, and timed (with its TFLOP/s) against F.linear (cuBLAS).
+     AdaGN: bf16 on its one-pass kernel (adagn_grid), fp32 on the two-pass
+     kernels, each call's route counter held to its plan
+     (`one_pass_launches`, `two_pass_launches`), timed back to back
+     beside F.group_norm + FiLM, bf16 also queued behind a sleep kernel
+     (device time alone); also with per-sample FiLM rows, at an input mean
+     of 50, bf16 at batch 2 (fewer rows than SMs), two runs for identical
+     bits, and its Python plan held to the C one (sdm_adagn_plan) at every
+     shape and batch 1, 2, 3, 8, 16, 32. The
      streaming kernels, forward (stats, apply) and
      backward (dV, dK, dQ), run at the SR model's S = 4096, at S = 1024,
      where the whole-S kernel is a second reference, and at a ragged
@@ -58,7 +66,7 @@ as a user's run would.
   3. Model ("model"): the flagship and the SR U-Net from seeded random
      weights, use_kernels=True against use_kernels=False, one call at batch
      16 (t=500), fp32 and bf16, and a profiler breakdown of one bf16 call
-     each. Then one forward and backward of each under the training loss,
+     each (its trace holding one AdaGN kernel a fused_adagn call). Then one forward and backward of each under the training loss,
      kernels against plain, gradients held per tensor (fp32) and as a whole
      (bf16).
   4. Serving ("serving"), the cascade: the flagship exported as a BASE
@@ -443,86 +451,172 @@ def seeded_randn(torch, seed):
     return dev, randn
 
 
+ROUTES = ("two passes", "one pass")
+
+
+def check_adagn_plans(torch):
+    """The Python mirror of AdaGN's plan (kernels/adagn.py::adagn_plan)
+    against the C one (sdm_adagn_plan) on this card's SMs: every (H, W, C)
+    of both U-Nets at batch 1 and 2 (a small engine, a data-parallel
+    share), 3 (a served remainder), 8, 16 and 32, in fp32 and bf16."""
+    import ctypes
+    from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import adagn as ag
+    lib = _build.library("adagn", ag._SIGNATURES)
+    sms = ag.sm_count(torch.device("cuda"))
+    routes = {}
+    for h, w, c in ADAGN_SHAPES + [sh for sh in SR_ADAGN_SHAPES
+                                   if sh not in ADAGN_SHAPES]:
+        for n in (1, 2, 3, 8, 16, 32):
+            for dtype in (torch.float32, torch.bfloat16):
+                code = _build.DTYPE_CODES[dtype]
+                got = (ctypes.c_int * 6)()
+                lib.sdm_adagn_plan(n, h * w, c, GROUPS, code, code, sms, got)
+                want = ag.adagn_plan(n, h * w, c, GROUPS, dtype, dtype, sms)
+                if tuple(got) != tuple(want):
+                    raise AssertionError(
+                        f"adagn plan {n}x{h}x{w}x{c} {dtype}: C {tuple(got)}"
+                        f" != Python {tuple(want)}")
+                if dtype == torch.bfloat16 and want.route != ag.ONE_PASS:
+                    raise AssertionError(
+                        f"adagn plan {n}x{h}x{w}x{c} bf16: two passes")
+                if n == BATCH and dtype == torch.bfloat16:
+                    routes[f"{h}x{w}x{c}"] = ROUTES[want.route]
+    log(f"adagn plans: the Python mirror equals sdm_adagn_plan at 14 shapes "
+        f"x batch 1/2/3/8/16/32 x fp32/bf16 ({sms} SMs), every bf16 plan one "
+        f"pass; bf16 at batch {BATCH}: "
+        + ", ".join(f"{k} {v}" for k, v in routes.items()))
+
+
+def adagn_checks(torch, randn, results, dtype):
+    """AdaGN against its plain version at every shape of both U-Nets in
+    `dtype`, each call on the route its plan gives (bf16: the one-pass
+    kernel, counted in `one_pass_launches`; fp32: the two passes), timed
+    back to back beside plain and F.group_norm + FiLM, and (bf16, the main
+    path) queued (device time alone); then per-sample FiLM rows, an input
+    mean of 50, and (bf16) batch 2 at 8x8x1024 (64 blocks, a row each) and
+    two runs of the smallest and the largest shape for identical bits."""
+    import torch.nn.functional as F
+    from sdm_tpu_torch.kernels import adagn as ag
+    from sdm_tpu_torch.kernels.adagn import adagn_reference, fused_adagn
+    dn = str(dtype).split(".")[-1]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    sms = ag.sm_count(torch.device("cuda"))
+    adagn = [("flagship", sh) for sh in ADAGN_SHAPES] + [
+        ("sr", sh) for sh in SR_ADAGN_SHAPES if sh not in ADAGN_SHAPES]
+
+    def inputs(h, w, c, film_rows=1, mean=0.5, n=BATCH):
+        return (randn((n, h, w, c), dtype, std=2.0 if mean < 10 else 1.0,
+                      mean=mean),
+                randn((c,), dtype, std=0.1, mean=1.0),
+                randn((c,), dtype, std=0.1),
+                randn((film_rows, c), dtype, std=0.5, mean=1.0),
+                randn((film_rows, c), dtype, std=0.5), GROUPS)
+
+    def checked(tag, args):
+        """One call against plain, its route's counter moved once."""
+        n, h, w, c = args[0].shape
+        plan = ag.adagn_plan(n, h * w, c, GROUPS, dtype, dtype, sms)
+        if dtype == torch.bfloat16 and plan.route == ag.TWO_PASS:
+            raise AssertionError(f"adagn {tag}: bf16 main-path shape off "
+                                 "the one-pass kernel")
+        before = (fused_adagn.one_pass_launches,
+                  fused_adagn.two_pass_launches)
+        got = fused_adagn(*args)
+        moved = (fused_adagn.one_pass_launches - before[0],
+                 fused_adagn.two_pass_launches - before[1])
+        if moved != ((0, 1) if plan.route == ag.TWO_PASS else (1, 0)):
+            raise AssertionError(f"adagn {tag}: {ROUTES[plan.route]} plan "
+                                 f"but one-pass, two-pass launches {moved}")
+        return got, compare(f"adagn {tag}", got, adagn_reference(*args),
+                            TOL[dn]), plan
+
+    for model, (h, w, c) in adagn:
+        args = inputs(h, w, c)
+        x, gamma, beta, s, t = args[:5]
+        _, err, plan = checked(f"{dn} {h}x{w}x{c}", args)
+        reps = 20
+        ms = time_ms(lambda: fused_adagn(*args), reps)
+        plain = time_ms(lambda: adagn_reference(*args), reps)
+        xc = x.permute(0, 3, 1, 2)          # NCHW channels_last view
+        s4, t4 = s[:, :, None, None], t[:, :, None, None]
+
+        def library():
+            return F.group_norm(xc, GROUPS, gamma, beta) * s4 + t4
+        lib = time_ms(library, reps)
+        # Device time alone on the main path (bf16); fp32 back to back only.
+        queued = lib_queued = None
+        if dtype == torch.bfloat16:
+            queued = time_queued_ms(lambda: fused_adagn(*args), reps)
+            lib_queued = time_queued_ms(library, reps)
+        nbytes = BATCH * h * w * c * 2 * isz + 4 * c * isz
+        ops = BATCH * h * w * c * 8.0
+        b, by = bound_ms(nbytes, ops, "float32")
+        results.append(dict(kernel="adagn", model=model, dtype=dn,
+                            shape=[BATCH, h, w, c], route=ROUTES[plan.route],
+                            plan=list(plan), max_abs_err=err[0],
+                            max_rel_err=err[1], tol=TOL[dn], ms=ms,
+                            queued_ms=queued, plain_ms=plain, library_ms=lib,
+                            library_queued_ms=lib_queued, bound_ms=b,
+                            bound_by=by))
+        q_text = "" if queued is None else f" (queued {queued:.4f})"
+        lq_text = "" if lib_queued is None else f" (queued {lib_queued:.4f})"
+        log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} {ROUTES[plan.route]:10s} "
+            f"{err_text(err, TOL[dn])}  kernel {ms:.4f} ms{q_text}  plain "
+            f"{plain:.4f}  group_norm+FiLM {lib:.4f}{lq_text}  bound {b:.4f} "
+            f"({by})")
+        del x, xc, args
+    # Training gives each sample its own t, so the FiLM tables have one row
+    # per sample. A large mean (50, std 1): E[x^2] - mean^2 would cancel to
+    # noise here; the merged Welford/Chan statistics must not. C = 384
+    # gives groups of 12 channels, which straddle the 8-channel vectors;
+    # 256x256x128 is the SR model's largest layer. Batch 2 (a small
+    # engine's, or a data-parallel share of max_batch 8 over 4 cards) at
+    # 8x8x1024: 128 rows over 132 SMs, so the one pass runs 64 blocks a
+    # sample, a row each.
+    for check, (h, w, c), rows, mean, n in (
+            ("per-sample FiLM", SR_ADAGN_SHAPES[2], BATCH, 0.5, BATCH),
+            ("per-sample FiLM", SR_ADAGN_SHAPES[3], BATCH, 0.5, BATCH),
+            ("mean 50, std 1", ADAGN_SHAPES[-1], 1, 50.0, BATCH),
+            ("mean 50, std 1", SR_ADAGN_SHAPES[0], 1, 50.0, BATCH),
+            ("batch 2", ADAGN_SHAPES[4], 1, 0.5, 2)):
+        _, err, plan = checked(f"{dn} {n}x{h}x{w}x{c} {check}",
+                               inputs(h, w, c, rows, mean, n))
+        results.append(dict(kernel="adagn_check", check=check, dtype=dn,
+                            shape=[n, h, w, c], route=ROUTES[plan.route],
+                            plan=list(plan), max_abs_err=err[0],
+                            max_rel_err=err[1]))
+        log(f"adagn {dn:8s} {n:2d}x{h:3d}x{w:3d}x{c:4d} "
+            f"{ROUTES[plan.route]:10s} {check}  {err_text(err, TOL[dn])}")
+    if dtype == torch.bfloat16:
+        # Fixed merge orders, no float atomics: the same bits twice.
+        for h, w, c in (ADAGN_SHAPES[4], SR_ADAGN_SHAPES[0]):
+            args = inputs(h, w, c)
+            first = fused_adagn(*args)
+            same = torch.equal(first, fused_adagn(*args))
+            results.append(dict(kernel="adagn_check", check="two runs "
+                                "identical", dtype=dn, shape=[BATCH, h, w, c],
+                                identical=same))
+            log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} two runs identical: "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"adagn {h}x{w}x{c}: two runs differ")
+            del first, args
+
+
 def kernel_phase(torch, results):
     """AdaGN, the whole-S attention and the block (phase 2, without the
     streaming kernels)."""
-    import torch.nn.functional as F
-    from sdm_tpu_torch.kernels.adagn import adagn_reference, fused_adagn
     from sdm_tpu_torch.kernels.attention import (attention_reference,
                                                  fused_attention)
     from sdm_tpu_torch.kernels.attention_block import (
         attention_block_reference, fused_attention_block)
 
     dev, randn = seeded_randn(torch, 0)
+    check_adagn_plans(torch)
 
     for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[-1]
-        isz = torch.tensor([], dtype=dtype).element_size()
-        adagn = [("flagship", sh) for sh in ADAGN_SHAPES] + [
-            ("sr", sh) for sh in SR_ADAGN_SHAPES if sh not in ADAGN_SHAPES]
-        for model, (h, w, c) in adagn:
-            x = randn((BATCH, h, w, c), dtype, std=2.0, mean=0.5)
-            gamma = randn((c,), dtype, std=0.1, mean=1.0)
-            beta = randn((c,), dtype, std=0.1)
-            # The main path's FiLM tables are (1, C): t is one step.
-            s = randn((1, c), dtype, std=0.5, mean=1.0)
-            t = randn((1, c), dtype, std=0.5)
-            args = (x, gamma, beta, s, t, GROUPS)
-            got = fused_adagn(*args)
-            want = adagn_reference(*args)
-            err = compare(f"adagn {dn} {h}x{w}x{c}", got, want, TOL[dn])
-            reps = 20
-            ms = time_ms(lambda: fused_adagn(*args), reps)
-            plain = time_ms(lambda: adagn_reference(*args), reps)
-            xc = x.permute(0, 3, 1, 2)          # NCHW channels_last view
-            s4, t4 = s[:, :, None, None], t[:, :, None, None]
-            lib = time_ms(lambda: F.group_norm(xc, GROUPS, gamma, beta)
-                          * s4 + t4, reps)
-            nbytes = BATCH * h * w * c * 2 * isz + 4 * c * isz
-            ops = BATCH * h * w * c * 8.0
-            b, by = bound_ms(nbytes, ops, "float32")
-            results.append(dict(kernel="adagn", model=model, dtype=dn,
-                                shape=[BATCH, h, w, c],
-                                max_abs_err=err[0], max_rel_err=err[1],
-                                tol=TOL[dn], ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=b, bound_by=by))
-            log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d}  {err_text(err, TOL[dn])}  "
-                f"kernel {ms:.4f} ms  plain {plain:.4f}  "
-                f"group_norm+FiLM {lib:.4f}  bound {b:.4f} ({by})")
-            del x, args
-        # Training gives each sample its own t, so the FiLM tables have one
-        # row per sample.
-        h, w, c = SR_ADAGN_SHAPES[2]
-        args = (randn((BATCH, h, w, c), dtype, std=2.0, mean=0.5),
-                randn((c,), dtype, std=0.1, mean=1.0),
-                randn((c,), dtype, std=0.1),
-                randn((BATCH, c), dtype, std=0.5, mean=1.0),
-                randn((BATCH, c), dtype, std=0.5), GROUPS)
-        err = compare(f"adagn {dn} {h}x{w}x{c} per-sample FiLM",
-                      fused_adagn(*args), adagn_reference(*args), TOL[dn])
-        results.append(dict(kernel="adagn_check", check="per-sample FiLM",
-                            dtype=dn, shape=[BATCH, h, w, c],
-                            max_abs_err=err[0], max_rel_err=err[1]))
-        log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} per-sample FiLM tables "
-            f"(training)  {err_text(err, TOL[dn])}")
-        # A large mean (50, std 1): E[x^2] - mean^2 would cancel to noise
-        # here; the merged Welford/Chan statistics must not. C = 384 gives
-        # groups of 12 channels, which straddle the 8-channel vectors.
-        h, w, c = ADAGN_SHAPES[-1]
-        args = (randn((BATCH, h, w, c), dtype, std=1.0, mean=50.0),
-                randn((c,), dtype, std=0.1, mean=1.0),
-                randn((c,), dtype, std=0.1),
-                randn((1, c), dtype, std=0.5, mean=1.0),
-                randn((1, c), dtype, std=0.5), GROUPS)
-        err = compare(f"adagn {dn} {h}x{w}x{c} mean 50",
-                      fused_adagn(*args), adagn_reference(*args), TOL[dn])
-        results.append(dict(kernel="adagn_check", check="mean 50, std 1",
-                            dtype=dn, shape=[BATCH, h, w, c],
-                            max_abs_err=err[0], max_rel_err=err[1]))
-        log(f"adagn {dn:8s} {h:3d}x{w:3d}x{c:4d} x mean 50, std 1  "
-            f"{err_text(err, TOL[dn])}")
-        del args
-
+        adagn_checks(torch, randn, results, dtype)
         cases = [("flagship", sh) for sh in BLOCK_SHAPES] + [
             ("sr", sh) for sh in SR_BLOCK_SHAPES if sh not in BLOCK_SHAPES]
         for model, (s_len, d) in cases:
@@ -1504,6 +1598,15 @@ def model_phase(torch, name, cfg, img):
                                key=lambda kv: -kv[1])))
                 for k in split["top"]:
                     log(f"  {k['ms']:8.3f} ms  x{k['count']:<4d} {k['name']}")
+                # One AdaGN kernel a call of fused_adagn: the one-pass
+                # kernel, not the two-pass kernels.
+                got = split["family_launches"].get("adagn (port)", 0)
+                want = expected_launches(cfg, 1, 0)["fused_adagn"]
+                log(f"{name} unet bfloat16 trace: {got} AdaGN kernel "
+                    f"launches for {want} AdaGN calls")
+                if got != want:
+                    raise AssertionError(f"{name} U-Net trace: {got} AdaGN "
+                                         f"kernels for {want} calls")
         del nets, net_k, net_p, out_k, out_p
         torch.cuda.empty_cache()
     return report
@@ -1644,14 +1747,15 @@ def device_breakdown(torch, fn):
     total = sum(ms for _, ms, _ in kernels)
     if total <= 0:
         return None
-    families = {}
-    for name, ms, _ in kernels:
+    families, family_launches = {}, {}
+    for name, ms, count in kernels:
         fam = next((f for frag, f in FAMILIES if frag in name.lower()),
                    "other (elementwise, copies)")
         families[fam] = families.get(fam, 0.0) + ms
+        family_launches[fam] = family_launches.get(fam, 0) + count
     top = sorted(kernels, key=lambda k: -k[1])[:10]
     return dict(total_ms=total, launches=sum(c for _, _, c in kernels),
-                families=families,
+                families=families, family_launches=family_launches,
                 top=[dict(name=n[:100], ms=ms, count=c) for n, ms, c in top])
 
 
@@ -1711,11 +1815,14 @@ def expected_launches(cfg, calls, streaming):
     attention, whole-S or (for the `streaming` blocks) the two streaming
     passes, every whole-S attention, every `linear` and every streaming
     stats and streaming apply on the wgmma kernels (`_mma`, the
-    tensor-core counts; `_wgmma`, the streaming passes' wgmma counts).
+    tensor-core counts; `_wgmma`, the streaming passes' wgmma counts), and
+    every AdaGN on a one-pass kernel (`_one_pass`; none on the two passes).
     Calls without a gradient launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
     return {"fused_adagn": adagn * calls,
+            "fused_adagn_one_pass": adagn * calls,
+            "fused_adagn_two_pass": 0,
             "fused_attention": (blocks - streaming) * calls,
             "fused_attention_mma": (blocks - streaming) * calls,
             "fused_attention_block": blocks * calls,
@@ -1746,14 +1853,22 @@ def kernel_counters():
             streaming_dq]
 
 
+# The counts beside `launches` that some wrappers keep: the tensor-core
+# launches, the streaming passes' wgmma ones, AdaGN's one-pass and
+# two-pass ones.
+SUB_COUNTS = (("mma_launches", "mma"), ("wgmma_launches", "wgmma"),
+              ("one_pass_launches", "one_pass"),
+              ("two_pass_launches", "two_pass"))
+
+
 def zero_counts(counters):
     """Every launch count to 0, the tensor-core counts (`mma_launches`) of
     the whole-S attention, `linear` and the streaming stats, apply, dV, dK
-    and dQ passes and the wgmma counts (`wgmma_launches`) of the streaming
-    stats and apply too."""
+    and dQ passes, the wgmma counts (`wgmma_launches`) of the streaming
+    stats and apply and AdaGN's one-pass and two-pass counts too."""
     for fn in counters:
         fn.launches = 0
-        for name in ("mma_launches", "wgmma_launches"):
+        for name, _ in SUB_COUNTS:
             if hasattr(fn, name):
                 setattr(fn, name, 0)
 
@@ -1762,13 +1877,14 @@ def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches that
     ran the tensor-core kernels (the wgmma ones of fused_attention,
     linear, streaming_stats and streaming_apply; the mma.sync ones of
-    streaming_dv, dk and dq) and `<name>_wgmma` for those
-    of streaming_stats and streaming_apply that ran their wgmma kernels."""
+    streaming_dv, dk and dq), `<name>_wgmma` for those
+    of streaming_stats and streaming_apply that ran their wgmma kernels,
+    and fused_adagn_one_pass / _two_pass for AdaGN's calls on its one-pass
+    kernel (adagn_grid) and on the two-pass kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
-    out.update({f"{fn.__name__}_mma": fn.mma_launches for fn in counters
-                if hasattr(fn, "mma_launches")})
-    out.update({f"{fn.__name__}_wgmma": fn.wgmma_launches for fn in counters
-                if hasattr(fn, "wgmma_launches")})
+    for attr, tag in SUB_COUNTS:
+        out.update({f"{fn.__name__}_{tag}": getattr(fn, attr)
+                    for fn in counters if hasattr(fn, attr)})
     return out
 
 
@@ -4095,20 +4211,24 @@ def summarize(results, launches):
     generated and trained paths; `launches_by_path` keeps them apart, and
     `mma_launches` counts those that ran the tensor-core kernels (wgmma for
     the whole-S attention, `linear` and the streaming stats and apply,
-    whose `wgmma_launches` say so; mma.sync for dV, dK and dQ). No library
+    whose `wgmma_launches` say so; mma.sync for dV, dK and dQ), and AdaGN's
+    `one_pass_launches` / `two_pass_launches` its two routes. No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
     `k_axis_library_ms`: the whole-S attention per flagship call, the
     streaming forward, stats + apply, per SR call). `linear` sums both
     projections of every block per flagship call, its library time
-    F.linear's (cuBLAS), and adds both queued behind a sleep kernel
-    (`queued_ms`, `library_queued_ms`: device time without the host's);
-    it and AdaGN add the same per SR call (`sr_*`). The whole-S attention
+    F.linear's (cuBLAS), and it and AdaGN (library: F.group_norm + FiLM)
+    add both queued behind a sleep kernel (`queued_ms`,
+    `library_queued_ms`: device time without the host's) and the same per
+    SR call (`sr_*`). The whole-S attention
     adds its queued times on both axes (`queued_ms`, `k_axis_queued_ms`,
     SDPA's `k_axis_library_queued_ms`) and the same per SR call, its three
     whole-S blocks (`sr_*`, `sr_k_axis_*`)."""
     meta = {
-        "fused_adagn": ("adagn", "flagship", "sdm_tpu_torch/csrc/adagn.cu",
+        "fused_adagn": ("adagn", "flagship",
+                        "sdm_tpu_torch/csrc/adagn.cu (adagn_grid; + "
+                        "async_tiles.cuh)",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
         "fused_attention": ("attention", "flagship",
                             "sdm_tpu_torch/csrc/attention.cu "
@@ -4190,8 +4310,12 @@ def summarize(results, launches):
         "fused_attention": attention_calls(),
         "streaming_stats": k_axis("streaming_attention", "sr", 1),
         "streaming_apply": k_axis("streaming_attention", "sr", 1),
-        "fused_adagn": sr_call("adagn", lambda sh: tuple(sh[1:])
-                               in SR_ADAGN_SHAPES, ADAGN_PER_CALL),
+        "fused_adagn": {**sr_call("adagn", lambda sh: tuple(sh[1:])
+                                  in SR_ADAGN_SHAPES, ADAGN_PER_CALL,
+                                  queued),
+                        **{key: sum(r[key] for r in main_rows(
+                            "adagn", "flagship", "q")) * ADAGN_PER_CALL
+                           for key in queued}},
         "linear": {**sr_call("linear", lambda sh: (sh[0] // BATCH, sh[2])
                              in SR_BLOCK_SHAPES, 1, queued),
                    **{key: sum(r[key] for r in main_rows("linear",
@@ -4214,7 +4338,7 @@ def summarize(results, launches):
             launches_by_path={path: n[name] for path, n in launches.items()},
             **{f"{kind}_launches": sum(path[f"{name}_{kind}"]
                                        for path in launches.values())
-               for kind in ("mma", "wgmma")
+               for _, kind in SUB_COUNTS
                if f"{name}_{kind}" in next(iter(launches.values()))},
             **extra.get(name, {}),
             per=(f"one {model} "
@@ -4289,8 +4413,9 @@ def demangle(names):
 # rows a block; the apply at two axes x bf16 and fp32 output x one to four
 # output chunks a warpgroup in loads of four chunks, and three or four in
 # loads of eight), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
-# tiles).
-MMA_KERNELS = {"attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
+# tiles); beside them AdaGN's one-pass kernel (bulk copies, one).
+MMA_KERNELS = {"adagn": {"adagn_grid": 1},
+               "attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
                "streaming_attention": {"stream_apply_mma": 2,
                                        "stream_da_mma": 4,
                                        "stream_stats_wgmma": 2,
@@ -4300,9 +4425,11 @@ MMA_KERNELS = {"attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
 
 def build_phase(torch):
     """Build every library, log each kernel's registers and spills, and
-    hold every instantiation of the tensor-core kernels (MMA_KERNELS) to 0
-    spill bytes. Returns their ptxas report and dynamic shared memory."""
+    hold every instantiation of the tensor-core kernels and AdaGN's one-pass
+    kernel (MMA_KERNELS) to 0 spill bytes. Returns their ptxas report and
+    dynamic shared memory."""
     from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import adagn as ag
     from sdm_tpu_torch.kernels import attention as attn_mod
     from sdm_tpu_torch.kernels import attention_block as ab
     from sdm_tpu_torch.kernels import streaming_attention as sa
@@ -4313,7 +4440,11 @@ def build_phase(torch):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    smem = {"stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
+    smem = {"adagn_grid": (ag.adagn_plan(BATCH, 64 * 64, ag.MAX_C, GROUPS,
+                                         torch.bfloat16,
+                                         torch.bfloat16).smem,
+                           f"C = {ag.MAX_C}"),
+            "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
                                  f"D = {sa.MMA_MAX_D}"),
             "stream_da_mma": (sa.da_smem_bytes_mma(sa.DA_MAX_D),
                               f"D = {sa.DA_MAX_D}"),

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) tensor-core building blocks: TMA tile loads into shared
-// memory, the mbarriers that report them, and warpgroup MMAs (wgmma) that
-// read both operands from shared memory through matrix descriptors. Used by
-// the GEMM (linear.cu), the whole-S attention (attention.cu) and the
-// streaming attention's forward (streaming_attention.cu); one copy of each
-// primitive lives here.
+// memory, which async_tiles.cuh's mbarriers report, and warpgroup MMAs
+// (wgmma) that read both operands from shared memory through matrix
+// descriptors. Used by the GEMM (linear.cu), the whole-S attention
+// (attention.cu) and the streaming attention's forward
+// (streaming_attention.cu). One copy of each primitive lives here or in
+// async_tiles.cuh.
 //
 // The tiles are bf16, 64 elements (128 bytes) a row, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile at byte r * 128, its 16-byte
@@ -18,7 +19,7 @@
 
 #include <cuda.h>   // CUtensorMap and the driver's enums only; no linking
 
-#include "mma_tiles.cuh"
+#include "async_tiles.cuh"
 
 // ---------------------------------------------------------------- TMA (host)
 
@@ -102,61 +103,6 @@ static int sdm_tma_map_chunks(CUtensorMap* map, const void* base, int n,
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// -------------------------------------------------------------- mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Makes the initialised barriers visible to the async proxy (TMA); then a
-// __syncthreads() before any thread uses them.
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// This thread's arrival, and `bytes` more of transactions (TMA writes) the
-// current phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed (a barrier starts
-// in phase 0; its k-th completion ends the phase of parity k % 2). A wait
-// that lasts about 2^34 cycles (seconds) traps: a parity slip then fails
-// the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
 // ------------------------------------------------------------ TMA (device)
 
 // One box of `map` at (col, row) into shared memory at dst (1024-byte
@@ -185,14 +131,7 @@ __device__ __forceinline__ void tma_load_chunks(void* dst,
       : "memory");
 }
 
-// ------------------------------------------------------- threads and proxies
-
-// Makes this thread's shared-memory stores (st.shared, the generic proxy)
-// visible to the async proxy that wgmma reads its operands through; then a
-// barrier before the wgmma that read them.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// ------------------------------------------------------------ named barriers
 
 // Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
 // multiple of 32: the consumer warpgroups meet without the producer warp.

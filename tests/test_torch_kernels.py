@@ -529,20 +529,28 @@ def test_kernel_sources_export_the_wrapped_symbols():
             with open(os.path.join(_build.CSRC, name)) as f:
                 src = f.read()
             # One copy of each primitive: the mma.sync ones in
-            # mma_tiles.cuh, the TMA, mbarrier and wgmma ones in
-            # wgmma_tiles.cuh.
+            # mma_tiles.cuh, the TMA-map and wgmma ones in wgmma_tiles.cuh,
+            # the mbarrier, bulk-copy, proxy-fence and device-counter ones
+            # in async_tiles.cuh.
             for primitive in ('"mma.sync.aligned', '"ldmatrix.sync',
                               '"cp.async.cg.shared', "void cp_async_rows("):
                 assert (primitive in src) == (name == "mma_tiles.cuh"), (
                     name, primitive)
             for primitive in ('"wgmma.mma_async', '"wgmma.fence',
                               '"wgmma.commit_group', '"wgmma.wait_group',
-                              '"cp.async.bulk.tensor', '"mbarrier.init',
-                              '"mbarrier.arrive', '"mbarrier.try_wait',
-                              '"fence.mbarrier_init', "cuTensorMapEncodeTiled",
+                              '"cp.async.bulk.tensor', "cuTensorMapEncodeTiled",
                               "uint64_t wgmma_desc(",
                               "void quad_transpose4("):
                 assert (primitive in src) == (name == "wgmma_tiles.cuh"), (
+                    name, primitive)
+            for primitive in ('"mbarrier.init', '"mbarrier.arrive',
+                              '"mbarrier.try_wait', '"fence.mbarrier_init',
+                              '"fence.proxy.async', '"createpolicy',
+                              '"cp.async.bulk.shared::cluster.global',
+                              '"cp.async.bulk.global.shared',
+                              '"cp.async.bulk.commit_group',
+                              '"atom.add.release.gpu', '"ld.acquire.gpu'):
+                assert (primitive in src) == (name == "async_tiles.cuh"), (
                     name, primitive)
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),
