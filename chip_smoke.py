@@ -20,7 +20,7 @@ as a user's run would.
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
      instantiation of the tensor-core kernels (the mma.sync
-     stream_apply_mma (dV) and stream_da_mma (dK, dQ) and the TMA + wgmma
+     stream_apply_mma (dV) and the TMA + wgmma stream_da_wgmma (dK, dQ),
      stream_stats_wgmma, stream_apply_wgmma of the streaming attention;
      the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the whole-S
      attention and linear_wgmma) and AdaGN's one-pass adagn_grid held to 0
@@ -53,14 +53,15 @@ as a user's run would.
      where the whole-S kernel is a second reference, and at a ragged
      S = 300; the bf16 query-axis dK and dQ are also held to a float64
      truth (BWD_TRUTH), and the fp32-output apply to its plain version.
-     Each stats and apply launch must take the TMA + wgmma kernels
-     (stream_stats_wgmma, stream_apply_wgmma) exactly when their admission
-     says so (the `wgmma_launches` counters), dV, dK and dQ the mma.sync
-     ones; the admissions, plans and shared memory of the wgmma kernels
-     are held to the C exports.
-     Small shapes off the main path (S = 300, D = 128, 384, 1024) run the
-     whole streaming function and each backward pass and check which kernel
-     each launch took (the `mma_launches` counters), and the Python mirrors
+     Each stats, apply, dK and dQ launch must take the TMA + wgmma kernels
+     (stream_stats_wgmma, stream_apply_wgmma, stream_da_wgmma) exactly
+     when their admission says so (the `wgmma_launches` counters), dV the
+     mma.sync one; the admissions, plans, ring stages and shared memory of
+     the wgmma kernels are held to the C exports.
+     Small shapes off the main path (S = 300, D = 128, 256, 384, 1024) run
+     the whole streaming function and each backward pass and check which
+     kernel each launch took (the `mma_launches` and `wgmma_launches`
+     counters), and the Python mirrors
      of the C admissions, plans and shared-memory formulas are held to the
      C functions.
   3. Model ("model"): the flagship and the SR U-Net from seeded random
@@ -100,8 +101,8 @@ as a user's run would.
      once more when it stops. The launch counters are zeroed just before
      each run and read just after, and held to the counts its steps and
      its preview imply (every whole-S attention, every `linear` and every
-     streaming stats and apply on the wgmma kernels, every streaming dV,
-     dK and dQ on the mma.sync ones); the losses must
+     streaming stats, apply, dK and dQ on the wgmma kernels, every
+     streaming dV on the mma.sync one); the losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
@@ -772,14 +773,17 @@ def streaming_phase(torch, results):
 
     # Off the main path: a ragged S (CUDA-core kernels in bf16 too, ragged
     # tiles masked); D = 128 leaves each P V warp 64 columns (and each dA B
-    # warp 32); D = 384 walks rows of 48 16-byte chunks in the tile loader;
-    # D = 1024 is past the mma.sync dV, dK and dQ and takes the CUDA cores
-    # there in bf16 (its forward stays on the wgmma kernels).
+    # warpgroup one output chunk, in loads of two chunks); D = 256 gives dK
+    # and dQ one load of four chunks a phase; D = 384 walks rows of 48
+    # 16-byte chunks in the tile loader (and gives dA B three slots a
+    # warpgroup); D = 1024 is past the mma.sync dV and the wgmma dK and dQ
+    # and takes the CUDA cores there in bf16 (its forward stays on the
+    # wgmma kernels).
     for dtype in (torch.float32, torch.bfloat16):
         for axis in ("q", "k"):
             off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
             streaming_bwd_case(torch, randn, results, dtype, 300, 72, axis)
-            for d in (128, 384, 1024):
+            for d in (128, 256, 384, 1024):
                 off_path_streaming_case(torch, randn, dtype, 256, d, axis)
     check_stream_predicates(torch)
 
@@ -837,7 +841,7 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
     dv_mma = sa.apply_takes_mma(q, k, g, got["dv"])
     wg_apply = sa.apply_takes_wgmma(q, k, v, out32)
     wg_stats = sa.stats_takes_wgmma(q, k)
-    da_mma = sa.da_takes_mma(q, k, v, g, got["dk"])
+    da_wgmma = sa.da_takes_wgmma(q, k, v, g, got["dk"])
     moved = (sa.streaming_apply.mma_launches - mma0[0],
              sa.streaming_stats.mma_launches - mma0[1],
              sa.streaming_apply.wgmma_launches - mma0[2],
@@ -851,16 +855,17 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
     fwd = {True: "wgmma", False: "CUDA-core"}
     log(f"streaming {tag} ({fwd[wg_stats]} stats, "
         f"{fwd[wg_apply]} apply, {kind[dv_mma]} dV, "
-        f"{kind[da_mma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
+        f"{fwd[da_wgmma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
         f"fp32-output apply {err_text(err32, ATTN_TOL[dn])}; "
         + "; ".join(bwd))
 
 
 def check_stream_predicates(torch):
     """The Python mirrors of the streaming admissions (apply_admits_mma,
-    da_admits_mma, admits_wgmma (for both wgmma kernels),
-    apply_smem_bytes_mma, da_smem_bytes_mma, wgmma_smem_bytes, wgmma_stages,
-    wgmma_plan) against the C functions, over
+    da_admits_wgmma, admits_wgmma (for both wgmma forward kernels),
+    apply_smem_bytes_mma, da_wgmma_smem_bytes, da_wgmma_stages,
+    wgmma_smem_bytes, wgmma_stages, wgmma_plan) against the C functions,
+    over
     D = 8..2560, several S, both dtypes and three layouts: aligned, a
     pointer off by 8 bytes, a row stride off by 4 elements."""
     import ctypes
@@ -873,9 +878,13 @@ def check_stream_predicates(torch):
         if lib.sdm_streaming_mma_smem_bytes(d) != sa.apply_smem_bytes_mma(d):
             raise AssertionError(f"apply_smem_bytes_mma({d}) disagrees with "
                                  "stream_mma_smem_bytes")
-        if lib.sdm_streaming_da_smem_bytes(d) != sa.da_smem_bytes_mma(d):
-            raise AssertionError(f"da_smem_bytes_mma({d}) disagrees with "
-                                 "da_mma_smem_bytes")
+        lib.sdm_streaming_da_wgmma_smem(d, four)
+        on = d % 128 == 0 and d <= sa.DA_MAX_D
+        mirror = ((sa.da_wgmma_smem_bytes(d), sa.da_wgmma_stages(d)) if on
+                  else (0, 0))
+        if tuple(four)[:2] != mirror:
+            raise AssertionError(f"da_wgmma_smem_bytes/da_wgmma_stages({d}) "
+                                 f"disagree with C: {tuple(four)[:2]}")
         if d % 64 == 0 and d <= 1024:
             lib.sdm_streaming_wgmma_smem(d, four)
             if tuple(four) != (*sa.wgmma_smem_bytes(d), *sa.wgmma_stages(d)):
@@ -911,9 +920,9 @@ def check_stream_predicates(torch):
                             cptrs, cstr, s_len, d, dt),
                          sa.admits_wgmma(dtype, s_len, d, ptrs[:2],
                                          strides[:2])),
-                        ("dA", lib.sdm_streaming_da_takes_mma(
+                        ("dA", lib.sdm_streaming_da_takes_wgmma(
                             cdptrs, cdstr, s_len, d, dt),
-                         sa.da_admits_mma(dtype, s_len, d, dptrs, dstr)))
+                         sa.da_admits_wgmma(dtype, s_len, d, dptrs, dstr)))
                     for what, got, mirror in pairs:
                         if bool(got) != mirror:
                             raise AssertionError(
@@ -923,8 +932,9 @@ def check_stream_predicates(torch):
                         checked += 1
     log(f"streaming admissions: the Python mirrors agree with the C "
         f"predicates in {checked} cases (D = 8..2560, S in 64, 96, 300, "
-        f"1024, 4096, both dtypes, three layouts), and with the wgmma "
-        f"forward's shared memory, stages and plan (D = 64..1024)")
+        f"1024, 4096, both dtypes, three layouts), with the wgmma "
+        f"forward's shared memory, stages and plan (D = 64..1024) and with "
+        f"stream_da_wgmma's shared memory and stages (D = 8..2560)")
 
 
 def _reps(s_len, dtype_name):
@@ -1361,7 +1371,8 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
     kernel), and against the plain version of the other softmax axis, which
     must fail. bf16 on the q axis is also held to a float64 truth (see
     BWD_TRUTH). The tensor-core counts of dV, dK and dQ (`mma_launches`)
-    must move as the Python mirrors of the admissions say."""
+    and dK's and dQ's wgmma counts (`wgmma_launches`) must move as the
+    Python mirrors of the admissions say."""
     import torch.nn.functional as F
     from sdm_tpu_torch.kernels import streaming_attention as sa
     dn = str(dtype).split(".")[-1]
@@ -1495,20 +1506,24 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
 def bwd_mma_counts(sa):
     return {"dv": sa.streaming_dv.mma_launches,
             "dk": sa.streaming_dk.mma_launches,
-            "dq": sa.streaming_dq.mma_launches}
+            "dq": sa.streaming_dq.mma_launches,
+            "dk_wgmma": sa.streaming_dk.wgmma_launches,
+            "dq_wgmma": sa.streaming_dq.wgmma_launches}
 
 
 def check_bwd_mma(sa, tag, q, k, v, g, got, mma0):
-    """dV's, dK's and dQ's `mma_launches` against their counts `mma0`
-    before one launch each (outputs `got`): dV moves as `apply_takes_mma`
-    says, dK and dQ as `da_takes_mma` says."""
-    want = {"dv": int(sa.apply_takes_mma(q, k, g, got["dv"])),
-            "dk": int(sa.da_takes_mma(q, k, v, g, got["dk"])),
-            "dq": int(sa.da_takes_mma(q, k, v, g, got["dq"]))}
+    """dV's, dK's and dQ's `mma_launches` and dK's and dQ's
+    `wgmma_launches` against their counts `mma0` before one launch each
+    (outputs `got`): dV moves as `apply_takes_mma` says, dK and dQ (both
+    counts) as `da_takes_wgmma` says."""
+    dk = int(sa.da_takes_wgmma(q, k, v, g, got["dk"]))
+    dq = int(sa.da_takes_wgmma(q, k, v, g, got["dq"]))
+    want = {"dv": int(sa.apply_takes_mma(q, k, g, got["dv"])), "dk": dk,
+            "dq": dq, "dk_wgmma": dk, "dq_wgmma": dq}
     moved = {n: c - mma0[n] for n, c in bwd_mma_counts(sa).items()}
     if moved != want:
-        raise AssertionError(f"streaming backward {tag}: mma launches "
-                             f"{moved}, the admissions say {want}")
+        raise AssertionError(f"streaming backward {tag}: tensor-core "
+                             f"launches {moved}, the admissions say {want}")
 
 
 def compare_bwd(name, got, want, tol):
@@ -1836,7 +1851,8 @@ def expected_launches(cfg, calls, streaming):
             "streaming_apply_wgmma": streaming * calls,
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
             "streaming_dv_mma": 0, "streaming_dk_mma": 0,
-            "streaming_dq_mma": 0}
+            "streaming_dq_mma": 0, "streaming_dk_wgmma": 0,
+            "streaming_dq_wgmma": 0}
 
 
 def kernel_counters():
@@ -1876,9 +1892,9 @@ def zero_counts(counters):
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches that
     ran the tensor-core kernels (the wgmma ones of fused_attention,
-    linear, streaming_stats and streaming_apply; the mma.sync ones of
-    streaming_dv, dk and dq), `<name>_wgmma` for those
-    of streaming_stats and streaming_apply that ran their wgmma kernels,
+    linear, streaming_stats, streaming_apply, streaming_dk and
+    streaming_dq; the mma.sync one of streaming_dv), `<name>_wgmma` for
+    those of the streaming passes that ran their wgmma kernels,
     and fused_adagn_one_pass / _two_pass for AdaGN's calls on its one-pass
     kernel (adagn_grid) and on the two-pass kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
@@ -2412,13 +2428,14 @@ def expected_grad_launches(cfg, calls, streaming):
     (`expected_launches`, the streaming stats and apply on their wgmma
     kernels), and dV, dK and dQ once per streaming block per call
     backward, every dV on stream_apply_mma, every dK and dQ on
-    stream_da_mma. AdaGN, the whole-S attention and the blocks recompute
+    stream_da_wgmma. AdaGN, the whole-S attention and the blocks recompute
     their backward through the plain version, and `linear`'s backward is
     plain matmuls: no launches."""
     out = expected_launches(cfg, calls, streaming)
     for kernel in ("streaming_dv", "streaming_dk", "streaming_dq",
                    "streaming_dv_mma", "streaming_dk_mma",
-                   "streaming_dq_mma"):
+                   "streaming_dq_mma", "streaming_dk_wgmma",
+                   "streaming_dq_wgmma"):
         out[kernel] = streaming * calls
     return out
 
@@ -4254,10 +4271,12 @@ def summarize(results, launches):
                          "sdm_tpu_torch/csrc/attention_tiles.cuh",
                          "sdm_tpu/kernels/streaming_attention.py:298", 1),
         "streaming_dk": ("streaming_dk", "sr",
-                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu "
+                         "(stream_da_wgmma; + wgmma_tiles.cuh)",
                          "sdm_tpu/kernels/streaming_attention.py:260", 1),
         "streaming_dq": ("streaming_dq", "sr",
-                         "sdm_tpu_torch/csrc/streaming_attention.cu",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu "
+                         "(stream_da_wgmma; + wgmma_tiles.cuh)",
                          "sdm_tpu/kernels/streaming_attention.py:271", 1),
     }
     # STREAM_SHAPES[0] is the SR model's one streaming block.
@@ -4408,8 +4427,9 @@ def demangle(names):
 # The tensor-core kernels of each library, with the instantiations ptxas
 # must report: the whole-S library's TMA + wgmma stats (one) and apply (two
 # axes x one to four output chunks a warpgroup), the streaming library's
-# mma.sync apply (dV: fp32 x two axes) and its backward's dA kernel (dK and
-# dQ x two stat layouts), its TMA + wgmma forward (the stats at 64 and 128 kept
+# mma.sync apply (dV: fp32 x two axes) and its backward's TMA + wgmma dA
+# kernel (dK and dQ x two stat layouts x one to four output chunks a
+# warpgroup), its TMA + wgmma forward (the stats at 64 and 128 kept
 # rows a block; the apply at two axes x bf16 and fp32 output x one to four
 # output chunks a warpgroup in loads of four chunks, and three or four in
 # loads of eight), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
@@ -4417,7 +4437,7 @@ def demangle(names):
 MMA_KERNELS = {"adagn": {"adagn_grid": 1},
                "attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
                "streaming_attention": {"stream_apply_mma": 2,
-                                       "stream_da_mma": 4,
+                                       "stream_da_wgmma": 16,
                                        "stream_stats_wgmma": 2,
                                        "stream_apply_wgmma": 24},
                "linear": {"linear_wgmma": 2}}
@@ -4446,8 +4466,8 @@ def build_phase(torch):
                            f"C = {ag.MAX_C}"),
             "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
                                  f"D = {sa.MMA_MAX_D}"),
-            "stream_da_mma": (sa.da_smem_bytes_mma(sa.DA_MAX_D),
-                              f"D = {sa.DA_MAX_D}"),
+            "stream_da_wgmma": (sa.da_wgmma_smem_bytes(sa.DA_MAX_D),
+                                f"D = {sa.DA_MAX_D}"),
             "attn_stats_wgmma": (attn_mod.wgmma_smem_bytes(1024)[0],
                                  "D = 1024"),
             "attn_apply_wgmma": (attn_mod.wgmma_smem_bytes(1024)[1],
@@ -4479,14 +4499,15 @@ def build_phase(torch):
                                          f"{info.get('spill_bytes')} bytes")
             out.setdefault(kernel, []).extend(found.values())
     # ptxas says where it serializes a kernel's wgmma (the C7510-C7520
-    # "wgmma ... serialized" info lines): none for the streaming forward.
+    # "wgmma ... serialized" info lines): none for the streaming forward
+    # or its dK and dQ.
     serialized = [line.strip() for line in
                   _build.build_log("streaming_attention").splitlines()
                   if "serializ" in line and "wgmma" in line]
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
-    log("  streaming_attention: no serialized wgmma in stream_stats_wgmma "
-        "or stream_apply_wgmma")
+    log("  streaming_attention: no serialized wgmma in stream_stats_wgmma, "
+        "stream_apply_wgmma or stream_da_wgmma")
     out["smem_bytes"] = {k: v[0] for k, v in smem.items()}
     return out
 

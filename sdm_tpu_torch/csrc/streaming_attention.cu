@@ -25,12 +25,13 @@
 //
 // The forward in bf16 at S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte
 // aligned rows runs on TMA + wgmma: stream_stats_wgmma and
-// stream_apply_wgmma (below). The dV pass, which is the apply pass with the
-// roles swapped, runs on the tensor cores through mma.sync with ldmatrix
-// fragments and cp.async rings (stream_apply_mma, attention_tiles.cuh; bf16
-// at S % 64 == 0, D % 128 == 0, D <= 512 with aligned rows), and the
-// backward's dK and dQ passes on stream_da_mma (S % DA_ROWS == 0, D <= 512;
-// below). fp32, and bf16 at other shapes, take CUDA-core kernels (fp32 FMA)
+// stream_apply_wgmma (below), and so do the backward's dK and dQ passes in
+// bf16 at S % 64 == 0, D % 128 == 0, D <= 512 (stream_da_wgmma, below). The
+// dV pass, which is the apply pass with the roles swapped, runs on the
+// tensor cores through mma.sync with ldmatrix fragments and cp.async rings
+// (stream_apply_mma, attention_tiles.cuh; bf16 at S % 64 == 0, D % 128 ==
+// 0, D <= 512 with aligned rows). fp32, and bf16 at other shapes, take
+// CUDA-core kernels (fp32 FMA)
 // that mask ragged tiles: keys past S give P = 0, and the stats count them
 // as -inf. The apply pass is bound by operations: 4*S*S*D per (batch, head)
 // (scores and P V), 2*S*S*D for the stats.
@@ -307,13 +308,16 @@ static void sw_split(int D, int* split, int* cols) {
   *cols = (boxes + *split - 1) / *split * SW_BOX;
 }
 
-// Phase clocks for tools/torch_streaming_tiles.py, which builds this file
-// a second time with -DSW_PHASE_CLOCKS: every thread reads clock64() at
-// the kernels' phase boundaries (no branch, so the wgmma pipeline is
-// compiled as without) and thread 0 of each block adds its cycles per
-// phase to sw_phase_clocks[kernel][phase] at the end. Nothing otherwise.
+// Phase clocks for tools/torch_streaming_tiles.py and tools/torch_da_tiles
+// .py, which build this file a second time with -DSW_PHASE_CLOCKS: every
+// thread reads clock64() at the kernels' phase boundaries (no branch, so
+// the wgmma pipeline is compiled as without) and thread 0 of each block
+// adds its cycles per phase to sw_phase_clocks[kernel][phase] (the
+// forward's stats and apply) or da_phase_clocks[phase] (dK and dQ) at the
+// end. Nothing otherwise.
 #ifdef SW_PHASE_CLOCKS
 __device__ unsigned long long sw_phase_clocks[2][8];
+__device__ unsigned long long da_phase_clocks[8];   // stream_da_wgmma's
 #define SW_CLOCKS_START    \
   long long sw_ph[8] = {}; \
   long long sw_t0 = clock64();
@@ -323,13 +327,15 @@ __device__ unsigned long long sw_phase_clocks[2][8];
     sw_ph[i] += t_ - sw_t0;         \
     sw_t0 = t_;                     \
   }
-#define SW_CLOCKS_END(k)                                      \
-  if (threadIdx.x == 0)                                       \
-    for (int i_ = 0; i_ < 8; ++i_)                            \
-      atomicAdd(&sw_phase_clocks[k][i_], (unsigned long long)sw_ph[i_]);
+#define SW_CLOCKS_ADD(dst)                            \
+  if (threadIdx.x == 0)                               \
+    for (int i_ = 0; i_ < 8; ++i_)                    \
+      atomicAdd(&(dst)[i_], (unsigned long long)sw_ph[i_]);
+#define SW_CLOCKS_END(k) SW_CLOCKS_ADD(sw_phase_clocks[k])
 #else
 #define SW_CLOCKS_START
 #define SW_CLOCK(i)
+#define SW_CLOCKS_ADD(dst)
 #define SW_CLOCKS_END(k)
 #endif
 
@@ -1121,351 +1127,444 @@ SDM_EXPORT int sdm_streaming_apply(const void* q, const void* k, const void* v,
 // Each pass is bound by operations: per (batch, head) 4*S*S*D for dV (the
 // scores and P^T g) and 6*S*S*D for dK and for dQ (scores, g V^T, dA B).
 // dV takes stream_apply_mma where stream_mma_ok admits it, dK and dQ take
-// stream_da_mma (below) where da_mma_ok admits them; fp32, and bf16 at other
-// shapes, run stream_apply and stream_da on the CUDA cores with ragged
-// tiles masked (P = 0 and dA = 0 outside S).
+// stream_da_wgmma (below) where da_wgmma_ok admits them; fp32, and bf16 at
+// other shapes, run stream_apply and stream_da on the CUDA cores with
+// ragged tiles masked (P = 0 and dA = 0 outside S).
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
-// Tensor-core dA pass: stream_da_mma<STAT_COL, Pass, BM, BN, KSPLIT>.
+// The bf16 dK and dQ passes on Hopper's instruments: stream_da_wgmma<
+// STAT_COL, Pass, NB>, on TMA + wgmma (wgmma_tiles.cuh).
 //
 // Replaces the TPU's _dk_kernel (sdm_tpu/kernels/streaming_attention.py:152,
 // pallas_call at :260) and _dq_kernel (:167, pallas_call at :271) for bf16
-// at S % DA_ROWS == 0, D % 128 == 0, D <= 512 with 16-byte aligned rows of
-// all five tensors: every U-Net shape that streams. Bound: operations,
-// 6*S*S*D per batch row (A B^T, A2 B2^T and dA B, 2*S*S*D each), against
-// 4*S*D*2 bytes in and 4*S*D out: at S = 4096, D = 512 about 1,500
-// operations per byte, far above the H100's ~295 for bf16.
+// at S % 64 == 0, D % 128 == 0, D <= 512 with 16-byte aligned rows and
+// strides of all five tensors (da_wgmma_ok): every U-Net shape that streams.
+// It computes what the two Pallas kernels compute, not their tiles: out_a =
+// scale sum_b round_bf16(dA_ab) B_b with dA = P (A2 B2^T - corr), P =
+// exp(s scale - m) / l and s = A B^T (the roles above). Bound: operations,
+// 6 S^2 D a batch row (A B^T, A2 B2^T, dA B), against 4 S D bf16 bytes in
+// and 4 S D fp32 bytes out: at (4096, 512) about 1,500 operations a byte,
+// far above the H100's ~295 for bf16.
 //
-// Block: BM own rows, 256 threads (8 warps), one block per SM, grid
-// (S/BM, B). Shared memory (211,328 bytes at D = 512 and the launched
-// tiling, BM = 64, BN = 16, KSPLIT = 2):
-//   A, A2    [BM][D+8] bf16 each, loaded once by cp.async, resident;
-//   ring     2 stages x (B, B2) [BN][D+8] bf16: tile b+1 in flight
-//            (cp.async.cg, 16 bytes a copy) while tile b is computed; with
-//            STAT_COL (the stats index the streamed rows: dQ on the query
-//            axis, dK on the key axis) each stage also carries its rows' m,
-//            l and corr; otherwise each lane holds its own rows' in registers
-//            for the whole loop;
-//   dA tile  [BM][BN+8] bf16;
-//   exchange 8 KB of fp32 partial scores (KSPLIT = 2 only).
-// stream_apply_mma's 64 resident rows with 2 stages of 32-row tiles would
-// take 266,240 bytes for the two operand pairs, past MAX_SMEM. Two tilings
-// fit: 32 own rows with 32-row tiles (B and B2 read from L2 S/32 times per
-// batch row), or 64 with 16-row tiles (S/64 times, twice the barriers per
-// streamed row). Both are instantiations (BM, BN). On an H100 SXM (700 W,
-// tools/torch_da_tiles.py, 16 x 4096 x 512 bf16) 64 own rows on two D
-// halves took 5.41-5.76 ms a pass, 64 over all of D 5.87-6.11, 32 on two
-// halves 6.25-6.28, 32 over all of D 6.78-7.01; the launched tiling is the
-// first.
+// What decides the design is shared memory at D = 512. A block owns 64 rows
+// of A and A2 (wgmma's M), resident: 128 KB of the 227. A streamed tile of
+// 64 rows of B and B2 is 128 KB more, and B is read twice: K-major by the
+// scores and MN-major by dA B, which can start only once the contraction
+// over all of D is done. Holding a tile's B from its scores to its dA B
+// leaves no room to load the next tile's B ahead (stream_da_mma, the
+// mma.sync kernel this replaces, held 16-row tiles instead: n16 products,
+// two barriers and a partial-score exchange every 16 streamed rows). Here
+// every load is read by one phase alone, so the ring is a plain FIFO that
+// keeps loads in flight through both phases. A tile is 3 NL ring steps,
+// each a TMA load of DA_TILE rows x da_load_chunks(D) chunks (32 KB: NL = 2
+// at D = 512):
+//   scores  B load i, then B2 load i, i = 0 .. NL - 1;
+//   dA B    B load i again (from L2), i = 0 .. NL - 1:
+// half again the bytes of a B held whole, for a ring that never drains.
 //
-// Per streamed tile, after one cp.async.wait_group + __syncthreads:
-//   scores   warp (wr, wc, kh) takes own rows 16 wr.., streamed rows
-//            WN wc.. (WN = 8 or 16) and the kh-th of KSPLIT slices of D.
-//            S = A B^T and dP = A2 B2^T in two fp32 accumulator sets, even
-//            and odd 16-deep steps apart for independent chains: A and A2 by
-//            ldmatrix.x4, B and B2 (stored [row][d], which is B's
-//            column-major layout) by plain ldmatrix.x4, m16n8k16 mma.sync;
-//   halves   KSPLIT = 2: the two warps of one (wr, wc) tile each pass the
-//            partial sums of the rows they do not finish (8 floats a lane)
-//            to the other through the exchange; one __syncthreads;
-//   dA       formed on the accumulator fragments (lane L holds rows L/4 and
-//            L/4 + 8, columns 2(L%4) and +1): p = exp(s scale - m) / l and
-//            p (dp - corr) in fp32, rounded to bf16 and stored as pairs into
-//            the dA tile; one __syncthreads;
-//   dA B     warp (wr, wo) owns rows 16 wr.. and D / (8 / (BM/16)) output
-//            columns: A (dA) by ldmatrix.x4, B by ldmatrix.x4.trans
-//            (pv_tile), an fp32 accumulator of 16 x 128 (BM = 32) or
-//            16 x 256 (BM = 64) per warp.
-// The epilogue multiplies by scale and stores fp32 pairs from the fragments.
-//
-// KSPLIT = 2 gives each score warp a 16 x 16 tile of both S and dP, one
-// ldmatrix.x4 of shared memory per mma; a 16 x 8 tile over all of D
-// (KSPLIT = 1) needs 1.5, and the scores are two thirds of the products.
-// It costs the exchange and a third barrier per tile.
-//
-// What this design does about the tensor-core kernel it replaced: that
-// kernel owned 32 rows and staged 64-row tiles of B and B2 with synchronous
-// 16-byte copies between two barriers (nothing in flight during the
-// products; here one tile is always in flight); its score tiles went
-// through a per-warp fp32 scratch, where 32 lanes each took 8 exponentials
-// in series with m, l and corr read from global memory per element (here dA
-// is formed in registers, the stats staged with the tile or held in
-// registers); its 16 x 16 x 16 fragment API loaded each B fragment once per
-// 16-column slice of dA B and used it once (here one ldmatrix.x4.trans
-// feeds two products).
+// Block: 64 own rows, grid (S/64, B), two warpgroups that refill their ring
+// themselves (256 threads, one block an SM): no producer warp, so that a
+// thread may hold 255 registers (the output's 128 fp32 accumulators, the
+// two score fragments, the stats; with a ninth warp ptxas allows 168 and
+// spills). Shared memory at D = 512: A and A2 128 KB, two dA tiles 16 KB,
+// the staged stats 1.5 KB, two ring stages of 32 KB, 216,064 bytes in all.
+//   scores  warpgroup w takes streamed rows 32 w .. of each tile: s = A B^T
+//           and dp = A2 B2^T in two m64n32 fp32 accumulators (four
+//           m64n32k16 a chunk, both operands K-major), one group a ring
+//           step, retired and released before the next step's wait;
+//   dA      on the fragments: p = 2^((s scale - m) log2(e)) (1/l) with the
+//           scores scaled and rounded before the subtraction and m in the
+//           natural scale, as the stats pass writes it (with STAT_COL the
+//           stats of the tile's streamed rows, fetched a tile ahead and
+//           staged in shared memory with one reciprocal a row; else the
+//           lane's own rows', loaded once); p (dp - corr) rounded to
+//           bf16 into a swizzled 64 x 64 dA tile (two, by tile parity, so a
+//           warpgroup may write the next while the other still reads this
+//           one); a proxy fence and a named barrier of the 256 threads;
+//   dA B    warpgroup w owns output chunks 2 b + w (b < NB = D/128): the
+//           whole dA tile (K-major) by that chunk of B (MN-major, the
+//           transpose-B bit) into NB 64 x 64 fp32 accumulators, four
+//           m64n64k16 a chunk, one group a slot, retired before the next
+//           slot's wait; a load is released after its last slot (both
+//           warpgroups' slot b lie in load 2 b / da_load_chunks(D)).
+// No phase holds a stage while it waits for a load, so both stages of the
+// ring are in flight then: the kernel is bound by the latency of its TMA
+// loads more than by their bytes (tools/torch_da_tiles.py on an H100 SXM
+// at 700 W: holding a (B, B2) pair and every dA B load at once left the
+// block waiting for loads 38 % of its time; holding one step until the
+// next had landed, 41 % at two stages of 32 KB, and each pass took 3.0 ms
+// at (16, 4096, 512) against 2.5 ms now).
+// Thread 0 issues A, A2 and the first `stages` steps; after that lane 0
+// of each warp counts its release of step x on the counter of stage x %
+// stages, and the release that completes the count arms that stage's
+// "full" barrier and issues step x + stages. The epilogue scales
+// and stores fp32 pairs from the fragments. Every sum runs in one fixed
+// order, so two runs give the same bits. tools/torch_da_tiles.py builds
+// this file with DA_TILE 32 (m64n16 score tiles) and DA_LOAD_CHUNKS 2 as
+// well, and times them with stream_da_mma.
 // ---------------------------------------------------------------------------
 
-#define DA_THREADS 256
-#define DA_MAXD 512           // widest D of stream_da_mma
-// The tiling the dK and dQ passes launch: own rows per block, streamed rows
-// per ring stage, D slices per score tile.
-#define DA_BM 64
-#define DA_BN 16
-#define DA_KSPLIT 2
-#define DA_ROWS (DA_BM > DA_BN ? DA_BM : DA_BN)   // S must be a multiple
+#ifndef DA_TILE
+#define DA_TILE 64          // streamed rows a tile (32: m64n16 score tiles)
+#endif
+#ifndef DA_LOAD_CHUNKS
+#define DA_LOAD_CHUNKS 4    // chunks a TMA load where they divide D's, else 2
+#endif
+#define DA_ROWS 64          // own rows a block: wgmma's M
+#define DA_MAX_D 512        // widest D: four accumulators a warpgroup
+#define DA_STAGES 16        // most ring stages
+#define DA_THREADS 256      // two warpgroups, no producer warp
 
-template <int BM, int BN, int KSPLIT>
-static size_t da_mma_smem_bytes(int D) {
-  return 2 * (size_t)BM * (D + 8) * sizeof(bf16)        // A and A2 tiles
-         + 2 * 2 * (size_t)BN * (D + 8) * sizeof(bf16)  // ring: B and B2
-         + (size_t)BM * (BN + 8) * sizeof(bf16)         // rounded dA tile
-         + 2 * 3 * BN * sizeof(float)                   // ring: m, l, corr
-         + (KSPLIT - 1) * 8 * 8 * 32 * sizeof(float);   // partial scores
+static_assert((DA_TILE == 64 || DA_TILE == 32) && DA_LOAD_CHUNKS % 2 == 0,
+              "stream_da_wgmma tiling");
+static constexpr int kDaChunk = DA_TILE * SW_BOX * 2;    // a streamed chunk
+// The staged stats of two streamed tiles: m, 1/l and corr a row.
+static constexpr int kDaStats = 2 * 3 * DA_TILE * 4;
+
+// Chunks a TMA load at D: DA_LOAD_CHUNKS where they divide D's chunks
+// (D = 256, 512), else two (tools/torch_da_tiles.py on an H100 SXM at
+// 700 W, (16, 4096, 512): loads of four chunks in two stages 2.46-2.51 ms
+// a pass, of two in five 3.42-3.64).
+__host__ __device__ constexpr int da_load_chunks(int D) {
+  return (D / SW_BOX) % DA_LOAD_CHUNKS == 0 ? DA_LOAD_CHUNKS : 2;
 }
 
-// stream_da_mma's admission: bf16, S % DA_ROWS == 0, D % 128 == 0,
-// D <= 512, the shared memory within MAX_SMEM and 16-byte aligned rows of
-// A, A2, B, B2 and out.
-static bool da_mma_ok(int dt, const void* const* ptrs, const View* views,
-                      int S, int D) {
-  return dt == SDM_BF16 && S % DA_ROWS == 0 && D % 128 == 0 &&
-         D <= DA_MAXD &&
-         da_mma_smem_bytes<DA_BM, DA_BN, DA_KSPLIT>(D) <= MAX_SMEM &&
+// Loads of D.
+__host__ __device__ static inline int da_loads(int D) {
+  return D / SW_BOX / da_load_chunks(D);
+}
+
+// The shared memory besides the ring: A and A2 (64 rows), the two dA
+// tiles and the staged stats, with the alignment slack and the barriers.
+static long long da_fixed(int D) {
+  return kSwFixed + 2LL * (D / SW_BOX) * kSwChunk + 2LL * kSwChunk +
+         kDaStats;
+}
+
+// The most ring stages that fit beside them, at most DA_STAGES.
+static int da_stages(int D) {
+  const long long n =
+      (MAX_SMEM - da_fixed(D)) / (da_load_chunks(D) * kDaChunk);
+  return (int)(n < DA_STAGES ? n : DA_STAGES);
+}
+
+static size_t da_smem_bytes(int D, int stages) {
+  return (size_t)da_fixed(D) + (size_t)stages * da_load_chunks(D) * kDaChunk;
+}
+
+
+// stream_da_wgmma's admission: bf16, S % 64 == 0, D % 128 == 0 with
+// D <= 512, a ring of at least two stages within MAX_SMEM (each phase
+// holds a step while it waits for the next), and what TMA and the
+// epilogue's 8-byte stores need of A, A2, B, B2 and out: 16-byte aligned
+// bases, B and S strides that are multiples of 8 elements.
+static bool da_wgmma_ok(int dt, const void* const* ptrs, const View* views,
+                        int S, int D) {
+  return dt == SDM_BF16 && S > 0 && S % DA_ROWS == 0 && S % DA_TILE == 0 &&
+         D > 0 && D % 128 == 0 && D <= DA_MAX_D && da_stages(D) >= 2 &&
          rows_aligned16(ptrs, views, 5);
 }
 
-template <bool STAT_COL, typename Pass, int BM, int BN, int KSPLIT>
+// The scores' m64nNk16 at N = DA_TILE / 2 streamed rows a warpgroup.
+template <int N>
+__device__ __forceinline__ void da_score(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_m64n32k16(d, da, db, accumulate);
+  else
+    wgmma_m64n16k16(d, da, db, accumulate);
+}
+
+template <bool STAT_COL, typename Pass, int NB>
 __global__ void __launch_bounds__(DA_THREADS, 1)
-stream_da_mma(const bf16* __restrict__ a, View av, const bf16* __restrict__ a2,
-              View a2v, const bf16* __restrict__ bm, View bv,
-              const bf16* __restrict__ b2, View b2v, float* __restrict__ o,
-              View ov, int S, int D, float scale,
-              const float* __restrict__ m_in, const float* __restrict__ l_in,
-              const float* __restrict__ c_in) {
-  constexpr int WR = BM / 16;              // row groups, both phases
-  constexpr int TILES = 8 / KSPLIT;        // score tiles of 16 rows x WN
-  constexpr int WNC = TILES / WR;          // their column groups
-  constexpr int WN = BN / WNC;             // streamed rows per score tile
-  constexpr int NB = WN / 8;               // its 8-row mma blocks
-  constexpr int OC = 8 / WR;               // dA B output column groups
-  constexpr int NT = DA_MAXD / OC / 8;     // accumulator blocks per warp
-  constexpr int DLD = BN + 8;              // bf16 pitch of the dA tile
-  static_assert(WR * WNC * KSPLIT == 8 && (WN == 8 || WN == 16) &&
-                (KSPLIT == 1 || KSPLIT == 2), "stream_da_mma tiling");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = D + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);          // [BM][ld]
-  bf16* A2s = As + BM * ld;                              // [BM][ld]
-  bf16* Ring = A2s + BM * ld;                            // [2][B, B2][BN][ld]
-  bf16* Ds = Ring + 4 * BN * ld;                         // [BM][DLD]
-  float* St = reinterpret_cast<float*>(Ds + BM * DLD);   // [2][m, l, c][BN]
-  float* X = St + 2 * 3 * BN;                            // [8][4 NB][32]
+stream_da_wgmma(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_a2,
+                const __grid_constant__ CUtensorMap tm_b,
+                const __grid_constant__ CUtensorMap tm_b2,
+                float* __restrict__ o, View ov, int S, int stages,
+                float scale, const float* __restrict__ m_in,
+                const float* __restrict__ l_in,
+                const float* __restrict__ c_in) {
+  constexpr int LC = da_load_chunks(128 * NB);  // chunks a load
+  constexpr int kDaLoad = LC * kDaChunk;        // a ring stage
+  constexpr int HN = DA_TILE / 2;               // streamed rows a warpgroup
+  constexpr int SF = HN / 2;                    // its score fragment
+  constexpr int NL = 2 * NB / LC;               // loads of D
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* as = sw_align1024(smem_raw);   // [2 NB][64 x 64] A
+  unsigned char* a2s = as + 2 * NB * kSwChunk;       // A2
+  unsigned char* dts = a2s + 2 * NB * kSwChunk;      // [2][64 x 64] dA
+  unsigned char* ring = dts + 2 * kSwChunk;     // [stages][LC][TILE x 64]
+  // STAT_COL: [2][m, 1/l, corr][DA_TILE] of a tile's streamed rows.
+  float* stat_s = reinterpret_cast<float*>(ring + stages * kDaLoad);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stat_s + 2 * 3 * DA_TILE);
+  uint64_t* own_bar = full + stages;
+  // The warps' releases of each stage.
+  unsigned* released = reinterpret_cast<unsigned*>(own_bar + 1);  // [stages]
 
   const int b = blockIdx.y;
-  const bf16* ap = slice_ptr(a, av, 1, b);
-  const bf16* a2p = slice_ptr(a2, a2v, 1, b);
-  const bf16* bp = slice_ptr(bm, bv, 1, b);
-  const bf16* b2p = slice_ptr(b2, b2v, 1, b);
-  float* op = slice_ptr(o, ov, 1, b);
+  const int a0 = blockIdx.x * DA_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = S / DA_TILE, total = tiles * 3 * NL;
+
+  // Ring step x = 3 NL t + s of streamed tile t: B load s / 2 (s even) or
+  // B2 load s / 2 (odd) for s < 2 NL, else B load s - 2 NL, into stage x %
+  // stages.
+  auto load = [&](int x) {
+    const int t = x / (3 * NL), s = x - t * 3 * NL, st = x % stages;
+    const bool second = s < 2 * NL && (s & 1);
+    const int i = s < 2 * NL ? s >> 1 : s - 2 * NL;
+    mbar_arrive_expect_tx(&full[st], kDaLoad);
+    tma_load_chunks(ring + st * kDaLoad, second ? &tm_b2 : &tm_b, &full[st],
+                    t * DA_TILE, i * LC, 0, b);
+  };
+  // No thread waits to refill the ring: the warp that releases step x last
+  // loads step x + stages. The counters never reset: the u-th use of a
+  // stage is complete at 8 (u + 1) - 1.
+  auto release = [&](int x) {
+    if (lane != 0) return;
+    const int st = x % stages;
+    const unsigned use = (unsigned)(x / stages + 1);
+    if (atomicAdd(&released[st], 1u) != 8u * use - 1) return;
+    if (x + stages < total) load(x + stages);
+  };
   const float* mb = m_in + (long long)b * S;
   const float* lb = l_in + (long long)b * S;
   const float* cb = c_in + (long long)b * S;
-  const int i0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wr = warp % WR;                 // own rows 16 wr .. +16
-  const int wc = (warp / WR) % WNC;         // score columns WN wc .. +WN
-  const int kh = warp / TILES;              // score D slice
-  const int kspan = D / KSPLIT;
-  const int wcols = D / OC;                 // dA B output columns per warp
-  const int cbase = (warp / WR) * wcols;
-
-  // The own rows join the first cp.async group, with streamed tile 0.
-  cp_async_rows(As, ld, ap + (long long)i0 * av.ss, av.ss, BM, D / 8, tid,
-                DA_THREADS);
-  cp_async_rows(A2s, ld, a2p + (long long)i0 * a2v.ss, a2v.ss, BM, D / 8,
-                tid, DA_THREADS);
-  // Streamed tile at j0 into ring stage `st`: B, B2 and (STAT_COL) the
-  // rows' m, l and corr.
-  auto load_tile = [&](int j0, int st) {
-    bf16* Bs = Ring + st * 2 * BN * ld;
-    cp_async_rows(Bs, ld, bp + (long long)j0 * bv.ss, bv.ss, BN, D / 8, tid,
-                  DA_THREADS);
-    cp_async_rows(Bs + BN * ld, ld, b2p + (long long)j0 * b2v.ss, b2v.ss, BN,
-                  D / 8, tid, DA_THREADS);
-    if (STAT_COL && tid < 3 * BN) {
-      const float* src = tid < BN ? mb : tid < 2 * BN ? lb : cb;
-      cp_async4(smem_u32(St + st * 3 * BN + tid), src + j0 + tid % BN);
+  // STAT_COL: the m, 1/l and corr of streamed tile t, fetched by the first
+  // DA_TILE threads at the start of tile t - 1 (so that the loads land
+  // during its products) and staged into buffer t % 2 before its named
+  // barrier: one reciprocal a row, not one a lane.
+  float next_m = 0.f, next_l = 1.f, next_c = 0.f;
+  auto fetch_stats = [&](int t) {
+    if (threadIdx.x < DA_TILE && t < tiles) {
+      const int key = t * DA_TILE + threadIdx.x;
+      next_m = mb[key];
+      next_l = lb[key];
+      next_c = cb[key];
     }
   };
+  auto stage_stats = [&](int t) {
+    if (threadIdx.x < DA_TILE && t < tiles) {
+      float* dst = stat_s + (t & 1) * 3 * DA_TILE + threadIdx.x;
+      dst[0] = next_m;
+      dst[DA_TILE] = __frcp_rn(next_l);
+      dst[2 * DA_TILE] = next_c;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    mbar_init(own_bar, 1);
+    mbar_fence_init();
+  }
+  if (STAT_COL) {
+    fetch_stats(0);
+    stage_stats(0);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(own_bar, 2 * NL * LC * kSwChunk);
+    for (int c = 0; c < NL; ++c) {
+      tma_load_chunks(as + c * LC * kSwChunk, &tm_a, own_bar, a0, c * LC, 0,
+                      b);
+      tma_load_chunks(a2s + c * LC * kSwChunk, &tm_a2, own_bar, a0, c * LC,
+                      0, b);
+    }
+    for (int x = 0; x < stages && x < total; ++x) load(x);
+  }
 
-  // Own-row stats: those of this lane's two rows, for the whole loop.
-  float mrow[2] = {0.f, 0.f}, lrow[2] = {1.f, 1.f}, crow[2] = {0.f, 0.f};
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, tg = lane & 3;
+  // Own-row stats: m, 1/l and corr of this lane's rows 16 w + g and + 8.
+  float mrow[2] = {0.f, 0.f}, rlrow[2] = {1.f, 1.f}, crow[2] = {0.f, 0.f};
   if (!STAT_COL) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = i0 + wr * 16 + g + 8 * hh;
+      const int row = a0 + 16 * w + g + 8 * hh;
       mrow[hh] = mb[row];
-      lrow[hh] = lb[row];
+      rlrow[hh] = __frcp_rn(lb[row]);
       crow[hh] = cb[row];
     }
   }
+  float acc[NB][32];
+#pragma unroll
+  for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[bi][i] = 0.f;
+  float s[SF], dp[SF];
 
-  // ldmatrix lane addresses (bytes, shared window). A fragments (A, A2, dA):
-  // lanes 0-15 rows 0-15 at column 0, lanes 16-31 rows 0-15 at column 8. B
-  // of the scores, WN = 16: lanes 0-7 rows 0-7 / d 0, 8-15 rows 0-7 / d 8,
-  // 16-23 rows 8-15 / d 0, 24-31 rows 8-15 / d 8, so registers 0-1 are row
-  // block 0's fragment and 2-3 row block 1's; WN = 8: lanes 8i .. 8i+7 rows
-  // 0-7 at d 8i, so registers 0-1 are one 16-deep step's fragment and 2-3
-  // the next one's. B of dA B (transposed): lanes 0-15 rows 0-15 at column
-  // 0, 16-31 at column 8, so registers 0-1 are column block 0, 2-3 block 1.
-  const unsigned aa = smem_u32(As + (wr * 16 + (lane & 15)) * ld +
-                               (lane >> 4) * 8 + kh * kspan);
-  const unsigned a2a = aa + BM * ld * 2;
-  const unsigned da = smem_u32(Ds + (wr * 16 + (lane & 15)) * DLD +
-                               (lane >> 4) * 8);
-  const int kb_off =
-      (WN == 16 ? (wc * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld +
-                      ((lane >> 3) & 1) * 8
-                : (wc * 8 + (lane & 7)) * ld + (lane >> 3) * 8) +
-      kh * kspan;
-  const int vb_off = (lane & 15) * ld + cbase + (lane >> 4) * 8;
-
-  float acc[NT][4];
+  mbar_wait(own_bar, 0);
+  SW_CLOCKS_START
+  int it = 0;
+  for (int t = 0; t < tiles; ++t) {
+    if (STAT_COL) fetch_stats(t + 1);
+    // Step 2 i: s (+)= A_i B_i^T, step 2 i + 1: dp (+)= A2_i B2_i^T, one
+    // group each, retired and released before the next step's wait, so
+    // that no stage is held while a load is awaited.
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+    for (int i = 0; i < 2 * NL; ++i, ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      SW_CLOCK(0)
+      wgmma_fence_operands(s);
+      wgmma_fence_operands(dp);
+      wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int ntiles = S / BN;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    cp_async_wait<0>();
-    // Tile t (and A, A2) visible to every warp; every warp is done with
-    // tile t - 1, so its stage, the dA tile and the exchange may be
-    // overwritten.
-    __syncthreads();
-    if (t + 1 < ntiles) load_tile((t + 1) * BN, st ^ 1);
-    cp_async_commit();
-
-    const bf16* Bs = Ring + st * 2 * BN * ld;
-    const unsigned kb = smem_u32(Bs + kb_off);
-    const unsigned kb2 = kb + BN * ld * 2;
-
-    float s[2][NB][4], dp[2][NB][4];
+      for (int h = 0; h < LC; ++h) {
+        const uint64_t da = wgmma_desc((i & 1 ? a2s : as) +
+                                       ((i >> 1) * LC + h) * kSwChunk);
+        const uint64_t db = wgmma_desc(ring + st * kDaLoad + h * kDaChunk +
+                                       wg * (kDaChunk / 2));
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[p][n][e] = dp[p][n][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < kspan; kk += 32) {
-      if constexpr (WN == 16) {
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          unsigned x[4], y[4];
-          ldsm_x4(x, aa + (kk + 16 * p) * 2);
-          ldsm_x4(y, kb + (kk + 16 * p) * 2);
-          mma_bf16(s[p][0], x, y[0], y[1]);
-          mma_bf16(s[p][1], x, y[2], y[3]);
-          ldsm_x4(x, a2a + (kk + 16 * p) * 2);
-          ldsm_x4(y, kb2 + (kk + 16 * p) * 2);
-          mma_bf16(dp[p][0], x, y[0], y[1]);
-          mma_bf16(dp[p][1], x, y[2], y[3]);
-        }
-      } else {
-        unsigned y[4], y2[4];
-        ldsm_x4(y, kb + kk * 2);
-        ldsm_x4(y2, kb2 + kk * 2);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          unsigned x[4];
-          ldsm_x4(x, aa + (kk + 16 * p) * 2);
-          mma_bf16(s[p][0], x, y[2 * p], y[2 * p + 1]);
-          ldsm_x4(x, a2a + (kk + 16 * p) * 2);
-          mma_bf16(dp[p][0], x, y2[2 * p], y2[2 * p + 1]);
+        for (int kk = 0; kk < SW_BOX / 16; ++kk) {
+          if (i & 1)
+            da_score<HN>(dp, da + 2 * kk, db + 2 * kk, (i >> 1) + h + kk > 0);
+          else
+            da_score<HN>(s, da + 2 * kk, db + 2 * kk, (i >> 1) + h + kk > 0);
         }
       }
+      wgmma_commit();
+      wgmma_fence_operands(s);
+      wgmma_fence_operands(dp);
+      wgmma_wait<0>();
+      wgmma_fence_operands(s);
+      wgmma_fence_operands(dp);
+      release(it);
+      SW_CLOCK(1)
     }
-    // This lane's scores: rows 16 wr + g + 8 hh, streamed columns
-    // WN wc + 8 n + 2 tg + e, at [n][2 hh + e].
-    float sv[NB][4], dv[NB][4];
+
+    // dA into dA tile t % 2: row r at byte 128 r, its 16-byte chunk c at
+    // c ^ (r % 8); this lane's pair of streamed rows HN wg + 8 j + 2 tg
+    // sits in chunk (HN / 8) wg + j at byte 4 tg, and r % 8 == g.
+    unsigned char* dt = dts + (t & 1) * kSwChunk;
+    const float* sst = stat_s + (t & 1) * 3 * DA_TILE;
 #pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sv[n][e] = s[0][n][e] + s[1][n][e];
-        dv[n][e] = dp[0][n][e] + dp[1][n][e];
+    for (int j = 0; j < SF / 4; ++j) {
+      // STAT_COL: this lane's streamed rows HN wg + 8 j + 2 tg (+ 1).
+      float2 mk, rq, ck;
+      if (STAT_COL) {
+        const int col = HN * wg + 8 * j + 2 * tg;
+        mk = *reinterpret_cast<const float2*>(sst + col);
+        rq = *reinterpret_cast<const float2*>(sst + DA_TILE + col);
+        ck = *reinterpret_cast<const float2*>(sst + 2 * DA_TILE + col);
       }
-    if constexpr (KSPLIT == 2) {
-      // Warp kh finishes rows hh = kh and passes its partial sums of rows
-      // hh = 1 - kh to the warp of the other D half (warp ^ TILES).
-      float* xw = X + warp * 4 * NB * 32 + lane;
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (hh != kh) {
-              xw[(4 * n + 2 * e) * 32] = sv[n][2 * hh + e];
-              xw[(4 * n + 2 * e + 1) * 32] = dv[n][2 * hh + e];
-            }
-      __syncthreads();
-      const float* xr = X + (warp ^ TILES) * 4 * NB * 32 + lane;
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (hh == kh) {
-              sv[n][2 * hh + e] += xr[(4 * n + 2 * e) * 32];
-              dv[n][2 * hh + e] += xr[(4 * n + 2 * e + 1) * 32];
-            }
-    }
-    // dA = p (dp - corr), rounded to bf16 into the dA tile.
-    const float* stt = St + st * 3 * BN;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      const int col = wc * WN + n * 8 + 2 * tg;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        if (KSPLIT == 2 && hh != kh) continue;
-        float x[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float mm = STAT_COL ? stt[col + e] : mrow[hh];
-          const float ll = STAT_COL ? stt[BN + col + e] : lrow[hh];
-          const float cc = STAT_COL ? stt[2 * BN + col + e] : crow[hh];
-          const float p = expf(sv[n][2 * hh + e] * scale - mm) / ll;
-          x[e] = p * (dv[n][2 * hh + e] - cc);
-        }
-        store_pair(Ds + (wr * 16 + g + 8 * hh) * DLD + col, x[0], x[1]);
+        // The scores scaled and rounded before the subtraction, as the
+        // stats pass and the reference round them (no fused multiply-add).
+        const float p0 = exp2f((__fmul_rn(s[4 * j + 2 * hh], scale) -
+                                (STAT_COL ? mk.x : mrow[hh])) *
+                               kSwLog2e) *
+                         (STAT_COL ? rq.x : rlrow[hh]);
+        const float p1 = exp2f((__fmul_rn(s[4 * j + 2 * hh + 1], scale) -
+                                (STAT_COL ? mk.y : mrow[hh])) *
+                               kSwLog2e) *
+                         (STAT_COL ? rq.y : rlrow[hh]);
+        const float x0 = p0 * (dp[4 * j + 2 * hh] -
+                               (STAT_COL ? ck.x : crow[hh]));
+        const float x1 = p1 * (dp[4 * j + 2 * hh + 1] -
+                               (STAT_COL ? ck.y : crow[hh]));
+        const int row = 16 * w + g + 8 * hh;
+        *reinterpret_cast<unsigned*>(
+            dt + row * 128 + ((((HN / 8) * wg + j) ^ g) << 4) + 4 * tg) =
+            pack_bf16x2(x0, x1);
       }
     }
-    __syncthreads();   // the dA tile is complete
-    pv_tile<BN>(acc, da, smem_u32(Bs + vb_off), ld, wcols);
+    if (STAT_COL) stage_stats(t + 1);
+    fence_proxy_async();
+    SW_CLOCK(3)
+    named_barrier_sync(1, 256);
+    SW_CLOCK(4)
+
+    // Slot b of both warpgroups lies in load 2 b / LC; each slot is
+    // retired before the next one's wait, and a load released after its
+    // last slot.
+    const uint64_t dd = wgmma_desc(dt);
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      const int oc = 2 * bi + wg, x = it + oc / LC, st = x % stages;
+      // A fence after each wait: a wgmma issued after the wait's loop
+      // without one is serialized (ptxas puts its own fence in that path).
+      mbar_wait(&full[st], (x / stages) & 1);
+      SW_CLOCK(5)
+      const uint64_t dv =
+          wgmma_desc_mn(ring + st * kDaLoad + (oc % LC) * kDaChunk);
+      wgmma_fence_operands(acc[bi]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DA_TILE / 16; ++kk)
+        wgmma_m64n64k16_mn(acc[bi], dd + 2 * kk, dv + 128 * kk);
+      wgmma_commit();
+      wgmma_fence_operands(acc[bi]);
+      wgmma_wait<0>();
+      wgmma_fence_operands(acc[bi]);
+      if (bi == NB - 1 || (2 * bi + 2) / LC != (2 * bi) / LC)
+        release(it + (2 * bi) / LC);
+      SW_CLOCK(6)
+    }
+    it += NL;
   }
+  SW_CLOCKS_ADD(da_phase_clocks)
+
+  // The epilogue: each lane's fp32 pairs as they lie in the fragment,
+  // times scale (32 bytes a quad).
+  float* op = o + (long long)b * ov.sn;
+  const int row0 = a0 + 16 * w + g;
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int bi = 0; bi < NB; ++bi) {
+    const int cbox = (2 * bi + wg) * SW_BOX;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] *= scale;
-  store_acc(op, ov.ss, acc, i0 + wr * 16 + g, cbase, wcols, tg);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(op + (long long)(row0 + 8 * hh) * ov.ss +
+                                   cbox + 8 * j + 2 * tg) =
+            make_float2(acc[bi][4 * j + 2 * hh] * scale,
+                        acc[bi][4 * j + 2 * hh + 1] * scale);
+  }
 }
 
-// Launch stream_da_mma<..., BM, BN, KSPLIT>: grid (S/BM, batch). views: A,
-// A2, B, B2, out.
-template <typename Pass, int BM, int BN, int KSPLIT>
-static cudaError_t launch_da_mma(const bf16* a, const bf16* a2,
-                                 const bf16* bm, const bf16* b2, float* o,
-                                 const View* views, int batch, int S, int D,
-                                 float scale, bool stat_col, const float* m,
-                                 const float* l, const float* c,
-                                 cudaStream_t stream) {
-  const size_t smem = da_mma_smem_bytes<BM, BN, KSPLIT>(D);
-  auto kernel = stat_col ? &stream_da_mma<true, Pass, BM, BN, KSPLIT>
-                         : &stream_da_mma<false, Pass, BM, BN, KSPLIT>;
+using da_wgmma_fn = void (*)(CUtensorMap, CUtensorMap, CUtensorMap,
+                             CUtensorMap, float*, View, int, int, float,
+                             const float*, const float*, const float*);
+
+// The instantiation for D = 128 NB on the stats' layout.
+template <typename Pass>
+static da_wgmma_fn da_wgmma_kernel(bool stat_col, int D) {
+  static const da_wgmma_fn kernels[2][4] = {
+      {&stream_da_wgmma<false, Pass, 1>, &stream_da_wgmma<false, Pass, 2>,
+       &stream_da_wgmma<false, Pass, 3>, &stream_da_wgmma<false, Pass, 4>},
+      {&stream_da_wgmma<true, Pass, 1>, &stream_da_wgmma<true, Pass, 2>,
+       &stream_da_wgmma<true, Pass, 3>, &stream_da_wgmma<true, Pass, 4>}};
+  return kernels[stat_col][D / 128 - 1];
+}
+
+// stream_da_wgmma with a ring of `stages` on the maps of A and A2 (rows of
+// 64) and B and B2 (rows of DA_TILE), in loads of da_load_chunks(D) chunks,
+// grid (S/64, batch). ptrs and views: A, A2, B, B2, out.
+template <typename Pass>
+static int launch_da_wgmma(const void* const* ptrs, const View* views,
+                           float* o, int batch, int S, int D, int stages,
+                           float scale, bool stat_col, const float* m,
+                           const float* l, const float* c,
+                           cudaStream_t stream) {
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int rc = sw_map(&maps[i], ptrs[i], views[i], batch, S, D,
+                          i < 2 ? DA_ROWS : DA_TILE, da_load_chunks(D));
+    if (rc != 0) return rc;
+  }
+  const auto kernel = da_wgmma_kernel<Pass>(stat_col, D);
+  const size_t smem = da_smem_bytes(D, stages);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  kernel<<<dim3(S / BM, batch), DA_THREADS, smem, stream>>>(
-      a, views[0], a2, views[1], bm, views[2], b2, views[3], o, views[4], S,
-      D, scale, m, l, c);
-  return cudaGetLastError();
+  kernel<<<dim3(S / DA_ROWS, batch), DA_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], o, views[4], S, stages, scale, m,
+      l, c);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool STAT_COL, typename Pass>
@@ -1585,11 +1684,9 @@ static int launch_da(const void* a, const void* a2, const void* bm,
                      const float* l, const float* c, int dt,
                      cudaStream_t stream) {
   const void* ptrs[5] = {a, a2, bm, b2, o};
-  if (da_mma_ok(dt, ptrs, views, S, D))
-    return (int)launch_da_mma<Pass, DA_BM, DA_BN, DA_KSPLIT>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(a2),
-        static_cast<const bf16*>(bm), static_cast<const bf16*>(b2), o, views,
-        batch, S, D, scale, stat_col, m, l, c, stream);
+  if (da_wgmma_ok(dt, ptrs, views, S, D))
+    return launch_da_wgmma<Pass>(ptrs, views, o, batch, S, D, da_stages(D),
+                                 scale, stat_col, m, l, c, stream);
   const dim3 grid((S + TQ - 1) / TQ, batch, (D + TDC - 1) / TDC);
   if (dt == SDM_F32) {
     auto kernel = stat_col ? &stream_da<float, true, Pass>
@@ -1611,19 +1708,25 @@ static int launch_da(const void* a, const void* a2, const void* bm,
   return (int)cudaGetLastError();
 }
 
-// stream_da_mma's admission and dynamic shared memory, for the Python
-// mirrors (checked against these on the card). ptrs and strides: A, A2, B,
-// B2 and out (any order: each tensor is checked alone).
-SDM_EXPORT int sdm_streaming_da_takes_mma(const void* const* ptrs,
-                                          const long long* strides, int S,
-                                          int D, int dt) {
+// stream_da_wgmma's admission, dynamic shared memory and ring stages, for
+// the Python mirrors (checked against these on the card). ptrs and strides:
+// A, A2, B, B2 and out (any order: each tensor is checked alone).
+SDM_EXPORT int sdm_streaming_da_takes_wgmma(const void* const* ptrs,
+                                            const long long* strides, int S,
+                                            int D, int dt) {
   View views[5];
   read_views(strides, views, 5);
-  return da_mma_ok(dt, ptrs, views, S, D);
+  return da_wgmma_ok(dt, ptrs, views, S, D);
 }
 
-SDM_EXPORT int sdm_streaming_da_smem_bytes(int D) {
-  return (int)da_mma_smem_bytes<DA_BM, DA_BN, DA_KSPLIT>(D);
+// smem: two ints, the dynamic shared memory at D with the most stages that
+// fit and those stages; (0, 0) at a D off the kernel's grid (D % 128 != 0
+// or D > 512).
+SDM_EXPORT int sdm_streaming_da_wgmma_smem(int D, int* smem) {
+  const bool on = D > 0 && D % 128 == 0 && D <= DA_MAX_D;
+  smem[1] = on ? da_stages(D) : 0;
+  smem[0] = on ? (int)da_smem_bytes(D, smem[1]) : 0;
+  return 0;
 }
 
 // dV = sum_i round(P_ij) g_i, fp32 (B, S, D). strides: (sb, ss) of q, k, g

@@ -2,8 +2,8 @@
 // memory, which async_tiles.cuh's mbarriers report, and warpgroup MMAs
 // (wgmma) that read both operands from shared memory through matrix
 // descriptors. Used by the GEMM (linear.cu), the whole-S attention
-// (attention.cu) and the streaming attention's forward
-// (streaming_attention.cu). One copy of each primitive lives here or in
+// (attention.cu) and the streaming attention's forward and its dK and dQ
+// passes (streaming_attention.cu). One copy of each primitive lives here or in
 // async_tiles.cuh.
 //
 // The tiles are bf16, 64 elements (128 bytes) a row, as TMA writes them with
@@ -211,6 +211,18 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -18,13 +18,15 @@ runs on TMA + wgmma: the stats pass on `stream_stats_wgmma` (128 kept rows
 a block where they fit), the apply pass on `stream_apply_wgmma` (loads of
 eight chunks at 256 < D <= 512) (`stats_takes_wgmma`, `apply_takes_wgmma`,
 `admits_wgmma`, mirrors of the C admission; `wgmma_plan`, `wgmma_stages`
-and `wgmma_smem_bytes` mirror the launch plan and the shared memory). The
-backward runs on the tensor cores through mma.sync with ldmatrix fragments
-and cp.async rings in bf16 at D % 128 == 0, D <= 512 with aligned rows: dV
-on `stream_apply_mma` (S % 64 == 0; `apply_takes_mma`), dK and dQ on
-`stream_da_mma` (S % DA_ROWS == 0; `da_takes_mma`). fp32, and bf16 at
-other shapes, take CUDA-core kernels. Each tensor-core launch also counts
-in the wrapper's `mma_launches`, and each wgmma one in `wgmma_launches`.
+and `wgmma_smem_bytes` mirror the launch plan and the shared memory). So
+do dK and dQ in bf16 at S % 64 == 0, D % 128 == 0, D <= 512 with aligned
+rows, on `stream_da_wgmma` (`da_takes_wgmma`, `da_admits_wgmma`;
+`da_wgmma_stages` and `da_wgmma_smem_bytes` mirror its ring and shared
+memory). dV runs on the tensor cores through mma.sync with ldmatrix
+fragments and cp.async rings at the same shapes, on `stream_apply_mma`
+(`apply_takes_mma`). fp32, and bf16 at other shapes, take CUDA-core
+kernels. Each tensor-core launch also counts in the wrapper's
+`mma_launches`, and each wgmma one in `wgmma_launches`.
 The whole-S kernel (kernels/attention.py) takes bf16 grids up to S = 3200
 and fp32 up to S = 1687; the dispatchers send longer ones,
 such as the 256x256 SR model's S = 4096, here. Every pass is bound by
@@ -74,8 +76,8 @@ _SIGNATURES = {
                               ctypes.c_float, _I, _I, _P]),
     "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_mma_smem_bytes": (_I, [_I]),
-    "sdm_streaming_da_takes_mma": (_I, [_P, _P, _I, _I, _I]),
-    "sdm_streaming_da_smem_bytes": (_I, [_I]),
+    "sdm_streaming_da_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
+    "sdm_streaming_da_wgmma_smem": (_I, [_I, _P]),
     "sdm_streaming_stats_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_apply_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_wgmma_smem": (_I, [_I, _P]),
@@ -87,11 +89,11 @@ MAX_SMEM = 232448
 # stream_apply_mma's tiles (csrc/attention_tiles.cuh MQ, MK, MMAXD): own
 # queries per block, keys per streamed tile, widest D.
 MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
-# stream_da_mma's tiling (csrc/streaming_attention.cu DA_BM, DA_BN,
-# DA_KSPLIT, DA_MAXD): own rows per block, streamed rows per ring stage, D
-# slices per score tile, widest D. S must be a multiple of DA_ROWS.
-DA_BM, DA_BN, DA_KSPLIT, DA_MAX_D = 64, 16, 2, 512
-DA_ROWS = max(DA_BM, DA_BN)
+# stream_da_wgmma (csrc/streaming_attention.cu DA_ROWS, DA_TILE,
+# DA_LOAD_CHUNKS, DA_MAX_D, DA_STAGES): own rows a block, streamed rows a
+# tile, 64-column chunks a TMA load (where they divide D's, else two),
+# widest D, most ring stages.
+DA_ROWS, DA_TILE, DA_LOAD_CHUNKS, DA_MAX_D, DA_STAGES = 64, 64, 4, 512, 16
 # The wgmma forward (csrc/streaming_attention.cu SW_ROWS, SW_BOX,
 # SW_CHUNKS, SW_APPLY_CHUNKS, SW_APPLY_CHUNKS_S, SW_MAX_D, SW_COLS, SW_RED,
 # SW_STATS_STAGES, SW_APPLY_STAGES, SW_STATS_KEPT): queries an apply
@@ -202,15 +204,40 @@ def apply_smem_bytes_mma(d: int) -> int:
             + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
 
 
-def da_smem_bytes_mma(d: int) -> int:
-    """Dynamic shared memory of stream_da_mma at D = d
-    (da_mma_smem_bytes): the resident A and A2 tiles [DA_BM][d+8] bf16, a
-    ring of two stages of B and B2 tiles [DA_BN][d+8] bf16, the dA tile
-    [DA_BM][DA_BN+8] bf16, two stages of DA_BN m, l and corr floats, and
-    with DA_KSPLIT = 2 the 8 KB exchange of partial scores."""
-    return (2 * DA_BM * (d + 8) * 2 + 2 * 2 * DA_BN * (d + 8) * 2
-            + DA_BM * (DA_BN + 8) * 2 + 2 * 3 * DA_BN * 4
-            + (DA_KSPLIT - 1) * 8 * 8 * 32 * 4)
+def da_load_chunks(d: int) -> int:
+    """da_load_chunks: chunks a TMA load at D = d, DA_LOAD_CHUNKS where
+    they divide D's 64-column chunks, else two."""
+    return DA_LOAD_CHUNKS if (d // WGMMA_BOX) % DA_LOAD_CHUNKS == 0 else 2
+
+
+def da_loads(d: int) -> int:
+    """da_loads: TMA loads of D."""
+    return d // WGMMA_BOX // da_load_chunks(d)
+
+
+def _da_fixed(d: int) -> int:
+    """da_fixed: the shared memory besides the ring, A and A2 (64 rows),
+    two 64 x 64 dA tiles, the staged stats of two tiles (m, 1/l, corr a
+    streamed row), alignment slack and barriers."""
+    return (_WGMMA_FIXED + 2 * (d // WGMMA_BOX) * _WGMMA_CHUNK
+            + 2 * _WGMMA_CHUNK + 2 * 3 * DA_TILE * 4)
+
+
+def _da_load_bytes(d: int) -> int:
+    return da_load_chunks(d) * DA_TILE * WGMMA_BOX * 2
+
+
+def da_wgmma_stages(d: int) -> int:
+    """da_stages: the ring stages of stream_da_wgmma at D = d, loads of
+    DA_TILE rows x `da_load_chunks` chunks, as many as fit beside
+    `_da_fixed` in MAX_SMEM, at most DA_STAGES."""
+    return min((MAX_SMEM - _da_fixed(d)) // _da_load_bytes(d), DA_STAGES)
+
+
+def da_wgmma_smem_bytes(d: int) -> int:
+    """da_smem_bytes: stream_da_wgmma's dynamic shared memory at D = d with
+    `da_wgmma_stages` stages."""
+    return _da_fixed(d) + da_wgmma_stages(d) * _da_load_bytes(d)
 
 
 def rows_aligned16(ptrs, strides) -> bool:
@@ -231,13 +258,15 @@ def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
             and rows_aligned16(ptrs, strides))
 
 
-def da_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
-    """da_mma_ok: bf16, S % DA_ROWS == 0, D % 128 == 0, D <= 512, the shared
-    memory within MAX_SMEM, and 16-byte aligned rows of every tensor.
-    `ptrs` and `strides` ((sb, ss) in elements) of q, k, v, g and out."""
-    return (dtype == torch.bfloat16 and s % DA_ROWS == 0 and d % 128 == 0
-            and d <= DA_MAX_D and da_smem_bytes_mma(d) <= MAX_SMEM
-            and rows_aligned16(ptrs, strides))
+def da_admits_wgmma(dtype, s: int, d: int, ptrs, strides) -> bool:
+    """da_wgmma_ok: bf16, S % 64 == 0 (and % DA_TILE), D % 128 == 0 with
+    0 < D <= 512, a ring of at least two stages, and 16-byte aligned rows
+    of every tensor. `ptrs` and `strides` ((sb, ss) in elements) of q, k,
+    v, g and out."""
+    if not (dtype == torch.bfloat16 and s > 0 and s % DA_ROWS == 0
+            and s % DA_TILE == 0 and 0 < d <= DA_MAX_D and d % 128 == 0):
+        return False
+    return da_wgmma_stages(d) >= 2 and rows_aligned16(ptrs, strides)
 
 
 def _layout(*tensors):
@@ -264,11 +293,11 @@ def apply_takes_wgmma(q, k, v, out) -> bool:
                         *_layout(q, k, v, out))
 
 
-def da_takes_mma(q, k, v, g, out) -> bool:
+def da_takes_wgmma(q, k, v, g, out) -> bool:
     """Whether the dK or dQ pass on q, k, v, g (B, S, D) into `out` runs on
-    stream_da_mma."""
-    return da_admits_mma(q.dtype, q.shape[1], q.shape[2],
-                         *_layout(q, k, v, g, out))
+    stream_da_wgmma."""
+    return da_admits_wgmma(q.dtype, q.shape[1], q.shape[2],
+                           *_layout(q, k, v, g, out))
 
 
 # Score tile of the plain versions, (TILE, TILE) per batch row: the TPU
@@ -448,9 +477,9 @@ def _strides(*tensors):
 def _launch(symbol, what, device, args, ref, mma=False, wgmma=False):
     """Launch `symbol` of the streaming library on `device`; raise on a
     CUDA error. `mma`: the launch runs a tensor-core kernel
-    (stream_stats_wgmma, stream_apply_wgmma, stream_apply_mma or
-    stream_da_mma; counted in ref.mma_launches);
-    `wgmma`: one of the first two (also counted in ref.wgmma_launches)."""
+    (stream_stats_wgmma, stream_apply_wgmma, stream_da_wgmma or
+    stream_apply_mma; counted in ref.mma_launches); `wgmma`: one of the
+    first three (also counted in ref.wgmma_launches)."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     with _build.on_device(device):
         rc = getattr(lib, symbol)(*args)
@@ -558,7 +587,7 @@ def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,
         ctypes.cast(_strides(q, k, v, g, out), _P), b, s, d, float(scale),
         int(softmax_axis == "q"), _build.dtype_code(q, what),
         _build.stream_handle(q.device)), ref,
-        mma=da_takes_mma(q, k, v, g, out))
+        wgmma=da_takes_wgmma(q, k, v, g, out))
     return out
 
 
@@ -580,6 +609,7 @@ def streaming_dk(q, k, v, g, m, l, corr, scale: float,
 
 streaming_dk.launches = 0
 streaming_dk.mma_launches = 0
+streaming_dk.wgmma_launches = 0
 
 
 def streaming_dq(q, k, v, g, m, l, corr, scale: float,
@@ -597,6 +627,7 @@ def streaming_dq(q, k, v, g, m, l, corr, scale: float,
 
 streaming_dq.launches = 0
 streaming_dq.mma_launches = 0
+streaming_dq.wgmma_launches = 0
 
 
 def streaming_correction(g, v, out32, dv, softmax_axis: str):

@@ -473,9 +473,9 @@ def test_kernel_sources_export_the_wrapped_symbols():
     """Each library's C entry point exists in its source with the argument
     count the ctypes wrapper declares, the tensor-core admissions and plans
     are exported for their Python mirrors, the WMMA attention kernels, the
-    WMMA dK/dQ kernel, the whole-S attention's mma.sync kernels, the
-    streaming forward's mma.sync stats kernel and the WMMA and mma.sync
-    GEMMs are gone, the
+    WMMA and mma.sync dK/dQ kernels, the whole-S attention's mma.sync
+    kernels, the streaming forward's mma.sync stats kernel and the WMMA and
+    mma.sync GEMMs are gone, the
     mma.sync primitives live in one header and the TMA, mbarrier and wgmma
     ones in another, and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
@@ -485,8 +485,8 @@ def test_kernel_sources_export_the_wrapped_symbols():
     assert {"sdm_streaming_stats_takes_wgmma",
             "sdm_streaming_apply_takes_wgmma", "sdm_streaming_wgmma_plan",
             "sdm_streaming_wgmma_smem", "sdm_streaming_apply_takes_mma",
-            "sdm_streaming_da_takes_mma",
-            "sdm_streaming_da_smem_bytes"} <= set(
+            "sdm_streaming_da_takes_wgmma",
+            "sdm_streaming_da_wgmma_smem"} <= set(
                 streaming_attention._SIGNATURES)
     for name in ("attention.cu", "streaming_attention.cu",
                  "attention_tiles.cuh"):
@@ -502,11 +502,13 @@ def test_kernel_sources_export_the_wrapped_symbols():
                  "attn_apply_mma_wide", "mma_plan", "launch_mma"):
         assert not re.search(r"\b" + gone + r"\b", src), gone
     assert "attn_stats_wgmma<<<" in src and "&attn_apply_wgmma<true, 4>" in src
-    # The streaming library's dK/dQ kernel is mma.sync too: no WMMA left.
+    # The streaming library's dK/dQ kernel is TMA + wgmma: no WMMA and no
+    # mma.sync dA kernel left (its comments still name the latter).
     with open(os.path.join(_build.CSRC, "streaming_attention.cu")) as f:
         src = f.read()
     assert "wmma" not in src.lower() and "<mma.h>" not in src
-    assert "stream_da_mma" in src
+    assert "stream_da_wgmma<" in src
+    assert not re.search(r"\bstream_da_mma\b", re.sub(r"//[^\n]*", "", src))
     # Its forward is the TMA + wgmma stats and apply, else the CUDA cores:
     # no mma.sync stats kernel, no forward on stream_apply_mma.
     for name in ("streaming_attention.cu", "attention_tiles.cuh"):

@@ -7,10 +7,10 @@ mode on the same m, l and corr, and the Function's gradients against
 `jax.vjp` of sdm_tpu's `streaming_attention`, on both softmax axes. bf16 on
 the query axis is cancellation-dominated (BASELINE.md "On-TPU kernel
 numerics"), so there both packages are also held to a float64 truth. The
-Python mirrors of the tensor-core dK/dQ admission (`da_takes_mma`) are
-checked at the SR shape and the shapes it refuses; `chip_smoke.py` holds
-them to the C functions. The CUDA kernels run only on a card (marker
-`cuda`).
+Python mirrors of the TMA + wgmma dK/dQ kernel's admission
+(`da_takes_wgmma`) and its emulation are in tests/test_torch_da_wgmma.py;
+`chip_smoke.py` holds the mirrors to the C functions. The CUDA kernels run
+only on a card (marker `cuda`).
 """
 
 import jax
@@ -241,69 +241,6 @@ def test_cpu_calls_leave_every_counter_still():
     assert [(fn.launches, fn.mma_launches) for fn in fns] == before
 
 
-def _meta(shape, dtype=torch.bfloat16):
-    """A tensor with a layout and no storage (the SR shape without 64 MB)."""
-    return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def test_da_mma_smem_formula_fits_at_the_sr_width():
-    """stream_da_mma's shared memory at D = 512: A and A2 [DA_BM][520] and
-    two ring stages of B and B2 [DA_BN][520] in bf16, the dA tile
-    [DA_BM][DA_BN + 8] bf16, two stages of DA_BN m, l and corr floats, and
-    the 8 KB exchange of partial scores where DA_KSPLIT = 2; within the
-    opt-in limit, which 64 own rows with two stages of 32-row tiles would
-    not be."""
-    bm, bn, ks = sa.DA_BM, sa.DA_BN, sa.DA_KSPLIT
-    assert sa.da_smem_bytes_mma(512) == (
-        2 * bm * 520 * 2 + 2 * 2 * bn * 520 * 2 + bm * (bn + 8) * 2
-        + 2 * 3 * bn * 4 + (ks - 1) * 8 * 8 * 32 * 4)
-    assert sa.da_smem_bytes_mma(512) <= sa.MAX_SMEM
-    assert 2 * 64 * 520 * 2 + 2 * 2 * 32 * 520 * 2 > sa.MAX_SMEM
-    assert sa.DA_ROWS == max(bm, bn) and sa.DA_MAX_D == 512
-
-
-@pytest.mark.parametrize("views", [False, True])
-def test_da_mma_admits_the_sr_shape(views):
-    """The SR model's streaming block, (16, 4096, 512) bf16, runs dK and dQ
-    on stream_da_mma: contiguous, and with q, k and v as strided views of
-    one (16, 4096, 3 * 512) qkv buffer, as the attention block passes them;
-    g and the fp32 output contiguous."""
-    b, s, d = 16, 4096, 512
-    if views:
-        q, k, v = _meta((b, s, 3 * d)).split(d, dim=-1)
-        assert q.stride() == (s * 3 * d, 3 * d, 1)
-    else:
-        q, k, v = (_meta((b, s, d)) for _ in range(3))
-    g, out = _meta((b, s, d)), _meta((b, s, d), torch.float32)
-    assert sa.da_takes_mma(q, k, v, g, out)
-    assert sa.da_admits_mma(torch.bfloat16, 1024, 512, [0] * 5,
-                            [(1024 * 512, 512)] * 5)
-
-
-@pytest.mark.parametrize("case", ["fp32", "s300", "d72", "d640", "d1024",
-                                  "stride", "pointer"])
-def test_da_mma_refuses_other_shapes(case):
-    """fp32, S = 300 (not a multiple of DA_ROWS), D off the 128 grid or past
-    512, a row stride that is not a multiple of 8 elements, and a pointer
-    off 16 bytes all take the CUDA-core dA kernel."""
-    shape = {"s300": (2, 300, 512), "d72": (2, 256, 72),
-             "d640": (2, 256, 640), "d1024": (2, 256, 1024)}.get(
-                 case, (2, 256, 512))
-    dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    q, k, v, g = (torch.zeros(shape, dtype=dtype) for _ in range(4))
-    out = torch.zeros(shape, dtype=torch.float32)
-    if case == "stride":
-        k = torch.zeros((2, 256, 516), dtype=dtype)[:, :, :512]
-        assert k.stride(1) % 8 == 4
-    if case == "pointer":
-        g = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 512)
-        assert g.data_ptr() % 16 == 8
-    assert not sa.da_takes_mma(q, k, v, g, out)
-    aligned = [torch.zeros((2, 256, 512), dtype=torch.bfloat16)
-               for _ in range(4)]
-    assert sa.da_takes_mma(*aligned, torch.zeros((2, 256, 512)))
-
-
 def test_no_grad_forward_skips_the_function(monkeypatch):
     """Without a gradient the forward is the two passes alone (serving's
     path); with one it is the Function."""
@@ -335,8 +272,8 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, axis):
                                    out_dtype=torch.float32)
         before = (sa.streaming_dv.launches, sa.streaming_dk.launches,
                   sa.streaming_dq.launches)
-        mma_before = (sa.streaming_dk.mma_launches,
-                      sa.streaming_dq.mma_launches)
+        wgmma_before = (sa.streaming_dk.wgmma_launches,
+                        sa.streaming_dq.wgmma_launches)
         dv = sa.streaming_dv(q, k, g, m, l, 0.1, axis)
         corr = sa.streaming_correction(g, v, out32, dv, axis)
         dk = sa.streaming_dk(q, k, v, g, m, l, corr, 0.1, axis)
@@ -344,10 +281,10 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, axis):
         torch.cuda.synchronize()
         assert (sa.streaming_dv.launches, sa.streaming_dk.launches,
                 sa.streaming_dq.launches) == tuple(b + 1 for b in before)
-        mma = int(sa.da_takes_mma(q, k, v, g, dk))
-        assert (sa.streaming_dk.mma_launches,
-                sa.streaming_dq.mma_launches) == tuple(
-                    b + mma for b in mma_before)
+        wgmma = int(sa.da_takes_wgmma(q, k, v, g, dk))
+        assert (sa.streaming_dk.wgmma_launches,
+                sa.streaming_dq.wgmma_launches) == tuple(
+                    b + wgmma for b in wgmma_before)
         for got, want in (
                 (dv, sa.streaming_dv_reference(q, k, g, m, l, 0.1, axis)),
                 (dk, sa.streaming_dk_reference(q, k, v, g, m, l, corr, 0.1,
