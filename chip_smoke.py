@@ -19,9 +19,9 @@ as a user's run would.
      (nvidia-smi), TF32 off for the fp32 comparisons, and every kernel
      built from sdm_tpu_torch/csrc (one nvcc per source, all at once);
      ptxas's registers and spills of every kernel logged, and every
-     instantiation of the tensor-core kernels (the mma.sync
-     stream_apply_mma (dV) and the TMA + wgmma stream_da_wgmma (dK, dQ),
-     stream_stats_wgmma, stream_apply_wgmma of the streaming attention;
+     instantiation of the tensor-core kernels (the TMA + wgmma
+     stream_stats_wgmma, stream_apply_wgmma (the forward's apply and dV)
+     and stream_da_wgmma (dK, dQ) of the streaming attention;
      the TMA + wgmma attn_stats_wgmma, attn_apply_wgmma of the whole-S
      attention and linear_wgmma) and AdaGN's one-pass adagn_grid held to 0
      spill bytes, and the streaming library's wgmma instantiations to no
@@ -53,11 +53,12 @@ as a user's run would.
      where the whole-S kernel is a second reference, and at a ragged
      S = 300; the bf16 query-axis dK and dQ are also held to a float64
      truth (BWD_TRUTH), and the fp32-output apply to its plain version.
-     Each stats, apply, dK and dQ launch must take the TMA + wgmma kernels
-     (stream_stats_wgmma, stream_apply_wgmma, stream_da_wgmma) exactly
-     when their admission says so (the `wgmma_launches` counters), dV the
-     mma.sync one; the admissions, plans, ring stages and shared memory of
-     the wgmma kernels are held to the C exports.
+     Each stats, apply, dV, dK and dQ launch must take the TMA + wgmma
+     kernels (stream_stats_wgmma, stream_apply_wgmma, whose dv_pass
+     instantiations dV runs with q and k swapped, stream_da_wgmma) exactly
+     when their admission says so (the `wgmma_launches` counters); the
+     admissions, plans, ring stages and shared memory of the wgmma kernels
+     are held to the C exports.
      Small shapes off the main path (S = 300, D = 128, 256, 384, 1024) run
      the whole streaming function and each backward pass and check which
      kernel each launch took (the `mma_launches` and `wgmma_launches`
@@ -101,8 +102,8 @@ as a user's run would.
      once more when it stops. The launch counters are zeroed just before
      each run and read just after, and held to the counts its steps and
      its preview imply (every whole-S attention, every `linear` and every
-     streaming stats, apply, dK and dQ on the wgmma kernels, every
-     streaming dV on the mma.sync one); the losses must
+     streaming stats, apply, dV, dK and dQ on the wgmma kernels); the
+     losses must
      be finite, the step-0 checkpoint must reload strictly into a fresh
      model and Adam, moments included, and one more step of each trainer
      is profiled by kernel family.
@@ -776,9 +777,8 @@ def streaming_phase(torch, results):
     # warpgroup one output chunk, in loads of two chunks); D = 256 gives dK
     # and dQ one load of four chunks a phase; D = 384 walks rows of 48
     # 16-byte chunks in the tile loader (and gives dA B three slots a
-    # warpgroup); D = 1024 is past the mma.sync dV and the wgmma dK and dQ
-    # and takes the CUDA cores there in bf16 (its forward stays on the
-    # wgmma kernels).
+    # warpgroup); D = 1024 is past the wgmma dK and dQ and takes the CUDA
+    # cores there in bf16 (its forward and dV stay on the wgmma kernels).
     for dtype in (torch.float32, torch.bfloat16):
         for axis in ("q", "k"):
             off_path_streaming_case(torch, randn, dtype, 300, 72, axis)
@@ -838,7 +838,7 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
         e = compare_bwd(f"streaming_{name} {tag}", got[name], plain[name],
                         tol)
         bwd.append(f"{name} err abs {e[0]:.2e} rel {e[1]:.2e}{extra}")
-    dv_mma = sa.apply_takes_mma(q, k, g, got["dv"])
+    dv_wgmma = sa.apply_takes_wgmma(k, q, g, got["dv"])
     wg_apply = sa.apply_takes_wgmma(q, k, v, out32)
     wg_stats = sa.stats_takes_wgmma(q, k)
     da_wgmma = sa.da_takes_wgmma(q, k, v, g, got["dk"])
@@ -851,22 +851,20 @@ def off_path_streaming_case(torch, randn, dtype, s_len, d, axis):
                              f"tensor-core; apply, stats wgmma) {moved}, the "
                              f"admissions say apply {wg_apply}, stats "
                              f"{wg_stats}")
-    kind = {True: "mma.sync", False: "CUDA-core"}
     fwd = {True: "wgmma", False: "CUDA-core"}
     log(f"streaming {tag} ({fwd[wg_stats]} stats, "
-        f"{fwd[wg_apply]} apply, {kind[dv_mma]} dV, "
+        f"{fwd[wg_apply]} apply, {fwd[dv_wgmma]} dV, "
         f"{fwd[da_wgmma]} dK and dQ)  {err_text(err, ATTN_TOL[dn])}; "
         f"fp32-output apply {err_text(err32, ATTN_TOL[dn])}; "
         + "; ".join(bwd))
 
 
 def check_stream_predicates(torch):
-    """The Python mirrors of the streaming admissions (apply_admits_mma,
-    da_admits_wgmma, admits_wgmma (for both wgmma forward kernels),
-    apply_smem_bytes_mma, da_wgmma_smem_bytes, da_wgmma_stages,
+    """The Python mirrors of the streaming admissions (da_admits_wgmma,
+    admits_wgmma (for both wgmma forward kernels, and for dV on the apply
+    kernel with q and k swapped), da_wgmma_smem_bytes, da_wgmma_stages,
     wgmma_smem_bytes, wgmma_stages, wgmma_plan) against the C functions,
-    over
-    D = 8..2560, several S, both dtypes and three layouts: aligned, a
+    over D = 8..2560, several S, both dtypes and three layouts: aligned, a
     pointer off by 8 bytes, a row stride off by 4 elements."""
     import ctypes
     from sdm_tpu_torch.kernels import _build
@@ -875,9 +873,6 @@ def check_stream_predicates(torch):
     four = (ctypes.c_int * 4)()
     checked = 0
     for d in range(8, 2561, 8):
-        if lib.sdm_streaming_mma_smem_bytes(d) != sa.apply_smem_bytes_mma(d):
-            raise AssertionError(f"apply_smem_bytes_mma({d}) disagrees with "
-                                 "stream_mma_smem_bytes")
         lib.sdm_streaming_da_wgmma_smem(d, four)
         on = d % 128 == 0 and d <= sa.DA_MAX_D
         mirror = ((sa.da_wgmma_smem_bytes(d), sa.da_wgmma_stages(d)) if on
@@ -909,10 +904,18 @@ def check_stream_predicates(torch):
                     cdptrs = (ctypes.c_void_p * 5)(*dptrs)
                     cdstr = (ctypes.c_longlong * 10)(*[x for st in dstr
                                                        for x in st])
+                    # dV on the apply kernel: k, q (views), g and the fp32
+                    # dv (contiguous), as sdm_streaming_dv passes them.
+                    vptrs = [ptrs[1], ptrs[0], 0x50000, ptrs[3]]
+                    vstr = [strides[1], strides[0], (s_len * d, d),
+                            (s_len * d, d)]
+                    cvptrs = (ctypes.c_void_p * 4)(*vptrs)
+                    cvstr = (ctypes.c_longlong * 8)(*[x for st in vstr
+                                                      for x in st])
                     pairs = (
-                        ("apply", lib.sdm_streaming_apply_takes_mma(
-                            cptrs, cstr, s_len, d, dt),
-                         sa.apply_admits_mma(dtype, s_len, d, ptrs, strides)),
+                        ("dV wgmma apply", lib.sdm_streaming_apply_takes_wgmma(
+                            cvptrs, cvstr, s_len, d, dt),
+                         sa.admits_wgmma(dtype, s_len, d, vptrs, vstr)),
                         ("wgmma apply", lib.sdm_streaming_apply_takes_wgmma(
                             cptrs, cstr, s_len, d, dt),
                          sa.admits_wgmma(dtype, s_len, d, ptrs, strides)),
@@ -1370,9 +1373,10 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
     same inputs (the stats of the forward kernel, and corr from the dV
     kernel), and against the plain version of the other softmax axis, which
     must fail. bf16 on the q axis is also held to a float64 truth (see
-    BWD_TRUTH). The tensor-core counts of dV, dK and dQ (`mma_launches`)
-    and dK's and dQ's wgmma counts (`wgmma_launches`) must move as the
-    Python mirrors of the admissions say."""
+    BWD_TRUTH). The tensor-core counts of dV, dK and dQ (`mma_launches`,
+    `wgmma_launches`) must move as the Python mirrors of the admissions
+    say, and in bf16 at the SR model's (4096, 512) every dV must be a
+    wgmma launch."""
     import torch.nn.functional as F
     from sdm_tpu_torch.kernels import streaming_attention as sa
     dn = str(dtype).split(".")[-1]
@@ -1404,6 +1408,10 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
                                            axis),
            "dq": sa.streaming_dq(q, k, v, g, m, l, corr, scale, axis)}
     check_bwd_mma(sa, tag, q, k, v, g, got, mma0)
+    if (dtype == torch.bfloat16 and (s_len, d) == STREAM_SHAPES[0]
+            and sa.streaming_dv.wgmma_launches - mma0["dv_wgmma"] != 1):
+        raise AssertionError(f"streaming_dv {tag}: not a stream_apply_wgmma "
+                             "launch at the SR shape")
     plain = {"dv": sa.streaming_dv_reference(q, k, g, m, l, scale, axis),
              "dk": sa.streaming_dk_reference(q, k, v, g, m, l, corr, scale,
                                              axis),
@@ -1505,6 +1513,7 @@ def streaming_bwd_case(torch, randn, results, dtype, s_len, d, axis):
 
 def bwd_mma_counts(sa):
     return {"dv": sa.streaming_dv.mma_launches,
+            "dv_wgmma": sa.streaming_dv.wgmma_launches,
             "dk": sa.streaming_dk.mma_launches,
             "dq": sa.streaming_dq.mma_launches,
             "dk_wgmma": sa.streaming_dk.wgmma_launches,
@@ -1512,14 +1521,15 @@ def bwd_mma_counts(sa):
 
 
 def check_bwd_mma(sa, tag, q, k, v, g, got, mma0):
-    """dV's, dK's and dQ's `mma_launches` and dK's and dQ's
-    `wgmma_launches` against their counts `mma0` before one launch each
-    (outputs `got`): dV moves as `apply_takes_mma` says, dK and dQ (both
-    counts) as `da_takes_wgmma` says."""
+    """dV's, dK's and dQ's `mma_launches` and `wgmma_launches` against
+    their counts `mma0` before one launch each (outputs `got`): dV moves as
+    `apply_takes_wgmma` on its layout (k, q, g, dv) says, dK and dQ as
+    `da_takes_wgmma` says."""
+    dv = int(sa.apply_takes_wgmma(k, q, g, got["dv"]))
     dk = int(sa.da_takes_wgmma(q, k, v, g, got["dk"]))
     dq = int(sa.da_takes_wgmma(q, k, v, g, got["dq"]))
-    want = {"dv": int(sa.apply_takes_mma(q, k, g, got["dv"])), "dk": dk,
-            "dq": dq, "dk_wgmma": dk, "dq_wgmma": dq}
+    want = {"dv": dv, "dv_wgmma": dv, "dk": dk, "dq": dq, "dk_wgmma": dk,
+            "dq_wgmma": dq}
     moved = {n: c - mma0[n] for n, c in bwd_mma_counts(sa).items()}
     if moved != want:
         raise AssertionError(f"streaming backward {tag}: tensor-core "
@@ -1851,8 +1861,8 @@ def expected_launches(cfg, calls, streaming):
             "streaming_apply_wgmma": streaming * calls,
             "streaming_dv": 0, "streaming_dk": 0, "streaming_dq": 0,
             "streaming_dv_mma": 0, "streaming_dk_mma": 0,
-            "streaming_dq_mma": 0, "streaming_dk_wgmma": 0,
-            "streaming_dq_wgmma": 0}
+            "streaming_dq_mma": 0, "streaming_dv_wgmma": 0,
+            "streaming_dk_wgmma": 0, "streaming_dq_wgmma": 0}
 
 
 def kernel_counters():
@@ -1892,9 +1902,9 @@ def zero_counts(counters):
 def read_counts(counters):
     """{wrapper name: launches}, with `<name>_mma` for the launches that
     ran the tensor-core kernels (the wgmma ones of fused_attention,
-    linear, streaming_stats, streaming_apply, streaming_dk and
-    streaming_dq; the mma.sync one of streaming_dv), `<name>_wgmma` for
-    those of the streaming passes that ran their wgmma kernels,
+    linear, streaming_stats, streaming_apply, streaming_dv, streaming_dk
+    and streaming_dq), `<name>_wgmma` for those of the streaming passes
+    that ran their wgmma kernels,
     and fused_adagn_one_pass / _two_pass for AdaGN's calls on its one-pass
     kernel (adagn_grid) and on the two-pass kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
@@ -2427,15 +2437,15 @@ def expected_grad_launches(cfg, calls, streaming):
     """Launches of `calls` forward+backward U-Net calls: the forward's
     (`expected_launches`, the streaming stats and apply on their wgmma
     kernels), and dV, dK and dQ once per streaming block per call
-    backward, every dV on stream_apply_mma, every dK and dQ on
+    backward, every dV on stream_apply_wgmma, every dK and dQ on
     stream_da_wgmma. AdaGN, the whole-S attention and the blocks recompute
     their backward through the plain version, and `linear`'s backward is
     plain matmuls: no launches."""
     out = expected_launches(cfg, calls, streaming)
     for kernel in ("streaming_dv", "streaming_dk", "streaming_dq",
                    "streaming_dv_mma", "streaming_dk_mma",
-                   "streaming_dq_mma", "streaming_dk_wgmma",
-                   "streaming_dq_wgmma"):
+                   "streaming_dq_mma", "streaming_dv_wgmma",
+                   "streaming_dk_wgmma", "streaming_dq_wgmma"):
         out[kernel] = streaming * calls
     return out
 
@@ -4226,9 +4236,9 @@ def summarize(results, launches):
     slice 1, the SR model's for the streaming kernels (forward: one SR
     U-Net call; backward: one SR train step). `launches` sums the served,
     generated and trained paths; `launches_by_path` keeps them apart, and
-    `mma_launches` counts those that ran the tensor-core kernels (wgmma for
-    the whole-S attention, `linear` and the streaming stats and apply,
-    whose `wgmma_launches` say so; mma.sync for dV, dK and dQ), and AdaGN's
+    `mma_launches` counts those that ran the tensor-core kernels (all of
+    them TMA + wgmma; the streaming passes' `wgmma_launches` say so too),
+    and AdaGN's
     `one_pass_launches` / `two_pass_launches` its two routes. No library
     call normalizes over queries, so the query-axis `library_ms` is null;
     the key-axis kernel time sits beside SDPA's (`k_axis_ms`,
@@ -4268,7 +4278,9 @@ def summarize(results, launches):
                             "(stream_apply_wgmma; + wgmma_tiles.cuh)",
                             "sdm_tpu/kernels/streaming_attention.py:234", 1),
         "streaming_dv": ("streaming_dv", "sr",
-                         "sdm_tpu_torch/csrc/attention_tiles.cuh",
+                         "sdm_tpu_torch/csrc/streaming_attention.cu "
+                         "(stream_apply_wgmma<..., dv_pass>; + "
+                         "wgmma_tiles.cuh)",
                          "sdm_tpu/kernels/streaming_attention.py:298", 1),
         "streaming_dk": ("streaming_dk", "sr",
                          "sdm_tpu_torch/csrc/streaming_attention.cu "
@@ -4427,19 +4439,18 @@ def demangle(names):
 # The tensor-core kernels of each library, with the instantiations ptxas
 # must report: the whole-S library's TMA + wgmma stats (one) and apply (two
 # axes x one to four output chunks a warpgroup), the streaming library's
-# mma.sync apply (dV: fp32 x two axes) and its backward's TMA + wgmma dA
-# kernel (dK and dQ x two stat layouts x one to four output chunks a
-# warpgroup), its TMA + wgmma forward (the stats at 64 and 128 kept
-# rows a block; the apply at two axes x bf16 and fp32 output x one to four
-# output chunks a warpgroup in loads of four chunks, and three or four in
-# loads of eight), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
+# TMA + wgmma dA kernel (dK and dQ x two stat layouts x one to four output
+# chunks a warpgroup), its TMA + wgmma forward (the stats at 64 and 128
+# kept rows a block; the apply at two axes x bf16 and fp32 output x one to
+# four output chunks a warpgroup in loads of four chunks, and three or four
+# in loads of eight: 24) and dV on the same apply (dv_pass, fp32 output
+# alone: 12 more), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
 # tiles); beside them AdaGN's one-pass kernel (bulk copies, one).
 MMA_KERNELS = {"adagn": {"adagn_grid": 1},
                "attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
-               "streaming_attention": {"stream_apply_mma": 2,
-                                       "stream_da_wgmma": 16,
+               "streaming_attention": {"stream_da_wgmma": 16,
                                        "stream_stats_wgmma": 2,
-                                       "stream_apply_wgmma": 24},
+                                       "stream_apply_wgmma": 36},
                "linear": {"linear_wgmma": 2}}
 
 
@@ -4464,8 +4475,6 @@ def build_phase(torch):
                                          torch.bfloat16,
                                          torch.bfloat16).smem,
                            f"C = {ag.MAX_C}"),
-            "stream_apply_mma": (sa.apply_smem_bytes_mma(sa.MMA_MAX_D),
-                                 f"D = {sa.MMA_MAX_D}"),
             "stream_da_wgmma": (sa.da_wgmma_smem_bytes(sa.DA_MAX_D),
                                 f"D = {sa.DA_MAX_D}"),
             "attn_stats_wgmma": (attn_mod.wgmma_smem_bytes(1024)[0],
@@ -4507,7 +4516,7 @@ def build_phase(torch):
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     log("  streaming_attention: no serialized wgmma in stream_stats_wgmma, "
-        "stream_apply_wgmma or stream_da_wgmma")
+        "stream_apply_wgmma (forward and dV) or stream_da_wgmma")
     out["smem_bytes"] = {k: v[0] for k, v in smem.items()}
     return out
 

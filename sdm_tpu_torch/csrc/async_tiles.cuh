@@ -8,7 +8,7 @@
 // here.
 #pragma once
 
-#include "mma_tiles.cuh"
+#include "common.cuh"
 
 // -------------------------------------------------------------- mbarriers
 

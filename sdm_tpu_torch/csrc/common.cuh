@@ -14,6 +14,28 @@
 #define SDM_F32 0
 #define SDM_BF16 1
 
+typedef __nv_bfloat16 bf16;
+
+// Whether a pointer is 16-byte aligned, as TMA, bulk copies and vector
+// stores need.
+static bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// A shared-memory pointer as the 32-bit address PTX takes.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Two adjacent values of an accumulator fragment, stored as one pair.
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
 __device__ __forceinline__ float sdm_load(const void* p, long long i, int dt) {
   return dt == SDM_F32 ? static_cast<const float*>(p)[i]
                        : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);

@@ -25,13 +25,11 @@
 //
 // The forward in bf16 at S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte
 // aligned rows runs on TMA + wgmma: stream_stats_wgmma and
-// stream_apply_wgmma (below), and so do the backward's dK and dQ passes in
-// bf16 at S % 64 == 0, D % 128 == 0, D <= 512 (stream_da_wgmma, below). The
-// dV pass, which is the apply pass with the roles swapped, runs on the
-// tensor cores through mma.sync with ldmatrix fragments and cp.async rings
-// (stream_apply_mma, attention_tiles.cuh; bf16 at S % 64 == 0, D % 128 ==
-// 0, D <= 512 with aligned rows). fp32, and bf16 at other shapes, take
-// CUDA-core kernels (fp32 FMA)
+// stream_apply_wgmma (below), and so does the backward's dV pass, which is
+// the apply pass with the roles swapped (stream_apply_wgmma<..., dv_pass>,
+// at the same shapes), and its dK and dQ passes in bf16 at S % 64 == 0,
+// D % 128 == 0, D <= 512 (stream_da_wgmma, below). fp32, and bf16 at other
+// shapes, take CUDA-core kernels (fp32 FMA)
 // that mask ragged tiles: keys past S give P = 0, and the stats count them
 // as -inf. The apply pass is bound by operations: 4*S*S*D per (batch, head)
 // (scores and P V), 2*S*S*D for the stats.
@@ -46,7 +44,7 @@
 #include "wgmma_tiles.cuh"
 
 // Pass tags, so a profiler trace names the apply kernel's callers apart
-// (stream_apply_mma<float, false, dv_pass> is the dV pass) and dK from dQ.
+// (stream_apply_wgmma<..., dv_pass> is the dV pass) and dK from dQ.
 struct apply_pass {};
 struct dv_pass {};
 struct dk_pass {};
@@ -161,13 +159,16 @@ static void read_views(const long long* strides, View* views, int n) {
 
 // ---------------------------------------------------------------------------
 // The bf16 forward on Hopper's instruments: stream_stats_wgmma<KEPT>, then
-// stream_apply_wgmma<QAXIS, OutT, NB, AC>, on TMA + wgmma (wgmma_tiles.cuh).
+// stream_apply_wgmma<QAXIS, OutT, NB, AC, Pass>, on TMA + wgmma
+// (wgmma_tiles.cuh).
 //
 // They replace the TPU's _stats_kernel (sdm_tpu/kernels/streaming_attention
 // .py:97, pallas_call at :223) and _apply_kernel (:120, pallas_call at
-// :234) for bf16 at S % 64 == 0, D % 64 == 0, 64 <= D <= 1024 with 16-byte
-// aligned rows and strides (sw_ok): the SR model's (4096, 512) block and
-// every shape the whole-S path also takes. They compute what the two
+// :234), and the apply kernel with the roles swapped replaces _dv_kernel
+// (:133, pallas_call at :298) as the backward's dV pass (see
+// sdm_streaming_dv), for bf16 at S % 64 == 0, D % 64 == 0, 64 <= D <= 1024
+// with 16-byte aligned rows and strides (sw_ok): the SR model's (4096, 512)
+// block and every shape the whole-S path also takes. They compute what the two
 // Pallas kernels compute, not their tiles. Both are bound by operations
 // (2 S^2 D per batch row for the stats, 4 S^2 D for the apply, against
 // 2 or 4 S D bf16 bytes in: at (4096, 512) about 2,000 operations a byte,
@@ -556,9 +557,11 @@ stream_stats_wgmma(const __grid_constant__ CUtensorMap tm_kept,
 }
 
 // ---------------------------------------------------------------------------
-// stream_apply_wgmma<QAXIS, OutT, NB, AC>: out[i] = sum_j round_bf16(
+// stream_apply_wgmma<QAXIS, OutT, NB, AC, Pass>: out[i] = sum_j round_bf16(
 // exp(s_ij scale - m) / l) v_j with the final (natural-scale) stats, grid
-// (S/64, B, split).
+// (S/64, B, split). Pass tags the caller: apply_pass (the forward, bf16 or
+// fp32 out) or dv_pass (dV = P^T g, fp32 out, launched with q and k
+// swapped, so that its 64 own rows are keys and its streamed rows queries).
 //
 // attn_apply_wgmma's block, in loads of AC chunks: 64 queries (wgmma's M,
 // Q resident) and `cols` output columns at c0 = z cols; a key tile is
@@ -584,7 +587,7 @@ stream_stats_wgmma(const __grid_constant__ CUtensorMap tm_kept,
 // lane) or fp32 pairs.
 // ---------------------------------------------------------------------------
 
-template <bool QAXIS, typename OutT, int NB, int AC>
+template <bool QAXIS, typename OutT, int NB, int AC, typename Pass>
 __global__ void __launch_bounds__(SW_APPLY_THREADS, 1)
 stream_apply_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -846,23 +849,23 @@ using sw_apply_fn = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, OutT*,
 // 128) slots a warpgroup) in loads of `ac` chunks: SW_APPLY_CHUNKS_S at
 // every NB, SW_APPLY_CHUNKS at the NB = 3, 4 of 256 < D <= 512 (null
 // elsewhere).
-template <typename OutT>
+template <typename OutT, typename Pass>
 static sw_apply_fn<OutT> sw_apply_kernel(int axis_q, int cols, int ac) {
   constexpr int S_ = SW_APPLY_CHUNKS_S, W_ = SW_APPLY_CHUNKS;
   static const sw_apply_fn<OutT> narrow[2][4] = {
-      {&stream_apply_wgmma<false, OutT, 1, S_>,
-       &stream_apply_wgmma<false, OutT, 2, S_>,
-       &stream_apply_wgmma<false, OutT, 3, S_>,
-       &stream_apply_wgmma<false, OutT, 4, S_>},
-      {&stream_apply_wgmma<true, OutT, 1, S_>,
-       &stream_apply_wgmma<true, OutT, 2, S_>,
-       &stream_apply_wgmma<true, OutT, 3, S_>,
-       &stream_apply_wgmma<true, OutT, 4, S_>}};
+      {&stream_apply_wgmma<false, OutT, 1, S_, Pass>,
+       &stream_apply_wgmma<false, OutT, 2, S_, Pass>,
+       &stream_apply_wgmma<false, OutT, 3, S_, Pass>,
+       &stream_apply_wgmma<false, OutT, 4, S_, Pass>},
+      {&stream_apply_wgmma<true, OutT, 1, S_, Pass>,
+       &stream_apply_wgmma<true, OutT, 2, S_, Pass>,
+       &stream_apply_wgmma<true, OutT, 3, S_, Pass>,
+       &stream_apply_wgmma<true, OutT, 4, S_, Pass>}};
   static const sw_apply_fn<OutT> wide[2][2] = {
-      {&stream_apply_wgmma<false, OutT, 3, W_>,
-       &stream_apply_wgmma<false, OutT, 4, W_>},
-      {&stream_apply_wgmma<true, OutT, 3, W_>,
-       &stream_apply_wgmma<true, OutT, 4, W_>}};
+      {&stream_apply_wgmma<false, OutT, 3, W_, Pass>,
+       &stream_apply_wgmma<false, OutT, 4, W_, Pass>},
+      {&stream_apply_wgmma<true, OutT, 3, W_, Pass>,
+       &stream_apply_wgmma<true, OutT, 4, W_, Pass>}};
   const int nb = (cols + 2 * SW_BOX - 1) / (2 * SW_BOX);
   if (ac == S_) return narrow[axis_q != 0][nb - 1];
   return ac == W_ && nb >= 3 ? wide[axis_q != 0][nb - 3] : nullptr;
@@ -897,14 +900,14 @@ static int run_stats_wgmma(const CUtensorMap& tkept, const CUtensorMap& tred,
 // stream_apply_wgmma in loads of `ac` chunks (sw_apply_kernel has an
 // instantiation for it at D) with a ring of `stages`, on the maps of q, k
 // and v (rows of 64, `ac` chunks), grid (S/64, batch, split).
-template <typename OutT>
+template <typename Pass, typename OutT>
 static int run_apply_wgmma(const CUtensorMap* maps, int axis_q, OutT* o,
                            View ov, int batch, int S, int D, int stages,
                            int ac, float scale, const float* m,
                            const float* l, cudaStream_t stream) {
   int split, cols;
   sw_split(D, &split, &cols);
-  const auto kernel = sw_apply_kernel<OutT>(axis_q, cols, ac);
+  const auto kernel = sw_apply_kernel<OutT, Pass>(axis_q, cols, ac);
   const size_t smem = sw_apply_smem_bytes(D, stages, ac);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -933,9 +936,9 @@ static int launch_stats_wgmma(const bf16* qp, View qv, const bf16* kp,
                          sw_stats_stages(D, kept), scale, m, l, stream);
 }
 
-// The apply pass on stream_apply_wgmma, out in OutT (bf16 or fp32), in
+// The apply kernel on stream_apply_wgmma, out in OutT (bf16 or fp32), in
 // sw_apply_chunks's loads with the most stages that fit.
-template <typename OutT>
+template <typename Pass, typename OutT>
 static int launch_apply_wgmma(const bf16* qp, const bf16* kp, const bf16* vp,
                               OutT* o, const View* views, int batch, int S,
                               int D, float scale, int axis_q, const float* m,
@@ -948,8 +951,9 @@ static int launch_apply_wgmma(const bf16* qp, const bf16* kp, const bf16* vp,
                           ac);
     if (rc != 0) return rc;
   }
-  return run_apply_wgmma(maps, axis_q, o, views[3], batch, S, D,
-                         sw_apply_stages(D, ac), ac, scale, m, l, stream);
+  return run_apply_wgmma<Pass>(maps, axis_q, o, views[3], batch, S, D,
+                               sw_apply_stages(D, ac), ac, scale, m, l,
+                               stream);
 }
 
 // strides: (sb, ss) of q and k in elements. m, l: (B, S) fp32 each.
@@ -976,29 +980,21 @@ SDM_EXPORT int sdm_streaming_stats(const void* q, const void* k, float* m,
 }
 
 // The apply kernel for out[i] = sum_j round_v(P_ij) v_j with P from (q, k,
-// m, l) on `axis_q`, the output in OutT: the forward's apply pass on
-// stream_apply_wgmma where sw_ok admits it, the dV pass (the roles swapped,
-// see sdm_streaming_dv) on stream_apply_mma where stream_mma_ok does, else
-// the CUDA-core kernel.
+// m, l) on `axis_q`, the output in OutT: the forward's apply pass
+// (apply_pass) and the dV pass (dv_pass: the roles swapped, see
+// sdm_streaming_dv) on stream_apply_wgmma where sw_ok admits the four
+// tensors, else on the CUDA-core kernel.
 template <typename Pass, typename OutT>
 static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
                         const View* views, int batch, int S, int D,
                         float scale, int axis_q, const float* m,
                         const float* l, int dt, cudaStream_t stream) {
   const void* ptrs[4] = {q, k, v, o};
-  if constexpr (std::is_same<Pass, apply_pass>::value) {
-    if (sw_ok(dt, ptrs, views, 4, S, D))
-      return launch_apply_wgmma(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), o, views, batch, S, D, scale, axis_q,
-          m, l, stream);
-  } else {
-    if (stream_mma_ok(dt, ptrs, views, S, D))
-      return (int)launch_apply_mma<Pass>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), o, views, batch, 1, S, D, 1, D, scale,
-          axis_q, m, l, stream);
-  }
+  if (sw_ok(dt, ptrs, views, 4, S, D))
+    return launch_apply_wgmma<Pass>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), o, views, batch, S, D, scale, axis_q, m,
+        l, stream);
   const dim3 grid((S + TQ - 1) / TQ, batch, (D + TDC - 1) / TDC);
   if (dt == SDM_F32) {
     auto kernel = axis_q ? &stream_apply<float, OutT, true, Pass>
@@ -1018,24 +1014,10 @@ static int launch_apply(const void* q, const void* k, const void* v, OutT* o,
   return (int)cudaGetLastError();
 }
 
-// The admissions, for the Python mirrors in kernels/streaming_attention.py
-// (checked against these on the card). ptrs and strides as the entry points
-// take them: q, k, v, out (the dV pass: q, k, g, dv).
-// stream_mma_smem_bytes is stream_apply_mma's dynamic shared memory.
-SDM_EXPORT int sdm_streaming_apply_takes_mma(const void* const* ptrs,
-                                             const long long* strides, int S,
-                                             int D, int dt) {
-  View views[4];
-  read_views(strides, views, 4);
-  return stream_mma_ok(dt, ptrs, views, S, D);
-}
-
-SDM_EXPORT int sdm_streaming_mma_smem_bytes(int D) {
-  return (int)stream_mma_smem_bytes(D);
-}
-
 // The admissions of stream_stats_wgmma (ptrs and strides of q, k) and
-// stream_apply_wgmma (q, k, v, out), for the Python mirrors.
+// stream_apply_wgmma (q, k, v, out; the dV pass: k, q, g, dv, though each
+// tensor is checked alone), for the Python mirrors in
+// kernels/streaming_attention.py (checked against these on the card).
 SDM_EXPORT int sdm_streaming_stats_takes_wgmma(const void* const* ptrs,
                                                const long long* strides,
                                                int S, int D, int dt) {
@@ -1113,10 +1095,12 @@ SDM_EXPORT int sdm_streaming_apply(const void* q, const void* k, const void* v,
 // second pass are needed:
 //
 //   dV: the apply kernel with the roles swapped. Its "query" rows are the
-//       keys (the block owns 64 of them on the tensor cores, 32 on the CUDA
-//       cores), its "keys" the queries, its values g, and the stats travel
-//       with the other index: sum_i P^T_ji g_i is the apply pass's sum over
-//       the streamed rows. Output in fp32.
+//       keys (the block owns 64 of them on wgmma, 32 on the CUDA cores),
+//       its "keys" the queries, its values g, and the stats travel with the
+//       other index: sum_i P^T_ji g_i is the apply pass's sum over the
+//       streamed rows. Output in fp32. On the query axis (the SR model's)
+//       its stats are per own row, loaded once a block, as the forward's
+//       key-axis apply loads them.
 //   dK, dQ: one kernel for out_a = scale sum_b round(dA_ab) B_b: the block
 //       owns rows a of A (and of A2), streams tiles of rows b of B and B2,
 //       forms the score tile A B^T and the tile A2 B2^T, turns them into dA,
@@ -1126,10 +1110,10 @@ SDM_EXPORT int sdm_streaming_apply(const void* q, const void* k, const void* v,
 //
 // Each pass is bound by operations: per (batch, head) 4*S*S*D for dV (the
 // scores and P^T g) and 6*S*S*D for dK and for dQ (scores, g V^T, dA B).
-// dV takes stream_apply_mma where stream_mma_ok admits it, dK and dQ take
-// stream_da_wgmma (below) where da_wgmma_ok admits them; fp32, and bf16 at
-// other shapes, run stream_apply and stream_da on the CUDA cores with
-// ragged tiles masked (P = 0 and dA = 0 outside S).
+// dV takes stream_apply_wgmma<..., dv_pass> where sw_ok admits it, dK and
+// dQ take stream_da_wgmma (below) where da_wgmma_ok admits them; fp32, and
+// bf16 at other shapes, run stream_apply and stream_da on the CUDA cores
+// with ragged tiles masked (P = 0 and dA = 0 outside S).
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------

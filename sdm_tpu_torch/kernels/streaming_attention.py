@@ -10,23 +10,23 @@ custom VJP (`_vjp_fwd`/`_vjp_bwd`, :328-355). Forward: the stats pass
 and the dQ pass (`_dq_kernel` :167, :271). The CUDA kernels are
 csrc/streaming_attention.cu: the stats pass merges online (m, l) over the
 reduced tiles, the apply pass walks key tiles with the final stats, dV is
-the mma.sync apply kernel with the roles of q and k swapped, and dK and dQ
-share one kernel that recomputes P and dA tile by tile. None holds more
-than one score tile, so shared memory does not depend on S. The bf16
-forward at S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte aligned rows
-runs on TMA + wgmma: the stats pass on `stream_stats_wgmma` (128 kept rows
-a block where they fit), the apply pass on `stream_apply_wgmma` (loads of
-eight chunks at 256 < D <= 512) (`stats_takes_wgmma`, `apply_takes_wgmma`,
+the apply kernel with the roles of q and k swapped, and dK and dQ share
+one kernel that recomputes P and dA tile by tile. None holds more than one
+score tile, so shared memory does not depend on S. The bf16 forward at
+S % 64 == 0, D % 64 == 0, D <= 1024 with 16-byte aligned rows runs on
+TMA + wgmma: the stats pass on `stream_stats_wgmma` (128 kept rows a block
+where they fit), the apply pass on `stream_apply_wgmma` (loads of eight
+chunks at 256 < D <= 512) (`stats_takes_wgmma`, `apply_takes_wgmma`,
 `admits_wgmma`, mirrors of the C admission; `wgmma_plan`, `wgmma_stages`
-and `wgmma_smem_bytes` mirror the launch plan and the shared memory). So
-do dK and dQ in bf16 at S % 64 == 0, D % 128 == 0, D <= 512 with aligned
-rows, on `stream_da_wgmma` (`da_takes_wgmma`, `da_admits_wgmma`;
-`da_wgmma_stages` and `da_wgmma_smem_bytes` mirror its ring and shared
-memory). dV runs on the tensor cores through mma.sync with ldmatrix
-fragments and cp.async rings at the same shapes, on `stream_apply_mma`
-(`apply_takes_mma`). fp32, and bf16 at other shapes, take CUDA-core
-kernels. Each tensor-core launch also counts in the wrapper's
-`mma_launches`, and each wgmma one in `wgmma_launches`.
+and `wgmma_smem_bytes` mirror the launch plan and the shared memory), and
+so does dV at the same shapes, on `stream_apply_wgmma<..., dv_pass>`
+(`apply_takes_wgmma(k, q, g, dv)`). So do dK and dQ in bf16 at S % 64 ==
+0, D % 128 == 0, D <= 512 with aligned rows, on `stream_da_wgmma`
+(`da_takes_wgmma`, `da_admits_wgmma`; `da_wgmma_stages` and
+`da_wgmma_smem_bytes` mirror its ring and shared memory). fp32, and bf16
+at other shapes, take CUDA-core kernels. Each tensor-core launch, all of
+them TMA + wgmma, counts in the wrapper's `mma_launches` and in its
+`wgmma_launches`.
 The whole-S kernel (kernels/attention.py) takes bf16 grids up to S = 3200
 and fp32 up to S = 1687; the dispatchers send longer ones,
 such as the 256x256 SR model's S = 4096, here. Every pass is bound by
@@ -74,8 +74,6 @@ _SIGNATURES = {
                               ctypes.c_float, _I, _I, _P]),
     "sdm_streaming_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               ctypes.c_float, _I, _I, _P]),
-    "sdm_streaming_apply_takes_mma": (_I, [_P, _P, _I, _I, _I]),
-    "sdm_streaming_mma_smem_bytes": (_I, [_I]),
     "sdm_streaming_da_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
     "sdm_streaming_da_wgmma_smem": (_I, [_I, _P]),
     "sdm_streaming_stats_takes_wgmma": (_I, [_P, _P, _I, _I, _I]),
@@ -86,9 +84,6 @@ _SIGNATURES = {
 
 # Opt-in shared memory per block on sm_90 (csrc/attention_tiles.cuh MAX_SMEM).
 MAX_SMEM = 232448
-# stream_apply_mma's tiles (csrc/attention_tiles.cuh MQ, MK, MMAXD): own
-# queries per block, keys per streamed tile, widest D.
-MMA_QUERIES, MMA_KEYS, MMA_MAX_D = 64, 32, 512
 # stream_da_wgmma (csrc/streaming_attention.cu DA_ROWS, DA_TILE,
 # DA_LOAD_CHUNKS, DA_MAX_D, DA_STAGES): own rows a block, streamed rows a
 # tile, 64-column chunks a TMA load (where they divide D's, else two),
@@ -195,15 +190,6 @@ def admits_wgmma(dtype, s: int, d: int, ptrs, strides) -> bool:
             and rows_aligned16(ptrs, strides))
 
 
-def apply_smem_bytes_mma(d: int) -> int:
-    """Dynamic shared memory of stream_apply_mma at D = d
-    (stream_mma_smem_bytes): the resident Q tile [64][d+8] bf16, a ring of
-    two stages of K and V tiles [32][d+8] bf16, the P tile [64][40] bf16,
-    and two stages of 32 m and l floats."""
-    return (MMA_QUERIES * (d + 8) * 2 + 2 * 2 * MMA_KEYS * (d + 8) * 2
-            + MMA_QUERIES * (MMA_KEYS + 8) * 2 + 2 * 2 * MMA_KEYS * 4)
-
-
 def da_load_chunks(d: int) -> int:
     """da_load_chunks: chunks a TMA load at D = d, DA_LOAD_CHUNKS where
     they divide D's 64-column chunks, else two."""
@@ -248,16 +234,6 @@ def rows_aligned16(ptrs, strides) -> bool:
                for p, st in zip(ptrs, strides))
 
 
-def apply_admits_mma(dtype, s: int, d: int, ptrs, strides) -> bool:
-    """stream_mma_ok: bf16, S % 64 == 0, D % 128 == 0, D <= 512, the shared
-    memory within MAX_SMEM, and 16-byte aligned rows of every tensor.
-    `ptrs` and `strides` ((sb, ss) in elements) of q, k, v and out."""
-    return (dtype == torch.bfloat16 and s % MMA_QUERIES == 0
-            and d % 128 == 0 and d <= MMA_MAX_D
-            and apply_smem_bytes_mma(d) <= MAX_SMEM
-            and rows_aligned16(ptrs, strides))
-
-
 def da_admits_wgmma(dtype, s: int, d: int, ptrs, strides) -> bool:
     """da_wgmma_ok: bf16, S % 64 == 0 (and % DA_TILE), D % 128 == 0 with
     0 < D <= 512, a ring of at least two stages, and 16-byte aligned rows
@@ -274,13 +250,6 @@ def _layout(*tensors):
             [(t.stride(0), t.stride(1)) for t in tensors])
 
 
-def apply_takes_mma(q, k, v, out) -> bool:
-    """Whether the dV pass on q, k, g into `dv` (passed as q, k, v, out)
-    runs on stream_apply_mma; the forward's apply pass never does."""
-    return apply_admits_mma(q.dtype, q.shape[1], q.shape[2],
-                            *_layout(q, k, v, out))
-
-
 def stats_takes_wgmma(q, k) -> bool:
     """Whether the stats pass on q, k runs on stream_stats_wgmma."""
     return admits_wgmma(q.dtype, q.shape[1], q.shape[2], *_layout(q, k))
@@ -288,7 +257,9 @@ def stats_takes_wgmma(q, k) -> bool:
 
 def apply_takes_wgmma(q, k, v, out) -> bool:
     """Whether the apply pass on q, k, v into `out` runs on
-    stream_apply_wgmma (the dV pass never does)."""
+    stream_apply_wgmma; so does the dV pass on q, k, g into `dv` where
+    `apply_takes_wgmma(k, q, g, dv)` (its roles as sdm_streaming_dv swaps
+    them; each tensor is checked alone)."""
     return admits_wgmma(q.dtype, q.shape[1], q.shape[2],
                         *_layout(q, k, v, out))
 
@@ -474,20 +445,18 @@ def _strides(*tensors):
         st for t in tensors for st in (t.stride(0), t.stride(1))])
 
 
-def _launch(symbol, what, device, args, ref, mma=False, wgmma=False):
+def _launch(symbol, what, device, args, ref, wgmma=False):
     """Launch `symbol` of the streaming library on `device`; raise on a
-    CUDA error. `mma`: the launch runs a tensor-core kernel
-    (stream_stats_wgmma, stream_apply_wgmma, stream_da_wgmma or
-    stream_apply_mma; counted in ref.mma_launches); `wgmma`: one of the
-    first three (also counted in ref.wgmma_launches)."""
+    CUDA error. `wgmma`: the launch runs a tensor-core kernel
+    (stream_stats_wgmma, stream_apply_wgmma or stream_da_wgmma), counted
+    in ref.mma_launches and ref.wgmma_launches."""
     lib = _build.library("streaming_attention", _SIGNATURES)
     with _build.on_device(device):
         rc = getattr(lib, symbol)(*args)
     _build.check(lib, rc, what)
     ref.launches += 1
-    if mma or wgmma:
-        ref.mma_launches += 1
     if wgmma:
+        ref.mma_launches += 1
         ref.wgmma_launches += 1
 
 
@@ -568,12 +537,13 @@ def streaming_dv(q, k, g, m, l, scale: float, softmax_axis: str = "q"):
         m.data_ptr(), l.data_ptr(), ctypes.cast(_strides(q, k, g, dv), _P),
         b, s, d, float(scale), int(softmax_axis == "q"),
         _build.dtype_code(q, what), _build.stream_handle(q.device)),
-        streaming_dv, mma=apply_takes_mma(q, k, g, dv))
+        streaming_dv, wgmma=apply_takes_wgmma(k, q, g, dv))
     return dv
 
 
 streaming_dv.launches = 0
 streaming_dv.mma_launches = 0
+streaming_dv.wgmma_launches = 0
 
 
 def _launch_da(symbol, what, ref, q, k, v, g, m, l, corr, scale,

@@ -445,8 +445,7 @@ def test_mirror_constants_match_the_sources():
         with open(os.path.join(_build.CSRC, name)) as f:
             src += f.read()
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
-    want = {"MAX_SMEM": sa.MAX_SMEM, "MQ": sa.MMA_QUERIES, "MK": sa.MMA_KEYS,
-            "MMAXD": sa.MMA_MAX_D,
+    want = {"MAX_SMEM": sa.MAX_SMEM,
             "WROWS": port_attention.WGMMA_ROWS,
             "WBOX": port_attention.WGMMA_BOX,
             "WCHUNKS": port_attention.WGMMA_CHUNKS,
@@ -474,17 +473,18 @@ def test_kernel_sources_export_the_wrapped_symbols():
     count the ctypes wrapper declares, the tensor-core admissions and plans
     are exported for their Python mirrors, the WMMA attention kernels, the
     WMMA and mma.sync dK/dQ kernels, the whole-S attention's mma.sync
-    kernels, the streaming forward's mma.sync stats kernel and the WMMA and
-    mma.sync GEMMs are gone, the
-    mma.sync primitives live in one header and the TMA, mbarrier and wgmma
-    ones in another, and the build targets sm_90a."""
+    kernels, the streaming forward's mma.sync stats kernel, the mma.sync
+    apply and dV kernel (stream_apply_mma) and its admission, the WMMA and
+    mma.sync GEMMs and every mma.sync, ldmatrix and cp.async primitive are
+    gone, the TMA, mbarrier and wgmma primitives live in their headers,
+    and the build targets sm_90a."""
     from sdm_tpu_torch.kernels import (adagn, attention_block,
                                        streaming_attention)
     assert {"sdm_attention_takes_wgmma", "sdm_attention_wgmma_plan",
             "sdm_attention_wgmma_smem"} <= set(port_attention._SIGNATURES)
     assert {"sdm_streaming_stats_takes_wgmma",
             "sdm_streaming_apply_takes_wgmma", "sdm_streaming_wgmma_plan",
-            "sdm_streaming_wgmma_smem", "sdm_streaming_apply_takes_mma",
+            "sdm_streaming_wgmma_smem",
             "sdm_streaming_da_takes_wgmma",
             "sdm_streaming_da_wgmma_smem"} <= set(
                 streaming_attention._SIGNATURES)
@@ -517,6 +517,33 @@ def test_kernel_sources_export_the_wrapped_symbols():
         assert not re.search(r"\b(attn_stats_mma|launch_stats_mma|"
                              r"stats_mma_ok)\b", code), name
     assert "launch_apply_mma<apply_pass>" not in src
+    # No mma.sync kernel is left in the library: dV runs on the wgmma
+    # apply, and neither the C sources (outside comments) nor the Python
+    # package name the mma.sync apply, its admission or its primitives.
+    for name in os.listdir(_build.CSRC):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC, name)) as f:
+                code = re.sub(r"//[^\n]*", "", f.read())
+            for gone in ("stream_apply_mma", "launch_apply_mma",
+                         "stream_mma_ok", "stream_mma_smem_bytes",
+                         "sdm_streaming_apply_takes_mma",
+                         "sdm_streaming_mma_smem_bytes", "mma_bf16",
+                         "ldsm_x4", "ldsm_x4_trans", "cp_async16",
+                         "cp_async_rows", "MMAXD"):
+                assert not re.search(r"\b" + gone + r"\b", code), (name, gone)
+    assert "mma_tiles.cuh" not in os.listdir(_build.CSRC)
+    package = os.path.dirname(_build.CSRC)
+    for root, _, files in os.walk(package):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                for gone in ("apply_takes_mma", "apply_admits_mma",
+                             "apply_smem_bytes_mma", "MMA_MAX_D",
+                             "MMA_QUERIES", "MMA_KEYS"):
+                    assert not re.search(r"\b" + gone + r"\b", text), (
+                        name, gone)
+    assert not hasattr(streaming_attention, "apply_takes_mma")
     assert {"sdm_linear_takes_wgmma", "sdm_linear_wgmma_tile"} <= set(
         attention_block._SIGNATURES)
     # The GEMM is the TMA + wgmma kernel alone: no mma.sync GEMM is left.
@@ -530,14 +557,14 @@ def test_kernel_sources_export_the_wrapped_symbols():
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(_build.CSRC, name)) as f:
                 src = f.read()
-            # One copy of each primitive: the mma.sync ones in
-            # mma_tiles.cuh, the TMA-map and wgmma ones in wgmma_tiles.cuh,
-            # the mbarrier, bulk-copy, proxy-fence and device-counter ones
-            # in async_tiles.cuh.
+            # One copy of each primitive: the TMA-map and wgmma ones in
+            # wgmma_tiles.cuh, the mbarrier, bulk-copy, proxy-fence and
+            # device-counter ones in async_tiles.cuh; no mma.sync, ldmatrix
+            # or cp.async one anywhere.
             for primitive in ('"mma.sync.aligned', '"ldmatrix.sync',
-                              '"cp.async.cg.shared', "void cp_async_rows("):
-                assert (primitive in src) == (name == "mma_tiles.cuh"), (
-                    name, primitive)
+                              '"cp.async.cg.shared', '"cp.async.ca.shared',
+                              "void cp_async_rows("):
+                assert primitive not in src, (name, primitive)
             for primitive in ('"wgmma.mma_async', '"wgmma.fence',
                               '"wgmma.commit_group', '"wgmma.wait_group',
                               '"cp.async.bulk.tensor', "cuTensorMapEncodeTiled",

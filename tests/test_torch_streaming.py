@@ -179,60 +179,6 @@ def _meta(shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def test_mma_smem_formula_fits_at_the_sr_width():
-    """stream_apply_mma's shared memory (the dV pass's kernel): Q [64][D+8] + 2 x (K, V) [32][D+8]
-    + P [64][40] in bf16, 2 x 2 x 32 fp32 stats; 205,312 bytes at D = 512,
-    within the opt-in limit."""
-    assert port_streaming.apply_smem_bytes_mma(512) == (
-        64 * 520 * 2 + 4 * 32 * 520 * 2 + 64 * 40 * 2 + 4 * 32 * 4)
-    assert port_streaming.apply_smem_bytes_mma(512) == 205312
-    assert port_streaming.apply_smem_bytes_mma(512) <= port_streaming.MAX_SMEM
-    assert port_streaming.MAX_SMEM == port_attention.MAX_SMEM
-
-
-@pytest.mark.parametrize("views", [False, True])
-def test_mma_admits_the_sr_shape(views):
-    """stream_apply_mma's admission takes the SR model's streaming block,
-    (16, 4096, 512) bf16: contiguous, and as the attention block passes
-    it, strided views of one (16, 4096, 3 * 512) qkv buffer, into a bf16 or
-    an fp32 output; so its dV pass (q, k, g and an fp32 dv) runs on the
-    kernel. (The forward's apply pass runs on stream_apply_wgmma.)"""
-    b, s, d = 16, 4096, 512
-    if views:
-        q, k, v = _meta((b, s, 3 * d)).split(d, dim=-1)
-        assert q.stride() == (s * 3 * d, 3 * d, 1)
-    else:
-        q, k, v = (_meta((b, s, d)) for _ in range(3))
-    out = _meta((b, s, d))
-    assert port_streaming.apply_takes_mma(q, k, v, out)
-    assert port_streaming.apply_takes_mma(q, k, v, out.float())
-    assert port_streaming.apply_takes_mma(q, k, _meta((b, s, d)),
-                                          _meta((b, s, d), torch.float32))
-
-
-@pytest.mark.parametrize("case", ["fp32", "s300", "d640", "d72", "d1024",
-                                  "stride", "pointer"])
-def test_mma_refuses_other_shapes(case):
-    """fp32, S % 64 != 0, D past 512 or off the 128 grid, a row stride that
-    is not a multiple of 8 elements, and a pointer off 16 bytes: the dV
-    pass takes the CUDA-core kernel there."""
-    shape = {"s300": (2, 300, 512), "d640": (2, 256, 640),
-             "d72": (2, 256, 72), "d1024": (2, 256, 1024)}.get(
-                 case, (2, 256, 512))
-    dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    q, k, v, out = (torch.zeros(shape, dtype=dtype) for _ in range(4))
-    if case == "stride":
-        k = torch.zeros((2, 256, 516), dtype=dtype)[:, :, :512]
-        assert k.stride(1) % 8 == 4
-    if case == "pointer":
-        v = torch.zeros(2 * 256 * 512 + 4, dtype=dtype)[4:].view(2, 256, 512)
-        assert v.data_ptr() % 16 == 8
-    assert not port_streaming.apply_takes_mma(q, k, v, out)
-    aligned = [torch.zeros((2, 256, 512), dtype=torch.bfloat16)
-               for _ in range(4)]
-    assert port_streaming.apply_takes_mma(*aligned)
-
-
 # (S, D) of every attention block of the flagship 128x128 and the SR
 # 256x256 U-Net (chip_smoke.py BLOCK_SHAPES and SR_BLOCK_SHAPES).
 UNET_BLOCKS = [(1024, 512), (256, 512), (64, 1024), (256, 1024), (4096, 512),

@@ -1,5 +1,7 @@
 """The port's bf16 streaming attention forward, `stream_stats_wgmma` and
-`stream_apply_wgmma` (csrc/streaming_attention.cu), on the CPU.
+`stream_apply_wgmma` (csrc/streaming_attention.cu), and its dV pass (the
+apply kernel with q and k swapped, `stream_apply_wgmma<..., dv_pass>`), on
+the CPU.
 
 The kernels run only on a card. Here: their admission, launch plan
 (column slices, kept rows, load size) and shared memory (the Python
@@ -18,7 +20,11 @@ are exact in any order, the emulation gives `streaming_stats_reference`
 and `streaming_apply_reference` bit for bit on both axes. On normal
 inputs its (m, l) drive the plain backward passes to sdm_tpu's within
 tests/test_torch_streaming_bwd.py's bound (a log2-scale m fails it), and
-its forward matches sdm_tpu's `_forward` in interpret mode.
+its forward matches sdm_tpu's `_forward` in interpret mode. The emulated
+apply with dV's roles (k, q, g, the other axis, fp32 out) gives
+`streaming_dv_reference` bit for bit on both axes and sdm_tpu's `_dv`
+within the bf16 bound; with the axis or the roles left unswapped it does
+not.
 """
 
 import os
@@ -124,6 +130,61 @@ def test_wgmma_refuses_off_grid(case):
         assert not sa.stats_takes_wgmma(q, k)
 
 
+def _dv_meta(s, d, views):
+    """q, k, g and dv of the dV pass at (16, S, D) as the attention block's
+    backward hands them to `streaming_dv`: bf16 q and k contiguous or views
+    of one (16, S, 3 D) qkv buffer, g contiguous, dv a new fp32 tensor."""
+    if views:
+        q, k, _ = _meta((16, s, 3 * d)).split(d, dim=-1)
+    else:
+        q, k = _meta((16, s, d)), _meta((16, s, d))
+    return q, k, _meta((16, s, d)), _meta((16, s, d), torch.float32)
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("shape", [(4096, 512), (1024, 512), (256, 640),
+                                   (256, 1024)])
+def test_dv_takes_the_wgmma_apply(shape, views):
+    """dV runs on stream_apply_wgmma<..., dv_pass> with the roles swapped
+    (`apply_takes_wgmma(k, q, g, dv)`): at the SR model's (4096, 512) block
+    and at (1024, 512), contiguous and as views of the qkv buffer, into an
+    fp32 dv; also at D = 640 and 1024, which the mma.sync dV refused (D %
+    128 or past 512). fp32 inputs do not."""
+    q, k, g, dv = _dv_meta(*shape, views)
+    assert sa.apply_takes_wgmma(k, q, g, dv)
+    assert not sa.apply_takes_wgmma(k.float(), q.float(), g.float(), dv)
+
+
+@pytest.mark.parametrize("case", ["fp32", "s300", "d72", "d32", "d1088",
+                                  "stride", "g_pointer", "dv_pointer"])
+def test_dv_refuses_off_grid(case):
+    """dV on its layout (k, q, g, fp32 dv): fp32 inputs, S % 64 != 0, D %
+    64 != 0, D under 64 or past 1024, a row stride that is not a multiple
+    of 8 elements and a pointer off 16 bytes (of g or of dv) are refused;
+    those take the CUDA-core kernel."""
+    shape = {"s300": (2, 300, 512), "d72": (2, 256, 72), "d32": (2, 256, 32),
+             "d1088": (2, 256, 1088)}.get(case, (2, 256, 512))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    q, k, g = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+    dv = torch.zeros(shape, dtype=torch.float32)
+    if case == "stride":
+        k = torch.zeros((2, 256, 516), dtype=dtype)[..., :512]
+        assert k.stride(1) % 8 == 4
+    if case.endswith("pointer"):
+        t = dtype if case == "g_pointer" else torch.float32
+        n = 16 // torch.empty((), dtype=t).element_size() // 2
+        bad = torch.zeros(2 * 256 * 512 + n, dtype=t)[n:].view(2, 256, 512)
+        assert bad.data_ptr() % 16 == 8
+        if case == "g_pointer":
+            g = bad
+        else:
+            dv = bad
+    assert not sa.apply_takes_wgmma(k, q, g, dv)
+    aligned = [torch.zeros((2, 256, 512), dtype=torch.bfloat16)
+               for _ in range(3)]
+    assert sa.apply_takes_wgmma(*aligned, torch.zeros((2, 256, 512)))
+
+
 @pytest.mark.parametrize("d", [64, 128, 320, 512, 576, 704, 1024])
 def test_wgmma_smem_and_stages(d):
     """Both kernels' shared memory: the stats' kept tile (128 rows where
@@ -169,7 +230,8 @@ def test_the_mirrors_match_the_sources():
     """The constants the mirrors and the emulation assume are the CUDA
     source's, and so are the lines that set what the emulation models:
     the natural-scale (m, l), the ring's issue and release rules, the
-    descriptors' steps and the dispatch order of the entry points."""
+    descriptors' steps, the dispatch order of the entry points and dV's
+    roles on the apply kernel."""
     with open(os.path.join(_build.CSRC, "streaming_attention.cu")) as f:
         src = f.read()
     defines = dict(re.findall(r"#define (SW_\w+) (\d+)", src))
@@ -215,21 +277,32 @@ def test_the_mirrors_match_the_sources():
             "const float p0 = exp2f((__fmul_rn(s[4 * j + 2 * hh], scale) -",
             "rlrow[hh] = __frcp_rn(lb[i0 + 16 * w + g + 8 * hh]);",
             "const bool store = 2 * bi + wg < nv;",
-            "if constexpr (std::is_same<Pass, apply_pass>::value) {",
             "if (sw_ok(dt, ptrs, views, 2, S, D))",
             "if (sw_ok(dt, ptrs, views, 4, S, D))",
-            "if (stream_mma_ok(dt, ptrs, views, S, D))"):
+            "return launch_apply_wgmma<Pass>(",
+            "template <bool QAXIS, typename OutT, int NB, int AC, typename Pass>",
+            "&stream_apply_wgmma<false, OutT, 4, W_, Pass>},",
+            "const auto kernel = sw_apply_kernel<OutT, Pass>(axis_q, cols, ac);",
+            # dV: the apply's (q, k, v, out) are (k, q, g, dv), the axis
+            # flipped (emulate_dv).
+            "views[0] = in[1];\n  views[1] = in[0];\n  views[2] = in[2];\n"
+            "  views[3] = in[3];\n  return launch_apply<dv_pass>(k, q, g, dv, "
+            "views, batch, S, D, scale,\n                               "
+            "!axis_q, m, l, dt,"):
         assert line in src, line
-    # The forward takes the wgmma kernels, else the CUDA-core ones; only
-    # dV reaches stream_apply_mma, and it never reaches the wgmma apply.
+    # The forward and dV take the wgmma kernels where sw_ok admits them,
+    # else the CUDA-core ones: one dispatch for both passes, no mma.sync.
     stats = src[src.index("SDM_EXPORT int sdm_streaming_stats("):]
     stats = stats[:stats.index("\n}\n")]
     assert "sw_ok(" in stats and "mma_ok" not in stats
     apply = src[src.index("static int launch_apply("):]
     apply = apply[:apply.index("\n}\n")]
-    assert (apply.index("apply_pass>::value") < apply.index("sw_ok(")
-            < apply.index("} else {") < apply.index("stream_mma_ok("))
-    assert "launch_apply<dv_pass>" in src
+    assert (apply.index("sw_ok(") < apply.index("launch_apply_wgmma<Pass>(")
+            < apply.index("&stream_apply<float"))
+    assert "mma" not in apply.replace("wgmma", "") and "constexpr" not in apply
+    dv = src[src.index("SDM_EXPORT int sdm_streaming_dv("):]
+    dv = dv[:dv.index("\n}\n")]
+    assert "launch_apply<dv_pass>(" in dv and "float* dv" in dv
 
 
 # ------------------------------------------------------------ the emulation
@@ -506,6 +579,16 @@ def emulate_apply(q, k, v, scale, axis, m_in, l_in, out_dtype=torch.bfloat16,
     return out[:, :, 0].to(out_dtype), refills
 
 
+def emulate_dv(q, k, g, scale, axis, m, l, swap_axis=True, swap_roles=True):
+    """The dV pass as sdm_streaming_dv launches it: the apply kernel on (k,
+    q, g) into an fp32 dv, on the other softmax axis, from the forward's
+    (m, l) (B, S) on `axis`: its own rows are keys, its streamed rows
+    queries, its values g. `swap_axis`, `swap_roles` False: the controls."""
+    apply_axis = ("k" if axis == "q" else "q") if swap_axis else axis
+    a, b = (k, q) if swap_roles else (q, k)
+    return emulate_apply(a, b, g, scale, apply_axis, m, l, torch.float32)[0]
+
+
 def emulate_forward(q, k, v, scale, axis, out_dtype=torch.bfloat16, **kw):
     """Both passes as the entry points launch them: the stats with keys kept
     on the query axis, queries kept on the key axis, then the apply."""
@@ -560,6 +643,46 @@ def test_emulated_kernels_reproduce_the_plain_passes(axis, s, d):
     other = sa.streaming_attention_reference(q, k, v, EXACT_SCALE,
                                              "k" if axis == "q" else "q")
     assert not torch.equal(_bits(got.to(torch.bfloat16)), _bits(other))
+
+
+@pytest.mark.parametrize("axis", ["q", "k"])
+@pytest.mark.parametrize("s,d", [(64, 128), (128, 128), (128, 192),
+                                 (256, 128), (64, 512), (64, 576)])
+def test_emulated_apply_reproduces_the_plain_dv(axis, s, d):
+    """dV on the emulated apply kernel (`emulate_dv`: k, q, g, the other
+    axis, fp32 out), from `emulate_stats`'s (m, l), against
+    `streaming_dv_reference` on the same stats, bit for bit: one and two
+    64-row blocks of keys, D = 192 (the last load's fourth chunk past D),
+    512 (the SR width: one eight-chunk load of queries and one of g a
+    tile) and 576 (two column slices); two batch rows. On the query axis
+    (the SR model's) dV is the apply's key-axis form, its stats per own
+    row."""
+    q, k, g = _exact_qkv(2, s, d, seed=s + d + 2 * (axis == "q"))
+    m, l = emulate_stats(*((k, q) if axis == "q" else (q, k)), EXACT_SCALE)
+    got = emulate_dv(q, k, g, EXACT_SCALE, axis, m, l)
+    want = sa.streaming_dv_reference(q, k, g, m[:, None], l[:, None],
+                                     EXACT_SCALE, axis)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("control", ["axis", "roles"])
+def test_emulated_dv_controls_fail(control):
+    """The check has teeth: the apply kernel on dV's tensors with the
+    softmax axis left as the forward's, or with q and k left in the
+    forward's roles, gives another dV on both axes."""
+    q, k, g = _exact_qkv(1, 128, 128, seed=7)
+    for axis in ("q", "k"):
+        m, l = emulate_stats(*((k, q) if axis == "q" else (q, k)),
+                             EXACT_SCALE)
+        want = sa.streaming_dv_reference(q, k, g, m[:, None], l[:, None],
+                                         EXACT_SCALE, axis)
+        assert torch.equal(_bits(emulate_dv(q, k, g, EXACT_SCALE, axis, m,
+                                            l)), _bits(want))
+        got = emulate_dv(q, k, g, EXACT_SCALE, axis, m, l,
+                         swap_axis=control != "axis",
+                         swap_roles=control != "roles")
+        assert not torch.equal(_bits(got), _bits(want))
 
 
 def test_emulation_sees_the_transpose_bit():
@@ -669,3 +792,20 @@ def test_emulated_stats_drive_the_backward(interpret, axis):
         _close_bf16(got, want)
     with pytest.raises(AssertionError):
         _close_bf16(passes(m * LOG2E, l)[0], dv_j)
+
+
+@pytest.mark.parametrize("axis", ["q", "k"])
+def test_emulated_dv_matches_pallas_interpret(interpret, axis):
+    """dV on the emulated kernels (`emulate_stats`, then `emulate_dv`)
+    against sdm_tpu's `_dv` on `_forward`'s own (m, l), both Pallas kernels
+    in interpret mode, on normal bf16 inputs, (1, 256, 128): within
+    tests/test_torch_streaming_bwd.py's bf16 bound (2e-2 of the element
+    plus 2e-2 of the largest; both round P to bf16 after fp32 sums in other
+    orders)."""
+    (q, k, _, g), (jq, jk, jv, jg) = _normal((1, 256, 128), seed=23)
+    scale = 128 ** -0.5
+    ax = AXES[axis]
+    _, m_j, l_j = _forward(jq, jk, jv, scale, ax)
+    dv_j = _dv(jq, jk, jg, m_j, l_j, scale, ax)
+    m, l = emulate_stats(*((k, q) if axis == "q" else (q, k)), scale)
+    _close_bf16(emulate_dv(q, k, g, scale, axis, m, l), dv_j)

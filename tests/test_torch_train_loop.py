@@ -7,25 +7,19 @@ The two packages draw their noise from different generators, so the losses
 differ; everything else is held equal: the log lines (timestamps, paths and
 loss values masked), the checkpoint and preview file names, and the
 checkpoints' contents. A checkpoint of either package resumes in the other,
-strictly, with its Adam moments and step count. Both packages draw the
-doodle preview batch unseeded, so its preview and label_plot grids are held
-by name and shape, as every trainer's are, never by pixels. Both packages
-decode natively (their loaders' default). The port's own semantics are
-checked beside: resume LR, determinism given "seed", the NaN guard,
-preemption, "epoch_checkpoint_every" and previews that fail. The fused
-device-resident loop ("device_dataset") is held to sdm_tpu's by its index
-blocks, log lines and files, and to the port's own per-step train step;
-"async_checkpoint" and "remat" write the same files as a run without them.
-The base trainers of both packages write native checkpoints
-("native_checkpoint"), under the same names; a native resume continues
-bit for bit like the .pt + config resume; "profile_trace_dir" writes a
-trace per run, per-step or fused.
+strictly, with its Adam moments and step count, and the port's resume
+continues the checkpointed LR. Both packages draw the doodle preview batch
+unseeded, so its preview and label_plot grids are held by name and shape,
+as every trainer's are, never by pixels. Both packages decode natively
+(their loaders' default). The base trainers of both packages write native
+checkpoints ("native_checkpoint"), under the same names. The port's other
+options and semantics are held in test_torch_train_loop_options.py, its
+fused device-resident loop and traces in test_torch_train_loop_fused.py,
+on this file's configs and images (the files run on separate workers).
 """
 
-import json
 import os
 import re
-import signal
 
 import numpy as np
 import pytest
@@ -35,17 +29,12 @@ cv2 = pytest.importorskip("cv2")
 
 from sdm_tpu.train import loop as jax_loop  # noqa: E402
 from sdm_tpu.train.step import resume_lr_schedule  # noqa: E402
-from sdm_tpu_torch.cli import train_diffusion  # noqa: E402
 from sdm_tpu_torch.data.tinydb_compat import write_tables  # noqa: E402
 from sdm_tpu_torch.io.checkpoint import (  # noqa: E402
-    load_checkpoint, load_ema_from_checkpoint, load_optimizer_from_checkpoint)
-from sdm_tpu_torch.data import ImageDataset  # noqa: E402
-from sdm_tpu_torch.io.checkpoint import diffusion_checkpoint_dict  # noqa: E402
+    load_checkpoint, load_optimizer_from_checkpoint)
 from sdm_tpu_torch.models import UNet  # noqa: E402
-from sdm_tpu_torch.ops.schedules import make_schedule  # noqa: E402
 from sdm_tpu_torch.train import loop  # noqa: E402
-from sdm_tpu_torch.train.step import (  # noqa: E402
-    create_train_state, make_optimizer, make_train_step)
+from sdm_tpu_torch.train.step import make_optimizer  # noqa: E402
 
 STEPS = 5          # two epochs of three batches, checkpoints every 2 steps
 SPECS = {"base": (jax_loop.BASE_SPEC, loop.BASE_SPEC),
@@ -296,24 +285,6 @@ def test_resume_lr_continues_from_the_checkpointed_lr(runs, images,
         float(want(summary["state"].count - 1)))
 
 
-def test_seed_makes_the_run_deterministic(images, tmp_path):
-    def losses_and_params(sub, seed):
-        cfg = _config(images, tmp_path / sub, seed=seed)
-        summary = _run_port(loop.BASE_SPEC, cfg, steps=3)
-        losses = [line.split("Diffusion: ")[1]
-                  for line in _log(str(tmp_path / sub))
-                  if "Cum. Steps:" in line]
-        return losses, [p.detach().clone()
-                        for p in summary["state"].model.parameters()]
-
-    a, b, c = (losses_and_params(s, seed) for s, seed in
-               (("a", 7), ("b", 7), ("c", 8)))
-    assert a[0] == b[0]
-    for pa, pb in zip(a[1], b[1]):
-        torch.testing.assert_close(pa, pb, rtol=0, atol=0)
-    assert a[0] != c[0]
-
-
 def _step_wrapper(monkeypatch, hook):
     """Wrap the trainer's step so `hook(call_index, metrics)` runs after
     each step and may replace its metrics."""
@@ -331,115 +302,6 @@ def _step_wrapper(monkeypatch, hook):
     monkeypatch.setattr(loop, "make_train_step", make)
 
 
-def test_nan_guard_fires_before_the_checkpoint(images, tmp_path,
-                                               monkeypatch):
-    _step_wrapper(monkeypatch, lambda i, m: (
-        {"loss": torch.tensor(float("nan"))} if i == 3 else m))
-    with pytest.raises(Exception, match="NaN encountered during training"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path))
-    names = os.listdir(tmp_path / "checkpoint")
-    assert "diffusion_0.pt" in names and "diffusion_2.pt" not in names
-
-
-def test_preemption_checkpoints_and_returns(images, tmp_path, monkeypatch):
-    def hook(i, metrics):
-        if i == 2:
-            os.kill(os.getpid(), signal.SIGTERM)
-        return metrics
-    _step_wrapper(monkeypatch, hook)
-    summary = _run_port(loop.BASE_SPEC, _config(images, tmp_path))
-    assert summary["preempted"] and summary["global_steps"] == 2
-    names = os.listdir(tmp_path / "checkpoint")
-    assert "diffusion_2.pt" in names and "diffusion_3.pt" not in names
-    assert any("Preempted: checkpointed at step 2; exiting." in line
-               for line in _log(str(tmp_path)))
-    assert signal.getsignal(signal.SIGTERM) is not None
-
-
-def test_epoch_checkpoint_every_skips_epoch_ends(images, tmp_path):
-    _run_port(loop.BASE_SPEC, _config(images, tmp_path, max_epoch=3,
-                                      epoch_checkpoint_every=2,
-                                      checkpoint_steps=100), steps=None)
-    names = sorted(os.listdir(tmp_path / "checkpoint"))
-    # Step 0, then the ends of epochs 2 (step 6) and 3 (step 9, the last).
-    assert names == sorted(f"{kind}_{s}.pt" for kind in ("config",
-                                                         "diffusion")
-                           for s in (0, 6, 9))
-
-
-def test_a_failing_preview_does_not_stop_training(images, tmp_path,
-                                                  monkeypatch):
-    def broken(*args, **kwargs):
-        raise RuntimeError("sampler broke")
-    monkeypatch.setattr(loop, "ddim_sample", broken)
-    summary = _run_port(loop.BASE_SPEC, _config(images, tmp_path), steps=3)
-    assert summary["global_steps"] == 3
-    assert any("Preview sampling failed: sampler broke" in line
-               for line in _log(str(tmp_path)))
-    assert not os.path.exists(tmp_path / "plots")
-
-
-@pytest.mark.parametrize("key,value", [
-    ("grad_accum_steps", 2), ("cfg_drop_prob", 0.1), ("ema_decay", 0.999),
-    ("min_snr_gamma", 5.0), ("objective", "V")])
-def test_extension_config_keys_match_sdm_tpu(images, tmp_path, key, value):
-    """The base trainer with each of the step's extensions, in both
-    packages: the same log lines, checkpoint and preview files and
-    checkpoint keys ("ema" beside "model" under ema_decay), finite losses.
-    An EMA checkpoint of either package loads into the other's EMA with
-    every key."""
-    dirs = {}
-    for pkg, run, spec in (("jax", _run_jax, jax_loop.BASE_SPEC),
-                           ("port", _run_port, loop.BASE_SPEC)):
-        dirs[pkg] = str(tmp_path / pkg)
-        summary = run(spec, _config(images, dirs[pkg], **{key: value}),
-                      steps=3)
-        assert summary["global_steps"] == 3
-        assert np.isfinite(summary["last_loss"])
-    port = _log(dirs["port"])
-    assert _masked(port, dirs["port"]) == _masked(_log(dirs["jax"]),
-                                                  dirs["jax"])
-    for sub in ("checkpoint", "plots"):
-        assert (sorted(os.listdir(os.path.join(dirs["port"], sub)))
-                == sorted(os.listdir(os.path.join(dirs["jax"], sub))))
-    ck_j, ck_t = (torch.load(os.path.join(d, "checkpoint", "diffusion_2.pt"))
-                  for d in (dirs["jax"], dirs["port"]))
-    want = {"model", "optimizer"} | ({"ema"} if key == "ema_decay"
-                                     else set())
-    assert set(ck_t) == set(ck_j) == want
-    if key != "ema_decay":
-        return
-    from sdm_tpu.io.checkpoint import \
-        load_params_from_checkpoint as jax_load_params
-    from sdm_tpu.io.torch_interop import (params_to_torch_state_dict,
-                                          torch_state_dict_to_params)
-    assert list(ck_t["ema"]) == list(ck_t["model"])
-    assert set(ck_t["ema"]) == set(ck_j["ema"])
-    net = UNet.from_config(_config(images, tmp_path))
-    ema = {name: p.detach().clone() for name, p in net.named_parameters()}
-    load_ema_from_checkpoint(ck_j, ema, log=pytest.fail)
-    for name, value in ck_j["ema"].items():
-        torch.testing.assert_close(ema[name], value, rtol=0, atol=0)
-    loaded = params_to_torch_state_dict(jax_load_params(
-        ck_t, torch_state_dict_to_params(ck_j["ema"]), log=pytest.fail,
-        key="ema"))
-    for name, value in ck_t["ema"].items():
-        np.testing.assert_array_equal(loaded[name].numpy(), value.numpy())
-
-
-def test_cli_runs_on_the_cpu_and_defaults_to_cuda(images, tmp_path):
-    assert loop.parse_args(loop.BASE_SPEC, ["-c", "x.json"])["device"] == \
-        "cuda"
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(_config(images, tmp_path / "out")))
-    summary = train_diffusion.run(["-c", str(path), "--device", "cpu",
-                                   "--steps", "2"])
-    assert summary["global_steps"] == 2
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            train_diffusion.run(["-c", str(path), "--steps", "1"])
-
-
 def test_step_zero_checkpoint_reloads_strictly(runs):
     """The port's step-0 checkpoint loads into a fresh model and Adam with
     strict keys, non-zero moments and the one step taken."""
@@ -452,233 +314,6 @@ def test_step_zero_checkpoint_reloads_strictly(runs):
     moments = [opt.state[p]["exp_avg"] for p in net.parameters()]
     assert len(moments) == len(list(net.parameters()))
     assert any(float(m.abs().max()) > 0 for m in moments)
-
-
-# ---- the fused device-resident loop ("device_dataset") ----
-
-FUSED = dict(device_dataset=True, steps_per_call=2)
-
-
-@pytest.fixture(scope="module")
-def fused_runs(images, tmp_path_factory):
-    """Both packages' base trainer fused, K = 2, over 5 steps (three
-    chunks: the run overshoots to 6), and sdm_tpu's index blocks as its
-    fused call received them."""
-    import jax
-    blocks = []
-    real_jit = jax.jit
-
-    def spy_jit(fn=None, *args, **kwargs):
-        if fn is None:
-            return lambda f: spy_jit(f, *args, **kwargs)
-        jitted = real_jit(fn, *args, **kwargs)
-        if getattr(fn, "__name__", "") != "fused_fn":
-            return jitted
-
-        def call(st, data, idx, key):
-            blocks.append(np.asarray(idx))
-            return jitted(st, data, idx, key)
-        return call
-
-    out = {"jax_blocks": blocks}
-    for pkg, run, spec in (("jax", _run_jax, jax_loop.BASE_SPEC),
-                           ("port", _run_port, loop.BASE_SPEC)):
-        d = str(tmp_path_factory.mktemp(f"fused_{pkg}"))
-        jax.jit = spy_jit
-        try:
-            summary = run(spec, _config(images, d, **FUSED))
-        finally:
-            jax.jit = real_jit
-        assert summary["global_steps"] == 6
-        assert np.isfinite(summary["last_loss"])
-        out[pkg] = d
-    return out
-
-
-def test_fused_index_blocks_match_sdm_tpu(fused_runs):
-    """The port's index blocks equal the ones sdm_tpu's fused call got,
-    exactly, across the epoch-permutation boundaries (6 rows, batch 2,
-    K = 2: three steps an epoch, blocks that straddle two epochs)."""
-    want = fused_runs["jax_blocks"]
-    assert len(want) == 3
-    got = loop.fused_index_blocks(0, 6, 2, 3, 2)
-    for block in want:
-        np.testing.assert_array_equal(next(got), block)
-    more = loop.fused_index_blocks(7, 13, 4, 3, 5)
-    perm = np.random.default_rng((7 + 0x9E3779B9) % 2 ** 63)
-    stream = np.concatenate([perm.permutation(13)[:12] for _ in range(4)])
-    for i in range(2):
-        np.testing.assert_array_equal(next(more),
-                                      stream[i * 20:(i + 1) * 20]
-                                      .reshape(5, 4))
-
-
-def test_fused_log_lines_and_files_match_sdm_tpu(fused_runs):
-    """The banner, the resident dataset's line, the burst of per-step
-    lines, the epoch and rate lines (losses and rates masked), and the
-    checkpoint and preview files: chunk-boundary checkpoints at 2, 4 and 6
-    with previews, epoch ends at 3 and 6."""
-    jax_dir, port_dir = fused_runs["jax"], fused_runs["port"]
-    port = _log(port_dir)
-    assert _masked(port, port_dir) == _masked(_log(jax_dir), jax_dir)
-    assert any(line.endswith("Device-resident dataset: 6 rows (0.0 MiB) "
-                             "in device memory; 2 steps fused per call.")
-               for line in port)
-    for sub in ("checkpoint", "plots"):
-        assert (sorted(os.listdir(os.path.join(port_dir, sub)))
-                == sorted(os.listdir(os.path.join(jax_dir, sub))))
-    assert sorted(os.listdir(os.path.join(port_dir, "checkpoint"))) == \
-        sorted(f"{k}_{s}.pt" for k in ("config", "diffusion")
-               for s in (2, 3, 4, 6))
-
-
-def test_fused_chunk_equals_per_step_train_steps(images, tmp_path):
-    """One fused chunk of K = 3 steps leaves the parameters that three
-    calls of the port's own train step leave, given the same initial
-    model, the same gathered batches (the first index block over the
-    resident dataset) and a generator of the same seed: bit-identical."""
-    cfg = _config(images, tmp_path / "out", device_dataset=True,
-                  steps_per_call=3, seed=5)
-    summary = _run_port(loop.BASE_SPEC, cfg, steps=3)
-    assert summary["global_steps"] == 3
-
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(5)
-        net = UNet.from_config(cfg, dtype=None, use_kernels=True)
-    net = net.to("cpu", memory_format=torch.channels_last)
-    opt, sched = make_optimizer(net.parameters(), cfg["diffusion_lr"],
-                                cfg["lr_steps"])
-    state = create_train_state(net, opt, sched)
-    step = make_train_step(
-        make_schedule("LINEAR", beta_1=5e-3, beta_T=9e-3,
-                      max_noise_step=10), objective=loop.BASE_SPEC.objective,
-        min_noise_step=1, max_actual_noise_step=10, flip_imgs=True)
-    import glob
-    data = loop.load_resident(ImageDataset(glob.glob(images),
-                                           normalized=False),
-                              torch.device("cpu"), False)
-    gen = torch.Generator().manual_seed(5)
-    block = next(loop.fused_index_blocks(5, 6, 2, 3, 3))
-    for rows in torch.from_numpy(block):
-        step(state, {k: v.index_select(0, rows) for k, v in data.items()},
-             gen)
-    fused = summary["state"].model.state_dict()
-    for name, value in net.state_dict().items():
-        torch.testing.assert_close(fused[name], value, rtol=0, atol=0)
-
-
-def test_fused_doodle_run_carries_the_conditioning_images(images, tmp_path):
-    """The doodle trainer fused: image and cond_img both resident (the
-    MiB line counts both), losses finite, the same files as the base
-    trainer's fused run plus the conditioning grid."""
-    summary = _run_port(loop.DOODLE_SPEC, _config(images, tmp_path,
-                                                  "doodle", **FUSED))
-    assert summary["global_steps"] == 6
-    assert np.isfinite(summary["last_loss"])
-    lines = _log(str(tmp_path))
-    assert any("Device-resident dataset: 6 rows" in line for line in lines)
-    assert sorted(os.listdir(tmp_path / "plots")) == sorted(
-        ["label_plot.jpg"] + [f"diffusion_plot_{s}.jpg" for s in (2, 4, 6)])
-
-
-@pytest.mark.parametrize("extra,saved,unsaved", [
-    (dict(async_checkpoint=True), "diffusion_0.pt", "diffusion_2.pt"),
-    (FUSED, "diffusion_2.pt", "diffusion_4.pt")])
-def test_nan_guard_fires_before_an_async_or_fused_checkpoint(
-        images, tmp_path, monkeypatch, extra, saved, unsaved):
-    """A NaN in the third step's loss stops the run before the next
-    checkpoint is written: with async checkpoints the step-2 one (step 0's
-    was saved by the worker), in the fused loop (K = 2) the step-4 one at
-    the end of the NaN's chunk (the first chunk's step-2 one was saved)."""
-    _step_wrapper(monkeypatch, lambda i, m: (
-        {"loss": torch.tensor(float("nan"))} if i == 3 else m))
-    with pytest.raises(Exception, match="NaN encountered during training"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **extra))
-    names = os.listdir(tmp_path / "checkpoint")
-    assert saved in names and unsaved not in names
-
-
-def test_fused_loop_rejects_grad_accumulation(images, tmp_path):
-    with pytest.raises(ValueError, match='"device_dataset" fused training '
-                                         "supports single-process runs "
-                                         "without sp/grad_accum_steps"):
-        _run_port(loop.BASE_SPEC, _config(images, tmp_path, **FUSED,
-                                          grad_accum_steps=2))
-
-
-# ---- "async_checkpoint" and "remat" in the trainer ----
-
-def _checkpoints(out_dir):
-    d = os.path.join(out_dir, "checkpoint")
-    return {name: torch.load(os.path.join(d, name))
-            for name in sorted(os.listdir(d))}
-
-
-def _assert_same_tree(a, b, where=""):
-    if torch.is_tensor(a):
-        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=where)
-    elif isinstance(a, dict):
-        assert set(a) == set(b), where
-        for k in a:
-            _assert_same_tree(a[k], b[k], f"{where}/{k}")
-    else:
-        assert a == b, where
-
-
-@pytest.mark.parametrize("key", ["async_checkpoint", "remat"])
-def test_async_checkpoint_and_remat_write_the_sync_run_files(images,
-                                                             tmp_path, key):
-    """With the same seed, a run with "async_checkpoint" (the worker
-    thread saves and previews a device snapshot) or "remat" writes the
-    same checkpoint files as a run without it, every tensor bit-identical
-    (parameters, Adam moments and counts, lr), and the same previews; the
-    log lines match (rates masked)."""
-    dirs = {}
-    for name, extra in (("plain", {}), (key, {key: True})):
-        dirs[name] = str(tmp_path / name)
-        summary = _run_port(loop.BASE_SPEC, _config(images, dirs[name],
-                                                    ema_decay=0.9, **extra))
-        assert summary["global_steps"] == STEPS
-    want, got = _checkpoints(dirs["plain"]), _checkpoints(dirs[key])
-    assert list(got) == list(want)
-    for name in want:
-        _assert_same_tree(got[name], want[name], name)
-    assert (sorted(os.listdir(os.path.join(dirs[key], "plots")))
-            == sorted(os.listdir(os.path.join(dirs["plain"], "plots"))))
-    got, want = (_masked(_log(dirs[k]), dirs[k]) for k in (key, "plain"))
-    previews = [[line for line in lines if "Saving generated image" in line]
-                for lines in (got, want)]
-    assert sorted(previews[0]) == sorted(previews[1]) != []
-    if key == "async_checkpoint":
-        got, want = ([line for line in lines
-                      if "Saving generated image" not in line]
-                     for lines in (got, want))
-    assert got == want
-
-
-def test_async_snapshot_survives_a_later_in_place_step(images):
-    """diffusion_checkpoint_dict(device=None), the async snapshot, copies
-    the parameters, Adam moments and EMA: a later in-place Adam step moves
-    the live tensors but not the snapshot."""
-    cfg = _config(images, "unused")
-    net, opt = _fresh(cfg)
-    state = create_train_state(net, opt, lambda c: 1e-2, ema=True)
-    step = make_train_step(make_schedule("LINEAR", max_noise_step=10),
-                           objective=loop.BASE_SPEC.objective,
-                           max_actual_noise_step=10, ema_decay=0.5)
-    batch = {"image": torch.from_numpy(np.random.default_rng(0).integers(
-        0, 256, (2, 8, 8, 3), dtype=np.uint8))}
-    step(state, batch, torch.Generator().manual_seed(0))
-    snap = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema,
-                                     device=None)
-    frozen = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema)
-    step(state, batch, torch.Generator().manual_seed(1))
-    _assert_same_tree(loop.to_cpu(snap), frozen)
-    moved = diffusion_checkpoint_dict(net, opt, lr=1e-2, ema=state.ema)
-    assert not torch.equal(moved["model"]["out_layers.1.conv_layer.0.bias"],
-                           snap["model"]["out_layers.1.conv_layer.0.bias"])
-    assert not torch.equal(moved["optimizer"]["state"][0]["exp_avg"],
-                           snap["optimizer"]["state"][0]["exp_avg"])
 
 
 # ---- "native_checkpoint" and "profile_trace_dir" ----
@@ -698,59 +333,3 @@ def test_native_checkpoint_dirs_match_sdm_tpu(runs):
                                         "checkpoint", n))
         assert ".metadata" in files and any(f.endswith(".distcp")
                                             for f in files), files
-
-
-def test_native_resume_equals_the_pt_resume(images, tmp_path):
-    """A model_checkpoint that is a native directory restores the whole
-    state (parameters, Adam, EMA, the step; no config checkpoint, no
-    load_diffusion_optim) and continues bit for bit like the .pt + config
-    resume (sdm_tpu's tests/test_train_loop.py:296)."""
-    out = tmp_path / "out"
-    _run_port(loop.BASE_SPEC, _config(images, out, native_checkpoint=True,
-                                      ema_decay=0.999), steps=2)
-    ckpt = out / "checkpoint"
-    runs = {}
-    for name, over in (
-            ("pt", dict(model_checkpoint=str(ckpt / "diffusion_2.pt"),
-                        config_checkpoint=str(ckpt / "config_2.pt"),
-                        load_diffusion_optim=True)),
-            ("native", dict(model_checkpoint=str(ckpt / "native_2")))):
-        runs[name] = _run_port(loop.BASE_SPEC, _config(
-            images, tmp_path / name, ema_decay=0.999, **over), steps=4)
-        assert runs[name]["global_steps"] == 4
-    a, b = runs["pt"]["state"], runs["native"]["state"]
-    _assert_same_tree(a.model.state_dict(), b.model.state_dict())
-    _assert_same_tree(a.ema, b.ema)
-    _assert_same_tree(a.optimizer.state_dict()["state"],
-                      b.optimizer.state_dict()["state"])
-    assert any("Restored native checkpoint" in line and "step 2" in line
-               for line in _log(str(tmp_path / "native")))
-
-
-def test_native_resume_mismatch_names_ema_and_model_config(images,
-                                                           tmp_path):
-    _run_port(loop.BASE_SPEC, _config(images, tmp_path / "out",
-                                      native_checkpoint=True), steps=1)
-    with pytest.raises(Exception, match='"ema_decay" on/off setting and '
-                                        "model config must match"):
-        _run_port(loop.BASE_SPEC, _config(
-            images, tmp_path / "resume", ema_decay=0.999,
-            model_checkpoint=str(tmp_path / "out" / "checkpoint"
-                                 / "native_0")), steps=2)
-
-
-@pytest.mark.parametrize("extra", [{}, FUSED], ids=["per_step", "fused"])
-def test_profile_trace_dir_writes_a_trace(images, tmp_path, extra):
-    """"profile_trace_dir": a two-step run (per-step, or fused with K = 2)
-    writes one Chrome trace of the loop for its rank, naming the
-    U-Net's ops; the run trains as without it."""
-    trace = tmp_path / "trace"
-    summary = _run_port(loop.BASE_SPEC, _config(
-        images, tmp_path / "out", profile_trace_dir=str(trace), **extra),
-        steps=2)
-    assert summary["global_steps"] == 2
-    assert os.listdir(trace) == ["trace_rank0.json"]
-    with open(trace / "trace_rank0.json") as f:
-        events = json.load(f)["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert "aten::convolution" in names, sorted(names)[:20]

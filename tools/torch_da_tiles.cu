@@ -8,6 +8,7 @@
 // kept on wgmma) and -DSW_PHASE_CLOCKS (cycles by phase,
 // tiles_da_phase_clocks).
 #include "../sdm_tpu_torch/csrc/streaming_attention.cu"
+#include "torch_mma_sync.cuh"
 
 // ---------------------------------------------------------------------------
 // stream_da_mma<STAT_COL, Pass, BM, BN, KSPLIT>: BM own rows of A and A2

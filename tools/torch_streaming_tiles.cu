@@ -1,14 +1,16 @@
-// The port's streaming attention forward (sdm_tpu_torch/csrc/
+// The port's streaming attention forward and dV pass (sdm_tpu_torch/csrc/
 // streaming_attention.cu) one pass at a time, with the choices the entry
 // points make left open, for tools/torch_streaming_tiles.py: the wgmma
-// stats at 64 or 128 kept rows a block and the wgmma apply in loads of four
-// or eight chunks, each at a ring depth (0: what the entry points take),
-// from real or zero-filled boxes; and, for the A/B, the mma.sync kernels
-// the forward ran before, stream_apply_mma<..., apply_pass>
-// (attention_tiles.cuh; the dV pass runs its dv_pass instantiations) and
-// attn_stats_mma<streaming> (below). Built a second time with
-// -DSW_PHASE_CLOCKS for the kernels' cycles by phase (tiles_phase_clocks).
+// stats at 64 or 128 kept rows a block and the wgmma apply (apply_pass, or
+// dv_pass with the roles swapped as sdm_streaming_dv swaps them) in loads
+// of four or eight chunks, each at a ring depth (0: what the entry points
+// take), from real or zero-filled boxes; and, for the A/B, the mma.sync
+// kernels they replaced: stream_apply_mma (torch_mma_sync.cuh), which ran
+// the forward's apply and then dV, and attn_stats_mma<streaming> (below).
+// Built a second time with -DSW_PHASE_CLOCKS for the kernels' cycles by
+// phase (tiles_phase_clocks).
 #include "../sdm_tpu_torch/csrc/streaming_attention.cu"
+#include "torch_mma_sync.cuh"
 
 // Returned, launching nothing, where the shape does not take the kept
 // rows, load size or ring depth asked for.
@@ -54,9 +56,44 @@ SDM_EXPORT int tiles_stream_stats(const void* q, const void* k,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
-// stream_apply_wgmma, out in fp32 (out_f32) or bf16, in loads of `ac`
-// chunks (0: sw_apply_chunks's) with `stages` ring stages (0: the most
-// that fit). strides: (sb, ss) of q, k, v and out.
+// stream_apply_wgmma<..., Pass> on q, k, v and out (ptrs, views), out in
+// fp32 (out_f32) or bf16, in loads of `ac` chunks (0: sw_apply_chunks's)
+// with `stages` ring stages (0: the most that fit).
+template <typename Pass>
+static int tiles_apply(const void* const* ptrs, void* o, const View* views,
+                       int batch, int S, int D, float scale, int axis_q,
+                       int out_f32, int stages, int ac, int no_memory,
+                       const float* m, const float* l, void* stream_ptr) {
+  if (ac == 0) ac = sw_apply_chunks(D);
+  if (stages == 0) stages = sw_apply_stages(D, ac);
+  int split, cols;
+  sw_split(D, &split, &cols);
+  if (sw_apply_kernel<float, Pass>(axis_q, cols, ac) == nullptr ||
+      stages < sw_apply_min_stages(ac) ||
+      sw_apply_smem_bytes(D, stages, ac) > MAX_SMEM)
+    return TILES_ERR_PLAN;
+  int mb = batch, ms = S, md = D;
+  tiles_extent(no_memory, &mb, &ms, &md);
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const int rc = sw_map(&maps[i], ptrs[i], views[i], mb, ms, md, SW_ROWS,
+                          ac);
+    if (rc != 0) return rc;
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  // dV writes fp32 alone: no bf16-output dv_pass instantiation is built.
+  if (out_f32 || std::is_same<Pass, dv_pass>::value)
+    return run_apply_wgmma<Pass>(maps, axis_q, static_cast<float*>(o),
+                                 views[3], batch, S, D, stages, ac, scale, m,
+                                 l, stream);
+  if constexpr (std::is_same<Pass, apply_pass>::value)
+    return run_apply_wgmma<Pass>(maps, axis_q, static_cast<bf16*>(o),
+                                 views[3], batch, S, D, stages, ac, scale, m,
+                                 l, stream);
+  return TILES_ERR_PLAN;
+}
+
+// The forward's apply pass. strides: (sb, ss) of q, k, v and out.
 SDM_EXPORT int tiles_stream_apply(const void* q, const void* k, const void* v,
                                   void* o, const long long* strides,
                                   int batch, int S, int D, float scale,
@@ -65,29 +102,35 @@ SDM_EXPORT int tiles_stream_apply(const void* q, const void* k, const void* v,
                                   const float* l, void* stream_ptr) {
   View views[4];
   read_views(strides, views, 4);
-  if (ac == 0) ac = sw_apply_chunks(D);
-  if (stages == 0) stages = sw_apply_stages(D, ac);
-  int split, cols;
-  sw_split(D, &split, &cols);
-  if (sw_apply_kernel<bf16>(axis_q, cols, ac) == nullptr ||
-      stages < sw_apply_min_stages(ac) ||
-      sw_apply_smem_bytes(D, stages, ac) > MAX_SMEM)
-    return TILES_ERR_PLAN;
-  int mb = batch, ms = S, md = D;
-  tiles_extent(no_memory, &mb, &ms, &md);
   const void* ptrs[3] = {q, k, v};
-  CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i) {
-    const int rc = sw_map(&maps[i], ptrs[i], views[i], mb, ms, md, SW_ROWS,
-                          ac);
-    if (rc != 0) return rc;
-  }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (out_f32)
-    return run_apply_wgmma(maps, axis_q, static_cast<float*>(o), views[3],
-                           batch, S, D, stages, ac, scale, m, l, stream);
-  return run_apply_wgmma(maps, axis_q, static_cast<bf16*>(o), views[3], batch,
-                         S, D, stages, ac, scale, m, l, stream);
+  return tiles_apply<apply_pass>(ptrs, o, views, batch, S, D, scale, axis_q,
+                                 out_f32, stages, ac, no_memory, m, l,
+                                 stream_ptr);
+}
+
+// The dV pass into fp32 dv, the roles as sdm_streaming_dv swaps them: the
+// apply's (q, k, v, out) are (k, q, g, dv) on the other axis. strides:
+// (sb, ss) of q, k, g and dv; m, l the forward's stats on `axis_q`.
+static void tiles_dv_views(const long long* strides, View* views) {
+  View in[4];
+  read_views(strides, in, 4);
+  views[0] = in[1];
+  views[1] = in[0];
+  views[2] = in[2];
+  views[3] = in[3];
+}
+
+SDM_EXPORT int tiles_stream_dv(const void* q, const void* k, const void* g,
+                               float* dv, const long long* strides, int batch,
+                               int S, int D, float scale, int axis_q,
+                               int stages, int ac, int no_memory,
+                               const float* m, const float* l,
+                               void* stream_ptr) {
+  View views[4];
+  tiles_dv_views(strides, views);
+  const void* ptrs[3] = {k, q, g};
+  return tiles_apply<dv_pass>(ptrs, dv, views, batch, S, D, scale, !axis_q,
+                              1, stages, ac, no_memory, m, l, stream_ptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -341,8 +384,9 @@ static cudaError_t launch_stats_mma(const bf16* qp, View qv, const bf16* kp,
 }
 
 // The mma.sync kernels the forward ran before: attn_stats_mma<streaming>
-// and stream_apply_mma<bf16, ..., apply_pass> (-1 where they do not admit
-// the shape).
+// and stream_apply_mma<bf16, ..., apply_pass>; and the one dV ran before,
+// stream_apply_mma<float, ..., dv_pass> (-1 where they do not admit the
+// shape).
 SDM_EXPORT int tiles_stream_stats_mma(const void* q, const void* k,
                                       const long long* strides, int batch,
                                       int S, int D, float scale, int axis_q,
@@ -371,6 +415,22 @@ SDM_EXPORT int tiles_stream_apply_mma(const void* q, const void* k,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), views, batch, 1, S,
       D, 1, D, scale, axis_q, m, l, static_cast<cudaStream_t>(stream_ptr));
+}
+
+SDM_EXPORT int tiles_stream_dv_mma(const void* q, const void* k,
+                                   const void* g, float* dv,
+                                   const long long* strides, int batch, int S,
+                                   int D, float scale, int axis_q,
+                                   const float* m, const float* l,
+                                   void* stream_ptr) {
+  View views[4];
+  tiles_dv_views(strides, views);
+  const void* ptrs[4] = {k, q, g, dv};
+  if (!stream_mma_ok(SDM_BF16, ptrs, views, S, D)) return -1;
+  return (int)launch_apply_mma<dv_pass>(
+      static_cast<const bf16*>(k), static_cast<const bf16*>(q),
+      static_cast<const bf16*>(g), dv, views, batch, 1, S, D, 1, D, scale,
+      !axis_q, m, l, static_cast<cudaStream_t>(stream_ptr));
 }
 
 #ifdef SW_PHASE_CLOCKS

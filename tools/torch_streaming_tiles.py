@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Sweep of the port's bf16 streaming attention forward,
-`stream_stats_wgmma` and `stream_apply_wgmma`
+`stream_stats_wgmma` and `stream_apply_wgmma`, and of its dV pass (the
+apply kernel with q and k swapped, `stream_apply_wgmma<..., dv_pass>`)
 (csrc/streaming_attention.cu), on one NVIDIA GPU.
 
     python3 tools/torch_streaming_tiles.py [--quick]
@@ -21,10 +22,16 @@ TMA box zero-filled (`no memory`: the rings and the products alone); each
 kernel's cycles by phase (thread 0 of every block, the clock build); the
 mma.sync kernels the forward ran before (attn_stats_mma<streaming>, whose
 source the .cu keeps for this, and stream_apply_mma<..., apply_pass>) in
-the same call; and SDPA on the key axis as the library's yardstick.
-`--quick` checks the entry points' choices alone (the first call of a new
-kernel). Every check runs before the script fails. Exits 2 without a CUDA
-device, 1 on any failed check.
+the same call; and SDPA on the key axis as the library's yardstick. dV,
+at the same shapes and axes from the plain stats: the wgmma kernel at the
+entry point's choices and through `streaming_dv` (which must count it as
+a wgmma launch) against `streaming_dv_reference` with chip_smoke.py's
+bf16 BWD_TOL, the wrong axis failing; then the mma.sync kernel it
+replaced (stream_apply_mma<float, ..., dv_pass>, tools/torch_mma_sync.cuh)
+and the new one old, new, new, old, each load size and ring depth, with
+zero-filled boxes, and by phase. `--quick` checks the entry points'
+choices alone (the first call of a new kernel). Every check runs before
+the script fails. Exits 2 without a CUDA device, 1 on any failed check.
 """
 
 from __future__ import annotations
@@ -46,6 +53,10 @@ STATS_KEPT = (64, 128)
 STATS_STAGES = (0, 2, 4)     # 0: the most that fit
 APPLY_CHUNKS = (4, 8)        # chunks a load
 APPLY_STAGES = (0, 2, 3)
+# chip_smoke.py BWD_TOL["bfloat16"]: |got - plain| <= rtol |plain| + of_max
+# max|plain| (a one-ulp flip of a bf16 P entry, scaled by dV's size).
+DV_RTOL = DV_OF_MAX = 2e-2
+PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s
 # The clock build's phases (csrc/streaming_attention.cu SW_CLOCK).
 PHASES = (("full wait", "wgmma issue + wait<1>", "drain wait<0>",
            "(m, l) merge", "", "", "", ""),
@@ -110,14 +121,18 @@ def main() -> int:
     lib.tiles_stream_stats_mma.argtypes = [P, P, P, I, I, I, Fl, I, P, P, P]
     lib.tiles_stream_apply_mma.argtypes = [P, P, P, P, P, I, I, I, Fl, I, P,
                                            P, P]
+    lib.tiles_stream_dv.argtypes = [P, P, P, P, P, I, I, I, Fl, I, I, I, I,
+                                    P, P, P]
+    lib.tiles_stream_dv_mma.argtypes = lib.tiles_stream_apply_mma.argtypes
     for fn in (lib.tiles_stream_stats, lib.tiles_stream_apply,
-               lib.tiles_stream_stats_mma, lib.tiles_stream_apply_mma):
+               lib.tiles_stream_stats_mma, lib.tiles_stream_apply_mma,
+               lib.tiles_stream_dv, lib.tiles_stream_dv_mma):
         fn.restype = I
     clk = ctypes.CDLL(paths["clocks"])
-    clk.tiles_stream_stats.argtypes = lib.tiles_stream_stats.argtypes
-    clk.tiles_stream_apply.argtypes = lib.tiles_stream_apply.argtypes
-    clk.tiles_stream_stats.restype = I
-    clk.tiles_stream_apply.restype = I
+    for name in ("tiles_stream_stats", "tiles_stream_apply",
+                 "tiles_stream_dv"):
+        getattr(clk, name).argtypes = getattr(lib, name).argtypes
+        getattr(clk, name).restype = I
     clk.tiles_phase_clocks.argtypes = [P]
     clk.tiles_phase_clocks.restype = I
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -146,10 +161,26 @@ def main() -> int:
         return (bool(torch.isfinite(got).all()) and bool((err <= bound).all()),
                 err.max().item())
 
+    def phase_line(what, run, kernel, after=None):
+        """Cycles by phase of one launch of the clock build (thread 0 of
+        each block, summed)."""
+        sums = (ctypes.c_ulonglong * 16)()
+        clk.tiles_phase_clocks(sums)
+        rc = run()
+        torch.cuda.synchronize()
+        clk.tiles_phase_clocks(sums)
+        got = list(sums)[8 * kernel:8 * kernel + 8]
+        total = sum(got) or 1
+        print(f"  phases of {what} (rc {rc}): " + ", ".join(
+            f"{name} {100.0 * n / total:.1f} %"
+            for name, n in zip(PHASES[kernel], got) if name))
+        if after is not None:
+            after()
+
     for s_len, d in SHAPES:
-        q, k, v = ((torch.randn((BATCH, s_len, d), generator=gen,
-                                device=dev) * std).to(bf)
-                   for std in (QK_STD, QK_STD, 1.0))
+        q, k, v, g = ((torch.randn((BATCH, s_len, d), generator=gen,
+                                   device=dev) * std).to(bf)
+                      for std in (QK_STD, QK_STD, 1.0, 1.0))
         scale = d ** -0.5
         st2 = (ctypes.c_longlong * 4)(*[x for t in (q, k)
                                         for x in (t.stride(0), t.stride(1))])
@@ -157,6 +188,8 @@ def main() -> int:
         out32 = torch.empty(q.shape, dtype=torch.float32, device=dev)
         st4 = (ctypes.c_longlong * 8)(*[x for t in (q, k, v, out)
                                         for x in (t.stride(0), t.stride(1))])
+        stdv = (ctypes.c_longlong * 8)(*[x for t in (q, k, g, out32)
+                                         for x in (t.stride(0), t.stride(1))])
         stats = torch.empty((2, BATCH, s_len), dtype=torch.float32,
                             device=dev)
         m, l = stats[0], stats[1]
@@ -224,6 +257,60 @@ def main() -> int:
                   f"fp32 out {'ok' if ok32 else 'FAILED'} ({err32:.3e}), "
                   f"wrong axis {'fails' if wrong_ok else 'PASSES'}",
                   flush=True)
+
+            # dV from the plain stats into out32, the roles swapped inside.
+            dv_want = sa.streaming_dv_reference(
+                q, k, g, m_want[:, None], l_want[:, None], scale, axis)
+            mo, lo = sa.streaming_stats_reference(q, k, scale, other)
+            dv_wrong = sa.streaming_dv_reference(q, k, g, mo, lo, scale,
+                                                 other)
+            del mo, lo
+
+            def run_dv(stages=0, ac=0, no_memory=0, lib=lib):
+                return lib.tiles_stream_dv(
+                    q.data_ptr(), k.data_ptr(), g.data_ptr(),
+                    out32.data_ptr(), stdv, BATCH, s_len, d, scale, aq,
+                    stages, ac, no_memory, m.data_ptr(), l.data_ptr(),
+                    stream)
+
+            def run_dv_mma():
+                return lib.tiles_stream_dv_mma(
+                    q.data_ptr(), k.data_ptr(), g.data_ptr(),
+                    out32.data_ptr(), stdv, BATCH, s_len, d, scale, aq,
+                    m.data_ptr(), l.data_ptr(), stream)
+
+            def check_dv(what, rc, got=None):
+                torch.cuda.synchronize()
+                ok, err = close(out32 if got is None else got, dv_want,
+                                DV_RTOL, DV_OF_MAX)
+                if rc != 0 or not ok:
+                    failed.append(f"dV {what} {tag} rc {rc} err {err:.3e}")
+                return ok and rc == 0, err
+
+            out32.fill_(float("nan"))
+            ok_dv, err_dv = check_dv("(default)", run_dv())
+            dv_wrong_ok = not close(out32, dv_wrong, DV_RTOL, DV_OF_MAX)[0]
+            if not dv_wrong_ok:
+                failed.append(f"dV wrong axis passes {tag}")
+            counts = (sa.streaming_dv.launches,
+                      sa.streaming_dv.wgmma_launches)
+            got = sa.streaming_dv(q, k, g, m[:, None], l[:, None], scale,
+                                  axis)
+            ok_w, err_w = check_dv("through streaming_dv", 0, got)
+            counted = (sa.streaming_dv.launches - counts[0],
+                       sa.streaming_dv.wgmma_launches - counts[1])
+            if counted != (1, 1):
+                failed.append(f"streaming_dv {tag}: (launches, wgmma) "
+                              f"{counted}, not (1, 1)")
+            del got
+            out32.fill_(float("nan"))
+            ok_dvm, err_dvm = check_dv("mma.sync", run_dv_mma())
+            print(f"{tag}: dV {'ok' if ok_dv else 'FAILED'} (max abs err "
+                  f"{err_dv:.3e}), through streaming_dv "
+                  f"{'ok' if ok_w else 'FAILED'} ({err_w:.3e}, counted "
+                  f"{counted}), mma.sync {'ok' if ok_dvm else 'FAILED'} "
+                  f"({err_dvm:.3e}), wrong axis "
+                  f"{'fails' if dv_wrong_ok else 'PASSES'}", flush=True)
             if quick:
                 continue
 
@@ -282,31 +369,47 @@ def main() -> int:
                 for (c, s_), (t, ok) in ap_times.items()))
             print(f"  no memory (ms, the most stages): " + "  ".join(
                 f"{what}: {t:.4f}" for what, t in nomem.items()))
-            # Cycles by phase (thread 0 of each block, summed), the clock
-            # build at the entry points' choices and at 128 kept rows.
+            # Cycles by phase, the clock build at the entry points'
+            # choices and at 128 kept rows.
             for what, run, kernel in (
                     ("stats", lambda: run_stats(lib=clk), 0),
                     ("stats, 64 kept rows",
                      lambda: run_stats(kept=64, lib=clk), 0),
                     ("apply", lambda: run_apply(lib=clk), 1)):
-                sums = (ctypes.c_ulonglong * 16)()
-                clk.tiles_phase_clocks(sums)
-                rc = run()
-                torch.cuda.synchronize()
-                clk.tiles_phase_clocks(sums)
-                got = list(sums)[8 * kernel:8 * kernel + 8]
-                total = sum(got) or 1
-                print(f"  phases of {what} (rc {rc}): " + ", ".join(
-                    f"{name} {100.0 * n / total:.1f} %"
-                    for name, n in zip(PHASES[kernel], got) if name))
-                load_plain_stats()
+                phase_line(what, run, kernel, load_plain_stats)
             print(f"  entry points: stats {ms_default[0]:.4f} + apply "
                   f"{ms_default[1]:.4f} = {sum(ms_default):.4f} ms (fp32 out "
                   f"{ms_f32:.4f}); mma.sync stats "
                   f"{mma_stats:.4f} + apply "
                   f"{mma_apply:.4f}{'' if ok_mma else ' FAILED'} = "
                   f"{mma_stats + mma_apply:.4f}{line}", flush=True)
-        del q, k, v, out, out32, stats
+
+            # dV: the mma.sync kernel it replaced and the wgmma one in one
+            # call, old, new, new, old; then each load size and ring depth,
+            # no memory, and the phases.
+            ab = [time_ms(torch, f)
+                  for f in (run_dv_mma, run_dv, run_dv, run_dv_mma)]
+            bound = 4.0 * BATCH * s_len * s_len * d / PEAK_BF16 * 1e3
+            print(f"  dV: mma.sync {ab[0]:.4f}, wgmma {ab[1]:.4f}, wgmma "
+                  f"{ab[2]:.4f}, mma.sync {ab[3]:.4f} ms (bound {bound:.4f}, "
+                  f"operations; forward apply, same axis of the apply "
+                  f"kernel: {'k' if axis == 'q' else 'q'})", flush=True)
+            cells = []
+            for ac in APPLY_CHUNKS:
+                for stages in APPLY_STAGES:
+                    out32.fill_(float("nan"))
+                    rc = run_dv(stages, ac)
+                    if rc == -1:
+                        continue
+                    ok, _ = check_dv(f"{ac}-chunk loads stages {stages}", rc)
+                    cells.append(f"({ac}, {stages or 'max'}): "
+                                 f"{time_ms(torch, lambda: run_dv(stages, ac)):.4f}"
+                                 f"{'' if ok else ' FAILED'}")
+            print("  dV (chunks a load, stages: ms): " + "  ".join(cells)
+                  + f"; no memory {time_ms(torch, lambda: run_dv(0, 0, 1)):.4f}",
+                  flush=True)
+            phase_line("dV", lambda: run_dv(lib=clk), 1)
+        del q, k, v, g, out, out32, stats
         torch.cuda.empty_cache()
     if failed:
         print(f"FAILED: {failed}")
