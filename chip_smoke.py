@@ -242,6 +242,10 @@ ADAGN_SHAPES = [(128, 128, 128), (64, 64, 256), (32, 32, 512), (16, 16, 512),
                 (8, 8, 1024), (16, 16, 1024), (32, 32, 768), (64, 64, 384)]
 ADAGN_PER_CALL = 2
 BLOCK_SHAPES = [(1024, 512), (256, 512), (64, 1024), (256, 1024)]
+# The whole-S (S, C) blocks of either U-Net whose apply carries the output
+# projection (kernels/attention_block.py::block_route 2: bf16, d_k = C =
+# 512, S >= BFUSED_MIN_S): three launches a block, no r tensor.
+FUSED_OUT_SHAPES = [(1024, 512)]
 DDIM_STEP = 20
 # The SR model (bench.py sr_net): 256x256 output from 6 input channels (the
 # noisy image and the q-sampled upsampled LR image), tanh out; otherwise
@@ -670,6 +674,7 @@ def kernel_phase(torch, results):
                 f"{err_text(err, ATTN_TOL[dn])}")
 
     check_attention_predicates(torch)
+    check_block_routes(torch)
     linear_off_grid(torch, randn, results)
     # S beyond the longest the entry point takes is refused, launching
     # nothing: past the CUDA-core block's shared memory (fp32 S = 2048) and
@@ -1006,9 +1011,20 @@ def attention_case(torch, randn, results, model, dtype, s_len, d, axis):
         f"bound {b:.4f} ({by})")
 
 
+ROUTE_NAMES = {0: "one C call, CUDA cores", 1: "one C call, four launches",
+               2: "one C call, three launches, projection in the apply",
+               None: "composed: linear, streaming, linear"}
+
+
 def block_case(torch, randn, results, model, dtype, s_len, d, axis):
-    from sdm_tpu_torch.kernels.attention_block import (
-        attention_block_reference, fused_attention_block)
+    """The block against its plain version on the same inputs (and the
+    wrong axis, which must fail). A whole-S block is one C call: its route
+    counters move as `block_route` says (`wgmma_launches` at route 1 or 2,
+    `fused_out_launches` at 2) and `linear` and `fused_attention` do not;
+    the streaming block (S = 4096) runs `linear` twice. Timed back to back
+    and queued behind a sleep kernel (the device time alone)."""
+    from sdm_tpu_torch.kernels import attention_block as ab
+    from sdm_tpu_torch.kernels.attention import fused_attention
     dn = str(dtype).split(".")[-1]
     isz = torch.tensor([], dtype=dtype).element_size()
     other = "k" if axis == "q" else "q"
@@ -1021,30 +1037,89 @@ def block_case(torch, randn, results, model, dtype, s_len, d, axis):
     w_out = randn((c, d), dtype, std=bnd)
     b_out = randn((c,), dtype, std=bnd)
     args = (tok, w_qkv, b_qkv, w_out, b_out, d ** -0.5, axis)
-    got = fused_attention_block(*args)
-    want = attention_block_reference(*args)
+    fab = ab.fused_attention_block
+    route = (ab.block_route(dtype, BATCH, s_len, c, d,
+                            (tok.data_ptr(), w_qkv.data_ptr(),
+                             w_out.data_ptr(), 0, 0))
+             if ab._whole_s(tok, w_out) else None)
+    counts = lambda: (fab.wgmma_launches, fab.fused_out_launches,
+                      ab.linear.launches, fused_attention.launches)
+    before = counts()
+    got = fab(*args)
+    moved = tuple(x - y for x, y in zip(counts(), before))
+    want_moved = ((0, 0, 2, 0) if route is None
+                  else (int(route >= 1), int(route == 2), 0, 0))
     name = f"attention_block {dn} S={s_len} C={c} {axis}"
+    if moved != want_moved:
+        raise AssertionError(f"{name}: (wgmma, fused_out, linear, "
+                             f"fused_attention) moved {moved}, route "
+                             f"{route} wants {want_moved}")
+    if dn == "bfloat16" and (route == 2) != ((s_len, c) in FUSED_OUT_SHAPES):
+        raise AssertionError(f"{name}: route {route}, FUSED_OUT_SHAPES "
+                             f"{FUSED_OUT_SHAPES}")
+    want = ab.attention_block_reference(*args)
     err = compare(name, got, want, ATTN_TOL[dn])
-    must_fail(name, got, attention_block_reference(*args[:-1], other),
+    must_fail(name, got, ab.attention_block_reference(*args[:-1], other),
               ATTN_TOL[dn])
     reps = _reps(s_len, dn)
-    ms = time_ms(lambda: fused_attention_block(*args), reps)
-    plain = time_ms(lambda: attention_block_reference(*args), reps)
+    ms = time_ms(lambda: fab(*args), reps)
+    queued = time_queued_ms(lambda: fab(*args), reps)
+    plain = time_ms(lambda: ab.attention_block_reference(*args), reps)
     nbytes = (2 * BATCH * s_len * c + 4 * c * d) * isz
     ops = (2.0 * BATCH * s_len * c * 4 * d
            + 4.0 * BATCH * s_len * s_len * d)
     b, by = bound_ms(nbytes, ops, dn)
     results.append(dict(kernel="attention_block", model=model, dtype=dn,
                         axis=axis, shape=[BATCH, s_len, c],
-                        max_abs_err=err[0], max_rel_err=err[1],
-                        tol=ATTN_TOL[dn], ms=ms, plain_ms=plain,
-                        library_ms=None, bound_ms=b, bound_by=by))
+                        route=route, max_abs_err=err[0], max_rel_err=err[1],
+                        tol=ATTN_TOL[dn], ms=ms, queued_ms=queued,
+                        plain_ms=plain, library_ms=None, bound_ms=b,
+                        bound_by=by))
     log(f"attention_block {dn:8s} S={s_len:4d} C={c:4d} {axis}  "
         f"{err_text(err, ATTN_TOL[dn])}  wrong axis fails  "
-        f"kernel {ms:.4f} ms  plain {plain:.4f}  bound {b:.4f} ({by})")
+        f"route {route} ({ROUTE_NAMES[route]})  kernel {ms:.4f} ms, queued "
+        f"{queued:.4f}  plain {plain:.4f}  bound {b:.4f} ({by})")
     if axis == "q":
         linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
                     w_out, b_out)
+
+
+def check_block_routes(torch):
+    """`block_route` (kernels/attention_block.py) against the C one
+    (sdm_attention_block_route) over S, (C, d_k), both dtypes, batch 1, 2,
+    16 and 32 and each pointer off 16 bytes in turn; and at batch 16, bf16,
+    route 2 at exactly the FUSED_OUT_SHAPES among both U-Nets' whole-S
+    blocks."""
+    from sdm_tpu_torch.kernels import _build
+    from sdm_tpu_torch.kernels import attention_block as ab
+    lib = _build.library("attention_block", ab._BLOCK_SIGNATURES)
+    checked = 0
+    for n in (1, 2, 16, 32):
+        for s_len in (64, 96, 256, 512, 1024, 3200, 3264, 4096):
+            for c, d in ((512, 512), (1024, 1024), (768, 768), (128, 128),
+                         (72, 72), (512, 256), (1024, 512)):
+                for dt, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+                    for off in range(6):
+                        ptrs = [0x100000 * (i + 1) + (8 if off == i + 1
+                                                      else 0)
+                                for i in range(5)]
+                        got = lib.sdm_attention_block_route(*ptrs, n, s_len,
+                                                            c, d, dt)
+                        mirror = ab.block_route(dtype, n, s_len, c, d, ptrs)
+                        if got != mirror:
+                            raise AssertionError(
+                                f"block_route disagrees with C at N={n} "
+                                f"S={s_len} C={c} d_k={d} {dtype} pointer "
+                                f"{off} off: {got} vs {mirror}")
+                        checked += 1
+    whole = [sh for sh in BLOCK_SHAPES + SR_BLOCK_SHAPES if sh[0] <= 1024]
+    fused = sorted({sh for sh in whole if ab.block_route(
+        torch.bfloat16, BATCH, sh[0], sh[1], sh[1], [0] * 5) == 2})
+    if fused != sorted(FUSED_OUT_SHAPES):
+        raise AssertionError(f"route 2 at {fused}, FUSED_OUT_SHAPES "
+                             f"{FUSED_OUT_SHAPES}")
+    log(f"block routes: the Python mirror agrees with the C function in "
+        f"{checked} cases; route 2 (projection in the apply) at {fused}")
 
 
 def linear_case(torch, randn, results, model, dtype, tok, w_qkv, b_qkv,
@@ -1836,23 +1911,32 @@ def _export(torch, tmp, name, cfg, img, model_type, cond_t=None,
 def expected_launches(cfg, calls, streaming):
     """Launches per kernel for `calls` U-Net calls of cfg: two AdaGN per
     ResidualBlock and one attention block per ResidualBlock of an
-    attention layer, down and up; each block runs `linear` twice and one
-    attention, whole-S or (for the `streaming` blocks) the two streaming
-    passes, every whole-S attention, every `linear` and every streaming
-    stats and streaming apply on the wgmma kernels (`_mma`, the
-    tensor-core counts; `_wgmma`, the streaming passes' wgmma counts), and
-    every AdaGN on a one-pass kernel (`_one_pass`; none on the two passes).
-    Calls without a gradient launch no backward kernel."""
+    attention layer, down and up. A whole-S block is one C call of the
+    block itself, every kernel on the tensor cores (`_wgmma`), and at the
+    FUSED_OUT_SHAPES its apply carries the output projection
+    (`_fused_out`); it moves no `linear` or `fused_attention` count. The
+    `streaming` blocks (the SR model's S = 4096, cfg's blocks of the
+    SR_BLOCK_SHAPES where `streaming`, else of BLOCK_SHAPES) run `linear`
+    twice and the two streaming passes, every `linear` and every streaming
+    stats and streaming apply on the wgmma kernels (`_mma`, the tensor-core
+    counts; `_wgmma`, the streaming passes' wgmma counts). Every AdaGN runs
+    on a one-pass kernel (`_one_pass`; none on the two passes). Calls
+    without a gradient launch no backward kernel."""
     adagn = 2 * 2 * cfg["num_layers"] * cfg["num_resnet_blocks"]
     blocks = 2 * len(cfg["attn_layers"]) * cfg["num_resnet_blocks"]
+    shapes = SR_BLOCK_SHAPES if streaming else BLOCK_SHAPES
+    fused = (sum(sh in FUSED_OUT_SHAPES for sh in shapes) * blocks
+             // len(shapes))
     return {"fused_adagn": adagn * calls,
             "fused_adagn_one_pass": adagn * calls,
             "fused_adagn_two_pass": 0,
-            "fused_attention": (blocks - streaming) * calls,
-            "fused_attention_mma": (blocks - streaming) * calls,
+            "fused_attention": 0,
+            "fused_attention_mma": 0,
             "fused_attention_block": blocks * calls,
-            "linear": 2 * blocks * calls,
-            "linear_mma": 2 * blocks * calls,
+            "fused_attention_block_wgmma": (blocks - streaming) * calls,
+            "fused_attention_block_fused_out": fused * calls,
+            "linear": 2 * streaming * calls,
+            "linear_mma": 2 * streaming * calls,
             "streaming_stats": streaming * calls,
             "streaming_stats_mma": streaming * calls,
             "streaming_stats_wgmma": streaming * calls,
@@ -1880,18 +1964,21 @@ def kernel_counters():
 
 
 # The counts beside `launches` that some wrappers keep: the tensor-core
-# launches, the streaming passes' wgmma ones, AdaGN's one-pass and
-# two-pass ones.
+# launches, the streaming passes' and the block's wgmma ones, AdaGN's
+# one-pass and two-pass ones, the blocks whose apply carries the output
+# projection.
 SUB_COUNTS = (("mma_launches", "mma"), ("wgmma_launches", "wgmma"),
               ("one_pass_launches", "one_pass"),
-              ("two_pass_launches", "two_pass"))
+              ("two_pass_launches", "two_pass"),
+              ("fused_out_launches", "fused_out"))
 
 
 def zero_counts(counters):
     """Every launch count to 0, the tensor-core counts (`mma_launches`) of
     the whole-S attention, `linear` and the streaming stats, apply, dV, dK
     and dQ passes, the wgmma counts (`wgmma_launches`) of the streaming
-    stats and apply and AdaGN's one-pass and two-pass counts too."""
+    stats and apply and of the block, the block's `fused_out_launches` and
+    AdaGN's one-pass and two-pass counts too."""
     for fn in counters:
         fn.launches = 0
         for name, _ in SUB_COUNTS:
@@ -1904,9 +1991,10 @@ def read_counts(counters):
     ran the tensor-core kernels (the wgmma ones of fused_attention,
     linear, streaming_stats, streaming_apply, streaming_dv, streaming_dk
     and streaming_dq), `<name>_wgmma` for those of the streaming passes
-    that ran their wgmma kernels,
-    and fused_adagn_one_pass / _two_pass for AdaGN's calls on its one-pass
-    kernel (adagn_grid) and on the two-pass kernels."""
+    and of the block that ran their wgmma kernels,
+    fused_attention_block_fused_out for the blocks whose apply carried the
+    output projection, and fused_adagn_one_pass / _two_pass for AdaGN's
+    calls on its one-pass kernel (adagn_grid) and on the two-pass kernels."""
     out = {fn.__name__: fn.launches for fn in counters}
     for attr, tag in SUB_COUNTS:
         out.update({f"{fn.__name__}_{tag}": getattr(fn, attr)
@@ -4235,7 +4323,10 @@ def summarize(results, launches):
     times summed over one U-Net call: the flagship's for the kernels of
     slice 1, the SR model's for the streaming kernels (forward: one SR
     U-Net call; backward: one SR train step). `launches` sums the served,
-    generated and trained paths; `launches_by_path` keeps them apart, and
+    generated and trained paths' launches of each kernel, whichever wrapper
+    made them (the whole-S attention's and `linear`'s kernels also run
+    inside the block's one C call), `wrapper_launches` the wrapper's own
+    calls; `launches_by_path` keeps the wrapper counts apart, and
     `mma_launches` counts those that ran the tensor-core kernels (all of
     them TMA + wgmma; the streaming passes' `wgmma_launches` say so too),
     and AdaGN's
@@ -4251,23 +4342,27 @@ def summarize(results, launches):
     SR call (`sr_*`). The whole-S attention
     adds its queued times on both axes (`queued_ms`, `k_axis_queued_ms`,
     SDPA's `k_axis_library_queued_ms`) and the same per SR call, its three
-    whole-S blocks (`sr_*`, `sr_k_axis_*`)."""
+    whole-S blocks (`sr_*`, `sr_k_axis_*`). The block adds its queued time
+    per flagship call, the same per SR call (its four blocks, the
+    streaming one composed) and each shape's route and times
+    (`by_shape`)."""
     meta = {
         "fused_adagn": ("adagn", "flagship",
                         "sdm_tpu_torch/csrc/adagn.cu (adagn_grid; + "
                         "async_tiles.cuh)",
                         "sdm_tpu/kernels/adagn.py:115", ADAGN_PER_CALL),
         "fused_attention": ("attention", "flagship",
-                            "sdm_tpu_torch/csrc/attention.cu "
-                            "(+ wgmma_tiles.cuh)",
+                            "sdm_tpu_torch/csrc/attention.cu + "
+                            "attention_kernels.cuh (+ wgmma_tiles.cuh)",
                             "sdm_tpu/kernels/attention.py:86", 1),
         "fused_attention_block": ("attention_block", "flagship",
-                                  "sdm_tpu_torch/csrc/linear.cu + "
-                                  "attention.cu",
+                                  "sdm_tpu_torch/csrc/attention_block.cu "
+                                  "(+ attention_kernels.cuh, "
+                                  "linear_kernels.cuh, wgmma_tiles.cuh)",
                                   "sdm_tpu/kernels/attention_block.py:88",
                                   1),
-        "linear": ("linear", "flagship", "sdm_tpu_torch/csrc/linear.cu "
-                   "(+ wgmma_tiles.cuh)",
+        "linear": ("linear", "flagship", "sdm_tpu_torch/csrc/linear.cu + "
+                   "linear_kernels.cuh (+ wgmma_tiles.cuh)",
                    "sdm_tpu/kernels/attention_block.py:66", 1),
         "streaming_stats": ("streaming_stats", "sr",
                             "sdm_tpu_torch/csrc/streaming_attention.cu "
@@ -4352,13 +4447,42 @@ def summarize(results, launches):
                    **{key: sum(r[key] for r in main_rows("linear",
                                                          "flagship", "q"))
                       for key in queued}}}
+    block_rows = [r for r in results if r["kernel"] == "attention_block"
+                  and r["dtype"] == "bfloat16" and r["axis"] == "q"]
+    extra["fused_attention_block"] = {
+        "queued_ms": sum(r["queued_ms"] for r in block_rows
+                         if r["model"] == "flagship"),
+        **{f"sr_{key}": sum(r[key] for r in block_rows
+                            if tuple(r["shape"][1:]) in SR_BLOCK_SHAPES)
+           for key in ("ms", "queued_ms", "bound_ms", "plain_ms")},
+        "by_shape": [{key: r[key] for key in ("model", "shape", "route", "ms",
+                                              "queued_ms", "plain_ms",
+                                              "bound_ms")}
+                     for r in block_rows]}
+
+    def kernel_launches(name, path):
+        """Launches of the kernels behind `name` on a path: the wrapper's
+        own, and for the whole-S attention and `linear` also those made by
+        the block's one C call (each whole-S block on the tensor cores
+        launches the attention's two kernels and `linear_wgmma` twice, once
+        where its apply carries the output projection)."""
+        n = path[name]
+        wgmma = path["fused_attention_block_wgmma"]
+        if name == "fused_attention":
+            n += wgmma
+        elif name == "linear":
+            n += 2 * wgmma - path["fused_attention_block_fused_out"]
+        return n
+
     out = []
     for name, (kernel, model, source, replaces, per_call) in meta.items():
         rows = main_rows(kernel, model, "q")
         lib = [r["library_ms"] for r in rows]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(path[name] for path in launches.values()),
+            launches=sum(kernel_launches(name, path)
+                         for path in launches.values()),
+            wrapper_launches=sum(path[name] for path in launches.values()),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows) * per_call,
             plain_ms=sum(r["plain_ms"] for r in rows) * per_call,
@@ -4445,9 +4569,16 @@ def demangle(names):
 # four output chunks a warpgroup in loads of four chunks, and three or four
 # in loads of eight: 24) and dV on the same apply (dv_pass, fp32 output
 # alone: 12 more), and the TMA + wgmma GEMM (the 128 x 128 and 128 x 64
-# tiles); beside them AdaGN's one-pass kernel (bulk copies, one).
+# tiles); beside them AdaGN's one-pass kernel (bulk copies, one). The
+# block's library holds the whole-S attention's and the GEMM's kernels
+# again (their one source, attention_kernels.cuh and linear_kernels.cuh)
+# and the two apply instantiations that carry the output projection
+# (attn_apply_wgmma<axis, 4, true>).
 MMA_KERNELS = {"adagn": {"adagn_grid": 1},
                "attention": {"attn_stats_wgmma": 1, "attn_apply_wgmma": 8},
+               "attention_block": {"attn_stats_wgmma": 1,
+                                   "attn_apply_wgmma": 10,
+                                   "linear_wgmma": 2},
                "streaming_attention": {"stream_da_wgmma": 16,
                                        "stream_stats_wgmma": 2,
                                        "stream_apply_wgmma": 36},
@@ -4509,14 +4640,19 @@ def build_phase(torch):
             out.setdefault(kernel, []).extend(found.values())
     # ptxas says where it serializes a kernel's wgmma (the C7510-C7520
     # "wgmma ... serialized" info lines): none for the streaming forward
-    # or its dK and dQ.
-    serialized = [line.strip() for line in
-                  _build.build_log("streaming_attention").splitlines()
-                  if "serializ" in line and "wgmma" in line]
-    if serialized:
-        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
+    # or its dK and dQ, none in the block's library (the whole-S attention,
+    # the apply with the output projection, the GEMM).
+    for lib in ("streaming_attention", "attention_block"):
+        serialized = [line.strip() for line in
+                      _build.build_log(lib).splitlines()
+                      if "serializ" in line and "wgmma" in line]
+        if serialized:
+            raise AssertionError(f"ptxas serialized wgmma in lib{lib}: "
+                                 f"{serialized}")
     log("  streaming_attention: no serialized wgmma in stream_stats_wgmma, "
-        "stream_apply_wgmma (forward and dV) or stream_da_wgmma")
+        "stream_apply_wgmma (forward and dV) or stream_da_wgmma; "
+        "attention_block: none in attn_stats_wgmma, attn_apply_wgmma (with "
+        "and without the output projection) or linear_wgmma")
     out["smem_bytes"] = {k: v[0] for k, v in smem.items()}
     return out
 

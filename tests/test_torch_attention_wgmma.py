@@ -1,5 +1,5 @@
 """The port's bf16 whole-S attention, `attn_stats_wgmma` and
-`attn_apply_wgmma` (csrc/attention.cu), on the CPU.
+`attn_apply_wgmma` (csrc/attention_kernels.cuh), on the CPU.
 
 The kernels run only on a card. Here: their admission, column split and
 shared memory (the Python mirrors in kernels/attention.py, which
@@ -43,8 +43,8 @@ BASE = 1024                     # the aligned dynamic shared memory
 
 # (S, D) of the whole-S attention blocks of the flagship 128x128 and the SR
 # 256x256 U-Net at batch 16 (chip_smoke.py BLOCK_SHAPES, SR_BLOCK_SHAPES),
-# then chip_smoke.py's EXTRA_SHAPES, with csrc/attention.cu's wgmma_plan
-# for each: (split, columns a block).
+# then chip_smoke.py's EXTRA_SHAPES, with csrc/attention_kernels.cuh's
+# wgmma_plan for each: (split, columns a block).
 UNET_PLANS = {(1024, 512): (1, 512), (256, 512): (2, 256),
               (64, 1024): (8, 128), (256, 1024): (2, 512),
               (1024, 1024): (2, 512), (256, 128): (2, 64),
@@ -561,7 +561,7 @@ def test_the_emulation_mirrors_the_sources():
     address and arithmetic, the V chunks of the slots and the constants."""
     with open(os.path.join(_build.CSRC, "wgmma_tiles.cuh")) as f:
         tiles = f.read()
-    with open(os.path.join(_build.CSRC, "attention.cu")) as f:
+    with open(os.path.join(_build.CSRC, "attention_kernels.cuh")) as f:
         src = f.read()
     chunks = tiles[tiles.index("static int sdm_tma_map_chunks("):]
     chunks = chunks[:chunks.index("\n}\n")]

@@ -441,7 +441,8 @@ def test_mirror_constants_match_the_sources():
     """The tile constants the Python mirrors use are the C sources'."""
     from sdm_tpu_torch.kernels import streaming_attention as sa
     src = ""
-    for name in ("attention_tiles.cuh", "attention.cu", "linear.cu"):
+    for name in ("attention_tiles.cuh", "attention_kernels.cuh",
+                 "linear_kernels.cuh"):
         with open(os.path.join(_build.CSRC, name)) as f:
             src += f.read()
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
@@ -495,8 +496,12 @@ def test_kernel_sources_export_the_wrapped_symbols():
         assert "attn_stats_wmma" not in src and "attn_apply_wmma" not in src
     # The whole-S library launches its TMA + wgmma kernels alone: no
     # mma.sync stats or apply of the streaming library, no wide apply (its
-    # comments still name them, as what the new kernels replaced).
+    # comments still name them, as what the new kernels replaced). They live
+    # in attention_kernels.cuh, which attention.cu and attention_block.cu
+    # include.
     with open(os.path.join(_build.CSRC, "attention.cu")) as f:
+        assert '#include "attention_kernels.cuh"' in f.read()
+    with open(os.path.join(_build.CSRC, "attention_kernels.cuh")) as f:
         src = re.sub(r"//[^\n]*", "", f.read())
     for gone in ("launch_stats_mma", "launch_apply_mma", "stream_apply_mma",
                  "attn_apply_mma_wide", "mma_plan", "launch_mma"):
@@ -547,7 +552,11 @@ def test_kernel_sources_export_the_wrapped_symbols():
     assert {"sdm_linear_takes_wgmma", "sdm_linear_wgmma_tile"} <= set(
         attention_block._SIGNATURES)
     # The GEMM is the TMA + wgmma kernel alone: no mma.sync GEMM is left.
+    # It lives in linear_kernels.cuh, which linear.cu and attention_block.cu
+    # include.
     with open(os.path.join(_build.CSRC, "linear.cu")) as f:
+        assert '#include "linear_kernels.cuh"' in f.read()
+    with open(os.path.join(_build.CSRC, "linear_kernels.cuh")) as f:
         src = f.read()
     assert "linear_wmma" not in src and "wmma" not in src
     assert '#include "wgmma_tiles.cuh"' in src and "linear_wgmma<" in src
@@ -583,6 +592,7 @@ def test_kernel_sources_export_the_wrapped_symbols():
                     name, primitive)
     for name, sigs in (("adagn", adagn._SIGNATURES),
                        ("attention", port_attention._SIGNATURES),
+                       ("attention_block", attention_block._BLOCK_SIGNATURES),
                        ("linear", attention_block._SIGNATURES),
                        ("streaming_attention",
                         streaming_attention._SIGNATURES)):
@@ -593,8 +603,8 @@ def test_kernel_sources_export_the_wrapped_symbols():
             assert m, symbol
             assert len(m.group(1).split(",")) == len(argtypes), symbol
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert set(_build.SOURCES) == {"adagn", "attention", "linear",
-                                   "streaming_attention"}
+    assert set(_build.SOURCES) == {"adagn", "attention", "attention_block",
+                                   "linear", "streaming_attention"}
 
 
 # ------------------------------------------------------------- on the card

@@ -1,4 +1,4 @@
-"""The port's bf16 GEMM, `linear_wgmma` (csrc/linear.cu), on the CPU.
+"""The port's bf16 GEMM, `linear_wgmma` (csrc/linear_kernels.cuh), on the CPU.
 
 The kernel runs only on a card. Here: its admission and tile rule (the
 Python mirrors in kernels/attention_block.py, which chip_smoke.py holds to
@@ -27,9 +27,9 @@ from sdm_tpu_torch.kernels import attention_block as ab
 # (S, C) of the attention blocks of the flagship 128x128 and the SR 256x256
 # U-Net (chip_smoke.py BLOCK_SHAPES and SR_BLOCK_SHAPES), batch 16: each
 # runs `linear` at (M, N, K) = (16 S, 3 C, C) and, with the residual,
-# (16 S, C, C). The tile (index into LINEAR_TILES) csrc/linear.cu's rule
-# gives each: the large one wherever it cuts the output into at least 132
-# tiles.
+# (16 S, C, C). The tile (index into LINEAR_TILES) csrc/linear_kernels.cuh's
+# rule gives each: the large one wherever it cuts the output into at least
+# 132 tiles.
 UNET_TILES = {(1024, 512): (0, 0), (256, 512): (0, 1), (64, 1024): (0, 1),
               (256, 1024): (0, 0), (4096, 512): (0, 0), (1024, 1024): (0, 0)}
 
@@ -343,7 +343,7 @@ def test_the_emulation_mirrors_the_sources():
     quad transpose and the tile constants."""
     with open(os.path.join(_build.CSRC, "wgmma_tiles.cuh")) as f:
         tiles = f.read()
-    with open(os.path.join(_build.CSRC, "linear.cu")) as f:
+    with open(os.path.join(_build.CSRC, "linear_kernels.cuh")) as f:
         linear = f.read()
     assert "CU_TENSOR_MAP_SWIZZLE_128B" in tiles
     assert "const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};" in tiles

@@ -90,7 +90,7 @@ SDM_EXPORT int tiles_attention_apply(const void* q, const void* k,
   kernel<<<dim3(S / WROWS, batch * heads, split), WAPPLY_THREADS, smem,
            static_cast<cudaStream_t>(stream_ptr)>>>(
       tq, tk, tv, static_cast<bf16*>(o), views[3], heads, S, D, cols, stages,
-      scale, m, l);
+      scale, m, l, OutProj{});
   return (int)cudaGetLastError();
 }
 
